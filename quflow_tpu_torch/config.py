@@ -1,0 +1,68 @@
+"""Device and precision configuration for quflow_tpu_torch.
+
+Two precision tiers, chosen per builder by its complex ``dtype``:
+
+* ``complex128`` - float64 factors, ZGEMM; the tier of the conservation
+  gates (refinement off: the base solve is already at roundoff);
+* ``complex64``  - float32 factors, CGEMM, with the float64-residual
+  correction of the m=0 system on by default (``refine='m0'``).
+
+Both tiers run full-precision GEMMs.  The JAX package's matmul precision
+names ('highest', 'high', 'default') count bf16 passes of the TPU's matrix
+unit and have no CUDA meaning, so the port does not take them.  TF32 would
+silently cut float32 products to about three decimal digits, so importing
+this module turns it off for cuBLAS and cuDNN:
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+This is process-wide, like every torch backend flag.  Nothing else global
+is touched: torch's default dtype stays float32 (unlike quflow_tpu, which
+enables x64 on import), and every builder takes an explicit ``dtype`` and
+``device``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__all__ = ["device", "torch_dtype", "numpy_dtype", "TIERS"]
+
+#: complex state dtype -> real working dtype of its solve
+TIERS = {
+    np.dtype(np.complex64): np.dtype(np.float32),
+    np.dtype(np.complex128): np.dtype(np.float64),
+}
+
+_TORCH_OF = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.complex64): torch.complex64,
+    np.dtype(np.complex128): torch.complex128,
+}
+
+
+def device(dev=None):
+    """``torch.device`` for ``dev``; None picks the first CUDA device when
+    one is present, else the CPU."""
+    if dev is not None:
+        return torch.device(dev)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def torch_dtype(dtype):
+    """numpy dtype (or torch dtype) -> torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _TORCH_OF[np.dtype(dtype)]
+
+
+def numpy_dtype(dtype):
+    """torch dtype (or numpy dtype) -> numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return next(k for k, v in _TORCH_OF.items() if v == dtype)
+    return np.dtype(dtype)

@@ -1,0 +1,95 @@
+"""Declarative callable registry for simulation persistence.
+
+Counterpart of quflow_tpu/sim/registry.py: persisted callables are stored
+*by name* and resolved through this registry; arbitrary code never runs on
+load.  Only the names this port implements are registered: the loggers
+``energy_euler``, ``enstrophy`` and ``norm_L2``, and the integrator
+``isomp_torch``.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+_REGISTRY: dict = {}
+
+_RAISE = object()  # sentinel: resolve() raises on unknown names by default
+
+
+def register(name, fn=None):
+    """Register a callable for by-name persistence.  Usable as decorator."""
+    if fn is None:
+        def deco(f):
+            _REGISTRY[name] = f
+            return f
+
+        return deco
+    _REGISTRY[name] = fn
+    return fn
+
+
+def resolve(name, default=_RAISE, warn=True):
+    """Name -> callable.  Unknown names raise ``KeyError`` with a
+    ``register()`` hint; callers that can degrade gracefully (optional
+    loggers) pass an explicit ``default``."""
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    if default is not _RAISE:
+        if not warn:
+            return default
+        warnings.warn(
+            f"Callable '{name}' is not registered in quflow_tpu_torch.sim."
+            f"registry; using default {default!r}.  Register it with "
+            f"quflow_tpu_torch.sim.registry.register({name!r}, fn) before "
+            f"resuming.")
+        return default
+    raise KeyError(
+        f"Callable '{name}' is not registered in quflow_tpu_torch.sim."
+        f"registry.  A simulation persisted it by name; register the "
+        f"implementation before resuming:  from quflow_tpu_torch.sim import "
+        f"registry; registry.register({name!r}, your_function)")
+
+
+def name_of(fn):
+    """Callable -> registered name (or its __name__ if registered that way)."""
+    for k, v in _REGISTRY.items():
+        if v is fn:
+            return k
+    nm = getattr(fn, "__name__", None)
+    if nm in _REGISTRY:
+        return nm
+    return None
+
+
+_ISOMP_TORCH: dict = {}  # (maxit, fast) -> warm IsompTorch
+
+
+def isomp_torch(W, dt, steps=100, maxit=5, fast=True, time=None,
+                verbatim=None, **kwargs):
+    """Registrable form of :class:`parallel.stepper.IsompTorch`: one warm
+    instance per (maxit, fast), complex64 when ``fast`` else complex128.
+    ``time`` and ``verbatim`` (sent by solve and by runfiles) do not change
+    a fixed-iteration step.  Any other kwarg - ``tol``, ``minit``,
+    ``compsum`` included - raises TypeError instead of being dropped."""
+    from ..parallel.stepper import IsompTorch
+
+    key = (int(maxit), bool(fast))
+    if key not in _ISOMP_TORCH:
+        import numpy as np
+
+        _ISOMP_TORCH[key] = IsompTorch(
+            maxit=key[0], dtype=np.complex64 if fast else np.complex128)
+    return _ISOMP_TORCH[key](W, dt, steps=steps, **kwargs)
+
+
+def _register_defaults():
+    from .. import physics
+    from ..ops import geometry
+
+    _REGISTRY.setdefault("isomp_torch", isomp_torch)
+    _REGISTRY.setdefault("energy_euler", physics.energy_euler)
+    _REGISTRY.setdefault("enstrophy", physics.enstrophy)
+    _REGISTRY.setdefault("norm_L2", geometry.norm_L2)
+
+
+_register_defaults()
