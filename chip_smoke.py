@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Run from the repository root; it needs one CUDA device, nvcc, and nothing
-of JAX.  Five phases, one line each; any failure ends the run with a
+of JAX.  Nine phases, one line each; any failure ends the run with a
 nonzero exit code and no result line.
 
 1. device  - the card's name and power limit, as nvidia-smi reports them;
-2. build   - nvcc builds csrc/shear_thomas.cu for sm_90a (seconds, ptxas
+2. build   - nvcc builds csrc/shear_thomas.cu and csrc/shear_scan.cu for
+             sm_90a, one compiler each, started together (seconds, ptxas
              register counts);
 3. kernel  - ``shear_thomas`` against its plain PyTorch version on the card
              at N in {512, 1024, 4096} (the two main-path shapes and a large
@@ -22,14 +23,35 @@ nonzero exit code and no result line.
              through the kernel equal to one through the plain solve to
              <= 1e-5 relative; steps/s;
 5. main path, complex128, N=512, 200 steps - relative drift of tr(W^2) and
-             tr(W^3) <= 1e-10; steps/s.
+             tr(W^3) <= 1e-10; steps/s;
+6. scan    - ``shear_scan`` against its plain version on the card at the
+             shapes of phase 3, with the same gates; CUDA-event times of
+             both and of ``shear_thomas`` on the same input, and the
+             relative difference of the two kernels;
+7. MHD path, complex64, N=1024 - MHDFlow initial data, ``solve`` with
+             ``MagmpTorch(maxit=5)`` under QUFLOW_PALLAS_KERNEL=scan, 100
+             steps, invariants logged every 20 (kinetic + magnetic energy,
+             cross helicity, as benchmarks/mhd_device.py computes them):
+             the integrator launched ``shear_scan`` exactly steps x maxit
+             times and ``shear_thomas`` never (the logs' solves counted
+             apart), energy drift <= 1e-4, Theta's spectrum drift
+             max|dlambda|/max|lambda| <= 1e-4, 10 steps through the kernel
+             equal to 10 through the plain scan to <= 1e-5 relative (and
+             the difference against the Thomas kernel); steps/s;
+8. MHD path, complex128, N=512, 200 steps through ``shear_scan`` -
+             relative drift of tr(Theta^2) and tr(Theta^3) <= 1e-10; cross
+             helicity drift; steps/s;
+9. MHD path, complex64, N=4096, 5 steps of the card-resident stepper
+             through ``shear_scan``: finite; launches; steps/s.
 
-Then a JSON line of the kernels (name, source, the TPU kernel it replaces,
-launches on the main path, error and times) and, last, the result line
-``{"ok": true, "device": {...}}``.
+Every main path (phases 4, 5, 7, 8, 9) runs with every launch count set to
+0 just before it and read just after.  Then a JSON line of the kernels
+(name, source, the TPU kernel it replaces, launches on each path, error
+and times) and, last, the result line ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -38,16 +60,40 @@ import numpy as np
 import torch
 
 from quflow_tpu_torch import energy_euler, enstrophy, hbar, solve
-from quflow_tpu_torch.models import EulerFlow
-from quflow_tpu_torch.ops import cuda_solve
+from quflow_tpu_torch.models import EulerFlow, MHDFlow
+from quflow_tpu_torch.ops import cuda_build, cuda_scan_solve, cuda_solve
+from quflow_tpu_torch.ops.cuda_scan_solve import (
+    shear_scan,
+    shear_scan_reference,
+)
 from quflow_tpu_torch.ops.cuda_solve import shear_thomas, shear_thomas_reference
 from quflow_tpu_torch.parallel.stepper import (
     IsompTorch,
+    MagmpTorch,
+    _laplace_core,
+    _mhd_lap_op,
     _real_factors,
+    build_mhd_step_fn,
     build_step_fn,
 )
 
 GATE = {torch.complex64: 1e-5, torch.complex128: 1e-12}
+KERNELS = (shear_thomas, shear_scan)
+
+
+def reset_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def read_counts():
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def ptxas_summary(log):
+    """The register and spill lines of nvcc's ``-Xptxas -v`` report."""
+    return " | ".join(ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln)
 
 
 def cuda_ms(fn, reps):
@@ -66,8 +112,11 @@ def cuda_ms(fn, reps):
 
 
 def kernel_vs_plain(device, Ns=(512, 1024, 4096), Bs=(1, 4), reps=20,
-                    plain_reps=2):
-    """Phase 3: one row per (dtype, N, B)."""
+                    plain_reps=2, kernel=shear_thomas,
+                    plain=shear_thomas_reference, against=None):
+    """Phases 3 and 6: ``kernel`` against ``plain``, one row per (dtype, N,
+    B); with ``against``, that kernel's time on the same input and the
+    relative difference of the two."""
     rows = []
     for dtype in (torch.complex64, torch.complex128):
         for N in Ns:
@@ -76,21 +125,27 @@ def kernel_vs_plain(device, Ns=(512, 1024, 4096), Bs=(1, 4), reps=20,
                 g = torch.Generator(device=device).manual_seed(1000 * N + B)
                 d = torch.randn(B, N, N + 1, dtype=dtype, device=device,
                                 generator=g)
-                x = shear_thomas(w, binv, u, d)
-                ref = shear_thomas_reference(w, binv, u, d)
+                x = kernel(w, binv, u, d)
+                ref = plain(w, binv, u, d)
                 abs_err = (x - ref).abs().max().item()
                 rel_err = abs_err / ref.abs().max().item()
                 if not rel_err <= GATE[dtype]:
                     raise AssertionError(
-                        f"shear_thomas {dtype} N={N} B={B}: relative error "
-                        f"{rel_err:.3e} > {GATE[dtype]:.0e}")
-                rows.append(dict(
+                        f"{kernel.__name__} {dtype} N={N} B={B}: relative "
+                        f"error {rel_err:.3e} > {GATE[dtype]:.0e}")
+                row = dict(
                     dtype=str(dtype).removeprefix("torch."), N=N, B=B,
                     max_abs_err=abs_err, max_rel_err=rel_err,
-                    ms=cuda_ms(lambda: shear_thomas(w, binv, u, d), reps),
-                    plain_ms=cuda_ms(
-                        lambda: shear_thomas_reference(w, binv, u, d),
-                        plain_reps)))
+                    ms=cuda_ms(lambda: kernel(w, binv, u, d), reps),
+                    plain_ms=cuda_ms(lambda: plain(w, binv, u, d),
+                                     plain_reps))
+                if against is not None:
+                    other = against(w, binv, u, d)
+                    row[f"vs_{against.__name__}_rel"] = (
+                        (x - other).abs().max() / other.abs().max()).item()
+                    row[f"{against.__name__}_ms"] = cuda_ms(
+                        lambda: against(w, binv, u, d), reps)
+                rows.append(row)
     return rows
 
 
@@ -110,17 +165,18 @@ def main_path_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
     W0 = EulerFlow(N, np.complex64).random_initial(lmax=10, seed=42)
     integrator = IsompTorch(maxit=maxit, dtype=np.complex64, device=device)
     log = Logger()
-    shear_thomas.launches = 0
+    reset_counts()
     log(W0)
     t0 = time.perf_counter()
     W = solve(W0.copy(), stepsize=0.25, steps=steps, steps_out=steps_out,
               integrator=integrator, callback=log, progress_bar=False)
     solve_s = time.perf_counter() - t0
-    launches = shear_thomas.launches
+    counts = read_counts()
+    launches = counts["shear_thomas"]
     expected = steps * maxit + len(log.rows)
-    if launches != expected:
-        raise AssertionError(f"shear_thomas launched {launches} times on the "
-                             f"main path, expected {expected}")
+    if launches != expected or counts["shear_scan"]:
+        raise AssertionError(f"launches on the main path {counts}, expected "
+                             f"{expected} of shear_thomas only")
     if W.shape != (N, N) or W.dtype != np.complex64 or not np.isfinite(W).all():
         raise AssertionError(f"bad state: {W.shape} {W.dtype}")
     Z = np.array([r[1] for r in log.rows])
@@ -171,18 +227,195 @@ def main_path_c128(device, N=512, steps=200, maxit=5):
     """Phase 5."""
     W0 = EulerFlow(N, np.complex128).random_initial(lmax=10, seed=42)
     c0 = casimirs(torch.from_numpy(W0).to(device))
+    reset_counts()
     t0 = time.perf_counter()
     W = solve(W0.copy(), stepsize=0.25, steps=steps, steps_out=steps,
               integrator=IsompTorch(maxit=maxit, dtype=np.complex128,
                                     device=device), progress_bar=False)
     sec = time.perf_counter() - t0
+    launches = read_counts()
+    if launches != {"shear_thomas": steps * maxit, "shear_scan": 0}:
+        raise AssertionError(f"launches {launches}")
     if not np.isfinite(W).all():
         raise AssertionError("non-finite state")
     drift = np.abs(casimirs(torch.from_numpy(W).to(device)) - c0) / np.abs(c0)
     if not (drift <= 1e-10).all():
         raise AssertionError(f"Casimir drift tr(W^2), tr(W^3) = {drift} > 1e-10")
-    return dict(N=N, steps=steps, maxit=maxit, tr_W2_drift=drift[0],
-                tr_W3_drift=drift[1], solve_steps_per_s=steps / sec)
+    return dict(N=N, steps=steps, maxit=maxit, launches=launches,
+                tr_W2_drift=drift[0], tr_W3_drift=drift[1],
+                solve_steps_per_s=steps / sec)
+
+
+class MHDLogger:
+    """A solve callback: the MHD invariants of each output, as
+    benchmarks/mhd_device.py:160-169 computes them (kinetic energy through
+    the Poisson solve of ``energy_euler``, magnetic energy -<B, Theta>/2
+    with B the Laplacian of Theta, cross helicity <W, Theta>), on the
+    card.  Counts apart the kernel launches made by its own solves."""
+
+    def __init__(self, N, device):
+        self.lap = _mhd_lap_op(N, np.complex128, device=device)
+        self.device = device
+        self.rows = []
+        self.launches = dict.fromkeys(read_counts(), 0)
+
+    def __call__(self, S, delta_time=0.0, delta_steps=0, **stats):
+        before = read_counts()
+        kinetic = float(energy_euler(S[0]))
+        St = torch.from_numpy(np.asarray(S)).to(self.device, torch.complex128)
+        W, Theta = St[0], St[1]
+        N = W.shape[-1]
+        B = _laplace_core(Theta, self.lap)
+        magnetic = -0.5 * (torch.sum(B * Theta.conj()).real / N).item()
+        cross = (torch.sum(W * Theta.conj()).real / N).item()
+        self.rows.append((kinetic + magnetic, cross))
+        for name, n in read_counts().items():
+            self.launches[name] += n - before[name]
+
+
+def theta_spectrum(S, device):
+    Theta = torch.from_numpy(np.asarray(S[1])).to(device, torch.complex128)
+    return torch.linalg.eigvalsh(-1j * Theta)
+
+
+def mhd_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
+            compare_steps=10):
+    """Phase 7, with QUFLOW_PALLAS_KERNEL=scan set for this phase only."""
+    S0 = MHDFlow(N, np.complex64).random_initial(lmax=10, seed=42)
+    lam0 = theta_spectrum(S0, device)
+    saved = os.environ.get("QUFLOW_PALLAS_KERNEL")
+    os.environ["QUFLOW_PALLAS_KERNEL"] = "scan"
+    try:
+        integrator = MagmpTorch(maxit=maxit, dtype=np.complex64, device=device)
+        log = MHDLogger(N, device)
+        reset_counts()
+        log(S0)
+        t0 = time.perf_counter()
+        S = solve(S0.copy(), stepsize=0.25, steps=steps, steps_out=steps_out,
+                  integrator=integrator, callback=log, progress_bar=False)
+        solve_s = time.perf_counter() - t0
+        total = read_counts()
+    finally:
+        if saved is None:
+            del os.environ["QUFLOW_PALLAS_KERNEL"]
+        else:
+            os.environ["QUFLOW_PALLAS_KERNEL"] = saved
+    integ = {k: total[k] - log.launches[k] for k in total}
+    if integ != {"shear_thomas": 0, "shear_scan": steps * maxit}:
+        raise AssertionError(f"the integrator launched {integ}, expected "
+                             f"{steps * maxit} of shear_scan only")
+    if sum(log.launches.values()) != len(log.rows):
+        raise AssertionError(f"the logs launched {log.launches} for "
+                             f"{len(log.rows)} energies")
+    if (S.shape != (2, N, N) or S.dtype != np.complex64
+            or not np.isfinite(S).all()):
+        raise AssertionError(f"bad state: {S.shape} {S.dtype}")
+    E = np.array([r[0] for r in log.rows])
+    e_drift = float(np.abs(E - E[0]).max() / abs(E[0]))
+    if not e_drift <= 1e-4:
+        raise AssertionError(f"total energy drift {e_drift:.3e} > 1e-4")
+    lam = theta_spectrum(S, device)
+    spec_drift = ((lam - lam0).abs().max() / lam0.abs().max()).item()
+    if not spec_drift <= 1e-4:
+        raise AssertionError(f"Theta spectrum drift {spec_drift:.3e} > 1e-4")
+    X = np.array([r[1] for r in log.rows])
+
+    # the same steps through the kernel, its plain version, and shear_thomas
+    dt = 0.25 * hbar(N)
+    St = torch.from_numpy(S0).to(device)
+    z = torch.zeros_like(St)
+
+    def run(solver, steps=compare_steps):
+        return build_mhd_step_fn(N, dt, steps=steps, maxit=maxit,
+                                 dtype=np.complex64, device=device,
+                                 solver=solver)
+
+    Sk = run(shear_scan)(St, z, z)[0]
+    Sp = run(shear_scan_reference)(St, z, z)[0]
+    St_thomas = run(shear_thomas)(St, z, z)[0]
+    step_rel = ((Sk - Sp).abs().max() / Sp.abs().max()).item()
+    if not step_rel <= 1e-5:
+        raise AssertionError(f"{compare_steps} steps kernel vs plain: "
+                             f"relative difference {step_rel:.3e} > 1e-5")
+    vs_thomas = ((Sk - St_thomas).abs().max() / St_thomas.abs().max()).item()
+
+    # stepper throughput alone, state resident on the card
+    fn = run(shear_scan, steps_out)
+    st = fn(St, z, z)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps // steps_out):
+        st = fn(*st)
+    torch.cuda.synchronize()
+    stepper_s = time.perf_counter() - t0
+    return dict(N=N, steps=steps, maxit=maxit, integrator_launches=integ,
+                log_launches=log.launches, energy_drift=e_drift,
+                theta_spectrum_drift=spec_drift,
+                cross_helicity_drift=float(np.abs(X - X[0]).max()
+                                           / abs(X[0])),
+                kernel_vs_plain_10_steps=step_rel,
+                scan_vs_thomas_10_steps=vs_thomas,
+                solve_steps_per_s=steps / solve_s,
+                stepper_steps_per_s=steps / stepper_s)
+
+
+def mhd_c128(device, N=512, steps=200, maxit=5):
+    """Phase 8."""
+    S0 = MHDFlow(N, np.complex128).random_initial(lmax=10, seed=42)
+    S0t = torch.from_numpy(S0).to(device)
+    c0 = casimirs(S0t[1])
+    x0 = (torch.sum(S0t[0] * S0t[1].conj()).real / N).item()
+    reset_counts()
+    t0 = time.perf_counter()
+    S = solve(S0.copy(), stepsize=0.25, steps=steps, steps_out=steps,
+              integrator=MagmpTorch(maxit=maxit, dtype=np.complex128,
+                                    device=device, solver=shear_scan),
+              progress_bar=False)
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    if launches != {"shear_thomas": 0, "shear_scan": steps * maxit}:
+        raise AssertionError(f"launches {launches}")
+    if not np.isfinite(S).all():
+        raise AssertionError("non-finite state")
+    St = torch.from_numpy(S).to(device)
+    drift = np.abs(casimirs(St[1]) - c0) / np.abs(c0)
+    if not (drift <= 1e-10).all():
+        raise AssertionError(f"Casimir drift tr(Theta^2), tr(Theta^3) = "
+                             f"{drift} > 1e-10")
+    x1 = (torch.sum(St[0] * St[1].conj()).real / N).item()
+    return dict(N=N, steps=steps, maxit=maxit, launches=launches,
+                tr_Theta2_drift=drift[0], tr_Theta3_drift=drift[1],
+                cross_helicity_drift=abs(x1 - x0) / abs(x0),
+                solve_steps_per_s=steps / sec)
+
+
+def mhd_large(device, N=4096, steps=5, maxit=5):
+    """Phase 9: the card-resident stepper through shear_scan."""
+    S0 = torch.from_numpy(MHDFlow(N, np.complex64).random_initial(
+        lmax=10, seed=42)).to(device)
+    z = torch.zeros_like(S0)
+    dt = 0.25 * hbar(N)
+
+    def run(steps):
+        return build_mhd_step_fn(N, dt, steps=steps, maxit=maxit,
+                                 dtype=np.complex64, device=device,
+                                 solver=shear_scan)
+
+    run(1)(S0, z, z)  # first call: allocations, cuBLAS set-up
+    fn = run(steps)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    S = fn(S0, z, z)[0]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    if launches != {"shear_thomas": 0, "shear_scan": steps * maxit}:
+        raise AssertionError(f"launches {launches}")
+    if not torch.isfinite(torch.view_as_real(S)).all().item():
+        raise AssertionError("non-finite state")
+    return dict(N=N, steps=steps, maxit=maxit, launches=launches,
+                stepper_steps_per_s=steps / sec)
 
 
 def main():
@@ -190,6 +423,9 @@ def main():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; "
                  "this script needs a CUDA device")
     device = torch.device("cuda", 0)
+    # phases 3-5 hold shear_thomas, the default column solve; phase 7 sets
+    # the variable for itself
+    os.environ.pop("QUFLOW_PALLAS_KERNEL", None)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -198,13 +434,13 @@ def main():
     print(smi.splitlines()[0], flush=True)
 
     t0 = time.perf_counter()
-    lib = cuda_solve.build()
-    regs = [ln.split(":", 1)[1].strip()
-            for ln in lib.with_suffix(".log").read_text().splitlines()
-            if "registers" in ln]
-    print(f"phase 2 build: {time.perf_counter() - t0:.1f} s, {lib.name}, "
+    libs = cuda_build.build_all([cuda_solve.LIBRARY, cuda_scan_solve.LIBRARY])
+    report = " ;; ".join(
+        f"{lib.name}: {ptxas_summary(lib.with_suffix('.log').read_text())}"
+        for lib in libs)
+    print(f"phase 2 build: {time.perf_counter() - t0:.1f} s, "
           f"torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"ptxas: {' | '.join(regs)}", flush=True)
+          f"ptxas: {report}", flush=True)
 
     rows = kernel_vs_plain(device)
     print("phase 3 kernel vs plain: " + json.dumps(rows), flush=True)
@@ -215,17 +451,50 @@ def main():
     c128 = main_path_c128(device)
     print("phase 5 main path c128: " + json.dumps(c128), flush=True)
 
-    main_row = next(r for r in rows if r["dtype"] == "complex64"
+    scan_rows = kernel_vs_plain(device, kernel=shear_scan,
+                                plain=shear_scan_reference,
+                                against=shear_thomas)
+    print("phase 6 scan kernel vs plain: " + json.dumps(scan_rows), flush=True)
+
+    m64 = mhd_c64(device)
+    print("phase 7 MHD c64: " + json.dumps(m64), flush=True)
+
+    m128 = mhd_c128(device)
+    print("phase 8 MHD c128: " + json.dumps(m128), flush=True)
+
+    big = mhd_large(device)
+    print("phase 9 MHD c64 N=4096: " + json.dumps(big), flush=True)
+
+    def main_row(rows):
+        return next(r for r in rows if r["dtype"] == "complex64"
                     and r["N"] == 1024 and r["B"] == 1)
+
     print(json.dumps({"kernels": [{
         "name": "shear_thomas",
         "route": "cuda",
         "source": "quflow_tpu_torch/csrc/shear_thomas.cu",
         "replaces": "quflow_tpu/ops/pallas_solve.py:167",
         "launches": c64["launches"],
+        "launches_by_path": {
+            "euler_c64_N1024": c64["launches"],
+            "euler_c128_N512": c128["launches"]["shear_thomas"],
+            "mhd_c64_N1024_logs": m64["log_launches"]["shear_thomas"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
+        "ms": main_row(rows)["ms"],
+        "plain_ms": main_row(rows)["plain_ms"],
+    }, {
+        "name": "shear_scan",
+        "route": "cuda",
+        "source": "quflow_tpu_torch/csrc/shear_scan.cu",
+        "replaces": "quflow_tpu/ops/pallas_scan_solve.py:113",
+        "launches": m64["integrator_launches"]["shear_scan"],
+        "launches_by_path": {
+            "mhd_c64_N1024": m64["integrator_launches"]["shear_scan"],
+            "mhd_c128_N512": m128["launches"]["shear_scan"],
+            "mhd_c64_N4096": big["launches"]["shear_scan"]},
+        "max_abs_err": max(r["max_abs_err"] for r in scan_rows),
+        "ms": main_row(scan_rows)["ms"],
+        "plain_ms": main_row(scan_rows)["plain_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -7,7 +7,8 @@ that the tests hold this package against.  This package imports torch,
 numpy and scipy, never jax; h5py (QuSimulation) and tqdm (progress bars)
 are imported at first use.
 
-The ported slice is the production Euler run:
+The ported slices are the production Euler run and the production MHD
+run (``MHDFlow`` with ``MagmpTorch``):
 
     import numpy as np
     from quflow_tpu_torch import solve, energy_euler
@@ -40,7 +41,8 @@ from .analysis import random_shr
 from . import sim
 from .sim import QuSimulation, solve
 from . import models
+from .models import EulerFlow, MHDFlow
 from . import parallel
-from .parallel.stepper import IsompTorch
+from .parallel.stepper import IsompTorch, MagmpTorch
 
 __version__ = "0.1.0"

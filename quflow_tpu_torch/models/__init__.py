@@ -1,3 +1,4 @@
 from .euler import EulerFlow
+from .mhd import MHDFlow
 
-__all__ = ["EulerFlow"]
+__all__ = ["EulerFlow", "MHDFlow"]

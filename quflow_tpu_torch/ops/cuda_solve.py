@@ -10,29 +10,18 @@ shear-packed complex array (ops/diagpack.mat2shear), for a batch of arrays:
 On a CUDA tensor it launches the kernel of csrc/shear_thomas.cu (built at
 first use with nvcc into ``quflow_tpu_torch/_build``, bound with ctypes);
 on a CPU tensor it runs :func:`shear_thomas_reference`, the plain PyTorch
-version.  Nothing falls back: a build or launch failure raises.
+version.  Nothing falls back: a build or launch failure raises.  The
+checks and the launch are shared with ops/cuda_scan_solve.shear_scan.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
 
-__all__ = ["shear_thomas", "shear_thomas_reference", "build", "nvcc_command"]
+from .cuda_build import CudaLibrary, bind_error_string, launcher_argtypes
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "shear_thomas.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None  # the loaded shared library (one per process, like any dlopen)
+__all__ = ["shear_thomas", "shear_thomas_reference", "check_solve_args",
+           "launch_solve", "LIBRARY"]
 
 
 def shear_thomas_reference(w, binv, u, d):
@@ -54,16 +43,46 @@ def shear_thomas_reference(w, binv, u, d):
     return torch.view_as_complex(x)
 
 
-def _check(w, binv, u, d):
+def check_solve_args(name, w, binv, u, d):
+    """The column solves' contract: complex rhs ``d`` (..., N, M) and real
+    (N, M) factors of its real dtype on its device."""
     if not d.is_complex():
-        raise TypeError(f"shear_thomas takes a complex rhs, got {d.dtype}")
+        raise TypeError(f"{name} takes a complex rhs, got {d.dtype}")
     rd = d.real.dtype
     N, M = d.shape[-2:]
-    for name, f in (("w", w), ("binv", binv), ("u", u)):
+    for fname, f in (("w", w), ("binv", binv), ("u", u)):
         if f.dtype != rd or f.shape != (N, M) or f.device != d.device:
             raise ValueError(
-                f"shear_thomas: {name} must be ({N}, {M}) {rd} on {d.device}, "
+                f"{name}: {fname} must be ({N}, {M}) {rd} on {d.device}, "
                 f"got {tuple(f.shape)} {f.dtype} on {f.device}")
+
+
+def launch_solve(name, library, w, binv, u, d, *extra):
+    """Launch ``<name>_f32``/``<name>_f64`` of ``library`` on the CUDA
+    tensors: ``fn(w, binv, u, d, out, B, N, M, *extra, device, stream)``.
+    Checks what the kernel takes, allocates the output, raises on a
+    refused launch; returns the output (the kernel runs on the current
+    stream)."""
+    if d.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {d.device}")
+    for tname, t in (("w", w), ("binv", binv), ("u", u), ("d", d)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+    N, M = d.shape[-2:]
+    B = d.numel() // (N * M)
+    if not 1 <= B <= 65535:
+        raise ValueError(f"{name}: batch {B} outside the grid's 1..65535")
+    lib = library.load()
+    fn = getattr(lib, f"{name}_f32" if d.dtype == torch.complex64
+                 else f"{name}_f64")
+    out = torch.empty_like(d)
+    stream = torch.cuda.current_stream(d.device).cuda_stream
+    err = fn(w.data_ptr(), binv.data_ptr(), u.data_ptr(), d.data_ptr(),
+             out.data_ptr(), B, N, M, *extra, d.device.index or 0, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err} "
+                           f"({getattr(lib, name + '_error')(err).decode()})")
+    return out
 
 
 def shear_thomas(w, binv, u, d):
@@ -72,27 +91,10 @@ def shear_thomas(w, binv, u, d):
 
     CPU tensors go to :func:`shear_thomas_reference`.  CUDA tensors go to
     the kernel; ``shear_thomas.launches`` counts its launches."""
-    _check(w, binv, u, d)
+    check_solve_args("shear_thomas", w, binv, u, d)
     if d.device.type == "cpu":
         return shear_thomas_reference(w, binv, u, d)
-    if d.device.type != "cuda":
-        raise ValueError(f"shear_thomas: no kernel for device {d.device}")
-    for name, t in (("w", w), ("binv", binv), ("u", u), ("d", d)):
-        if not t.is_contiguous():
-            raise ValueError(f"shear_thomas: {name} must be contiguous")
-    N, M = d.shape[-2:]
-    B = d.numel() // (N * M)
-    if not 1 <= B <= 65535:
-        raise ValueError(f"shear_thomas: batch {B} outside the grid's 1..65535")
-    lib = _load()
-    fn = lib.shear_thomas_f32 if d.dtype == torch.complex64 else lib.shear_thomas_f64
-    out = torch.empty_like(d)
-    stream = torch.cuda.current_stream(d.device).cuda_stream
-    err = fn(w.data_ptr(), binv.data_ptr(), u.data_ptr(), d.data_ptr(),
-             out.data_ptr(), B, N, M, d.device.index or 0, stream)
-    if err != 0:
-        raise RuntimeError(f"shear_thomas launch failed: cudaError_t {err} "
-                           f"({lib.shear_thomas_error(err).decode()})")
+    out = launch_solve("shear_thomas", LIBRARY, w, binv, u, d)
     shear_thomas.launches += 1
     return out
 
@@ -100,54 +102,10 @@ def shear_thomas(w, binv, u, d):
 shear_thomas.launches = 0
 
 
-def _nvcc():
-    """The CUDA compiler: $CUDA_HOME/bin/nvcc, nvcc on PATH, or the
-    toolkit's default location."""
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ((home and os.path.join(home, "bin", "nvcc")),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("shear_thomas: nvcc not found (set CUDA_HOME)")
+def _bind(lib):
+    for fn in (lib.shear_thomas_f32, lib.shear_thomas_f64):
+        launcher_argtypes(fn, 5, 4)
+    bind_error_string(lib.shear_thomas_error)
 
 
-def _library_path():
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"shear_thomas-{key}.so"
-
-
-def nvcc_command(out):
-    """The nvcc command line that builds the kernel library into ``out``."""
-    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(SOURCE)]
-
-
-def build():
-    """Build the kernel library from csrc/ unless a library built from the
-    same sources and flags exists; return its path.  The compiler's report
-    (registers, spills) is kept beside it as ``.log``.  Raises on failure."""
-    lib = _library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for fn in (lib.shear_thomas_f32, lib.shear_thomas_f64):
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int  # cudaError_t, an int-sized enum
-        lib.shear_thomas_error.argtypes = [ctypes.c_int]
-        lib.shear_thomas_error.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+LIBRARY = CudaLibrary("shear_thomas", _bind)

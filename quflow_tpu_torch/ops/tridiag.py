@@ -11,11 +11,13 @@ the (N, N+1) shear view,
     forward :  y_i = d_i - w_i y_{i-1}
     backward:  x_i = y_i binv_i - u_i x_{i+1},
 
-which the CUDA kernel ``shear_thomas`` (ops/cuda_solve.py) runs with one
-thread per column.  ``solve_factored``, ``m0_correction``, ``refine_m0``
-and ``dot_cols`` are the torch versions of quflow_tpu/ops/tridiag.py:238-297,
-351-416, 437-445 (shear branch, systems along axis -2 only); the row-packed
-layouts wait for the port of ops/laplacian.py.
+which the CUDA kernels run: ``shear_thomas`` (ops/cuda_solve.py) with one
+thread per column, ``shear_scan`` (ops/cuda_scan_solve.py) with one thread
+per column and chunk of rows.  ``solve_factored``, ``m0_correction``,
+``refine_m0`` and ``dot_cols`` are the torch versions of
+quflow_tpu/ops/tridiag.py:238-297, 351-416, 437-445 (shear branch, systems
+along axis -2 only); the row-packed layouts wait for the port of
+ops/laplacian.py.
 """
 
 from __future__ import annotations

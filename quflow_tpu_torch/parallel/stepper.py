@@ -1,18 +1,25 @@
-"""Production isospectral-midpoint stepper on one CUDA device.
+"""Production isospectral- and magnetic-midpoint steppers on one CUDA
+device.
 
 Counterpart of the shear, single-device subset of
 quflow_tpu/parallel/stepper.py: ``_shear_factors_cached``, ``_real_factors``,
-the shear branch of ``_poisson_core``, ``build_poisson_fn``,
-``build_step_fn`` with a fixed iteration count, and the drop-in integrator
-``IsompTorch`` (the counterpart of ``IsompTPU``).
+the shear branches of ``_poisson_core`` and ``_laplace_core``,
+``build_poisson_fn``, ``build_step_fn`` and ``build_mhd_step_fn`` with a
+fixed iteration count, and the drop-in integrators ``IsompTorch`` and
+``MagmpTorch`` (the counterparts of ``IsompTPU`` and ``MagmpTPU``).
 
-Each step runs ``maxit`` fixed-point iterations; each iteration is one
-shear-layout Poisson core (pack, trace projection, the column Thomas solve
-of ops/cuda_solve.shear_thomas, the m=0 correction for complex64, trace
-projection, unpack), two complex GEMMs, A - A^H, and, after the last
-iteration, the Kahan-compensated update.  State stays complex on the
-device; the runner takes and returns complex tensors.  It runs eagerly:
-capturing a step in a CUDA graph is later work.
+Each Euler step runs ``maxit`` fixed-point iterations; each iteration is
+one shear-layout Poisson core (pack, trace projection, the column solve,
+the m=0 correction for complex64, trace projection, unpack), two complex
+GEMMs, A - A^H, and, after the last iteration, the Kahan-compensated
+update.  An MHD iteration adds the Laplacian of Theta and four more GEMMs.
+State stays complex on the device; the runners take and return complex
+tensors.  They run eagerly: capturing a step in a CUDA graph is later work.
+
+The column solve is a CUDA kernel on the card, chosen by
+:func:`column_solver` when a builder runs: ``shear_thomas`` (the serial
+recurrence, one thread per column) or ``shear_scan`` (the same recurrence
+in chunks, one thread per column and chunk).
 
 Options of the JAX stepper that this port does not run yet raise
 NotImplementedError naming the ROADMAP.md item that ports them.
@@ -20,25 +27,33 @@ NotImplementedError naming the ROADMAP.md item that ports them.
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from .. import config
+from ..ops.cuda_scan_solve import shear_scan
+from ..ops.cuda_solve import shear_thomas
 from ..ops.diagpack import mat2shear, shear2mat, subtract_col0_mean
 from ..ops.geometry import hbar
 from ..ops.tridiag import (
     TridiagFactors,
+    dot_cols,
     refine_m0,
+    shear_laplacian,
     shear_operator,
     solve_factored,
 )
 
 __all__ = [
     "build_step_fn",
+    "build_mhd_step_fn",
     "build_poisson_fn",
+    "column_solver",
     "IsompTorch",
+    "MagmpTorch",
     "factors_from_numpy",
     "state_from_planes",
     "to_planes",
@@ -51,6 +66,7 @@ _NOT_PORTED = {
     "mesh": (None, "A9 (ensembles and multi-GPU)"),
     "batched": (False, "A9 (ensembles and multi-GPU)"),
     "tol": (None, "A7 (adaptive tol)"),
+    "minit": (1, "A7 (adaptive tol)"),
     "warm_precision": (None, "A4 (warm schedule, after the TF32 question)"),
     "warm_iters": (None, "A4 (warm schedule, after the TF32 question)"),
     "hamiltonian": ("poisson", "A7 (Hamiltonian families)"),
@@ -69,10 +85,43 @@ def _refuse_not_ported(**options):
 
 
 def _check_layout(layout):
-    if layout not in ("auto", "shear", None):
+    """Every shear layout is the shear path here ('shear_pallas' is the
+    one the JAX package picks on the TPU at N >= 4096): on the card each
+    shear solve is a kernel anyway."""
+    if layout in ("auto", "shear", "shear_pallas", None):
+        return
+    if layout == "shear_pallas_il":
         raise NotImplementedError(
-            f"layout={layout!r}: quflow_tpu_torch runs the shear layout "
-            "only; the row-packed layouts come with ROADMAP.md A6")
+            "layout='shear_pallas_il' does not come over to "
+            "quflow_tpu_torch: the interleaved shear layout is a measured "
+            "regression that quflow_tpu keeps only to reproduce it (see "
+            "ROADMAP.md, 'Some code does not come over')")
+    raise NotImplementedError(
+        f"layout={layout!r}: quflow_tpu_torch runs the shear layout "
+        "only; the row-packed layouts come with ROADMAP.md A6")
+
+
+def column_solver(solver=None):
+    """The column solve ``(w, binv, u, d) -> x`` that a builder uses.
+
+    An explicit ``solver`` wins.  Otherwise ``QUFLOW_PALLAS_KERNEL`` is read
+    when the builder runs: 'thomas' (the default) selects
+    ops.cuda_solve.shear_thomas, 'scan' ops.cuda_scan_solve.shear_scan;
+    any other value raises ValueError.  Both launch their CUDA kernel on a
+    CUDA tensor and run their plain version on a CPU tensor.
+
+    One difference from quflow_tpu: there the variable acts only where the
+    layout resolves to 'shear_pallas' (on the TPU, N >= 4096, or when
+    named) and any other value silently means 'thomas'.  Here it acts on
+    every shear solve, since every one is a kernel."""
+    if solver is not None:
+        return solver
+    name = os.environ.get("QUFLOW_PALLAS_KERNEL", "thomas")
+    if name == "thomas":
+        return shear_thomas
+    if name == "scan":
+        return shear_scan
+    raise ValueError(f"QUFLOW_PALLAS_KERNEL={name!r}: use 'thomas' or 'scan'")
 
 
 def _check_precision(precision):
@@ -126,11 +175,17 @@ def factors_from_numpy(w, binv, u, op, *, device, dtype):
     (2, N, N+1) refinement operator) kept float64."""
     rd = _real_dtype(dtype)
     dev = config.device(device)
-    out = [torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(rd))).to(dev)
-           for a in (w, binv, u)]
+    out = [_to_device(a, rd, dev) for a in (w, binv, u)]
     out.append(None if op is None else
                torch.from_numpy(np.asarray(op, dtype=np.float64)).to(dev))
     return tuple(out)
+
+
+def _to_device(a, rdtype, device):
+    """Host array -> contiguous tensor on ``device``, cast by numpy (as
+    quflow_tpu casts its host operators)."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(rdtype))
+                            ).to(device)
 
 
 def _real_factors(N, dtype, *, device, with_op=False):
@@ -144,7 +199,8 @@ def _real_factors(N, dtype, *, device, with_op=False):
 
 def state_from_planes(Wri, dWri, cri, *, device=None):
     """The JAX stepper's split-complex plane state ((2, ..., N, N) real, each
-    of W, dW, csum) -> the port's complex ``(W, dW, csum)`` tensors."""
+    of W, dW, csum) -> the port's complex ``(W, dW, csum)`` tensors.  The
+    MHD planes (2, ..., 2, N, N) of (W, Theta) come over the same way."""
     dev = config.device(device)
 
     def one(p):
@@ -187,16 +243,53 @@ def _poisson_core(W, w, binv, u, refine=0, op=None, solver=None):
     return shear2mat(subtract_col0_mean(x))
 
 
+def _step_setup(N, dt, maxit, dtype, refine):
+    """Checks and scalars shared by the step builders: ``refine`` resolved
+    ('m0' for complex64, 0 for complex128, as the JAX steppers resolve it
+    on the shear layout) and vareps = dt / (2 hbar) rounded to the working
+    precision, as the JAX steppers round their scalars."""
+    rdtype = _real_dtype(dtype)
+    if maxit < 1:
+        raise ValueError(f"maxit={maxit}: a step needs at least one "
+                         "fixed-point iteration")
+    if refine is None:
+        refine = "m0" if rdtype == np.float32 else 0
+    return refine, float(rdtype.type(dt / (2.0 * hbar(N))))
+
+
+def _step_poisson(N, dtype, refine, device, solver):
+    """The step's Poisson core W -> P, with its factors on ``device``."""
+    w, binv, u, op = _real_factors(N, dtype, device=device, with_op=True)
+
+    def poisson(W):
+        return _poisson_core(W, w, binv, u, refine=refine, op=op,
+                             solver=solver)
+
+    return poisson
+
+
+def _update(S, upd, csum, compsum):
+    """S + upd, Kahan-compensated with ``csum`` when ``compsum``; returns
+    (S, csum)."""
+    if not compsum:
+        return S + upd, csum
+    y = upd - csum
+    tS = S + y
+    return tS, (tS - S) - y
+
+
 def build_poisson_fn(N, dtype=np.complex64, mesh=None, batched=False,
-                     layout="auto", *, device=None):
+                     layout="auto", *, device=None, solver=None):
     """Batched Poisson solve W -> P on ``device`` for complex ``dtype``
-    state (..., N, N)."""
+    state (..., N, N), through the column solve of
+    :func:`column_solver`."""
     _refuse_not_ported(mesh=mesh, batched=batched)
     _check_layout(layout)
+    solver = column_solver(solver)
     w, binv, u = _real_factors(N, dtype, device=device)
 
     def poisson(W):
-        return _poisson_core(W, w, binv, u)
+        return _poisson_core(W, w, binv, u, solver=solver)
 
     return poisson
 
@@ -236,7 +329,7 @@ def build_step_fn(
 
     ``refine``: None picks 'm0' for complex64 and 0 for complex128 (as the
     JAX stepper does on its shear layout).  ``solver`` is the column solve
-    (default ``shear_thomas``: the CUDA kernel on a CUDA device);
+    (default: :func:`column_solver`, a CUDA kernel on a CUDA device);
     ``ops.cuda_solve.shear_thomas_reference`` runs the plain version.
     ``precision`` accepts only 'highest': both tiers run full-precision
     GEMMs (see quflow_tpu_torch.config).
@@ -247,20 +340,8 @@ def build_step_fn(
                        strang_splitting=strang_splitting)
     _check_layout(layout)
     _check_precision(precision)
-    rdtype = _real_dtype(dtype)
-    if maxit < 1:
-        raise ValueError(f"maxit={maxit}: a step needs at least one "
-                         "fixed-point iteration")
-    if refine is None:
-        refine = "m0" if rdtype == np.float32 else 0
-    w, binv, u, op = _real_factors(N, dtype, device=device, with_op=True)
-    # scalars rounded to the working precision, as the JAX stepper rounds
-    # them (np.asarray(..., dtype=rdtype))
-    vareps = float(rdtype.type(dt / (2.0 * hbar(N))))
-
-    def poisson(Whalf):
-        return _poisson_core(Whalf, w, binv, u, refine=refine, op=op,
-                             solver=solver)
+    refine, vareps = _step_setup(N, dt, maxit, dtype, refine)
+    poisson = _step_poisson(N, dtype, refine, device, column_solver(solver))
 
     def step(W, dW, csum):
         for _ in range(maxit):
@@ -269,14 +350,7 @@ def build_step_fn(
             PW = Phalf @ Whalf
             PWc = PW - PW.mH
             dW = PW @ Phalf + PWc
-        upd = 2.0 * PWc
-        if compsum:
-            y = upd - csum
-            tW = W + y
-            csum = (tW - W) - y
-            W = tW
-        else:
-            W = W + upd
+        W, csum = _update(W, 2.0 * PWc, csum, compsum)
         return W, dW, csum
 
     def diagnostics(W):
@@ -307,30 +381,122 @@ def build_dw_step_fn(*args, **kwargs):
         "not come over'); use build_step_fn(..., dtype=np.complex128)")
 
 
-class IsompTorch:
-    """Drop-in ``integrator`` for sim.solve backed by :func:`build_step_fn`,
-    the counterpart of quflow_tpu's ``IsompTPU``.
+def _laplace_core(P, op):
+    """The quantized Laplacian (bc=False) of P (..., N, N) on the shear
+    layout; ``op`` is the channel-first (2, N, N+1) operator of
+    :func:`_mhd_lap_op`."""
+    return shear2mat(dot_cols(op, mat2shear(P, tracefree=False)))
 
-    Keeps dW (warm-started fixed point) and the Kahan compensation state
-    resident on the device between calls, and caches one runner per
-    (N, dt, steps).  Takes and returns numpy state, as sim.solve hands it
-    over; a writeable input is updated in place, as IsompTPU does.
 
-        integrator = IsompTorch(maxit=5, dtype=np.complex64)
-        solve(W0, stepsize=0.25, steps=..., integrator=integrator, callback=cb)
+def _mhd_lap_op(N, dtype, *, device):
+    """The bc=False shear Laplacian, channel-first (2, N, N+1), in the real
+    working dtype of ``dtype`` on ``device``: the numpy array of
+    quflow_tpu's ``_mhd_lap_op(N, 'shear', rdtype)``, cast as the factors
+    are (:func:`factors_from_numpy`)."""
+    opn = shear_laplacian(N, bc=False)
+    return _to_device(np.stack([opn[:, 0, :].T, opn[:, 1, :].T]),
+                      _real_dtype(dtype), config.device(device))
+
+
+def build_mhd_step_fn(
+    N,
+    dt,
+    steps=1,
+    maxit=5,
+    dtype=np.complex64,
+    precision="highest",
+    layout="auto",
+    compsum=True,
+    refine=None,
+    mesh=None,
+    batched=False,
+    tol=None,
+    minit=1,
+    warm_precision=None,
+    warm_iters=None,
+    hamiltonian="poisson",
+    forcing=None,
+    strang_splitting=None,
+    *,
+    device=None,
+    solver=None,
+):
+    """Build the multi-step magnetic-midpoint runner on ``device``, the
+    counterpart of quflow_tpu's ``build_mhd_step_fn``.
+
+    Returns ``fn(S, dS, csum) -> (S, dS, csum)`` over complex ``dtype``
+    tensors (..., 2, N, N) holding (W, Theta); thread dS/csum between calls
+    or pass zeros.  Each step runs exactly ``maxit`` fixed-point
+    iterations of one Poisson core on W, one Laplacian of Theta and six
+    complex GEMMs, then the Kahan-compensated update (``compsum``).
+    ``refine``, ``solver`` and ``precision`` as in :func:`build_step_fn`.
+    There are no diagnostics, as in quflow_tpu.  The JAX stepper's planes
+    (2, 2, N, N) convert with :func:`state_from_planes`.
     """
+    _refuse_not_ported(mesh=mesh, batched=batched, tol=tol, minit=minit,
+                       warm_precision=warm_precision, warm_iters=warm_iters,
+                       hamiltonian=hamiltonian, forcing=forcing,
+                       strang_splitting=strang_splitting)
+    _check_layout(layout)
+    _check_precision(precision)
+    refine, vareps = _step_setup(N, dt, maxit, dtype, refine)
+    poisson = _step_poisson(N, dtype, refine, device, column_solver(solver))
+    lap = _mhd_lap_op(N, dtype, device=device)
 
-    def __init__(self, maxit=5, precision="highest", compsum=True, refine=None,
-                 dtype=np.complex64, mesh=None, batched=False, tol=None,
-                 warm=True, warm_precision="auto", warm_iters=None,
-                 hamiltonian="poisson", forcing=None, strang_splitting=None,
-                 layout="auto", *, device=None):
-        # 'auto' is IsompTPU's mixed-precision schedule; the port runs every
-        # iteration at full precision until ROADMAP A4 settles the TF32
-        # question, so 'auto' means none here
+    def iterate(S, dS):
+        Shalf = S + dS
+        Thalf = Shalf[..., 1, :, :]
+        Phalf = poisson(Shalf[..., 0, :, :]) * vareps
+        Bhalf = _laplace_core(Thalf, lap) * vareps
+        PW = Phalf[..., None, :, :] @ Shalf  # (P W, P Theta)
+        BT = Bhalf @ Thalf
+        BTP = BT @ Phalf
+        PWc = PW - PW.mH
+        BTc = BT - BT.mH
+        dS = PW @ Phalf[..., None, :, :] + PWc
+        dS[..., 0, :, :] += BTP - BTP.mH + BTc  # W only
+        return dS, PWc, BTc
+
+    def step(S, dS, csum):
+        for _ in range(maxit):
+            dS, PWc, BTc = iterate(S, dS)
+        upd = 2.0 * PWc
+        upd[..., 0, :, :] += 2.0 * BTc  # W gets 2(PWc + BTc)
+        S, csum = _update(S, upd, csum, compsum)
+        return S, dS, csum
+
+    @torch.no_grad()
+    def run(S, dS, csum):
+        for _ in range(steps):
+            S, dS, csum = step(S, dS, csum)
+        return S, dS, csum
+
+    return run
+
+
+class _ResidentIntegrator:
+    """A drop-in ``integrator`` for sim.solve over one of the step
+    builders: keeps the warm fixed-point state and the Kahan compensation
+    resident on the device between calls, caches one runner per
+    (N, dt, steps), takes and returns numpy state as sim.solve hands it
+    over, and updates a writeable input in place, as quflow_tpu's
+    integrators do.  The column solve is chosen once, at construction
+    (:func:`column_solver`)."""
+
+    _build = None  # the step builder, set by each subclass
+
+    def __init__(self, maxit=5, precision="highest", compsum=True,
+                 refine=None, dtype=np.complex64, mesh=None, batched=False,
+                 tol=None, minit=1, warm=True, warm_precision="auto",
+                 warm_iters=None, hamiltonian="poisson", forcing=None,
+                 strang_splitting=None, layout="auto", *, device=None,
+                 solver=None):
+        # 'auto' is quflow_tpu's mixed-precision schedule; the port runs
+        # every iteration at full precision until ROADMAP A4 settles the
+        # TF32 question, so 'auto' means none here
         if warm_precision == "auto":
             warm_precision = None
-        _refuse_not_ported(mesh=mesh, batched=batched, tol=tol,
+        _refuse_not_ported(mesh=mesh, batched=batched, tol=tol, minit=minit,
                            warm_precision=warm_precision, warm_iters=warm_iters,
                            hamiltonian=hamiltonian, forcing=forcing,
                            strang_splitting=strang_splitting)
@@ -342,9 +508,11 @@ class IsompTorch:
         self.compsum = compsum
         self.refine = refine
         self.device = config.device(device)
-        # warm=True threads dW and the Kahan compensation between calls -
-        # fastest.  warm=False makes each call a pure function of
-        # (W, dt, steps), which keeps checkpoint/restart bit-exact.
+        self.solver = column_solver(solver)
+        # warm=True threads the fixed point and the Kahan compensation
+        # between calls - fastest.  warm=False makes each call a pure
+        # function of (W, dt, steps), which keeps checkpoint/restart
+        # bit-exact.
         self.warm = warm
         self._fns = {}
         self._state = None  # (dW, csum) complex tensors on self.device
@@ -352,21 +520,27 @@ class IsompTorch:
     def _fn(self, N, dt, steps):
         key = (N, float(dt), int(steps))
         if key not in self._fns:
-            self._fns[key] = build_step_fn(
+            self._fns[key] = type(self)._build(
                 N, dt, steps=steps, maxit=self.maxit, dtype=self.dtype,
                 compsum=self.compsum, refine=self.refine, device=self.device,
+                solver=self.solver,
             )
         return self._fns[key]
 
+    def _check_state(self, W):
+        pass
+
     def __call__(self, W, dt, steps=100, stats=None, time=None, **kwargs):
         # ``time`` (sent by sim.solve) does not enter an autonomous step.
-        # Other per-call integrator kwargs are a hard error, as in IsompTPU:
-        # silently dropping one would integrate other equations than asked.
+        # Other per-call integrator kwargs are a hard error, as in
+        # quflow_tpu: silently dropping one would integrate other equations
+        # than asked.
         if kwargs:
             raise TypeError(
-                f"IsompTorch does not accept per-call integrator kwargs "
-                f"{sorted(kwargs)}; configure them on the constructor")
+                f"{type(self).__name__} does not accept per-call integrator "
+                f"kwargs {sorted(kwargs)}; configure them on the constructor")
         W_in = np.asarray(W)
+        self._check_state(W_in)
         Wt = torch.from_numpy(np.array(W_in, dtype=self.dtype)).to(self.device)
         if (not self.warm or self._state is None
                 or self._state[0].shape != Wt.shape):
@@ -384,3 +558,33 @@ class IsompTorch:
             np.copyto(W, out)
             return W
         return out
+
+
+class IsompTorch(_ResidentIntegrator):
+    """Drop-in Euler ``integrator`` for sim.solve backed by
+    :func:`build_step_fn`, the counterpart of quflow_tpu's ``IsompTPU``.
+
+        integrator = IsompTorch(maxit=5, dtype=np.complex64)
+        solve(W0, stepsize=0.25, steps=..., integrator=integrator, callback=cb)
+    """
+
+    _build = staticmethod(build_step_fn)
+
+
+class MagmpTorch(_ResidentIntegrator):
+    """Drop-in MHD ``integrator`` for sim.solve backed by
+    :func:`build_mhd_step_fn`, the counterpart of quflow_tpu's
+    ``MagmpTPU``, on the stacked state ``np.stack([W, Theta])``
+    (..., 2, N, N).
+
+        integrator = MagmpTorch(maxit=5, dtype=np.complex64)
+        solve(S0, stepsize=0.25, steps=..., integrator=integrator, callback=cb)
+    """
+
+    _build = staticmethod(build_mhd_step_fn)
+
+    def _check_state(self, S):
+        if S.ndim < 3 or S.shape[-3] != 2:
+            raise ValueError(
+                f"MagmpTorch expects a two-component MHD state (..., 2, N, N) "
+                f"= stack([W, Theta]); got shape {S.shape}")

@@ -3,8 +3,8 @@
 Counterpart of quflow_tpu/sim/registry.py: persisted callables are stored
 *by name* and resolved through this registry; arbitrary code never runs on
 load.  Only the names this port implements are registered: the loggers
-``energy_euler``, ``enstrophy`` and ``norm_L2``, and the integrator
-``isomp_torch``.
+``energy_euler``, ``enstrophy`` and ``norm_L2``, and the integrators
+``isomp_torch`` and ``magmp_torch``.
 """
 
 from __future__ import annotations
@@ -61,7 +61,19 @@ def name_of(fn):
     return None
 
 
-_ISOMP_TORCH: dict = {}  # (maxit, fast) -> warm IsompTorch
+_WARM: dict = {}  # (integrator class, maxit, fast) -> warm instance
+
+
+def _warm_call(cls, W, dt, steps, maxit, fast, kwargs):
+    """Call the warm ``cls`` instance for (maxit, fast): complex64 when
+    ``fast`` else complex128."""
+    key = (cls, int(maxit), bool(fast))
+    if key not in _WARM:
+        import numpy as np
+
+        _WARM[key] = cls(maxit=key[1],
+                         dtype=np.complex64 if fast else np.complex128)
+    return _WARM[key](W, dt, steps=steps, **kwargs)
 
 
 def isomp_torch(W, dt, steps=100, maxit=5, fast=True, time=None,
@@ -73,13 +85,18 @@ def isomp_torch(W, dt, steps=100, maxit=5, fast=True, time=None,
     ``compsum`` included - raises TypeError instead of being dropped."""
     from ..parallel.stepper import IsompTorch
 
-    key = (int(maxit), bool(fast))
-    if key not in _ISOMP_TORCH:
-        import numpy as np
+    return _warm_call(IsompTorch, W, dt, steps, maxit, fast, kwargs)
 
-        _ISOMP_TORCH[key] = IsompTorch(
-            maxit=key[0], dtype=np.complex64 if fast else np.complex128)
-    return _ISOMP_TORCH[key](W, dt, steps=steps, **kwargs)
+
+def magmp_torch(W, dt, steps=100, maxit=5, fast=True, time=None,
+                verbatim=None, **kwargs):
+    """Registrable form of :class:`parallel.stepper.MagmpTorch`, the MHD
+    twin of :func:`isomp_torch`, with the same contract: one warm instance
+    per (maxit, fast), and TypeError on ``tol``, ``minit``, ``compsum`` or
+    any other kwarg instead of dropping it."""
+    from ..parallel.stepper import MagmpTorch
+
+    return _warm_call(MagmpTorch, W, dt, steps, maxit, fast, kwargs)
 
 
 def _register_defaults():
@@ -87,6 +104,7 @@ def _register_defaults():
     from ..ops import geometry
 
     _REGISTRY.setdefault("isomp_torch", isomp_torch)
+    _REGISTRY.setdefault("magmp_torch", magmp_torch)
     _REGISTRY.setdefault("energy_euler", physics.energy_euler)
     _REGISTRY.setdefault("enstrophy", physics.enstrophy)
     _REGISTRY.setdefault("norm_L2", geometry.norm_L2)

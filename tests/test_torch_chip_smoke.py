@@ -1,6 +1,6 @@
 """chip_smoke.py, the port's check on a CUDA card, rehearsed on the CPU:
 without a card it refuses to run and prints no result; its phases run at
-small sizes through the plain solve, so that an API change breaks here
+small sizes through the plain solves, so that an API change breaks here
 and not first on the card."""
 
 import subprocess
@@ -13,7 +13,16 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
-from quflow_tpu_torch.ops import cuda_solve, tridiag  # noqa: E402
+from quflow_tpu_torch import physics  # noqa: E402
+from quflow_tpu_torch.ops.cuda_scan_solve import (  # noqa: E402
+    shear_scan,
+    shear_scan_reference,
+)
+from quflow_tpu_torch.ops.cuda_solve import (  # noqa: E402
+    shear_thomas,
+    shear_thomas_reference,
+)
+from quflow_tpu_torch.parallel import stepper  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -28,18 +37,46 @@ def test_refuses_without_a_card():
     assert "cuda.is_available() is false" in res.stderr
 
 
+def test_ptxas_summary():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelIfEv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelIfEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 59 registers, used 1 barriers
+ptxas info    : Compile time = 101.702 ms
+"""
+    assert chip_smoke.ptxas_summary(log) == (
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads | "
+        "Used 59 registers, used 1 barriers")
+
+
 @pytest.fixture
 def cpu_rehearsal(monkeypatch):
     """The smoke's phases on the CPU: no CUDA events or synchronize, and
-    the plain solve counted as if it were the kernel's launches."""
+    the column-solve selector hands out each kernel's plain version,
+    counted as if it were that kernel's launches."""
 
-    def counted(w, binv, u, d):
-        cuda_solve.shear_thomas.launches += 1
-        return cuda_solve.shear_thomas_reference(w, binv, u, d)
+    def counted(kernel, plain):
+        def solve(w, binv, u, d):
+            kernel.launches += 1
+            return plain(w, binv, u, d)
+        return solve
 
-    monkeypatch.setattr(tridiag, "shear_thomas", counted)
+    stand_in = {shear_thomas: counted(shear_thomas, shear_thomas_reference),
+                shear_scan: counted(shear_scan, shear_scan_reference)}
+    select = stepper.column_solver
+
+    def column_solver(solver=None):
+        chosen = select(solver)
+        return stand_in.get(chosen, chosen)
+
+    monkeypatch.setattr(stepper, "column_solver", column_solver)
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps: (fn(), 0.0)[1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.delenv("QUFLOW_PALLAS_KERNEL", raising=False)
+    physics._poisson.cache_clear()  # the energy logs' solve: built anew
+    yield
+    physics._poisson.cache_clear()
 
 
 def test_phases_rehearse_on_cpu(cpu_rehearsal):
@@ -51,3 +88,31 @@ def test_phases_rehearse_on_cpu(cpu_rehearsal):
     assert c64["kernel_vs_plain_10_steps"] == 0.0
     c128 = chip_smoke.main_path_c128("cpu", N=32, steps=20)
     assert c128["tr_W2_drift"] <= 1e-10 and c128["tr_W3_drift"] <= 1e-10
+    assert c128["launches"] == {"shear_thomas": 100, "shear_scan": 0}
+
+
+def test_scan_and_mhd_phases_rehearse_on_cpu(cpu_rehearsal):
+    scan = chip_smoke.kernel_vs_plain(
+        "cpu", Ns=(16, 40), Bs=(1, 2), kernel=shear_scan,
+        plain=shear_scan_reference, against=shear_thomas)
+    assert len(scan) == 8 and all(r["max_abs_err"] == 0.0 for r in scan)
+    assert all(r["vs_shear_thomas_rel"] <= 1e-5 for r in scan)
+    # the Euler path first, as in the smoke: its energy logs build the
+    # Poisson solve that the MHD logs reuse
+    chip_smoke.main_path_c64("cpu", N=32, steps=2, steps_out=1,
+                             compare_steps=1)
+    m64 = chip_smoke.mhd_c64("cpu", N=32, steps=10, steps_out=5,
+                             compare_steps=2)
+    assert m64["integrator_launches"] == {"shear_thomas": 0,
+                                          "shear_scan": 10 * 5}
+    assert m64["log_launches"] == {"shear_thomas": 3, "shear_scan": 0}
+    assert m64["kernel_vs_plain_10_steps"] == 0.0
+    assert m64["scan_vs_thomas_10_steps"] <= 1e-5
+    assert "QUFLOW_PALLAS_KERNEL" not in chip_smoke.os.environ
+    # N=128: at smaller N the five fixed-point iterations leave Theta's
+    # Casimirs drifting past the 1e-10 gate (quflow_tpu shows the same)
+    m128 = chip_smoke.mhd_c128("cpu", N=128, steps=10)
+    assert m128["launches"] == {"shear_thomas": 0, "shear_scan": 50}
+    assert m128["tr_Theta2_drift"] <= 1e-10
+    big = chip_smoke.mhd_large("cpu", N=24, steps=2)
+    assert big["launches"] == {"shear_thomas": 0, "shear_scan": 10}

@@ -13,7 +13,7 @@ from quflow_tpu.ops import tridiag as jtri
 from quflow_tpu.ops.pallas_solve import _solve_T, _solve_T_chunked, pad_cols
 from quflow_tpu.parallel import stepper as jst
 
-from quflow_tpu_torch.ops import cuda_solve
+from quflow_tpu_torch.ops import cuda_build, cuda_solve
 from quflow_tpu_torch.ops import tridiag as ttri
 from quflow_tpu_torch.ops.cuda_solve import shear_thomas, shear_thomas_reference
 from quflow_tpu_torch.parallel import stepper as tst
@@ -148,12 +148,14 @@ def test_build_command(monkeypatch, tmp_path):
     nvcc.parent.mkdir()
     nvcc.write_text("")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    out = cuda_solve._library_path()
-    cmd = cuda_solve.nvcc_command(out)
+    lib = cuda_solve.LIBRARY
+    out = lib.library_path()
+    cmd = lib.nvcc_command(out)
     assert cmd[0] == str(nvcc)
     assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[-1] == str(cuda_solve.SOURCE) and cuda_solve.SOURCE.exists()
-    assert out.parent == cuda_solve.BUILD_DIR
+    assert cmd[-1] == str(lib.source) and lib.source.exists()
+    assert lib.source.name == "shear_thomas.cu"
+    assert out.parent == cuda_build.BUILD_DIR
     assert out.parent.parent.name == "quflow_tpu_torch"
 
 
