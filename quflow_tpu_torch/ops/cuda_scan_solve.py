@@ -9,15 +9,15 @@ blocked-affine-scan solve).  ``shear_scan`` solves the same systems as
     forward :  y_i = d_i - w_i y_{i-1}
     backward:  x_i = y_i binv_i - u_i x_{i+1}
 
-The N rows of every column are cut into K = ceil(N / chunk) chunks of
-``chunk`` rows, the last one possibly shorter.  Each sweep runs every chunk
-from a zero carry and keeps its affine summary (the product of its
-coefficients -w or -u, and its end value), composes the K summaries in
-order into the carry that enters each chunk, and runs every chunk again
-from its carry.  On a CUDA tensor it launches the kernel of
-csrc/shear_scan.cu, one thread per (column, chunk); on a CPU tensor it runs
-:func:`shear_scan_reference`, the plain PyTorch version with the same
-chunks and the same roundings in the same order.  Nothing falls back: a
+The N rows of every column are cut into K = ceil(N / L) chunks of
+L = ``chunk_rows(N)`` rows, the last one possibly shorter.  Each sweep
+runs every chunk from a zero carry and keeps its affine summary (the
+product of its coefficients -w or -u, and its end value), composes the K
+summaries in order into the carry that enters each chunk, and runs every
+chunk again from its carry.  On a CUDA tensor it launches the kernel of
+csrc/shear_scan.cu, one thread per (column, chunk); on a CPU tensor it
+runs :func:`shear_scan_reference`, the plain PyTorch version with the
+same chunks and the same roundings in the same order.  Nothing falls back: a
 build or launch failure raises.
 """
 
@@ -36,16 +36,10 @@ MAX_CHUNKS = 32
 MIN_CHUNK = 8
 
 
-def chunk_rows(N, chunk=None):
-    """Rows per chunk for N-row columns: ``chunk`` when given (checked),
-    else ceil(N / 32) and at least 8, i.e. at most 32 chunks."""
-    if chunk is None:
-        return max(MIN_CHUNK, -(-N // MAX_CHUNKS))
-    chunk = int(chunk)
-    if chunk < 1 or -(-N // chunk) > MAX_CHUNKS:
-        raise ValueError(f"chunk={chunk}: N={N} rows need 1 <= chunk and at "
-                         f"most {MAX_CHUNKS} chunks")
-    return chunk
+def chunk_rows(N):
+    """Rows per chunk for N-row columns: ceil(N / 32) and at least 8, i.e.
+    at most 32 chunks."""
+    return max(MIN_CHUNK, -(-N // MAX_CHUNKS))
 
 
 def _rows(t, K, L, fill):
@@ -58,14 +52,14 @@ def _rows(t, K, L, fill):
     return t.reshape(*t.shape[:-3], K, L, *t.shape[-2:])
 
 
-def shear_scan_reference(w, binv, u, d, chunk=None):
+def shear_scan_reference(w, binv, u, d):
     """Plain PyTorch version of the kernel: loops over the rows of a chunk
     and over the chunks, vectorized over batch, chunks, columns and re/im.
     Rows past N are padded with identity steps (d = 0, w = u = -1,
     binv = 0), which round exactly, so a short last chunk gives what the
     kernel gives by stopping early."""
     N, M = d.shape[-2:]
-    L = chunk_rows(N, chunk)
+    L = chunk_rows(N)
     K = -(-N // L)
     dk = _rows(torch.view_as_real(d), K, L, 0.0)  # (..., K, L, M, 2)
     wk, bk, uk = (_rows(f[:, :, None], K, L, fill)  # (K, L, M, 1)
@@ -114,18 +108,18 @@ def shear_scan_reference(w, binv, u, d, chunk=None):
     return torch.view_as_complex(x.contiguous())
 
 
-def shear_scan(w, binv, u, d, chunk=None):
+def shear_scan(w, binv, u, d):
     """Solve the shear-layout column systems of ``d`` (complex, (..., N, M)
     with M = N+1) with the prefactorized (N, M) real factors, chunk by
-    chunk (``chunk`` rows each; default :func:`chunk_rows`).
+    chunk (:func:`chunk_rows` rows each).
 
     CPU tensors go to :func:`shear_scan_reference`.  CUDA tensors go to
     the kernel; ``shear_scan.launches`` counts its launches."""
     check_solve_args("shear_scan", w, binv, u, d)
-    L = chunk_rows(d.shape[-2], chunk)
     if d.device.type == "cpu":
-        return shear_scan_reference(w, binv, u, d, chunk=L)
-    out = launch_solve("shear_scan", LIBRARY, w, binv, u, d, L)
+        return shear_scan_reference(w, binv, u, d)
+    out = launch_solve("shear_scan", LIBRARY, w, binv, u, d,
+                       chunk_rows(d.shape[-2]))
     shear_scan.launches += 1
     return out
 

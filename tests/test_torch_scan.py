@@ -76,32 +76,31 @@ def test_reference_f32_error_comparable():
 
 
 @pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("N,chunk", [(96, None), (96, 7), (128, None),
-                                     (128, 9), (256, None), (256, 11)])
-def test_reference_matches_thomas(N, chunk, B):
-    """The chunked solve against the serial one in complex128, with the
-    default chunks and with a short last chunk (96 = 13*7 + 5,
-    128 = 14*9 + 2, 256 = 23*11 + 3)."""
+@pytest.mark.parametrize("N", [96, 100, 128, 250, 256, 257])
+def test_reference_matches_thomas(N, B):
+    """The chunked solve against the serial one in complex128, with whole
+    chunks (96, 128, 256) and with a short last chunk (100 = 12*8 + 4,
+    250 = 31*8 + 2, 257 = 28*9 + 5)."""
     _, tf = _factors(N)
     rng = np.random.RandomState(N + B)
     d = torch.from_numpy(rng.randn(B, N, N + 1) + 1j * rng.randn(B, N, N + 1))
     if B == 1:
         d = d[0]
-    x = shear_scan(*tf, d, chunk=chunk)
+    x = shear_scan(*tf, d)
     ref = shear_thomas_reference(*tf, d)
     assert x.shape == d.shape and x.dtype == d.dtype and x.is_contiguous()
     assert (x - ref).abs().max() <= 1e-12 * ref.abs().max()
 
 
 def test_chunk_rows():
-    """At most 32 chunks of at least 8 rows by default; an explicit chunk
-    is checked against the kernel's 32-chunk block."""
-    assert [chunk_rows(N) for N in (12, 96, 512, 1024, 4096)] == \
-        [8, 8, 16, 32, 128]
-    assert chunk_rows(96, 7) == 7
-    for bad in (0, 2):
-        with pytest.raises(ValueError, match="at most 32 chunks"):
-            chunk_rows(96, bad)
+    """At most 32 chunks (the kernel's block) of at least 8 rows; the
+    sizes the tests use for a short last chunk do give one."""
+    sizes = (12, 96, 100, 250, 257, 512, 1024, 4096)
+    assert [chunk_rows(N) for N in sizes] == [8, 8, 8, 8, 9, 16, 32, 128]
+    for N in range(1, 5000):
+        L = chunk_rows(N)
+        assert L >= 8 and -(-N // L) <= 32
+    assert [N % chunk_rows(N) for N in (100, 250, 257)] == [4, 2, 5]
 
 
 def test_wrapper_takes_plain_version_on_cpu():
@@ -237,18 +236,19 @@ def test_build_all_starts_one_compiler_per_source(monkeypatch, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [100, 257])
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
-def test_kernel_matches_reference_on_card(cuda, dtype):
+def test_kernel_matches_reference_on_card(cuda, dtype, N):
     """The CUDA kernel against its plain version on the card, with a short
     last chunk and a ragged last block of columns: the same roundings in
     the same order, so bit-equal."""
-    N, B = 257, 3
+    B = 3
     w, binv, u = tst._real_factors(N, dtype, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(0)
     d = torch.randn(B, N, N + 1, dtype=dtype, device=cuda, generator=g)
     before = shear_scan.launches
-    x = shear_scan(w, binv, u, d, chunk=12)
+    x = shear_scan(w, binv, u, d)
     torch.cuda.synchronize()
     assert shear_scan.launches == before + 1
     torch.testing.assert_close(
-        x, shear_scan_reference(w, binv, u, d, chunk=12), rtol=0, atol=0)
+        x, shear_scan_reference(w, binv, u, d), rtol=0, atol=0)
