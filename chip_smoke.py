@@ -12,22 +12,25 @@ nonzero exit code and no result line.
              sm_90a, one compiler each, started together (seconds, ptxas
              register counts);
 3. kernel  - ``shear_thomas`` against its plain PyTorch version on the card
-             at N in {512, 1024, 4096} (the two main-path shapes and a large
-             one), batch in {1, 4}, complex64 and complex128:
-             max relative error <= 1e-5 (complex64) and <= 1e-12
-             (complex128); CUDA-event times of both;
+             at N in {512, 1024, 2048, 4096} (the two main-path shapes and
+             larger ones), batch in {1, 4, 8}, complex64 and complex128:
+             bit-equal (max abs error 0); the kernel's time (CUDA graph
+             replay), the plain version's (CUDA events), the bound and the
+             kernel's share of it;
 4. main path, complex64, N=1024 - EulerFlow initial data, ``solve`` with
-             ``IsompTorch(maxit=5)``, 100 steps, energy/enstrophy logged
-             every 20: the kernel launched exactly steps x maxit times plus
-             once per energy log, enstrophy drift <= 1e-4, and a 10-step run
-             through the kernel equal to one through the plain solve to
-             <= 1e-5 relative; steps/s;
+             ``IsompTorch(maxit=5)`` built without ``device=``, as the README
+             does (the default device, the card), 100 steps,
+             energy/enstrophy logged every 20: the kernel launched exactly
+             steps x maxit times plus once per energy log, enstrophy drift
+             <= 1e-4, and a 10-step run through the kernel equal to one
+             through the plain solve to <= 1e-5 relative; steps/s;
 5. main path, complex128, N=512, 200 steps - relative drift of tr(W^2) and
              tr(W^3) <= 1e-10; steps/s;
-6. scan    - ``shear_scan`` against its plain version on the card at the
-             shapes of phase 3, with the same gates; CUDA-event times of
-             both and of ``shear_thomas`` on the same input, and the
-             relative difference of the two kernels;
+6. scan    - ``shear_scan`` against its plain version on the card at N in
+             {512, 1024, 4096}, batch in {1, 4}: bit-equal; times as in
+             phase 3, of ``shear_thomas`` on the same input too, the
+             relative difference of the two kernels, the bound and the
+             share;
 7. MHD path, complex64, N=1024 - MHDFlow initial data, ``solve`` with
              ``MagmpTorch(maxit=5)`` under QUFLOW_PALLAS_KERNEL=scan, 100
              steps, invariants logged every 20 (kinetic + magnetic energy,
@@ -46,8 +49,16 @@ nonzero exit code and no result line.
 
 Every main path (phases 4, 5, 7, 8, 9) runs with every launch count set to
 0 just before it and read just after.  Then a JSON line of the kernels
-(name, source, the TPU kernel it replaces, launches on each path, error
-and times) and, last, the result line ``{"ok": true, "device": {...}}``.
+(name, source, the TPU kernel it replaces, launches on each path, error,
+times and bound at the main path's shape; ``library_ms`` null, since no
+PyTorch call solves banded or tridiagonal systems) and, last, the result
+line ``{"ok": true, "device": {...}}``.
+
+The bound of a column solve is the larger of its bytes (d, w, binv, u read
+once, x written once) over 3.35 TB/s and its 10 real operations an element
+(re and im: a multiply and a subtract forward, two multiplies and a
+subtract backward) over the card's peak outside the tensor cores (67
+TFLOP/s float32, 34 float64): NVIDIA's data sheet of the H100 SXM.
 """
 
 import json
@@ -77,8 +88,9 @@ from quflow_tpu_torch.parallel.stepper import (
     build_step_fn,
 )
 
-GATE = {torch.complex64: 1e-5, torch.complex128: 1e-12}
 KERNELS = (shear_thomas, shear_scan)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.complex64: 67e12, torch.complex128: 34e12}
 
 
 def reset_counts():
@@ -111,12 +123,47 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_vs_plain(device, Ns=(512, 1024, 4096), Bs=(1, 4), reps=20,
-                    plain_reps=2, kernel=shear_thomas,
+def graph_ms(fn, reps):
+    """Mean milliseconds per call of ``fn`` on the card: ``reps`` calls
+    captured in one CUDA graph after a warm-up call, the graph replayed
+    once and then timed by CUDA events, so that the host's time to launch
+    does not enter a kernel's."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def solve_bound(N, B, dtype):
+    """The least time (ms) the card could take for a column solve of B
+    complex (N, N+1) arrays, and what bounds it: 'bytes' or 'operations'
+    (see the module's note)."""
+    real = 4 if dtype == torch.complex64 else 8
+    elements = N * (N + 1)
+    t_bytes = (4 * real * B + 3 * real) * elements / HBM_BYTES_PER_S
+    t_ops = 10 * B * elements / PEAK_OPS_PER_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def kernel_vs_plain(device, Ns=(512, 1024, 2048, 4096), Bs=(1, 4, 8),
+                    reps=20, plain_reps=2, kernel=shear_thomas,
                     plain=shear_thomas_reference, against=None):
     """Phases 3 and 6: ``kernel`` against ``plain``, one row per (dtype, N,
-    B); with ``against``, that kernel's time on the same input and the
-    relative difference of the two."""
+    B): bit-equal (the same roundings in the same order); at B=8 one timed
+    call of the plain version.  With ``against``, that kernel's time on the
+    same input and the relative difference of the two."""
     rows = []
     for dtype in (torch.complex64, torch.complex128):
         for N in Ns:
@@ -128,24 +175,27 @@ def kernel_vs_plain(device, Ns=(512, 1024, 4096), Bs=(1, 4), reps=20,
                 x = kernel(w, binv, u, d)
                 ref = plain(w, binv, u, d)
                 abs_err = (x - ref).abs().max().item()
-                rel_err = abs_err / ref.abs().max().item()
-                if not rel_err <= GATE[dtype]:
+                if abs_err != 0.0:
                     raise AssertionError(
-                        f"{kernel.__name__} {dtype} N={N} B={B}: relative "
-                        f"error {rel_err:.3e} > {GATE[dtype]:.0e}")
+                        f"{kernel.__name__} {dtype} N={N} B={B}: max abs "
+                        f"error {abs_err:.3e}, not bit-equal")
+                bound_ms, bound_by = solve_bound(N, B, dtype)
+                ms = graph_ms(lambda: kernel(w, binv, u, d), reps)
                 row = dict(
                     dtype=str(dtype).removeprefix("torch."), N=N, B=B,
-                    max_abs_err=abs_err, max_rel_err=rel_err,
-                    ms=cuda_ms(lambda: kernel(w, binv, u, d), reps),
+                    max_abs_err=abs_err, ms=ms,
                     plain_ms=cuda_ms(lambda: plain(w, binv, u, d),
-                                     plain_reps))
+                                     plain_reps if B < 8 else 1),
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    share=bound_ms / ms)
                 if against is not None:
                     other = against(w, binv, u, d)
                     row[f"vs_{against.__name__}_rel"] = (
                         (x - other).abs().max() / other.abs().max()).item()
-                    row[f"{against.__name__}_ms"] = cuda_ms(
+                    row[f"{against.__name__}_ms"] = graph_ms(
                         lambda: against(w, binv, u, d), reps)
                 rows.append(row)
+                del x, ref, d
     return rows
 
 
@@ -163,7 +213,8 @@ def main_path_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
                   compare_steps=10):
     """Phase 4."""
     W0 = EulerFlow(N, np.complex64).random_initial(lmax=10, seed=42)
-    integrator = IsompTorch(maxit=maxit, dtype=np.complex64, device=device)
+    # no device=: the README's call, so the default device is what runs
+    integrator = IsompTorch(maxit=maxit, dtype=np.complex64)
     log = Logger()
     reset_counts()
     log(W0)
@@ -451,8 +502,8 @@ def main():
     c128 = main_path_c128(device)
     print("phase 5 main path c128: " + json.dumps(c128), flush=True)
 
-    scan_rows = kernel_vs_plain(device, kernel=shear_scan,
-                                plain=shear_scan_reference,
+    scan_rows = kernel_vs_plain(device, Ns=(512, 1024, 4096), Bs=(1, 4),
+                                kernel=shear_scan, plain=shear_scan_reference,
                                 against=shear_thomas)
     print("phase 6 scan kernel vs plain: " + json.dumps(scan_rows), flush=True)
 
@@ -469,32 +520,36 @@ def main():
         return next(r for r in rows if r["dtype"] == "complex64"
                     and r["N"] == 1024 and r["B"] == 1)
 
+    def timing(rows):
+        row = main_row(rows)
+        return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
     print(json.dumps({"kernels": [{
         "name": "shear_thomas",
         "route": "cuda",
         "source": "quflow_tpu_torch/csrc/shear_thomas.cu",
-        "replaces": "quflow_tpu/ops/pallas_solve.py:167",
+        "replaces": "quflow_tpu/ops/pallas_solve.py:168",
         "launches": c64["launches"],
         "launches_by_path": {
             "euler_c64_N1024": c64["launches"],
             "euler_c128_N512": c128["launches"]["shear_thomas"],
             "mhd_c64_N1024_logs": m64["log_launches"]["shear_thomas"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row(rows)["ms"],
-        "plain_ms": main_row(rows)["plain_ms"],
+        **timing(rows),
+        "library_ms": None,
     }, {
         "name": "shear_scan",
         "route": "cuda",
         "source": "quflow_tpu_torch/csrc/shear_scan.cu",
-        "replaces": "quflow_tpu/ops/pallas_scan_solve.py:113",
+        "replaces": "quflow_tpu/ops/pallas_scan_solve.py:114",
         "launches": m64["integrator_launches"]["shear_scan"],
         "launches_by_path": {
             "mhd_c64_N1024": m64["integrator_launches"]["shear_scan"],
             "mhd_c128_N512": m128["launches"]["shear_scan"],
             "mhd_c64_N4096": big["launches"]["shear_scan"]},
         "max_abs_err": max(r["max_abs_err"] for r in scan_rows),
-        "ms": main_row(scan_rows)["ms"],
-        "plain_ms": main_row(scan_rows)["plain_ms"],
+        **timing(scan_rows),
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

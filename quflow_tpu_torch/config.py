@@ -47,11 +47,18 @@ _TORCH_OF = {
 
 
 def device(dev=None):
-    """``torch.device`` for ``dev``; None picks the first CUDA device when
-    one is present, else the CPU."""
+    """``torch.device`` for ``dev``; None means the first CUDA device.
+
+    Without a CUDA device, None raises RuntimeError: the port never moves
+    to the CPU unasked.  Pass ``device="cpu"`` to run the plain PyTorch
+    versions of the kernels there."""
     if dev is not None:
         return torch.device(dev)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run "
+            "quflow_tpu_torch on the CPU")
+    return torch.device("cuda")
 
 
 def torch_dtype(dtype):

@@ -4,8 +4,9 @@ Counterpart of quflow_tpu/physics.py:43-51.  The Poisson solve is the
 port's shear-layout core (parallel/stepper.build_poisson_fn); the
 row-packed ops/laplacian.py backend that quflow_tpu uses here waits for
 ROADMAP A6.  Both take and return numpy, the logger boundary of
-QuSimulation; the energy's solve runs on the default device
-(quflow_tpu_torch.config.device(): the CUDA device when there is one).
+QuSimulation.  The energy's solve runs on ``device``: by default the CUDA
+device (quflow_tpu_torch.config.device), which raises without one; pass
+``device="cpu"`` there, e.g. through functools.partial for a logger.
 """
 
 from __future__ import annotations
@@ -29,9 +30,10 @@ def _poisson(N, dtype, device):
 
 
 @torch.no_grad()
-def energy_euler(W):
-    """Kinetic energy -<W, P>/2 of the Euler state W."""
-    W = torch.from_numpy(np.ascontiguousarray(W)).to(config.device())
+def energy_euler(W, *, device=None):
+    """Kinetic energy -<W, P>/2 of the Euler state W, solved on
+    ``device``."""
+    W = torch.from_numpy(np.ascontiguousarray(W)).to(config.device(device))
     P = _poisson(W.shape[-1], W.dtype, W.device)(W)
     return (-inner_L2(W, P) / 2.0).cpu().numpy()
 

@@ -61,42 +61,47 @@ def name_of(fn):
     return None
 
 
-_WARM: dict = {}  # (integrator class, maxit, fast) -> warm instance
+_WARM: dict = {}  # (integrator class, maxit, fast, device) -> warm instance
 
 
-def _warm_call(cls, W, dt, steps, maxit, fast, kwargs):
-    """Call the warm ``cls`` instance for (maxit, fast): complex64 when
-    ``fast`` else complex128."""
-    key = (cls, int(maxit), bool(fast))
+def _warm_call(cls, W, dt, steps, maxit, fast, device, kwargs):
+    """Call the warm ``cls`` instance for (maxit, fast, device): complex64
+    when ``fast`` else complex128."""
+    from .. import config
+
+    key = (cls, int(maxit), bool(fast), config.device(device))
     if key not in _WARM:
         import numpy as np
 
         _WARM[key] = cls(maxit=key[1],
-                         dtype=np.complex64 if fast else np.complex128)
+                         dtype=np.complex64 if fast else np.complex128,
+                         device=key[3])
     return _WARM[key](W, dt, steps=steps, **kwargs)
 
 
 def isomp_torch(W, dt, steps=100, maxit=5, fast=True, time=None,
-                verbatim=None, **kwargs):
+                verbatim=None, device=None, **kwargs):
     """Registrable form of :class:`parallel.stepper.IsompTorch`: one warm
-    instance per (maxit, fast), complex64 when ``fast`` else complex128.
-    ``time`` and ``verbatim`` (sent by solve and by runfiles) do not change
-    a fixed-iteration step.  Any other kwarg - ``tol``, ``minit``,
-    ``compsum`` included - raises TypeError instead of being dropped."""
+    instance per (maxit, fast, device), complex64 when ``fast`` else
+    complex128, on ``device`` (default: the CUDA device; ``solve(...,
+    device="cpu")`` hands the CPU through).  ``time`` and ``verbatim``
+    (sent by solve and by runfiles) do not change a fixed-iteration step.
+    Any other kwarg - ``tol``, ``minit``, ``compsum`` included - raises
+    TypeError instead of being dropped."""
     from ..parallel.stepper import IsompTorch
 
-    return _warm_call(IsompTorch, W, dt, steps, maxit, fast, kwargs)
+    return _warm_call(IsompTorch, W, dt, steps, maxit, fast, device, kwargs)
 
 
 def magmp_torch(W, dt, steps=100, maxit=5, fast=True, time=None,
-                verbatim=None, **kwargs):
+                verbatim=None, device=None, **kwargs):
     """Registrable form of :class:`parallel.stepper.MagmpTorch`, the MHD
     twin of :func:`isomp_torch`, with the same contract: one warm instance
-    per (maxit, fast), and TypeError on ``tol``, ``minit``, ``compsum`` or
-    any other kwarg instead of dropping it."""
+    per (maxit, fast, device), and TypeError on ``tol``, ``minit``,
+    ``compsum`` or any other kwarg instead of dropping it."""
     from ..parallel.stepper import MagmpTorch
 
-    return _warm_call(MagmpTorch, W, dt, steps, maxit, fast, kwargs)
+    return _warm_call(MagmpTorch, W, dt, steps, maxit, fast, device, kwargs)
 
 
 def _register_defaults():

@@ -13,7 +13,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
-from quflow_tpu_torch import physics  # noqa: E402
+from quflow_tpu_torch import config, physics  # noqa: E402
 from quflow_tpu_torch.ops.cuda_scan_solve import (  # noqa: E402
     shear_scan,
     shear_scan_reference,
@@ -52,9 +52,10 @@ ptxas info    : Compile time = 101.702 ms
 
 @pytest.fixture
 def cpu_rehearsal(monkeypatch):
-    """The smoke's phases on the CPU: no CUDA events or synchronize, and
-    the column-solve selector hands out each kernel's plain version,
-    counted as if it were that kernel's launches."""
+    """The smoke's phases on the CPU: no CUDA events, graphs or
+    synchronize, the default device is the CPU, and the column-solve
+    selector hands out each kernel's plain version, counted as if it were
+    that kernel's launches (1 ms a kernel call)."""
 
     def counted(kernel, plain):
         def solve(w, binv, u, d):
@@ -72,6 +73,11 @@ def cpu_rehearsal(monkeypatch):
 
     monkeypatch.setattr(stepper, "column_solver", column_solver)
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps: (fn(), 0.0)[1])
+    monkeypatch.setattr(chip_smoke, "graph_ms", lambda fn, reps: (fn(), 1.0)[1])
+    # the card: what the smoke builds without device= lands here
+    monkeypatch.setattr(config, "device",
+                        lambda dev=None: torch.device("cpu" if dev is None
+                                                      else dev))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.delenv("QUFLOW_PALLAS_KERNEL", raising=False)
     physics._poisson.cache_clear()  # the energy logs' solve: built anew
@@ -79,9 +85,25 @@ def cpu_rehearsal(monkeypatch):
     physics._poisson.cache_clear()
 
 
+def test_solve_bound():
+    """Bytes bound both tiers: (16 B + 12) N (N+1) bytes for complex64,
+    twice that for complex128, at 3.35 TB/s."""
+    ms, by = chip_smoke.solve_bound(1024, 1, torch.complex64)
+    assert by == "bytes"
+    assert ms == pytest.approx(28 * 1024 * 1025 / 3.35e9, rel=1e-12)
+    ms, by = chip_smoke.solve_bound(1024, 4, torch.complex128)
+    assert by == "bytes"
+    assert ms == pytest.approx(2 * 76 * 1024 * 1025 / 3.35e9, rel=1e-12)
+
+
 def test_phases_rehearse_on_cpu(cpu_rehearsal):
     rows = chip_smoke.kernel_vs_plain("cpu", Ns=(16,), Bs=(1, 2))
     assert len(rows) == 4 and all(r["max_abs_err"] == 0.0 for r in rows)
+    for r in rows:
+        dtype = getattr(torch, r["dtype"])
+        assert (r["bound_ms"], r["bound_by"]) == chip_smoke.solve_bound(
+            16, r["B"], dtype)
+        assert r["share"] == r["bound_ms"] / r["ms"]
     c64 = chip_smoke.main_path_c64("cpu", N=32, steps=10, steps_out=5,
                                    compare_steps=2)
     assert c64["launches"] == c64["expected_launches"] == 10 * 5 + 3
@@ -97,6 +119,7 @@ def test_scan_and_mhd_phases_rehearse_on_cpu(cpu_rehearsal):
         plain=shear_scan_reference, against=shear_thomas)
     assert len(scan) == 8 and all(r["max_abs_err"] == 0.0 for r in scan)
     assert all(r["vs_shear_thomas_rel"] <= 1e-5 for r in scan)
+    assert all(r["share"] == r["bound_ms"] for r in scan)
     # the Euler path first, as in the smoke: its energy logs build the
     # Poisson solve that the MHD logs reuse
     chip_smoke.main_path_c64("cpu", N=32, steps=2, steps_out=1,

@@ -244,7 +244,7 @@ def test_solve_with_magmp_torch_matches():
 
 def test_magmp_torch_registry():
     """magmp_torch resolves by name, keeps one warm instance per
-    (maxit, fast), steps like MagmpTorch, and raises on tol/minit/compsum
+    (maxit, fast, device), steps like MagmpTorch, and raises on tol/minit/compsum
     instead of dropping them."""
     assert registry.resolve("magmp_torch") is registry.magmp_torch
     assert registry.name_of(registry.magmp_torch) == "magmp_torch"
@@ -252,17 +252,19 @@ def test_magmp_torch_registry():
     S0 = _rand_mhd_state(N, seed=4)
     dt = 0.2 * qf.hbar(N)
     got = registry.magmp_torch(S0.copy(), dt, steps=6, maxit=7, fast=False,
-                               time=0.0)
+                               time=0.0, device="cpu")
     ref = tst.MagmpTorch(maxit=7, dtype=np.complex128, device="cpu")(
         S0.copy(), dt, steps=6)
     np.testing.assert_array_equal(got, ref)
-    key = (tst.MagmpTorch, 7, False)
+    key = (tst.MagmpTorch, 7, False, torch.device("cpu"))
     inst = registry._WARM[key]
-    registry.magmp_torch(S0.copy(), dt, steps=1, maxit=7, fast=False)
+    registry.magmp_torch(S0.copy(), dt, steps=1, maxit=7, fast=False,
+                         device="cpu")
     assert registry._WARM[key] is inst
     for kw in ("tol", "minit", "compsum"):
         with pytest.raises(TypeError, match=kw):
-            registry.magmp_torch(S0.copy(), dt, steps=1, **{kw: 1})
+            registry.magmp_torch(S0.copy(), dt, steps=1, device="cpu",
+                                 **{kw: 1})
 
 
 def test_mhd_flow_matches():

@@ -220,12 +220,15 @@ def test_dot_cols_and_m0_correction_match(N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
-def test_kernel_matches_reference_on_card(cuda, dtype):
+@pytest.mark.parametrize("N", [100, 257, 1024])
+@pytest.mark.parametrize("B", [1, 3])
+def test_kernel_matches_reference_on_card(cuda, dtype, N, B):
     """The CUDA kernel against its plain version on the card: the same
-    roundings in the same order, so bit-equal."""
-    N, B = 257, 3
+    roundings in the same order, so bit-equal, at ragged edges too: N not
+    a multiple of a ring slot's rows, N+1 not a multiple of a tile's 16
+    columns, and three batch entries."""
     w, binv, u = tst._real_factors(N, dtype, device=cuda)
-    g = torch.Generator(device=cuda).manual_seed(0)
+    g = torch.Generator(device=cuda).manual_seed(N + B)
     d = torch.randn(B, N, N + 1, dtype=dtype, device=cuda, generator=g)
     before = shear_thomas.launches
     x = shear_thomas(w, binv, u, d)

@@ -2,6 +2,8 @@
 solve and QuSimulation against quflow_tpu's build_step_fn, IsompTPU,
 qf.solve and qf.QuSimulation, on the same numpy inputs."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -129,7 +131,8 @@ def test_unported_options_raise():
     # the registry wrapper raises instead of dropping tol/minit/compsum
     for kw in ("tol", "minit", "compsum"):
         with pytest.raises(TypeError, match=kw):
-            registry.isomp_torch(_rand_skewh(8, 0), 0.1, steps=1, **{kw: 1})
+            registry.isomp_torch(_rand_skewh(8, 0), 0.1, steps=1,
+                                 device="cpu", **{kw: 1})
 
 
 def test_euler_flow_matches():
@@ -149,7 +152,8 @@ def test_solve_with_qusimulation_matches(tmp_path):
     N = 16
     W0 = JEulerFlow(N, np.complex128).random_initial(lmax=6, seed=42)
     loggers_j = {"energy": qf.energy_euler, "enstrophy": qf.enstrophy}
-    loggers_t = {"energy": qt.energy_euler, "enstrophy": qt.enstrophy}
+    loggers_t = {"energy": functools.partial(qt.energy_euler, device="cpu"),
+                 "enstrophy": qt.enstrophy}
     sj = qf.QuSimulation(tmp_path / "jax.hdf5", overwrite=True, state=W0,
                          loggers=loggers_j)
     st = qt.QuSimulation(tmp_path / "torch.hdf5", overwrite=True, state=W0,
@@ -213,8 +217,8 @@ def test_solve_resumes_with_integrator_stored_by_name(tmp_path):
                         ("integrator", registry.isomp_torch)):
         sim[name] = value
     assert sim["integrator"] is registry.isomp_torch
-    qt.solve(sim, progress_bar=False)
-    qt.solve(sim, progress_bar=False)
+    qt.solve(sim, progress_bar=False, device="cpu")
+    qt.solve(sim, progress_bar=False, device="cpu")
     assert sim["step"][-1] == 40
     t = sim["time"]
     np.testing.assert_allclose(np.diff(t), t[1] - t[0])
