@@ -1,23 +1,40 @@
 """The port's column solves on one CUDA card: kernel times, bounds, the
-scan-versus-Thomas sweep and the Euler step's wall and device time.
+scan-versus-Thomas sweep and the Euler and MHD steps' wall and device time.
 
-    python3 benchmarks/torch_column_solve.py [--against OTHER.cu] [--phases P,...]
+    python3 benchmarks/torch_column_solve.py [--against OTHER.cu]
+        [--against-rule MIN,MAX] [--phases P,...]
+
+``--against`` names another build of ``shear_thomas.cu`` or of
+``shear_scan.cu`` (say a parent commit's, from ``git show``); which of the
+two it is is read from the symbols it exports.  A ``shear_scan.cu`` that
+was written for another chunk rule gets its rows per chunk from
+``--against-rule``: max(MIN, ceil(N / MAX)) (``8,32`` for the rule before
+the kernel kept its panel in shared memory).
 
 Phases, each printed as JSON lines:
 
-- ``check``: ``shear_thomas`` (and the ``--against`` build) bit-equal to
-  its plain version at ragged shapes, both dtypes;
-- ``time``: ``shear_thomas`` at N in {512, 1024, 2048, 4096}, batch in
-  {1, 4, 8}, both dtypes, by CUDA-graph replay (chip_smoke.graph_ms), with
-  its bound and share; with ``--against``, that build of another
-  ``shear_thomas.cu`` (say a parent commit's, from ``git show``) timed in
-  turns other, this, this, other;
+- ``check``: each kernel (with ``--against``: that kernel and its other
+  build) against its plain version at ragged shapes, both dtypes:
+  bit-equal; for the scan also the relative error against a complex128
+  Thomas solve, which is what two chunk rules are compared on;
+- ``time``: each kernel (with ``--against``: that one) at N in {512, 1024,
+  2048, 4096}, batch in {1, 4, 8}, both dtypes, by CUDA-graph replay
+  (chip_smoke.graph_ms), with its bound and share; the other build timed
+  in turns other, this, this, other;
 - ``sweep``: ``shear_scan`` against ``shear_thomas``, N in {512, ..., 4096},
   batch in {1, 2, 4, 8}, in turns thomas, scan, scan, thomas;
 - ``steps``: the Euler stepper (20 steps a call, maxit 5) at N=1024
   complex64 and N=512 complex128: ms a step on the host clock, six
-  readings of each build in turns, and one call under torch.profiler for
-  the card's time a step and the kernel's share of it.
+  readings of each ``shear_thomas`` build in turns, and one call under
+  torch.profiler for the card's time a step and the kernel's share of it;
+- ``mhd``: the MHD stepper through ``shear_scan`` (maxit 5) at N=1024 and
+  N=4096 complex64: ms a step on the host clock, and one call under
+  torch.profiler: the card's time a step by kernel name, and the share of
+  the step the card idles;
+- ``large``: ``shear_scan`` and ``shear_thomas`` at N=8192, B=1, complex64
+  (128 chunks, the most a column can have): each one's relative error
+  against a complex128 Thomas solve (the scan's at most 3 times the
+  other's) and both times; not run unless asked for.
 
 Needs one CUDA card and nvcc; imports nothing of JAX.
 """
@@ -36,17 +53,30 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from quflow_tpu_torch import hbar  # noqa: E402
-from quflow_tpu_torch.models import EulerFlow  # noqa: E402
+from quflow_tpu_torch.models import EulerFlow, MHDFlow  # noqa: E402
 from quflow_tpu_torch.ops import cuda_build, cuda_scan_solve, cuda_solve  # noqa: E402
 from quflow_tpu_torch.ops.cuda_solve import (  # noqa: E402
     launch_solve,
     shear_thomas,
     shear_thomas_reference,
 )
-from quflow_tpu_torch.ops.cuda_scan_solve import shear_scan  # noqa: E402
-from quflow_tpu_torch.parallel.stepper import _real_factors, build_step_fn  # noqa: E402
+from quflow_tpu_torch.ops.cuda_scan_solve import (  # noqa: E402
+    chunk_rows,
+    shear_scan,
+    shear_scan_reference,
+)
+from quflow_tpu_torch.parallel.stepper import (  # noqa: E402
+    _real_factors,
+    build_mhd_step_fn,
+    build_step_fn,
+)
 
 DTYPES = (torch.complex64, torch.complex128)
+KERNELS = {"shear_thomas": (shear_thomas, shear_thomas_reference),
+           "shear_scan": (shear_scan, shear_scan_reference)}
+RAGGED = ((1, 1), (2, 3), (7, 2), (100, 1), (100, 3), (257, 1), (257, 3),
+          (1000, 1), (1000, 3), (1024, 1), (1024, 3), (513, 9), (64, 20),
+          (2047, 2), (4100, 1))
 
 
 def data(N, B, dtype, device):
@@ -62,43 +92,62 @@ def in_turns(a, b, reps=20):
     return t, (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
-def check(device, other):
+def truth(w, binv, u, d):
+    """The Thomas solve in complex128, whatever the dtype of the input."""
+    return shear_thomas(w.double(), binv.double(), u.double(),
+                        d.to(torch.complex128))
+
+
+def check(device, names, other):
     bad = []
-    for dtype in DTYPES:
-        for N, B in ((1, 1), (2, 3), (7, 2), (100, 1), (100, 3), (257, 1),
-                     (257, 3), (1024, 1), (1024, 3), (513, 9), (64, 20)):
-            w, binv, u, d = data(N, B, dtype, device)
-            ref = shear_thomas_reference(w, binv, u, d)
-            row = dict(phase="check", dtype=str(dtype)[6:], N=N, B=B,
-                       err=(shear_thomas(w, binv, u, d) - ref).abs().max().item())
-            if other is not None:
-                row["err_against"] = (other(w, binv, u, d) - ref).abs().max().item()
-            print(json.dumps(row), flush=True)
-            if row["err"] != 0.0:
-                bad.append(row)
-    if bad:
-        raise AssertionError(f"shear_thomas not bit-equal: {bad}")
-
-
-def timing(device, other):
-    for dtype in DTYPES:
-        for N in (512, 1024, 2048, 4096):
-            for B in (1, 4, 8):
+    for name in names:
+        kernel, plain = KERNELS[name]
+        for dtype in DTYPES:
+            for N, B in RAGGED:
                 w, binv, u, d = data(N, B, dtype, device)
-                bound, _ = chip_smoke.solve_bound(N, B, dtype)
-                new = lambda: shear_thomas(w, binv, u, d)  # noqa: E731
-                row = dict(phase="time", dtype=str(dtype)[6:], N=N, B=B,
-                           bound_ms=bound)
-                if other is None:
-                    row["ms"] = chip_smoke.graph_ms(new, 20)
-                else:
-                    row["readings"], row["against_ms"], row["ms"] = in_turns(
-                        lambda: other(w, binv, u, d), new)
-                    row["speedup"] = row["against_ms"] / row["ms"]
-                    row["share_against"] = bound / row["against_ms"]
-                row["share"] = bound / row["ms"]
+                x = kernel(w, binv, u, d)
+                row = dict(phase="check", kernel=name, dtype=str(dtype)[6:],
+                           N=N, B=B,
+                           err=(x - plain(w, binv, u, d)).abs().max().item())
+                if name == "shear_scan" or other is not None:
+                    t = truth(w, binv, u, d)
+                    scale = t.abs().max()
+                    row["rel_err_c128"] = ((x - t).abs().max() / scale).item()
+                    if other is not None:
+                        row["rel_err_c128_against"] = (
+                            (other(w, binv, u, d) - t).abs().max()
+                            / scale).item()
                 print(json.dumps(row), flush=True)
-                del d
+                if row["err"] != 0.0:
+                    bad.append(row)
+    if bad:
+        raise AssertionError(f"not bit-equal: {bad}")
+
+
+def timing(device, names, other):
+    for name in names:
+        kernel = KERNELS[name][0]
+        for dtype in DTYPES:
+            for N in (512, 1024, 2048, 4096):
+                for B in (1, 4, 8):
+                    w, binv, u, d = data(N, B, dtype, device)
+                    bound, _ = chip_smoke.solve_bound(N, B, dtype)
+                    new = lambda: kernel(w, binv, u, d)  # noqa: E731
+                    row = dict(phase="time", kernel=name,
+                               dtype=str(dtype)[6:], N=N, B=B, bound_ms=bound)
+                    if name == "shear_scan":
+                        row["geometry"] = cuda_scan_solve.geometry(B, N, dtype)
+                    if other is None:
+                        row["ms"] = chip_smoke.graph_ms(new, 20)
+                    else:
+                        (row["readings"], row["against_ms"],
+                         row["ms"]) = in_turns(
+                            lambda: other(w, binv, u, d), new)
+                        row["speedup"] = row["against_ms"] / row["ms"]
+                        row["share_against"] = bound / row["against_ms"]
+                    row["share"] = bound / row["ms"]
+                    print(json.dumps(row), flush=True)
+                    del d
 
 
 def sweep(device):
@@ -115,20 +164,43 @@ def sweep(device):
                 del d
 
 
-def step_ms(fn, st, calls=10):
-    """Host-clock ms a step of ``calls`` calls of 20 steps, after one."""
+def large(device, N=8192):
+    w, binv, u, d = data(N, 1, torch.complex64, device)
+    t = truth(w, binv, u, d)
+    scale = t.abs().max()
+    err = {f.__name__: ((f(w, binv, u, d) - t).abs().max() / scale).item()
+           for f in (shear_scan, shear_thomas)}
+    del t
+    r, thomas_ms, scan_ms = in_turns(lambda: shear_thomas(w, binv, u, d),
+                                     lambda: shear_scan(w, binv, u, d), reps=5)
+    bound, _ = chip_smoke.solve_bound(N, 1, torch.complex64)
+    print(json.dumps(dict(phase="large", N=N, B=1, dtype="complex64",
+                          geometry=cuda_scan_solve.geometry(
+                              1, N, torch.complex64),
+                          rel_err_c128=err, thomas_ms=thomas_ms,
+                          scan_ms=scan_ms, bound_ms=bound, readings=r)),
+          flush=True)
+    if not err["shear_scan"] <= 3 * err["shear_thomas"]:
+        raise AssertionError(f"errors against complex128 at N={N}: {err}")
+
+
+def step_ms(fn, st, calls=10, steps=20):
+    """Host-clock ms a step of ``calls`` calls of ``steps`` steps, after
+    one."""
     st = fn(*st)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
         st = fn(*st)
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / (20 * calls)
+    return (time.perf_counter() - t0) * 1e3 / (steps * calls)
 
 
-def profiled(fn, st):
-    """One call of 20 steps under torch.profiler: the card's ms a step, the
-    column solve's share of it, and the host-clock ms a step."""
+def profiled(fn, st, steps=20, solve="shear_thomas", top=0):
+    """One call of ``steps`` steps under torch.profiler: the card's ms a
+    step, the column solve's share of it, the host-clock ms a step and,
+    with ``top``, the ``top`` kernels by time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(*st)
@@ -139,13 +211,24 @@ def profiled(fn, st):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     device_us = solve_us = 0.0
+    by_name = []
     for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue  # an operator's entry repeats its kernels' time
         t = e.self_device_time_total
         device_us += t
-        if "shear_thomas" in e.key:
+        if solve in e.key:
             solve_us += t
-    return dict(device_ms=device_us / 20e3, shear_thomas_ms=solve_us / 20e3,
-                wall_ms_profiled=wall * 1e3 / 20)
+        if t > 0:
+            by_name.append((t, e.count, e.key))
+    row = {"device_ms": device_us / (1e3 * steps),
+           f"{solve}_ms": solve_us / (1e3 * steps),
+           "wall_ms_profiled": wall * 1e3 / steps}
+    if top:
+        row["kernels"] = [dict(name=key[:72], ms_a_step=t / (1e3 * steps),
+                               calls_a_step=n / steps)
+                          for t, n, key in sorted(by_name, reverse=True)[:top]]
+    return row
 
 
 def steps(device, libraries):
@@ -171,11 +254,34 @@ def steps(device, libraries):
         print(json.dumps(row), flush=True)
 
 
+def mhd(device):
+    for N, n, calls in ((1024, 20, 5), (4096, 2, 2)):
+        S0 = torch.from_numpy(MHDFlow(N, np.complex64).random_initial(
+            lmax=10, seed=42)).to(device)
+        z = torch.zeros_like(S0)
+        fn = build_mhd_step_fn(N, 0.25 * hbar(N), steps=n, maxit=5,
+                               dtype=np.complex64, device=device,
+                               solver=shear_scan)
+        readings = [step_ms(fn, (S0, z, z), calls=calls, steps=n)
+                    for _ in range(3)]
+        row = dict(phase="mhd", N=N, dtype="complex64", steps_a_call=n,
+                   ms_a_step=readings, median_ms=float(np.median(readings)),
+                   **profiled(fn, (S0, z, z), steps=n, solve="shear_scan",
+                              top=14))
+        row["idle_share"] = 1 - row["device_ms"] / row["median_ms"]
+        print(json.dumps(row), flush=True)
+        del S0, z, fn
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path,
-                    help="another shear_thomas.cu to time in turns")
-    ap.add_argument("--phases", default="check,time,sweep,steps")
+                    help="another shear_thomas.cu or shear_scan.cu to time "
+                         "in turns")
+    ap.add_argument("--against-rule", default=None, metavar="MIN,MAX",
+                    help="rows per chunk of an --against shear_scan.cu: "
+                         "max(MIN, ceil(N / MAX)); default: this tree's rule")
+    ap.add_argument("--phases", default="check,time,sweep,steps,mhd")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_column_solve.py: no CUDA device")
@@ -184,26 +290,48 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     libs = [cuda_solve.LIBRARY, cuda_scan_solve.LIBRARY]
+    names = list(KERNELS)
+    other = None
+    libraries = {}
     if args.against is not None:
-        against = cuda_build.CudaLibrary("shear_thomas", cuda_solve._bind)
+        text = args.against.read_text()
+        name = next(k for k in KERNELS if f"{k}_f32" in text)
+        names = [name]
+        n_ints = 4 if name == "shear_thomas" else 5  # the scan takes L too
+
+        def bind(lib):
+            for suffix in ("f32", "f64"):
+                cuda_build.launcher_argtypes(
+                    getattr(lib, f"{name}_{suffix}"), 5, n_ints)
+            cuda_build.bind_error_string(getattr(lib, f"{name}_error"))
+
+        against = cuda_build.CudaLibrary(name, bind)
         against.source = args.against.resolve()
         libs.append(against)
     paths = cuda_build.build_all(libs)
     for path in paths:
         print(json.dumps({"ptxas": path.name, "report": chip_smoke.ptxas_summary(
             path.with_suffix(".log").read_text())}), flush=True)
-    other = None
-    libraries = {"this": cuda_solve.LIBRARY.load()}
     if args.against is not None:
-        libraries = {"against": against.load(), **libraries}
+        rows = chunk_rows
+        if args.against_rule:
+            lo, hi = map(int, args.against_rule.split(","))
+            rows = lambda N: max(lo, -(-N // hi))  # noqa: E731
+        extra = (lambda N: (rows(N),)) if name == "shear_scan" else (
+            lambda N: ())
         other = lambda w, binv, u, d: launch_solve(  # noqa: E731
-            "shear_thomas", against, w, binv, u, d)
+            name, against, w, binv, u, d, *extra(d.shape[-2]))
+        if name == "shear_thomas":
+            libraries = {"against": against.load()}
+    libraries["this"] = cuda_solve.LIBRARY.load()
     for phase in args.phases.split(","):
         t0 = time.perf_counter()
-        {"check": lambda: check(device, other),
-         "time": lambda: timing(device, other),
+        {"check": lambda: check(device, names, other),
+         "time": lambda: timing(device, names, other),
          "sweep": lambda: sweep(device),
-         "steps": lambda: steps(device, libraries)}[phase]()
+         "steps": lambda: steps(device, libraries),
+         "mhd": lambda: mhd(device),
+         "large": lambda: large(device)}[phase]()
         print(json.dumps({"phase_seconds": phase,
                           "s": time.perf_counter() - t0}), flush=True)
 

@@ -26,11 +26,14 @@ nonzero exit code and no result line.
              through the plain solve to <= 1e-5 relative; steps/s;
 5. main path, complex128, N=512, 200 steps - relative drift of tr(W^2) and
              tr(W^3) <= 1e-10; steps/s;
-6. scan    - ``shear_scan`` against its plain version on the card at N in
-             {512, 1024, 4096}, batch in {1, 4}: bit-equal; times as in
-             phase 3, of ``shear_thomas`` on the same input too, the
-             relative difference of the two kernels, the bound and the
-             share;
+6. scan    - ``shear_scan`` against its plain version on the card at the
+             shapes of phase 3: bit-equal; times as in phase 3, of
+             ``shear_thomas`` on the same input too, the relative
+             difference of the two kernels, the bound and the share; then,
+             untimed, bit-equal at ragged shapes that cross the kernel's
+             seams (N in {1, 7, 100, 257, 1000}: below one chunk, a short
+             last chunk, chunks that do not fill the cluster's blocks, a
+             last tile of one or two columns; batch in {1, 3});
 7. MHD path, complex64, N=1024 - MHDFlow initial data, ``solve`` with
              ``MagmpTorch(maxit=5)`` under QUFLOW_PALLAS_KERNEL=scan, 100
              steps, invariants logged every 20 (kinetic + magnetic energy,
@@ -157,46 +160,66 @@ def solve_bound(N, B, dtype):
                                         else "operations")
 
 
-def kernel_vs_plain(device, Ns=(512, 1024, 2048, 4096), Bs=(1, 4, 8),
-                    reps=20, plain_reps=2, kernel=shear_thomas,
-                    plain=shear_thomas_reference, against=None):
-    """Phases 3 and 6: ``kernel`` against ``plain``, one row per (dtype, N,
-    B): bit-equal (the same roundings in the same order); at B=8 one timed
-    call of the plain version.  With ``against``, that kernel's time on the
-    same input and the relative difference of the two."""
-    rows = []
+def solve_inputs(device, Ns, Bs):
+    """(dtype, N, B, w, binv, u, d) for both dtypes, every N and B: the
+    Poisson factors and a seeded random rhs on ``device``."""
     for dtype in (torch.complex64, torch.complex128):
         for N in Ns:
             w, binv, u = _real_factors(N, dtype, device=device)
             for B in Bs:
                 g = torch.Generator(device=device).manual_seed(1000 * N + B)
-                d = torch.randn(B, N, N + 1, dtype=dtype, device=device,
-                                generator=g)
-                x = kernel(w, binv, u, d)
-                ref = plain(w, binv, u, d)
-                abs_err = (x - ref).abs().max().item()
-                if abs_err != 0.0:
-                    raise AssertionError(
-                        f"{kernel.__name__} {dtype} N={N} B={B}: max abs "
-                        f"error {abs_err:.3e}, not bit-equal")
-                bound_ms, bound_by = solve_bound(N, B, dtype)
-                ms = graph_ms(lambda: kernel(w, binv, u, d), reps)
-                row = dict(
-                    dtype=str(dtype).removeprefix("torch."), N=N, B=B,
-                    max_abs_err=abs_err, ms=ms,
-                    plain_ms=cuda_ms(lambda: plain(w, binv, u, d),
-                                     plain_reps if B < 8 else 1),
-                    bound_ms=bound_ms, bound_by=bound_by,
-                    share=bound_ms / ms)
-                if against is not None:
-                    other = against(w, binv, u, d)
-                    row[f"vs_{against.__name__}_rel"] = (
-                        (x - other).abs().max() / other.abs().max()).item()
-                    row[f"{against.__name__}_ms"] = graph_ms(
-                        lambda: against(w, binv, u, d), reps)
-                rows.append(row)
-                del x, ref, d
+                yield dtype, N, B, w, binv, u, torch.randn(
+                    B, N, N + 1, dtype=dtype, device=device, generator=g)
+
+
+def bit_equal(kernel, plain, dtype, N, B, w, binv, u, d):
+    """``kernel`` and ``plain`` on the same input: the kernel's result and
+    the max abs error, which must be 0 (the same roundings in the same
+    order)."""
+    x = kernel(w, binv, u, d)
+    abs_err = (x - plain(w, binv, u, d)).abs().max().item()
+    if abs_err != 0.0:
+        raise AssertionError(
+            f"{kernel.__name__} {dtype} N={N} B={B}: max abs error "
+            f"{abs_err:.3e}, not bit-equal")
+    return x, abs_err
+
+
+def kernel_vs_plain(device, Ns=(512, 1024, 2048, 4096), Bs=(1, 4, 8),
+                    reps=20, plain_reps=2, kernel=shear_thomas,
+                    plain=shear_thomas_reference, against=None):
+    """Phases 3 and 6: ``kernel`` against ``plain``, one row per (dtype, N,
+    B): bit-equal; at B=8 one timed call of the plain version.  With
+    ``against``, that kernel's time on the same input and the relative
+    difference of the two."""
+    rows = []
+    for dtype, N, B, w, binv, u, d in solve_inputs(device, Ns, Bs):
+        x, abs_err = bit_equal(kernel, plain, dtype, N, B, w, binv, u, d)
+        bound_ms, bound_by = solve_bound(N, B, dtype)
+        ms = graph_ms(lambda: kernel(w, binv, u, d), reps)
+        row = dict(
+            dtype=str(dtype).removeprefix("torch."), N=N, B=B,
+            max_abs_err=abs_err, ms=ms,
+            plain_ms=cuda_ms(lambda: plain(w, binv, u, d),
+                             plain_reps if B < 8 else 1),
+            bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms)
+        if against is not None:
+            other = against(w, binv, u, d)
+            row[f"vs_{against.__name__}_rel"] = (
+                (x - other).abs().max() / other.abs().max()).item()
+            row[f"{against.__name__}_ms"] = graph_ms(
+                lambda: against(w, binv, u, d), reps)
+        rows.append(row)
     return rows
+
+
+def ragged_bit_equal(device, kernel, plain, Ns=(1, 7, 100, 257, 1000),
+                     Bs=(1, 3)):
+    """``kernel`` against ``plain`` at shapes that cross the kernel's
+    seams, untimed: one row per (dtype, N, B), bit-equal or it raises."""
+    return [dict(dtype=str(dtype).removeprefix("torch."), N=N, B=B,
+                 max_abs_err=bit_equal(kernel, plain, dtype, N, B, *rest)[1])
+            for dtype, N, B, *rest in solve_inputs(device, Ns, Bs)]
 
 
 class Logger:
@@ -502,10 +525,13 @@ def main():
     c128 = main_path_c128(device)
     print("phase 5 main path c128: " + json.dumps(c128), flush=True)
 
-    scan_rows = kernel_vs_plain(device, Ns=(512, 1024, 4096), Bs=(1, 4),
-                                kernel=shear_scan, plain=shear_scan_reference,
+    scan_rows = kernel_vs_plain(device, kernel=shear_scan,
+                                plain=shear_scan_reference,
                                 against=shear_thomas)
     print("phase 6 scan kernel vs plain: " + json.dumps(scan_rows), flush=True)
+    ragged = ragged_bit_equal(device, shear_scan, shear_scan_reference)
+    print("phase 6 scan kernel vs plain, ragged: " + json.dumps(ragged),
+          flush=True)
 
     m64 = mhd_c64(device)
     print("phase 7 MHD c64: " + json.dumps(m64), flush=True)
@@ -547,7 +573,7 @@ def main():
             "mhd_c64_N1024": m64["integrator_launches"]["shear_scan"],
             "mhd_c128_N512": m128["launches"]["shear_scan"],
             "mhd_c64_N4096": big["launches"]["shear_scan"]},
-        "max_abs_err": max(r["max_abs_err"] for r in scan_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in scan_rows + ragged),
         **timing(scan_rows),
         "library_ms": None,
     }]}), flush=True)

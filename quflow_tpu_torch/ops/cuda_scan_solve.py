@@ -15,7 +15,8 @@ runs every chunk from a zero carry and keeps its affine summary (the
 product of its coefficients -w or -u, and its end value), composes the K
 summaries in order into the carry that enters each chunk, and runs every
 chunk again from its carry.  On a CUDA tensor it launches the kernel of
-csrc/shear_scan.cu, one thread per (column, chunk); on a CPU tensor it
+csrc/shear_scan.cu (one thread per (column, chunk), the rows resident in
+the shared memory of a thread block cluster); on a CPU tensor it
 runs :func:`shear_scan_reference`, the plain PyTorch version with the
 same chunks and the same roundings in the same order.  Nothing falls back: a
 build or launch failure raises.
@@ -23,23 +24,31 @@ build or launch failure raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .cuda_build import CudaLibrary, bind_error_string, launcher_argtypes
 from .cuda_solve import check_solve_args, launch_solve
 
-__all__ = ["shear_scan", "shear_scan_reference", "chunk_rows", "LIBRARY"]
+__all__ = ["shear_scan", "shear_scan_reference", "chunk_rows", "geometry",
+           "LIBRARY"]
 
-#: chunks of one column: the kernel's thread block is (8 columns, K chunks)
-MAX_CHUNKS = 32
+#: chunks of one column, at most: the length of the serial compose, and of
+#: the kernel's table of summaries
+MAX_CHUNKS = 128
 #: rows the kernel reads ahead into registers; no chunk is made shorter
 MIN_CHUNK = 8
+#: no chunk is made longer while that keeps the chunks under MAX_CHUNKS
+LONG_CHUNK = 64
 
 
 def chunk_rows(N):
-    """Rows per chunk for N-row columns: ceil(N / 32) and at least 8, i.e.
-    at most 32 chunks."""
-    return max(MIN_CHUNK, -(-N // MAX_CHUNKS))
+    """Rows per chunk for N-row columns: ceil(N / 32), at least 8 and at
+    most 64 (32 chunks to N=2048, 64 at N=4096, 128 at N=8192); beyond
+    N=8192, ceil(N / 128), i.e. never more than 128 chunks."""
+    return max(min(LONG_CHUNK, max(MIN_CHUNK, -(-N // 32))),
+               -(-N // MAX_CHUNKS))
 
 
 def _rows(t, K, L, fill):
@@ -127,9 +136,31 @@ def shear_scan(w, binv, u, d):
 shear_scan.launches = 0
 
 
+def geometry(B, N, dtype, device=0):
+    """What the kernel launches for a batch of B complex ``dtype`` (N, N+1)
+    arrays on CUDA device ``device``: the columns of a tile, the blocks of
+    a cluster, the chunks of a block, the bytes of shared memory a block,
+    the clusters the card runs at once, and the clusters that share a
+    tile's batch entries (each solves B / that many, one after the other,
+    with the factors read once)."""
+    lib = LIBRARY.load()
+    fn = (lib.shear_scan_geometry_f32 if dtype == torch.complex64
+          else lib.shear_scan_geometry_f64)
+    out = (ctypes.c_int * 6)()
+    err = fn(B, N, N + 1, chunk_rows(N), device, out)
+    if err != 0:
+        raise RuntimeError(f"shear_scan geometry: cudaError_t {err} "
+                           f"({lib.shear_scan_error(err).decode()})")
+    return dict(zip(("tile_columns", "cluster_blocks", "block_chunks",
+                     "shared_bytes", "active_clusters", "batch_groups"), out))
+
+
 def _bind(lib):
     for fn in (lib.shear_scan_f32, lib.shear_scan_f64):
         launcher_argtypes(fn, 5, 5)
+    for fn in (lib.shear_scan_geometry_f32, lib.shear_scan_geometry_f64):
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
     bind_error_string(lib.shear_scan_error)
 
 

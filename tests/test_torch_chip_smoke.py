@@ -120,6 +120,16 @@ def test_scan_and_mhd_phases_rehearse_on_cpu(cpu_rehearsal):
     assert len(scan) == 8 and all(r["max_abs_err"] == 0.0 for r in scan)
     assert all(r["vs_shear_thomas_rel"] <= 1e-5 for r in scan)
     assert all(r["share"] == r["bound_ms"] for r in scan)
+    # the defaults are the shapes of phase 3, so phase 6 times the same ones
+    defaults = chip_smoke.kernel_vs_plain.__defaults__
+    assert defaults[:2] == ((512, 1024, 2048, 4096), (1, 4, 8))
+    ragged = chip_smoke.ragged_bit_equal("cpu", shear_scan,
+                                         shear_scan_reference, Ns=(1, 7, 40))
+    assert [(r["N"], r["B"]) for r in ragged] == [
+        (1, 1), (1, 3), (7, 1), (7, 3), (40, 1), (40, 3)] * 2
+    assert all(r["max_abs_err"] == 0.0 for r in ragged)
+    assert chip_smoke.ragged_bit_equal.__defaults__ == (
+        (1, 7, 100, 257, 1000), (1, 3))
     # the Euler path first, as in the smoke: its energy logs build the
     # Poisson solve that the MHD logs reuse
     chip_smoke.main_path_c64("cpu", N=32, steps=2, steps_out=1,

@@ -76,11 +76,15 @@ def test_reference_f32_error_comparable():
 
 
 @pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("N", [96, 100, 128, 250, 256, 257])
+@pytest.mark.parametrize("N", [7, 96, 100, 250, 257, 2100])
 def test_reference_matches_thomas(N, B):
-    """The chunked solve against the serial one in complex128, with whole
-    chunks (96, 128, 256) and with a short last chunk (100 = 12*8 + 4,
-    250 = 31*8 + 2, 257 = 28*9 + 5)."""
+    """The chunked solve against the serial one in complex128: a single
+    short chunk (7), whole chunks (96 = 12*8), a short last chunk
+    (100 = 12*8 + 4, 250 = 31*8 + 2, 257 = 28*9 + 5, 2100 = 32*64 + 52
+    with the chunks held to 64 rows), and chunk counts that do not divide
+    among the 2, 4 or 8 blocks of a cluster (1, 13, 29, 33).  The most
+    chunks a column can have, 128 at N=8192, are held on the card
+    (benchmarks/torch_column_solve.py, phase ``large``)."""
     _, tf = _factors(N)
     rng = np.random.RandomState(N + B)
     d = torch.from_numpy(rng.randn(B, N, N + 1) + 1j * rng.randn(B, N, N + 1))
@@ -93,14 +97,21 @@ def test_reference_matches_thomas(N, B):
 
 
 def test_chunk_rows():
-    """At most 32 chunks (the kernel's block) of at least 8 rows; the
-    sizes the tests use for a short last chunk do give one."""
-    sizes = (12, 96, 100, 250, 257, 512, 1024, 4096)
-    assert [chunk_rows(N) for N in sizes] == [8, 8, 8, 8, 9, 16, 32, 128]
-    for N in range(1, 5000):
+    """ceil(N / 32) rows, at least 8, at most 64 while that leaves at most
+    128 chunks (the kernel's table of summaries); the sizes the tests use
+    for a short last chunk do give one."""
+    sizes = (7, 96, 100, 250, 257, 512, 1024, 2048, 2100, 4096, 8192, 8193,
+             16384)
+    assert [chunk_rows(N) for N in sizes] == [8, 8, 8, 8, 9, 16, 32, 64, 64,
+                                              64, 64, 65, 128]
+    for N in range(1, 20000):
         L = chunk_rows(N)
-        assert L >= 8 and -(-N // L) <= 32
-    assert [N % chunk_rows(N) for N in (100, 250, 257)] == [4, 2, 5]
+        assert L >= 8 and -(-N // L) <= 128
+        assert L == max(8, -(-N // 32)) or N > 2048
+    assert [N % chunk_rows(N) for N in (7, 100, 250, 257, 2100)] == [
+        7, 4, 2, 5, 52]
+    assert [-(-N // chunk_rows(N)) for N in (7, 100, 257, 2100, 8192)] == [
+        1, 13, 29, 33, 128]
 
 
 def test_wrapper_takes_plain_version_on_cpu():
@@ -236,13 +247,14 @@ def test_build_all_starts_one_compiler_per_source(monkeypatch, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [100, 257])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("N", [1, 7, 100, 257, 1000])
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
-def test_kernel_matches_reference_on_card(cuda, dtype, N):
-    """The CUDA kernel against its plain version on the card, with a short
-    last chunk and a ragged last block of columns: the same roundings in
-    the same order, so bit-equal."""
-    B = 3
+def test_kernel_matches_reference_on_card(cuda, dtype, N, B):
+    """The CUDA kernel against its plain version on the card, at shapes
+    that cross its seams (N below one chunk, a short last chunk, chunks
+    that do not fill the cluster's blocks, a ragged last tile of columns):
+    the same roundings in the same order, so bit-equal."""
     w, binv, u = tst._real_factors(N, dtype, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(0)
     d = torch.randn(B, N, N + 1, dtype=dtype, device=cuda, generator=g)
@@ -252,3 +264,20 @@ def test_kernel_matches_reference_on_card(cuda, dtype, N):
     assert shear_scan.launches == before + 1
     torch.testing.assert_close(
         x, shear_scan_reference(w, binv, u, d), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_refused_launch_raises_on_card(cuda):
+    """A launch the kernel refuses (here more chunks than its table of
+    summaries holds, or a cluster that asks for more shared memory than a
+    block may have) raises from the wrapper's launch and returns no
+    tensor."""
+    N = 1024
+    w, binv, u = tst._real_factors(N, torch.complex64, device=cuda)
+    d = torch.zeros(1, N, N + 1, dtype=torch.complex64, device=cuda)
+    with pytest.raises(RuntimeError, match="shear_scan launch failed"):
+        cuda_solve.launch_solve("shear_scan", cuda_scan_solve.LIBRARY,
+                                w, binv, u, d, 1)
+    geo = cuda_scan_solve.geometry(1, N, torch.complex64)
+    assert geo["cluster_blocks"] in (1, 2, 4, 8)
+    assert geo["shared_bytes"] <= 232448 and geo["active_clusters"] >= 1
