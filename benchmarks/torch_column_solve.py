@@ -1,5 +1,6 @@
 """The port's column solves on one CUDA card: kernel times, bounds, the
-scan-versus-Thomas sweep and the Euler and MHD steps' wall and device time.
+scan-versus-Thomas sweep, and the wall and device time of the Euler and MHD
+steps and of the reference-semantics loop.
 
     python3 benchmarks/torch_column_solve.py [--against OTHER.cu]
         [--against-rule MIN,MAX] [--phases P,...]
@@ -31,6 +32,11 @@ Phases, each printed as JSON lines:
   N=4096 complex64: ms a step on the host clock, and one call under
   torch.profiler: the card's time a step by kernel name, and the share of
   the step the card idles;
+- ``reference``: the reference-semantics loop, one host sync a
+  fixed-point iteration: ``EulerFlow(1024).step`` (``isomp``, tol 'auto',
+  maxit 10) and ``MHDFlow(512).step`` (``magmp``, tol 1e-12, maxit 20),
+  complex128, 20 steps a call: ms a step on the host clock, iterations a
+  step, and one call under torch.profiler as in ``mhd``;
 - ``large``: ``shear_scan`` and ``shear_thomas`` at N=8192, B=1, complex64
   (128 chunks, the most a column can have): each one's relative error
   against a complex128 Thomas solve (the scan's at most 3 times the
@@ -273,6 +279,28 @@ def mhd(device):
         del S0, z, fn
 
 
+def reference(device, steps=20):
+    for name, flow, kwargs in (
+            ("isomp", EulerFlow(1024), {}),
+            ("magmp", MHDFlow(512), dict(tol=1e-12, maxit=20))):
+        N = flow.N
+        S0 = torch.from_numpy(flow.random_initial(lmax=10, seed=42)).to(device)
+        dt = 0.25 * hbar(N)
+        stats = {}
+
+        def fn(S):
+            return (flow.step(S, dt, steps=steps, stats=stats, **kwargs),)
+
+        readings = [step_ms(fn, (S0,), calls=3, steps=steps) for _ in range(3)]
+        row = dict(phase="reference", integrator=name, N=N, dtype="complex128",
+                   tol=kwargs.get("tol", "auto"), ms_a_step=readings,
+                   median_ms=float(np.median(readings)),
+                   iterations_a_step=stats["iterations"],
+                   **profiled(fn, (S0,), steps=steps, top=12))
+        row["idle_share"] = 1 - row["device_ms"] / row["median_ms"]
+        print(json.dumps(row), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path,
@@ -331,6 +359,7 @@ def main():
          "sweep": lambda: sweep(device),
          "steps": lambda: steps(device, libraries),
          "mhd": lambda: mhd(device),
+         "reference": lambda: reference(device),
          "large": lambda: large(device)}[phase]()
         print(json.dumps({"phase_seconds": phase,
                           "s": time.perf_counter() - t0}), flush=True)

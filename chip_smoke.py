@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root; it needs one CUDA device, nvcc, and nothing
-of JAX.  Nine phases, one line each; any failure ends the run with a
+of JAX.  Thirteen phases, one line each; any failure ends the run with a
 nonzero exit code and no result line.
 
 1. device  - the card's name and power limit, as nvidia-smi reports them;
@@ -48,10 +48,41 @@ nonzero exit code and no result line.
              relative drift of tr(Theta^2) and tr(Theta^3) <= 1e-10; cross
              helicity drift; steps/s;
 9. MHD path, complex64, N=4096, 5 steps of the card-resident stepper
-             through ``shear_scan``: finite; launches; steps/s.
+             through ``shear_scan``: finite; launches; steps/s;
+10. reference path, complex128, N=1024 - the README's call: EulerFlow
+             initial data, ``solve(W0, stepsize=0.25, steps=100,
+             steps_out=20)`` with no integrator and no device (``isomp``,
+             tol 'auto', maxit 10, on the card), energy/enstrophy logged:
+             ``shear_thomas`` launched once per fixed-point iteration (the
+             stats' average times the steps) plus once per energy log, one
+             host sync per iteration; the Casimir drift under tol 'auto'
+             reported, and the gate: the same run at tol=1e-12, compsum,
+             maxit=20 drifts tr(W^2), tr(W^3) <= 1e-10; 10 steps through
+             the kernel equal to 10 through the plain column solve to
+             <= 1e-12 relative; iterations a step, steps/s, and the share of
+             host time spent in the per-iteration ``.item()``;
+11. reference path, complex64, N=1024 - ``GlobalQGFlow(gamma=1).step``
+             (``isomp`` with ``solve_globalqg``), 50 steps under
+             QUFLOW_PALLAS_KERNEL=scan: ``shear_scan`` launched once per
+             iteration and ``shear_thomas`` never; finite; enstrophy drift
+             <= 1e-3 (tol 'auto' in complex64 is float32-scale); the
+             seconds of the QG operator's first use (host factorization
+             and upload), then steps/s;
+12. the Poisson family on the card, N=1024, complex128 and complex64 -
+             ``solve_poisson``, ``solve_heat``, ``solve_helmholtz``,
+             ``solve_viscdamp`` (theta 1 and 0.5) and ``solve_globalqg`` on
+             a seeded skew-Hermitian matrix: one launch a call, the kernel
+             bit-equal to the same call with the plain column solve,
+             complex128 within 1e-12 relative of a host float64 reference
+             (scipy banded solves, column by column) and complex64's error
+             against it reported; laplace(solve_poisson(W)) = W to 1e-10;
+13. reference MHD path, complex128, N=512 - 50 steps of
+             ``MHDFlow.step`` (``magmp``) at tol=1e-12, maxit=20: one
+             launch per iteration (``laplace`` of Theta launches none);
+             tr(Theta^2), tr(Theta^3) drift <= 1e-10; steps/s.
 
-Every main path (phases 4, 5, 7, 8, 9) runs with every launch count set to
-0 just before it and read just after.  Then a JSON line of the kernels
+Every path (phases 4, 5, 7-13) runs with every launch count set to 0 just
+before it and read just after.  Then a JSON line of the kernels
 (name, source, the TPU kernel it replaces, launches on each path, error,
 times and bound at the main path's shape; ``library_ms`` null, since no
 PyTorch call solves banded or tridiagonal systems) and, last, the result
@@ -64,6 +95,8 @@ subtract backward) over the card's peak outside the tensor cores (67
 TFLOP/s float32, 34 float64): NVIDIA's data sheet of the H100 SXM.
 """
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -72,10 +105,22 @@ import time
 
 import numpy as np
 import torch
+from scipy.linalg import solve_banded
 
-from quflow_tpu_torch import energy_euler, enstrophy, hbar, solve
-from quflow_tpu_torch.models import EulerFlow, MHDFlow
+from quflow_tpu_torch import energy_euler, enstrophy, hbar, isomp, solve
+from quflow_tpu_torch.integrators import isospectral
+from quflow_tpu_torch.laplacian import tridiagonal
+from quflow_tpu_torch.models import EulerFlow, GlobalQGFlow, MHDFlow
 from quflow_tpu_torch.ops import cuda_build, cuda_scan_solve, cuda_solve
+from quflow_tpu_torch.ops.laplacian import (
+    laplace,
+    solve_globalqg,
+    solve_heat,
+    solve_helmholtz,
+    solve_poisson,
+    solve_viscdamp,
+)
+from quflow_tpu_torch.ops.tridiag import shear_operator
 from quflow_tpu_torch.ops.cuda_scan_solve import (
     shear_scan,
     shear_scan_reference,
@@ -223,13 +268,17 @@ def ragged_bit_equal(device, kernel, plain, Ns=(1, 7, 100, 257, 1000),
 
 
 class Logger:
-    """A plain-Python solve callback: energy and enstrophy per output."""
+    """A plain-Python solve callback: energy and enstrophy per output, and
+    the steps and integrator stats that solve hands to each output."""
 
     def __init__(self):
         self.rows = []
+        self.chunks = []
 
     def __call__(self, W, delta_time=0.0, delta_steps=0, **stats):
         self.rows.append((float(energy_euler(W)), float(enstrophy(W))))
+        if delta_steps:
+            self.chunks.append((delta_steps, stats))
 
 
 def main_path_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
@@ -347,6 +396,20 @@ class MHDLogger:
             self.launches[name] += n - before[name]
 
 
+@contextlib.contextmanager
+def kernel_variable(name):
+    """QUFLOW_PALLAS_KERNEL set to ``name`` inside the block only."""
+    saved = os.environ.get("QUFLOW_PALLAS_KERNEL")
+    os.environ["QUFLOW_PALLAS_KERNEL"] = name
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["QUFLOW_PALLAS_KERNEL"]
+        else:
+            os.environ["QUFLOW_PALLAS_KERNEL"] = saved
+
+
 def theta_spectrum(S, device):
     Theta = torch.from_numpy(np.asarray(S[1])).to(device, torch.complex128)
     return torch.linalg.eigvalsh(-1j * Theta)
@@ -357,9 +420,7 @@ def mhd_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
     """Phase 7, with QUFLOW_PALLAS_KERNEL=scan set for this phase only."""
     S0 = MHDFlow(N, np.complex64).random_initial(lmax=10, seed=42)
     lam0 = theta_spectrum(S0, device)
-    saved = os.environ.get("QUFLOW_PALLAS_KERNEL")
-    os.environ["QUFLOW_PALLAS_KERNEL"] = "scan"
-    try:
+    with kernel_variable("scan"):
         integrator = MagmpTorch(maxit=maxit, dtype=np.complex64, device=device)
         log = MHDLogger(N, device)
         reset_counts()
@@ -369,11 +430,6 @@ def mhd_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
                   integrator=integrator, callback=log, progress_bar=False)
         solve_s = time.perf_counter() - t0
         total = read_counts()
-    finally:
-        if saved is None:
-            del os.environ["QUFLOW_PALLAS_KERNEL"]
-        else:
-            os.environ["QUFLOW_PALLAS_KERNEL"] = saved
     integ = {k: total[k] - log.launches[k] for k in total}
     if integ != {"shear_thomas": 0, "shear_scan": steps * maxit}:
         raise AssertionError(f"the integrator launched {integ}, expected "
@@ -492,13 +548,279 @@ def mhd_large(device, N=4096, steps=5, maxit=5):
                 stepper_steps_per_s=steps / sec)
 
 
+class SyncTimer:
+    """Counts the host syncs of isomp's fixed-point loop (one ``.item()``
+    of the residual norm an iteration, integrators/isospectral._residual)
+    and the host seconds spent in them, while installed."""
+
+    def __init__(self):
+        self.calls = 0
+        self.seconds = 0.0
+
+    def __enter__(self):
+        self._residual = isospectral._residual
+
+        def timed(dW, dW_new):
+            t0 = time.perf_counter()
+            rn = self._residual(dW, dW_new)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return rn
+
+        isospectral._residual = timed
+        return self
+
+    def __exit__(self, *exc):
+        isospectral._residual = self._residual
+
+
+def chunk_iterations(log):
+    """Fixed-point iterations of a solve run, from the stats its
+    callback got: each chunk's average a step times its steps."""
+    return round(sum(n * st["iterations"] for n, st in log.chunks))
+
+
+def reference_euler(device, N=1024, steps=100, steps_out=20,
+                    compare_steps=10):
+    """Phase 10: the README's call on the card, complex128."""
+    W0 = EulerFlow(N, np.complex128).random_initial(lmax=10, seed=42)
+    c0 = casimirs(torch.from_numpy(W0).to(device))
+    log = Logger()
+    reset_counts()
+    log(W0)
+    with SyncTimer() as syncs:
+        t0 = time.perf_counter()
+        # no integrator= and no device=: isomp, tol 'auto', maxit 10, the card
+        W = solve(W0.copy(), stepsize=0.25, steps=steps, steps_out=steps_out,
+                  callback=log, progress_bar=False)
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    iterations = chunk_iterations(log)
+    expected = iterations + len(log.rows)
+    if counts != {"shear_thomas": expected, "shear_scan": 0}:
+        raise AssertionError(f"launches {counts}, expected {expected} of "
+                             f"shear_thomas: {iterations} fixed-point "
+                             f"iterations and {len(log.rows)} energy logs")
+    if syncs.calls != iterations:
+        raise AssertionError(f"{syncs.calls} host syncs for {iterations} "
+                             "iterations")
+    if W.shape != (N, N) or W.dtype != np.complex128 or not np.isfinite(W).all():
+        raise AssertionError(f"bad state: {W.shape} {W.dtype}")
+    auto_drift = np.abs(casimirs(torch.from_numpy(W).to(device)) - c0
+                        ) / np.abs(c0)
+    Z = np.array([r[1] for r in log.rows])
+
+    # the conservation gate: tests/test_integrators.py's tolerance
+    gate = Logger()
+    reset_counts()
+    t0 = time.perf_counter()
+    Wg = solve(W0.copy(), stepsize=0.25, steps=steps, steps_out=steps,
+               tol=1e-12, compsum=True, maxit=20, callback=gate,
+               progress_bar=False)
+    gate_s = time.perf_counter() - t0
+    gate_iterations = chunk_iterations(gate)
+    gate_counts = read_counts()
+    if gate_counts["shear_thomas"] != gate_iterations + len(gate.rows):
+        raise AssertionError(f"gate launches {gate_counts} for "
+                             f"{gate_iterations} iterations")
+    drift = np.abs(casimirs(torch.from_numpy(Wg).to(device)) - c0) / np.abs(c0)
+    if not (drift <= 1e-10).all():
+        raise AssertionError(f"Casimir drift tr(W^2), tr(W^3) = {drift} > "
+                             "1e-10 at tol=1e-12, compsum")
+
+    # the same steps through the kernel and through the plain column solve
+    dt = 0.25 * hbar(N)
+    Wt = torch.from_numpy(W0).to(device)
+    Wk = isomp(Wt, dt, compare_steps)
+    Wp = isomp(Wt, dt, compare_steps, hamiltonian=functools.partial(
+        solve_poisson, skewh=True, solver=shear_thomas_reference))
+    step_rel = ((Wk - Wp).abs().max() / Wp.abs().max()).item()
+    if not step_rel <= 1e-12:
+        raise AssertionError(f"{compare_steps} steps kernel vs plain: "
+                             f"relative difference {step_rel:.3e} > 1e-12")
+    return dict(N=N, steps=steps, launches=counts["shear_thomas"],
+                expected_launches=expected,
+                iterations_per_step=iterations / steps,
+                syncs=syncs.calls, sync_s=syncs.seconds,
+                sync_share=syncs.seconds / wall,
+                solve_steps_per_s=steps / wall,
+                auto_tr_W2_drift=auto_drift[0], auto_tr_W3_drift=auto_drift[1],
+                auto_enstrophy_drift=float(np.abs(Z - Z[0]).max() / abs(Z[0])),
+                gate_launches=gate_counts["shear_thomas"],
+                gate_iterations_per_step=gate_iterations / steps,
+                gate_tr_W2_drift=drift[0], gate_tr_W3_drift=drift[1],
+                gate_steps_per_s=steps / gate_s,
+                kernel_vs_plain_10_steps=step_rel)
+
+
+def reference_qg(device, N=1024, steps=50, gamma=1.0):
+    """Phase 11: GlobalQGFlow.step (isomp with solve_globalqg) in complex64
+    through shear_scan."""
+    flow = GlobalQGFlow(N, np.complex64, gamma=gamma)
+    W0 = flow.random_initial(lmax=10, seed=42)
+    z0 = enstrophy(W0.astype(np.complex128))
+    stats = {}
+    with kernel_variable("scan"):
+        # the QG operator's first use factorizes it on the host and uploads
+        # it: timed apart from the steps
+        t0 = time.perf_counter()
+        flow.hamiltonian(torch.from_numpy(W0).to(device))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        W = flow.step(W0.copy(), 0.25 * hbar(N), steps=steps, stats=stats)
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+    iterations = round(stats["iterations"] * steps)
+    if counts != {"shear_thomas": 0, "shear_scan": iterations}:
+        raise AssertionError(f"launches {counts}, expected {iterations} of "
+                             "shear_scan only")
+    if W.dtype != np.complex64 or not np.isfinite(W).all():
+        raise AssertionError(f"bad state: {W.dtype}")
+    z_drift = float(abs(enstrophy(W.astype(np.complex128)) - z0) / abs(z0))
+    if not z_drift <= 1e-3:
+        raise AssertionError(f"enstrophy drift {z_drift:.3e} > 1e-3")
+    return dict(N=N, steps=steps, gamma=gamma, launches=counts,
+                iterations_per_step=stats["iterations"],
+                enstrophy_drift=z_drift, setup_s=setup_s,
+                steps_per_s=steps / sec)
+
+
+#: phase 12's solves: name -> (the port's call on W, the (kind, params) of
+#: its shear operator, ops/tridiag.shear_operator)
+FAMILIES = {
+    "poisson": (lambda W, **kw: solve_poisson(W, skewh=True, **kw),
+                ("poisson", ())),
+    "heat": (lambda W, **kw: solve_heat(1e-3, W, skewh=True, **kw),
+             ("heat", (1e-3,))),
+    "helmholtz": (lambda W, **kw: solve_helmholtz(W, alpha=0.1, skewh=True,
+                                                  **kw),
+                  ("helmholtz", (0.1,))),
+    "viscdamp_theta1": (lambda W, **kw: solve_viscdamp(
+        0.1, W, nu=1e-2, alpha=0.6, theta=1, skewh=True, **kw),
+        ("viscdamp", (0.1, 1e-2, 0.6, 1.0))),
+    "viscdamp_theta05": (lambda W, **kw: solve_viscdamp(
+        0.1, W, nu=1e-2, alpha=0.6, theta=0.5, skewh=True, **kw),
+        ("viscdamp", (0.1, 1e-2, 0.6, 0.5))),
+    "globalqg": (lambda W, **kw: solve_globalqg(W, gamma=0.7, skewh=True,
+                                                **kw),
+                 ("globalqg", (0.7,))),
+}
+
+
+def host_family_solve(name, W):
+    """The float64 host reference of ``FAMILIES[name]``: Poisson through the
+    row-packed LAPACK solve of laplacian.tridiagonal; every other family
+    packed into the shear view, the trace projected, each column's
+    tridiagonal system solved with scipy ``solve_banded``, the trace
+    projected, unpacked, and the lower triangle mirrored."""
+    N = W.shape[-1]
+    if name == "poisson":
+        return tridiagonal.solve_tridiagonal_lapack(
+            tridiagonal.compute_tridiagonal_laplacian(N, bc=True), W)
+    kind, params = FAMILIES[name][1]
+    if kind == "viscdamp" and params[3] != 1:
+        h, nu, alpha, theta = params
+        lapW = laplace(torch.from_numpy(W), skewh=True).numpy()
+        W = (1.0 - alpha * h * (1 - theta)) * W + (nu * h * (1 - theta)) * lapW
+    op = shear_operator(N, kind, params)
+    D = np.concatenate([W.reshape(-1), np.zeros(N, W.dtype)]).reshape(N, N + 1)
+    D[:, 0] -= D[:, 0].mean()
+    X = np.empty_like(D)
+    ab = np.zeros((3, N))
+    for j in range(N + 1):
+        ab[0, 1:] = op[j, 1, :-1]
+        ab[1] = op[j, 0]
+        ab[2, :-1] = op[j, 1, :-1]
+        X[:, j] = solve_banded((1, 1), ab, D[:, j])
+    X[:, 0] -= X[:, 0].mean()
+    P = X.reshape(-1)[: N * N].reshape(N, N)
+    return np.tril(P) - np.tril(P, -1).conj().T
+
+
+def poisson_family(device, N=1024):
+    """Phase 12: every Poisson-family solve on tensors on the card, both
+    dtypes: the kernel bit-equal to the plain column solve, complex128
+    within 1e-12 of the host float64 reference, complex64's error beside
+    it, one launch a call; laplace(solve_poisson(W)) = W."""
+    rng = np.random.RandomState(12)
+    W = rng.randn(N, N) + 1j * rng.randn(N, N)
+    W = W - W.conj().T
+    W -= np.eye(N) * np.trace(W) / N
+    rows = []
+    for name, (call, _) in FAMILIES.items():
+        ref = host_family_solve(name, W)
+        row = dict(family=name)
+        for dtype in (torch.complex128, torch.complex64):
+            Wt = torch.from_numpy(W).to(device, dtype)
+            reset_counts()
+            P = call(Wt)
+            launches = read_counts()
+            if launches != {"shear_thomas": 1, "shear_scan": 0}:
+                raise AssertionError(f"{name} {dtype}: launches {launches}")
+            plain = call(Wt, solver=shear_thomas_reference)
+            abs_err = (P - plain).abs().max().item()
+            if abs_err != 0.0:
+                raise AssertionError(f"{name} {dtype}: kernel vs plain "
+                                     f"{abs_err:.3e}, not bit-equal")
+            Ph = P.cpu().numpy()
+            err = float(np.abs(Ph - ref).max() / np.abs(ref).max())
+            tier = str(dtype).removeprefix("torch.")
+            row[f"{tier}_rel_err"] = err
+            row[f"{tier}_launches"] = launches["shear_thomas"]
+            if dtype == torch.complex128 and not err <= 1e-12:
+                raise AssertionError(f"{name} complex128: {err:.3e} > 1e-12 "
+                                     "from the host reference")
+        rows.append(row)
+    Wt = torch.from_numpy(W).to(device)
+    back = laplace(solve_poisson(Wt, skewh=True), skewh=True)
+    round_trip = ((back - Wt).abs().max() / Wt.abs().max()).item()
+    if not round_trip <= 1e-10:
+        raise AssertionError(f"laplace(solve_poisson(W)) vs W: "
+                             f"{round_trip:.3e} > 1e-10")
+    return dict(N=N, families=rows, laplace_round_trip=round_trip,
+                launches=sum(r["complex128_launches"] + r["complex64_launches"]
+                             for r in rows))
+
+
+def reference_mhd(device, N=512, steps=50):
+    """Phase 13: MHDFlow.step (magmp) in complex128 at
+    tests/test_mhd.py's tolerance."""
+    flow = MHDFlow(N, np.complex128)
+    S0 = flow.random_initial(lmax=10, seed=42)
+    c0 = casimirs(torch.from_numpy(S0[1]).to(device))
+    stats = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    S = flow.step(S0.copy(), 0.25 * hbar(N), steps=steps, tol=1e-12,
+                  maxit=20, stats=stats)
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    iterations = round(stats["iterations"] * steps)
+    if counts != {"shear_thomas": iterations, "shear_scan": 0}:
+        raise AssertionError(f"launches {counts}, expected {iterations}: one "
+                             "solve of W an iteration, laplace of Theta none")
+    if not np.isfinite(S).all():
+        raise AssertionError("non-finite state")
+    drift = np.abs(casimirs(torch.from_numpy(S[1]).to(device)) - c0
+                   ) / np.abs(c0)
+    if not (drift <= 1e-10).all():
+        raise AssertionError(f"Casimir drift tr(Theta^2), tr(Theta^3) = "
+                             f"{drift} > 1e-10")
+    return dict(N=N, steps=steps, launches=counts["shear_thomas"],
+                iterations_per_step=stats["iterations"],
+                tr_Theta2_drift=drift[0], tr_Theta3_drift=drift[1],
+                steps_per_s=steps / sec)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; "
                  "this script needs a CUDA device")
     device = torch.device("cuda", 0)
-    # phases 3-5 hold shear_thomas, the default column solve; phase 7 sets
-    # the variable for itself
+    # phases 3-5, 10, 12 and 13 hold shear_thomas, the default column
+    # solve; phases 7 and 11 set the variable for themselves
     os.environ.pop("QUFLOW_PALLAS_KERNEL", None)
 
     smi = subprocess.run(
@@ -542,6 +864,21 @@ def main():
     big = mhd_large(device)
     print("phase 9 MHD c64 N=4096: " + json.dumps(big), flush=True)
 
+    ref = reference_euler(device)
+    print("phase 10 reference Euler c128 N=1024: " + json.dumps(ref),
+          flush=True)
+
+    qg = reference_qg(device)
+    print("phase 11 reference QG c64 N=1024, scan: " + json.dumps(qg),
+          flush=True)
+
+    fam = poisson_family(device)
+    print("phase 12 Poisson family N=1024: " + json.dumps(fam), flush=True)
+
+    rmhd = reference_mhd(device)
+    print("phase 13 reference MHD c128 N=512: " + json.dumps(rmhd),
+          flush=True)
+
     def main_row(rows):
         return next(r for r in rows if r["dtype"] == "complex64"
                     and r["N"] == 1024 and r["B"] == 1)
@@ -559,7 +896,10 @@ def main():
         "launches_by_path": {
             "euler_c64_N1024": c64["launches"],
             "euler_c128_N512": c128["launches"]["shear_thomas"],
-            "mhd_c64_N1024_logs": m64["log_launches"]["shear_thomas"]},
+            "reference_euler_c128_N1024": ref["launches"],
+            "reference_euler_c128_N1024_gate": ref["gate_launches"],
+            "poisson_family_N1024": fam["launches"],
+            "reference_mhd_c128_N512": rmhd["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **timing(rows),
         "library_ms": None,
@@ -571,8 +911,10 @@ def main():
         "launches": m64["integrator_launches"]["shear_scan"],
         "launches_by_path": {
             "mhd_c64_N1024": m64["integrator_launches"]["shear_scan"],
+            "mhd_c64_N1024_logs": m64["log_launches"]["shear_scan"],
             "mhd_c128_N512": m128["launches"]["shear_scan"],
-            "mhd_c64_N4096": big["launches"]["shear_scan"]},
+            "mhd_c64_N4096": big["launches"]["shear_scan"],
+            "reference_qg_c64_N1024": qg["launches"]["shear_scan"]},
         "max_abs_err": max(r["max_abs_err"] for r in scan_rows + ragged),
         **timing(scan_rows),
         "library_ms": None,

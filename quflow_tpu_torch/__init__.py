@@ -7,24 +7,50 @@ that the tests hold this package against.  This package imports torch,
 numpy and scipy, never jax; h5py (QuSimulation) and tqdm (progress bars)
 are imported at first use.
 
-The ported slices are the production Euler run and the production MHD
-run (``MHDFlow`` with ``MagmpTorch``):
+The ported slices are the reference-semantics layer (the Poisson family
+of ops/laplacian.py and the ``laplacian`` compatibility package, the
+``isomp``, Runge-Kutta and ``magmp`` integrators, the physics functionals,
+the Euler, MHD and global-QG models, and ``solve`` with ``isomp`` as its
+default) and the production steppers (``IsompTorch``, ``MagmpTorch``).
+Every Poisson-family solve runs the column kernel on the card:
 
     import numpy as np
-    from quflow_tpu_torch import solve, energy_euler
-    from quflow_tpu_torch.models import EulerFlow
-    from quflow_tpu_torch.parallel.stepper import IsompTorch
+    import quflow_tpu_torch as qf
 
-    W0 = EulerFlow(1024, np.complex64).random_initial(lmax=10, seed=42)
-    W = solve(W0, stepsize=0.25, steps=100, steps_out=20,
-              integrator=IsompTorch(maxit=5, dtype=np.complex64))
+    W0 = qf.EulerFlow(1024, np.complex128).random_initial(lmax=10, seed=42)
+    W = qf.solve(W0, stepsize=0.25, simtime=10.0, steps_out=100)
+
+or, for the production speed, a fixed iteration count with no host sync:
+
+    W = qf.solve(W0.astype(np.complex64), stepsize=0.25, steps=100,
+                 integrator=qf.IsompTorch(maxit=5, dtype=np.complex64))
 """
 
 from . import config  # noqa: F401  (turns TF32 off; see config.py)
 
 from .utils import elm2ind, ind2elm, complex_dtype, real_dtype
 from .ops import geometry
-from .ops.geometry import hbar, bracket, norm_L2, inner_L2
+from .ops.geometry import (
+    hbar,
+    bracket,
+    norm_L2,
+    inner_L2,
+    norm_Linf,
+    norm_L1,
+    integral,
+)
+# the compat subpackage re-exports the unified backend and the reference's
+# per-backend module paths (as quflow_tpu binds it)
+from . import laplacian
+from .ops.laplacian import (
+    laplace,
+    solve_poisson,
+    solve_heat,
+    solve_helmholtz,
+    solve_viscdamp,
+    solve_globalqg,
+)
+from .laplacian.direct import compute_direct_laplacian
 from .quantization import (
     compute_basis,
     get_basis,
@@ -35,13 +61,31 @@ from .quantization import (
 )
 from . import transforms
 from .transforms import fun2shc, shc2fun, fun2shr, shr2fun, shc2shr, shr2shc
+from . import integrators
+from .integrators import (
+    isomp,
+    isomp_fixedpoint,
+    isomp_quasinewton,
+    isomp_simple,
+    estimate_stepsize,
+    commutator,
+    commutator_generic,
+    commutator_skewherm,
+    euler,
+    heun,
+    rk4,
+    magmp,
+    magmp_fixedpoint,
+)
+from .integrators.mhd import solve_mhd
+from .integrators.isospectral import select_skewherm
 from . import physics
-from .physics import energy_euler, enstrophy
+from .physics import energy_euler, enstrophy, inner_H1, inner_Hm1
 from .analysis import random_shr
 from . import sim
 from .sim import QuSimulation, solve
 from . import models
-from .models import EulerFlow, MHDFlow
+from .models import EulerFlow, GlobalQGFlow, MHDFlow
 from . import parallel
 from .parallel.stepper import IsompTorch, MagmpTorch
 

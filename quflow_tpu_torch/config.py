@@ -30,7 +30,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["device", "torch_dtype", "numpy_dtype", "TIERS"]
+__all__ = ["device", "to_tensor", "like_input", "torch_dtype", "numpy_dtype",
+           "TIERS"]
 
 #: complex state dtype -> real working dtype of its solve
 TIERS = {
@@ -59,6 +60,24 @@ def device(dev=None):
             "no CUDA device is available; pass device='cpu' to run "
             "quflow_tpu_torch on the CPU")
     return torch.device("cuda")
+
+
+def to_tensor(x, dev=None):
+    """The tensor boundary of the reference-semantics API: a tensor stays
+    as it is, on its own device; a numpy array becomes a tensor on
+    :func:`device` ``(dev)`` (the card by default)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a)  # torch.from_numpy takes writeable, dense arrays
+    return torch.from_numpy(a).to(device(dev))
+
+
+def like_input(t, x):
+    """``t`` as the kind of ``x`` came in: a tensor for a tensor, numpy
+    (copied to the host) for anything else."""
+    return t if isinstance(x, torch.Tensor) else t.cpu().numpy()
 
 
 def torch_dtype(dtype):

@@ -1,0 +1,421 @@
+"""Isospectral midpoint integrators (Modin-Viviani, JFM 884:A22, 2020).
+
+Counterpart of quflow_tpu/integrators/isospectral.py (reference
+quflow/integrators/isospectral.py: ``isomp_fixedpoint`` :338-613,
+``isomp_quasinewton`` :155-255, ``isomp_simple`` :258-335,
+``estimate_stepsize`` :121-148), run eagerly on torch tensors.  The step
+loop is a Python loop.  The fixed-point loop keeps quflow_tpu's exit rule,
+
+    stop when i >= minit and (rn <= tol or rn >= rn_old), or at i = maxit,
+
+with rn the inf-norm of the change of dW, read on the host once an
+iteration (one ``.item()``, the loop's only host sync).  The update is the
+last iteration's 2 (PW - (PW)^H), Kahan-compensated with ``compsum``.
+parallel.stepper.IsompTorch is the other integrator: a fixed iteration
+count with no sync, and other results.
+
+A tensor state is stepped on its own device and a tensor comes back; a
+numpy state goes to ``config.device(device)`` (the card by default; pass
+``device="cpu"`` without one) and is overwritten with the result, which
+is returned.  The hooks ``hamiltonian``, ``forcing`` and
+``strang_splitting`` receive tensors on the state's device and may return
+numpy or tensors; ``time`` reaches them as a float.  ``vareps``, ``tol``
+and ``dt`` are rounded to the state's real dtype, as quflow_tpu rounds
+them, so complex64 stays complex64.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import numpy as np
+import torch
+
+from .. import config
+from ..ops.geometry import hbar, norm_Linf
+from ..ops.laplacian import solve_poisson
+
+__all__ = [
+    "isomp_fixedpoint",
+    "isomp",
+    "isomp_quasinewton",
+    "isomp_simple",
+    "commutator",
+    "commutator_skewherm",
+    "commutator_generic",
+    "select_skewherm",
+    "estimate_stepsize",
+    "update_stats",
+    "conj_subtract_",
+    "project_skewherm",
+]
+
+
+def _conj_t(A):
+    if isinstance(A, torch.Tensor):
+        return A.mH
+    return np.conj(np.swapaxes(A, -1, -2))
+
+
+def commutator_generic(W, P):
+    return W @ P - P @ W
+
+
+def commutator_skewherm(W, P):
+    VF = W @ P
+    return VF - _conj_t(VF)
+
+
+commutator = commutator_skewherm
+
+
+def conj_subtract_(A, out=None):
+    """Host helper: ``out = A - A^dagger`` (in place into ``out``;
+    reference integrators/isospectral.py:66-81)."""
+    A = np.asarray(A)
+    if out is None:
+        out = np.empty_like(A)
+    np.subtract(A, np.conj(np.swapaxes(A, -1, -2)), out=out)
+    return out
+
+
+def project_skewherm(W):
+    """Host helper: project onto skew-Hermitian matrices in place,
+    W <- (W - W^dagger)/2 (reference integrators/isospectral.py:61-63)."""
+    W /= 2.0
+    W -= np.conj(np.swapaxes(W, -1, -2))
+    return W
+
+
+def select_skewherm(flag):
+    """Reference-compatible mode switch (reference isospectral.py:97-118):
+    sets the default commutator and the laplacian-solver default.  Prefer the
+    explicit ``skewh`` keyword in new code."""
+    global commutator
+    commutator = commutator_skewherm if flag else commutator_generic
+    from ..ops.laplacian import select_skewherm as _lap_select
+
+    return _lap_select(flag)
+
+
+def update_stats(stats: dict, **kwargs):
+    for arg, val in kwargs.items():
+        if arg in stats and np.isscalar(val):
+            stats[arg] += val
+        else:
+            stats[arg] = val
+
+
+def estimate_stepsize(W, P=None, safety_factor=0.1, *, device=None):
+    """Dimension-free stepsize estimate safety*pi/lambda_max(P)."""
+    if P is None:
+        P = solve_poisson(W, device=device)
+    lambda_max = float(norm_Linf(P))
+    return safety_factor * np.pi / lambda_max
+
+
+def _norm_inf(A):
+    """Matrix inf-norm (max abs row sum), reduced over any batch dims."""
+    return A.abs().sum(-1).max()
+
+
+def _like(x, W):
+    """A hook's result (numpy or tensor) as a tensor of W's dtype on W's
+    device."""
+    return torch.as_tensor(x, dtype=W.dtype, device=W.device)
+
+
+def _probe_autonomous(fn, args, time):
+    """Mirror the reference's TypeError probing (isospectral.py:404-423)."""
+    if time is None:
+        return True
+    try:
+        fn(*args, time=time)
+    except TypeError:
+        return True
+    return False
+
+
+def _check_iterations(minit, maxit):
+    if minit < 1:
+        raise ValueError("minit must be at least 1.")
+    if maxit < minit:
+        raise ValueError("maxit must be at least minit.")
+
+
+def _auto_tol(W, Wt, dt, hb, sqrt_eps):
+    """quflow_tpu's 'auto' tolerance: eps * dt/hbar * ||W_0||_inf, with
+    eps the machine epsilon of the state (its square root with
+    ``sqrt_eps``) and W_0 the first of stacked states."""
+    eps = np.finfo(config.numpy_dtype(Wt.dtype)).eps
+    if sqrt_eps:
+        eps = np.sqrt(eps)
+    if isinstance(W, torch.Tensor):
+        W0 = W[(0,) * (W.ndim - 2)]
+        norm = torch.linalg.matrix_norm(W0, ord=float("inf")).item()
+    else:
+        Wn = np.asarray(W)
+        norm = np.linalg.norm(Wn[(0,) * (Wn.ndim - 2)], np.inf)
+    return float(eps * dt / hb * norm)
+
+
+def _fixed_point(W, dW, ham, force, skewh, vareps, tol, dt_half, maxit,
+                 minit):
+    """One step's fixed-point loop from the warm start ``dW``.  Returns
+    (dW, PWc, FW, iterations, hit_maxit)."""
+    i, rn, rn_old = 0, np.inf, np.inf
+    FW = None
+    while i < maxit and not (i >= minit and (rn <= tol or rn >= rn_old)):
+        Whalf = W + dW
+        Phalf = ham(Whalf) * vareps
+        PW = Phalf @ Whalf
+        dW_new = PW @ Phalf
+        if skewh:
+            PWc = PW - PW.mH
+        else:
+            PWc = PW - Whalf @ Phalf
+        dW_new = dW_new + PWc
+        if force is not None:
+            FW = force(Phalf / vareps, Whalf) * dt_half
+            dW_new = dW_new + FW
+        rn_old, rn = rn, _residual(dW, dW_new)
+        dW = dW_new
+        i += 1
+    hit = i >= maxit and not (rn <= tol or rn >= rn_old)
+    return dW, PWc, FW, i, hit
+
+
+def _residual(dW, dW_new):
+    """||dW - dW_new||_inf as a Python float: the host sync of an
+    iteration."""
+    return _norm_inf(dW - dW_new).item()
+
+
+def isomp_fixedpoint(
+    W,
+    dt,
+    steps=100,
+    hamiltonian=None,
+    time=None,
+    forcing=None,
+    strang_splitting=None,
+    stats=None,
+    callback=None,
+    tol="auto",
+    maxit=10,
+    minit=1,
+    verbatim=False,
+    compsum=False,
+    reinitialize=False,
+    skewh=True,
+    *,
+    device=None,
+):
+    """Isospectral midpoint method with fixed-point iterations.
+
+    Same contract as quflow_tpu's isomp_fixedpoint and the reference's
+    (tolerance rule, stall exit, warm-started dW, final update
+    W += 2(PW - (PW)^H) from the last iteration, optional forcing / Strang
+    splitting / Kahan summation / per-step ``callback(W_prev, upd)`` and
+    ``stats``: 'iterations' and 'number_of_maxit' a step, 'tol_auto').
+    The callback gets numpy for a numpy state, tensors for a tensor.
+    """
+    _check_iterations(minit, maxit)
+    if hamiltonian is None:
+        hamiltonian = partial(solve_poisson, skewh=skewh)
+
+    Wt = config.to_tensor(W, device)
+    N = Wt.shape[-1]
+    hb = hbar(N)
+    rd = config.numpy_dtype(Wt.real.dtype)
+
+    timed = time is not None
+    autonomous = _probe_autonomous(hamiltonian, (Wt,), time)
+    autonomous_force = (forcing is None
+                        or _probe_autonomous(forcing, (Wt, Wt), time))
+
+    if tol == "auto" or (np.isscalar(tol) and tol < 0):
+        tol = _auto_tol(W, Wt, dt, hb, sqrt_eps=not compsum)
+        if verbatim:
+            print(f"Tolerance set to {tol}.")
+        if stats is not None:
+            stats["tol_auto"] = tol
+
+    r = rd.type
+    vareps = float(r(dt / (2.0 * hb)))
+    tol_r = float(r(tol))
+    dt_r = r(dt)
+    dt_half = dt_r / r(2)
+    t = r(0.0 if time is None else time)
+
+    def ham(Whalf):
+        if timed and not autonomous:
+            return _like(hamiltonian(Whalf, time=float(t + dt_half)), Whalf)
+        return _like(hamiltonian(Whalf), Whalf)
+
+    force = None
+    if forcing is not None:
+        def force(P, Whalf):
+            if timed and not autonomous_force:
+                return _like(forcing(P, Whalf, time=float(t + dt_half)),
+                             Whalf)
+            return _like(forcing(P, Whalf), Whalf)
+
+    def host(A):
+        return config.like_input(A, W)
+
+    dW = torch.zeros_like(Wt)
+    csum = torch.zeros_like(Wt) if compsum else None
+    total_iters = total_maxit = 0
+    for _ in range(steps):
+        W_prev = Wt
+        if strang_splitting is not None:
+            Wt = _like(strang_splitting(float(dt) / 2, Wt), Wt)
+        if reinitialize:
+            dW = torch.zeros_like(dW)
+        dW, PWc, FW, i, hit = _fixed_point(
+            Wt, dW, ham, force, skewh, vareps, tol_r, float(dt_half), maxit,
+            minit)
+        upd = 2.0 * PWc
+        if compsum:
+            # Kahan compensated summation W += upd
+            y = upd - csum
+            tS = Wt + y
+            csum = (tS - Wt) - y
+            Wt = tS
+        else:
+            Wt = Wt + upd
+        if forcing is not None:
+            Wt = Wt + 2.0 * FW
+        if timed:
+            t = t + dt_r
+        if strang_splitting is not None:
+            Wt = _like(strang_splitting(float(dt) / 2, Wt), Wt)
+        if callback is not None:
+            callback(host(W_prev), host(upd))
+        total_iters += i
+        total_maxit += int(hit)
+
+    if verbatim:
+        print("Average number of iterations per step: {:.2f}".format(
+            total_iters / steps))
+    if stats is not None:
+        stats["iterations"] = total_iters / steps
+        stats["number_of_maxit"] = total_maxit / steps
+
+    if isinstance(W, np.ndarray):
+        np.copyto(W, Wt.cpu().numpy())
+        return W
+    return Wt
+
+
+isomp = isomp_fixedpoint
+
+
+# ---------------------------------------------------------------------------
+# quasi-Newton and simplified variants (host/scipy validation integrators)
+# ---------------------------------------------------------------------------
+
+def _host_state(W, device):
+    """(a host copy of W, the device its Hamiltonian solves on, the
+    function that returns a host result as W's kind)."""
+    if isinstance(W, torch.Tensor):
+        dev = W.device if device is None else device
+        return (W.cpu().numpy().copy(), dev,
+                lambda A: torch.from_numpy(A).to(W.device))
+    return np.array(W, copy=True), device, lambda A: A
+
+
+def isomp_quasinewton(
+    W, dt, steps=100, hamiltonian=None, forcing=None, tol="auto", maxit=10,
+    verbatim=False, skewh=True, *, device=None, **kwargs
+):
+    """Isospectral midpoint via quasi-Newton iteration: exactly isospectral
+    (conjugation update W <- A^H Wtilde A with A = I - (eps/2) Ptilde).
+    Runs on the host with scipy, as in quflow_tpu; the Hamiltonian solves on
+    ``device`` (a tensor state's own by default)."""
+    import scipy.linalg
+
+    if forcing is not None:
+        raise NotImplementedError("Forcing for isomp_quasinewton is not implemented.")
+    W_host, dev, back = _host_state(W, device)
+    if hamiltonian is None:
+        hamiltonian = partial(solve_poisson, skewh=skewh, device=dev)
+
+    stepsize = dt / hbar(W.shape[-1])
+    if tol == "auto" or (np.isscalar(tol) and tol < 0):
+        tol = float(
+            np.finfo(W_host.dtype).eps
+            * stepsize
+            * np.linalg.norm(W_host, np.inf)
+        )
+
+    Id = np.eye(W.shape[-1])
+    Wtilde = W_host.copy()
+    total_iterations = 0
+
+    for k in range(steps):
+        for _i in range(maxit):
+            total_iterations += 1
+            Ptilde = np.asarray(hamiltonian(Wtilde))
+            A = Id - (stepsize / 2.0) * Ptilde
+            luA, piv = scipy.linalg.lu_factor(A)
+            B = scipy.linalg.lu_solve((luA, piv), W_host)
+            Wtilde_new = scipy.linalg.lu_solve((luA, piv), -B.conj().T)
+            resnorm = scipy.linalg.norm(Wtilde - Wtilde_new, np.inf)
+            Wtilde = Wtilde_new
+            if resnorm < tol:
+                break
+        else:
+            if verbatim:
+                print(f"Max iterations {maxit} reached at step {k}.")
+        W_host = A.conj().T @ Wtilde @ A
+
+    if verbatim:
+        print(
+            "Average number of iterations per step: {:.2f}".format(
+                total_iterations / steps
+            )
+        )
+    if isinstance(W, np.ndarray):
+        np.copyto(W, W_host)
+        return W
+    return back(W_host)
+
+
+def isomp_simple(W, dt, steps=100, hamiltonian=None, forcing=None, skewh=True,
+                 *, device=None, **kwargs):
+    """Simplified (explicit, isospectral, non-symplectic) midpoint variant,
+    on the host with scipy as in quflow_tpu; the Hamiltonian solves on
+    ``device`` (a tensor state's own by default)."""
+    import scipy.linalg
+
+    if forcing is not None:
+        raise NotImplementedError("Forcing for isomp_simple is not implemented.")
+    W_host, dev, back = _host_state(W, device)
+    if hamiltonian is None:
+        hamiltonian = partial(solve_poisson, skewh=skewh, device=dev)
+
+    Id = np.eye(W.shape[-1])
+    stepsize = dt / hbar(W.shape[-1])
+    Wtilde = W_host.copy()
+
+    for _k in range(steps):
+        Ptilde = np.asarray(hamiltonian(Wtilde))
+        A = Id - (stepsize / 2.0) * Ptilde
+        if skewh:
+            luA, piv = scipy.linalg.lu_factor(A)
+            X = scipy.linalg.lu_solve((luA, piv), W_host)
+            Wtilde = scipy.linalg.lu_solve((luA, piv), -X.conj().T)
+            W_new = A.conj().T @ Wtilde @ A
+        else:
+            X = np.linalg.solve(A, W_host)
+            Aalt = Id + (stepsize / 2.0) * Ptilde
+            Wtilde = np.linalg.solve(Aalt.conj().T, X.conj().T).conj().T
+            W_new = Aalt @ Wtilde @ A
+        W_host = W_new
+
+    if isinstance(W, np.ndarray):
+        np.copyto(W, W_host)
+        return W
+    return back(W_host)

@@ -1,0 +1,165 @@
+"""Magnetic (MHD) isospectral midpoint integrator.
+
+Counterpart of quflow_tpu/integrators/mhd.py (reference
+quflow/integrators/mhd.py: ``solve_mhd`` :10-18, ``magmp_fixedpoint``
+:235-456): two-component state (2, N, N) with state[0] = W (vorticity) and
+state[1] = Theta (magnetic flux function), evolving W' = [P, W] +
+[B, Theta], Theta' = [P, Theta] with P = Delta^-1 W and B = Delta Theta.
+Run eagerly like integrators/isospectral.py, with the same loop contract:
+quflow_tpu's exit rule, one host sync an iteration, the devices and hooks
+of isomp.  Each iteration solves W once (one column-kernel launch); the
+Laplacian of Theta is elementwise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import config
+from ..ops.geometry import hbar
+from ..ops.laplacian import laplace, solve_poisson
+from .isospectral import (
+    _auto_tol,
+    _check_iterations,
+    _like,
+    _probe_autonomous,
+    _residual,
+)
+
+__all__ = ["solve_mhd", "magmp_fixedpoint", "magmp"]
+
+
+def solve_mhd(state, *, device=None):
+    """Hamiltonian of the quantized MHD system: (P, B) = (Delta^-1 W,
+    Delta Theta)."""
+    W = state[..., 0, :, :]
+    Theta = state[..., 1, :, :]
+    P = solve_poisson(W, skewh=True, device=device)
+    B = laplace(Theta, skewh=True, device=device)
+    return P, B
+
+
+def _fixed_point(W, dW, ham, force, vareps, tol, dt_half, maxit, minit):
+    """One step's fixed-point loop from the warm start ``dW``.  Returns
+    (dW, PWc, BTc, FW, iterations, hit_maxit)."""
+    i, rn, rn_old = 0, np.inf, np.inf
+    FW = None
+    while i < maxit and not (i >= minit and (rn <= tol or rn >= rn_old)):
+        Whalf = W + dW
+        Thetahalf = Whalf[1]
+        Phalf, Bhalf = ham(Whalf)
+        Phalf = Phalf * vareps
+        Bhalf = Bhalf * vareps
+        PWc = Phalf @ Whalf  # broadcasts over the 2 components
+        BTc = Bhalf @ Thetahalf
+        dW_new = PWc @ Phalf
+        BTP = BTc @ Phalf
+        PWc = PWc - PWc.mH
+        BTc = BTc - BTc.mH
+        dW_new = dW_new + PWc
+        dW_new[0] += BTP - BTP.mH + BTc
+        if force is not None:
+            FW = force(Phalf / vareps, Whalf) * dt_half
+            dW_new = dW_new + FW
+        rn_old, rn = rn, _residual(dW, dW_new)
+        dW = dW_new
+        i += 1
+    hit = i >= maxit and not (rn <= tol or rn >= rn_old)
+    return dW, PWc, BTc, FW, i, hit
+
+
+def magmp_fixedpoint(
+    W,
+    dt,
+    steps=100,
+    hamiltonian=solve_mhd,
+    time=None,
+    forcing=None,
+    stats=None,
+    callback=None,
+    tol="auto",
+    maxit=10,
+    minit=1,
+    verbatim=False,
+    reinitialize=False,
+    *,
+    device=None,
+):
+    """Magnetic midpoint method on the (2, N, N) state (W, Theta).
+
+    ``stats`` gets 'iterations' and 'maxit' (the fraction of steps that hit
+    the cap) a step, and 'tol' when it is 'auto'; ``callback(W_prev,
+    W_new - W_prev)`` runs each step, with numpy for a numpy state."""
+    _check_iterations(minit, maxit)
+    Wt = config.to_tensor(W, device)
+    N = Wt.shape[-1]
+    hb = hbar(N)
+    rd = config.numpy_dtype(Wt.real.dtype)
+
+    timed = time is not None
+    autonomous = _probe_autonomous(hamiltonian, (Wt,), time)
+    autonomous_force = (forcing is None
+                        or _probe_autonomous(forcing, (Wt, Wt), time))
+
+    if tol == "auto" or (np.isscalar(tol) and tol < 0):
+        tol = _auto_tol(W, Wt, dt, hb, sqrt_eps=True)
+        if stats is not None:
+            stats["tol"] = tol
+
+    r = rd.type
+    vareps = float(r(dt / (2.0 * hb)))
+    tol_r = float(r(tol))
+    dt_r = r(dt)
+    dt_half = dt_r / r(2)
+    t = r(0.0 if time is None else time)
+
+    def ham(Whalf):
+        if timed and not autonomous:
+            out = hamiltonian(Whalf, time=float(t + dt_half))
+        else:
+            out = hamiltonian(Whalf)
+        return tuple(_like(a, Whalf) for a in out)
+
+    force = None
+    if forcing is not None:
+        def force(P, Whalf):
+            if timed and not autonomous_force:
+                return _like(forcing(P, Whalf, time=float(t + dt_half)),
+                             Whalf)
+            return _like(forcing(P, Whalf), Whalf)
+
+    dW = torch.zeros_like(Wt)
+    total_iters = total_maxit = 0
+    for _ in range(steps):
+        if reinitialize:
+            dW = torch.zeros_like(dW)
+        dW, PWc, BTc, FW, i, hit = _fixed_point(
+            Wt, dW, ham, force, vareps, tol_r, float(dt_half), maxit, minit)
+        W_new = Wt + 2.0 * PWc
+        W_new[0] += 2.0 * BTc
+        if forcing is not None:
+            W_new = W_new + 2.0 * FW
+        if timed:
+            t = t + dt_r
+        if callback is not None:
+            callback(config.like_input(Wt, W),
+                     config.like_input(W_new - Wt, W))
+        Wt = W_new
+        total_iters += i
+        total_maxit += int(hit)
+
+    if verbatim:
+        print("Average number of iterations per step: {:.2f}".format(
+            total_iters / steps))
+    if stats is not None:
+        stats["iterations"] = total_iters / steps
+        stats["maxit"] = total_maxit / steps
+
+    if isinstance(W, np.ndarray):
+        np.copyto(W, Wt.cpu().numpy())
+        return W
+    return Wt
+
+
+magmp = magmp_fixedpoint

@@ -1,9 +1,10 @@
 """The flagship model: 2-D incompressible Euler on the sphere, quantized.
 
-Counterpart of quflow_tpu/models/euler.py: ``random_initial``, ``hbar`` and
-``stepper``.  The reference-semantics ``hamiltonian``/``step``/``stepsize``
-wait for the port of integrators/isospectral.py and ops/laplacian.py
-(ROADMAP A6).
+Counterpart of quflow_tpu/models/euler.py: the reference-semantics
+``hamiltonian``, ``stepsize`` and ``step`` (the Poisson solve of
+ops/laplacian.py and ``isomp``), ``random_initial``, ``hbar``, and the
+production ``stepper``.  The reference-semantics methods take a numpy
+state to ``device`` (the card by default) or keep a tensor on its own.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..analysis import random_shr
+from ..integrators.isospectral import estimate_stepsize, isomp_fixedpoint
 from ..ops.geometry import hbar
+from ..ops.laplacian import solve_poisson
 from ..quantization import shr2mat
 
 
@@ -31,6 +34,9 @@ class EulerFlow:
     N: int
     dtype: np.dtype = np.complex128
 
+    def hamiltonian(self, W, *, device=None):
+        return solve_poisson(W, skewh=True, device=device)
+
     @property
     def hbar(self):
         return hbar(self.N)
@@ -39,6 +45,15 @@ class EulerFlow:
         """Random smooth band-limited vorticity (numpy, ``dtype``)."""
         omega0 = random_shr(lmax=lmax, s=s, gamma=gamma, seed=seed)
         return shr2mat(omega0, N=self.N).astype(self.dtype)
+
+    def stepsize(self, W, safety_factor=0.1, *, device=None):
+        return estimate_stepsize(W, safety_factor=safety_factor,
+                                 device=device)
+
+    def step(self, W, dt, steps=1, **kwargs):
+        """Advance ``steps`` isospectral midpoint steps (``isomp``; its
+        options, ``device=`` among them, pass through ``kwargs``)."""
+        return isomp_fixedpoint(W, dt, steps=steps, **kwargs)
 
     def stepper(self, dt, steps, maxit=5, compsum=True, *, device=None,
                 **kwargs):

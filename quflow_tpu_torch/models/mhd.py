@@ -1,10 +1,9 @@
 """Quantized magnetohydrodynamics on the sphere: the two-component state
 (W, Theta), stepped by the magnetic midpoint method.
 
-Counterpart of quflow_tpu/models/mhd.py: ``random_initial`` and
-``stepper``.  The reference-semantics ``hamiltonian`` and ``step`` wait
-for the port of integrators/mhd.py, which needs ops/laplacian.py
-(ROADMAP A6), and raise until then.
+Counterpart of quflow_tpu/models/mhd.py: the reference-semantics
+``hamiltonian`` and ``step`` (integrators/mhd.py), ``random_initial``, and
+the production ``stepper``.
 """
 
 from __future__ import annotations
@@ -14,21 +13,18 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..analysis import random_shr
+from ..integrators.mhd import magmp_fixedpoint, solve_mhd
 from ..quantization import shr2mat
 from .euler import EulerFlow
-
-
-def _needs_a6(name):
-    raise NotImplementedError(
-        f"MHDFlow.{name} needs integrators/mhd.py and ops/laplacian.py, not "
-        "ported to quflow_tpu_torch yet (ROADMAP.md A6); step with "
-        "MHDFlow.stepper or parallel.stepper.MagmpTorch")
 
 
 @dataclass
 class MHDFlow(EulerFlow):
     """Quantized MHD flow at band limit N; the state is
     ``np.stack([W, Theta])`` (2, N, N)."""
+
+    def hamiltonian(self, state, *, device=None):
+        return solve_mhd(state, device=device)
 
     def random_initial(self, lmax=10, s=1.0, theta_scale=0.1, seed=42,
                        **kwargs):
@@ -40,11 +36,10 @@ class MHDFlow(EulerFlow):
         )
         return np.stack([W, Theta]).astype(self.dtype)
 
-    def hamiltonian(self, state):
-        _needs_a6("hamiltonian")
-
     def step(self, state, dt, steps=1, **kwargs):
-        _needs_a6("step")
+        """Advance ``steps`` magnetic midpoint steps (``magmp``; its
+        options, ``device=`` among them, pass through ``kwargs``)."""
+        return magmp_fixedpoint(state, dt, steps=steps, **kwargs)
 
     def stepper(self, dt, steps, maxit=5, compsum=True, *, device=None,
                 **kwargs):

@@ -1,9 +1,11 @@
 """Geometry of u(N) on torch tensors: hbar, the scaled L2 inner product and
-norm, and the quantized Poisson bracket.
+norm, the spectral and nuclear norms, the integral, the skew-Hermitian
+projection, and the quantized Poisson bracket.
 
-Counterpart of quflow_tpu/ops/geometry.py:32-135 (reference
-quflow/geometry.py:7-110).  The sparse ``dia_matrix`` fast paths, the other
-norms, and the so(3) generators wait for later slices of the port.
+Counterpart of quflow_tpu/ops/geometry.py:32-165 (reference
+quflow/geometry.py:7-110).  Each function takes a tensor or a numpy array
+and returns the same kind.  The sparse ``dia_matrix`` fast paths, the so(3)
+generators, ``rotate`` and ``grad`` wait for a later slice (ROADMAP A1).
 """
 
 from __future__ import annotations
@@ -11,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["hbar", "bracket", "norm_L2", "inner_L2"]
+__all__ = ["hbar", "bracket", "norm_L2", "inner_L2", "norm_Linf", "norm_L1",
+           "integral", "project_skewherm"]
 
 
 def hbar(N):
@@ -42,3 +45,33 @@ def norm_L2(W):
     if isinstance(W, np.ndarray):
         return np.sqrt((W * W.conj()).real.sum(axis=(-2, -1)) / N)
     return torch.linalg.norm(W, ord="fro", dim=(-2, -1)) / float(np.sqrt(N))
+
+
+def norm_Linf(W):
+    """Spectral norm (largest singular value), corresponding to L-infinity."""
+    if isinstance(W, np.ndarray):
+        return np.linalg.norm(W, ord=2)
+    return torch.linalg.matrix_norm(W, ord=2)
+
+
+def norm_L1(W):
+    """Scaled nuclear norm sum |eig(W)| / N, corresponding to L^1."""
+    N = W.shape[-1]
+    if isinstance(W, np.ndarray):
+        return np.abs(np.linalg.eigvals(W)).sum(-1) / N
+    return torch.linalg.eigvals(W).abs().sum(-1) / N
+
+
+def integral(W):
+    """Integral of the function represented by W: Re(-i tr(W)/N)."""
+    N = W.shape[-1]
+    if isinstance(W, np.ndarray):
+        return np.real(-1j * np.trace(W, axis1=-2, axis2=-1) / N)
+    return (-1j * torch.diagonal(W, dim1=-2, dim2=-1).sum(-1) / N).real
+
+
+def project_skewherm(W):
+    """Orthogonal projection onto skew-Hermitian matrices, (W - W^H)/2."""
+    if isinstance(W, np.ndarray):
+        return 0.5 * (W - np.conj(np.swapaxes(W, -1, -2)))
+    return 0.5 * (W - W.mH)

@@ -1,0 +1,95 @@
+"""The column solve of the shear layout as its callers reach it: which
+kernel runs (:func:`column_solver`), the host-prefactorized operator of
+each solve family (:func:`_shear_factors_cached`), and the copies of its
+factors on a device (:func:`device_factors`).
+
+The Poisson family's backend (ops/laplacian.py) and the production
+steppers (parallel/stepper.py) both solve through here, so the kernel
+choice and the factor caches are one for the whole package.
+"""
+
+from __future__ import annotations
+
+import os
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .. import config
+from .cuda_scan_solve import shear_scan
+from .cuda_solve import shear_thomas
+from .tridiag import TridiagFactors, shear_operator
+
+__all__ = ["column_solver", "device_factors", "real_dtype", "to_device"]
+
+
+def column_solver(solver=None):
+    """The column solve ``(w, binv, u, d) -> x`` that a caller uses.
+
+    An explicit ``solver`` wins.  Otherwise ``QUFLOW_PALLAS_KERNEL`` is read
+    at the call: 'thomas' (the default) selects
+    ops.cuda_solve.shear_thomas, 'scan' ops.cuda_scan_solve.shear_scan;
+    any other value raises ValueError.  Both launch their CUDA kernel on a
+    CUDA tensor and run their plain version on a CPU tensor.
+
+    One difference from quflow_tpu: there the variable acts only where the
+    layout resolves to 'shear_pallas' (on the TPU, N >= 4096, or when
+    named) and any other value silently means 'thomas'.  Here it acts on
+    every shear solve, since every one is a kernel."""
+    if solver is not None:
+        return solver
+    name = os.environ.get("QUFLOW_PALLAS_KERNEL", "thomas")
+    if name == "thomas":
+        return shear_thomas
+    if name == "scan":
+        return shear_scan
+    raise ValueError(f"QUFLOW_PALLAS_KERNEL={name!r}: use 'thomas' or 'scan'")
+
+
+def real_dtype(dtype):
+    """The real working dtype (numpy) of complex state ``dtype``."""
+    try:
+        return config.TIERS[config.numpy_dtype(dtype)]
+    except KeyError:
+        raise ValueError(
+            f"dtype {dtype!r}: use complex64 or complex128") from None
+
+
+def to_device(a, rdtype, device):
+    """Host array -> contiguous tensor on ``device``, cast by numpy (as
+    quflow_tpu casts its host operators)."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(rdtype))
+                            ).to(device)
+
+
+@lru_cache(maxsize=256)
+def _shear_factors_cached(N, kind="poisson", params=()):
+    """Host-prefactorized shear-layout operator for a solve family
+    (``kind``/``params`` as in ops/tridiag.shear_operator; Poisson by
+    default): factors transposed to (N, N+1) for the column solve,
+    refinement op channel-first (2, N, N+1) in float64.  A numpy copy of
+    quflow_tpu/parallel/stepper.py:344-360; 256 operator sets are kept, as
+    quflow_tpu/ops/laplacian.py:58 keeps them."""
+    op_bc = shear_operator(N, kind, params)
+    fac = TridiagFactors(op_bc)
+    # refinement must evaluate residuals of the SAME (bc'd) system the base
+    # solve factorizes, in float64
+    op_cols = np.stack([op_bc[:, 0, :].T, op_bc[:, 1, :].T]).astype(np.float64)
+    return (
+        np.ascontiguousarray(fac.w.T),
+        np.ascontiguousarray(fac.binv.T),
+        np.ascontiguousarray(fac.u.T),
+        op_cols,
+    )
+
+
+@lru_cache(maxsize=16)
+def device_factors(N, kind, params, rdtype, device):
+    """``(w, binv, u)`` of :func:`_shear_factors_cached` cast to the real
+    dtype ``rdtype`` (numpy) on ``device`` (a torch.device), kept there: a
+    solve inside a loop (a Strang hook's ``solve_heat``, every fixed-point
+    iteration's Hamiltonian) then uploads nothing.  16 sets are kept on the
+    devices, each 3 (N, N+1) arrays."""
+    w, binv, u, _ = _shear_factors_cached(N, kind, params)
+    return tuple(to_device(a, rdtype, device) for a in (w, binv, u))

@@ -1,9 +1,12 @@
 """Batched tridiagonal operators of the shear layout, and their solve.
 
 Counterpart of quflow_tpu/ops/tridiag.py for the shear layout.  The host
-builders (``shear_laplacian``, ``_shear_slots``, ``shear_operator``,
-``TridiagFactors``, ``_m0_semisep``) are numpy copies of
-quflow_tpu/ops/tridiag.py:84-223, 319-348 and give bit-equal arrays.  The
+builders (``packed_laplacian``, ``shear_laplacian``, ``_shear_slots``,
+``shear_operator``, ``TridiagFactors``, ``_m0_semisep``) are numpy copies of
+quflow_tpu/ops/tridiag.py:47-223, 319-348 and give bit-equal arrays;
+``packed_laplacian`` and ``dot_packed`` serve the row-packed format of the
+reference's public API (ops/diagpack.mat2diagh), in which nothing is
+solved.  The
 operator is prefactorized on the host (LU of a fixed tridiagonal matrix),
 after which the solve is two first-order recurrences along each column of
 the (N, N+1) shear view,
@@ -16,8 +19,7 @@ thread per column, ``shear_scan`` (ops/cuda_scan_solve.py) with one thread
 per column and chunk of rows.  ``solve_factored``, ``m0_correction``,
 ``refine_m0`` and ``dot_cols`` are the torch versions of
 quflow_tpu/ops/tridiag.py:238-297, 351-416, 437-445 (shear branch, systems
-along axis -2 only); the row-packed layouts wait for the port of
-ops/laplacian.py.
+along axis -2 only).
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import torch
 from .cuda_solve import shear_thomas
 
 __all__ = [
+    "packed_laplacian",
+    "dot_packed",
     "shear_laplacian",
     "shear_operator",
     "solve_factored",
@@ -38,6 +42,54 @@ __all__ = [
     "dot_cols",
     "TridiagFactors",
 ]
+
+
+def packed_laplacian(N, nrows=None, bc=False, dtype=np.float64):
+    """Packed quantized Laplacian, shape (nrows, 2, N).
+
+    nrows = N//2+1 (skew-Hermitian pack) or N (wrapped pack).  With ``bc`` the
+    singular m=0 system is regularised by op[0,0,0] -= 1/2 (trace boundary
+    condition; cf. reference tridiagonal.py:130-131).
+    """
+    if nrows is None:
+        nrows = N // 2 + 1
+    m = np.arange(nrows)[:, None].astype(np.float64)
+    i = np.arange(N)[None, :].astype(np.float64)
+    Nf = float(N)
+
+    in_first = i < Nf - m
+    # main diagonal: block 1 indexes position i along diagonal m; block 2
+    # indexes position k = i-(N-m) along diagonal N-m.
+    k = i - (Nf - m)
+    mm = Nf - m
+    d1 = -((Nf - 1) * (2 * i + 1 + m) - 2 * i * (i + m))
+    d2 = -((Nf - 1) * (2 * k + 1 + mm) - 2 * k * (k + mm))
+    d = np.where(in_first, d1, d2)
+
+    # off-diagonal at slot j couples j <-> j+1 (zero between the blocks)
+    e1 = (i + 1 + m) * (Nf - i - 1 - m) * (i + 1) * (Nf - i - 1)
+    kk = k + 1  # local position of slot j+1 in block 2
+    e2 = (kk + mm) * (m - kk) * kk * (Nf - kk)
+    e = np.where(
+        i < Nf - m - 1, e1, np.where((i >= Nf - m) & (i < Nf - 1), e2, 0.0)
+    )
+    e = np.sqrt(np.maximum(e, 0.0))
+
+    op = np.stack([d, e], axis=1).astype(dtype)
+    if bc:
+        op[0, 0, 0] -= 0.5
+    return op
+
+
+def dot_packed(op, d):
+    """Apply the packed tridiagonal operator (R, 2, N) to rows (..., R, N)
+    (numpy with a numpy ``op``, or tensors)."""
+    main = op[:, 0, :]
+    off = op[:, 1, :]
+    out = main * d
+    out[..., :, 1:] += off[:, :-1] * d[..., :, :-1]
+    out[..., :, :-1] += off[:, :-1] * d[..., :, 1:]
+    return out
 
 
 def shear_laplacian(N, bc=False, dtype=np.float64):
@@ -111,8 +163,8 @@ def shear_operator(N, kind="poisson", params=(), dtype=np.float64):
 
     Pad slots keep main coefficient 1 / coupling 0 regardless of the family
     (their values are never read back; the factorization just has to stay
-    regular).  The stepper runs Poisson only; the families are here because
-    the builders are copied whole.
+    regular).  The steppers run Poisson; ops/laplacian.py runs every
+    family.
     """
     lap = shear_laplacian(N, bc=(kind == "poisson"))
     rr, cc, valid = _shear_slots(N)

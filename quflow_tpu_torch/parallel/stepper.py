@@ -2,11 +2,12 @@
 device.
 
 Counterpart of the shear, single-device subset of
-quflow_tpu/parallel/stepper.py: ``_shear_factors_cached``, ``_real_factors``,
-the shear branches of ``_poisson_core`` and ``_laplace_core``,
-``build_poisson_fn``, ``build_step_fn`` and ``build_mhd_step_fn`` with a
-fixed iteration count, and the drop-in integrators ``IsompTorch`` and
-``MagmpTorch`` (the counterparts of ``IsompTPU`` and ``MagmpTPU``).
+quflow_tpu/parallel/stepper.py: ``_real_factors``, the shear branches of
+``_poisson_core`` and ``_laplace_core`` (the latter shared with
+ops/laplacian.py), ``build_poisson_fn``, ``build_step_fn`` and
+``build_mhd_step_fn`` with a fixed iteration count, and the drop-in
+integrators ``IsompTorch`` and ``MagmpTorch`` (the counterparts of
+``IsompTPU`` and ``MagmpTPU``).
 
 Each Euler step runs ``maxit`` fixed-point iterations; each iteration is
 one shear-layout Poisson core (pack, trace projection, the column solve,
@@ -17,9 +18,11 @@ State stays complex on the device; the runners take and return complex
 tensors.  They run eagerly: capturing a step in a CUDA graph is later work.
 
 The column solve is a CUDA kernel on the card, chosen by
-:func:`column_solver` when a builder runs: ``shear_thomas`` (the serial
-recurrence, one thread per column) or ``shear_scan`` (the same recurrence
-in chunks, one thread per column and chunk).
+ops.shear_solve.column_solver when a builder runs: ``shear_thomas`` (the
+serial recurrence, one thread per column) or ``shear_scan`` (the same
+recurrence in chunks, one thread per column and chunk).  The host factors
+come from the cache of ops.shear_solve, which the Poisson family of
+ops/laplacian.py shares.
 
 Options of the JAX stepper that this port does not run yet raise
 NotImplementedError naming the ROADMAP.md item that ports them.
@@ -27,25 +30,20 @@ NotImplementedError naming the ROADMAP.md item that ports them.
 
 from __future__ import annotations
 
-import os
-from functools import lru_cache
-
 import numpy as np
 import torch
 
 from .. import config
-from ..ops.cuda_scan_solve import shear_scan
-from ..ops.cuda_solve import shear_thomas
 from ..ops.diagpack import mat2shear, shear2mat, subtract_col0_mean
 from ..ops.geometry import hbar
-from ..ops.tridiag import (
-    TridiagFactors,
-    dot_cols,
-    refine_m0,
-    shear_laplacian,
-    shear_operator,
-    solve_factored,
+from ..ops.shear_solve import (
+    _shear_factors_cached,
+    column_solver,
+    real_dtype,
+    to_device,
 )
+from ..ops.laplacian import _lap_cols, _laplace_core
+from ..ops.tridiag import refine_m0, solve_factored
 
 __all__ = [
     "build_step_fn",
@@ -90,38 +88,19 @@ def _check_layout(layout):
     shear solve is a kernel anyway."""
     if layout in ("auto", "shear", "shear_pallas", None):
         return
-    if layout == "shear_pallas_il":
+    if layout in ("shard", "shear_shard"):
         raise NotImplementedError(
-            "layout='shear_pallas_il' does not come over to "
-            "quflow_tpu_torch: the interleaved shear layout is a measured "
-            "regression that quflow_tpu keeps only to reproduce it (see "
+            f"layout={layout!r} shards the solve over a mesh, not ported to "
+            "quflow_tpu_torch yet; see ROADMAP.md A9 (ensembles and "
+            "multi-GPU)")
+    if layout in ("shear_pallas_il", "wrapped", "rolls", "pallas"):
+        raise NotImplementedError(
+            f"layout={layout!r} does not come over to quflow_tpu_torch: "
+            "every solve runs on the shear layout, which holds every "
+            "diagonal of a matrix; quflow_tpu keeps its interleaved and "
+            "row-packed layouts only to reproduce measured regressions (see "
             "ROADMAP.md, 'Some code does not come over')")
-    raise NotImplementedError(
-        f"layout={layout!r}: quflow_tpu_torch runs the shear layout "
-        "only; the row-packed layouts come with ROADMAP.md A6")
-
-
-def column_solver(solver=None):
-    """The column solve ``(w, binv, u, d) -> x`` that a builder uses.
-
-    An explicit ``solver`` wins.  Otherwise ``QUFLOW_PALLAS_KERNEL`` is read
-    when the builder runs: 'thomas' (the default) selects
-    ops.cuda_solve.shear_thomas, 'scan' ops.cuda_scan_solve.shear_scan;
-    any other value raises ValueError.  Both launch their CUDA kernel on a
-    CUDA tensor and run their plain version on a CPU tensor.
-
-    One difference from quflow_tpu: there the variable acts only where the
-    layout resolves to 'shear_pallas' (on the TPU, N >= 4096, or when
-    named) and any other value silently means 'thomas'.  Here it acts on
-    every shear solve, since every one is a kernel."""
-    if solver is not None:
-        return solver
-    name = os.environ.get("QUFLOW_PALLAS_KERNEL", "thomas")
-    if name == "thomas":
-        return shear_thomas
-    if name == "scan":
-        return shear_scan
-    raise ValueError(f"QUFLOW_PALLAS_KERNEL={name!r}: use 'thomas' or 'scan'")
+    raise ValueError(f"unknown layout {layout!r}")
 
 
 def _check_precision(precision):
@@ -132,14 +111,6 @@ def _check_precision(precision):
             "(precision='highest') in both dtype tiers")
 
 
-def _real_dtype(dtype):
-    try:
-        return config.TIERS[config.numpy_dtype(dtype)]
-    except KeyError:
-        raise ValueError(
-            f"dtype {dtype!r}: use complex64 or complex128") from None
-
-
 class _Fac:
     __slots__ = ("w", "binv", "u")
 
@@ -147,45 +118,18 @@ class _Fac:
         self.w, self.binv, self.u = w, binv, u
 
 
-@lru_cache(maxsize=32)
-def _shear_factors_cached(N, kind="poisson", params=()):
-    """Host-prefactorized shear-layout operator for a solve family
-    (``kind``/``params`` as in ops/tridiag.shear_operator; Poisson by
-    default): factors transposed to (N, N+1) for the column solve,
-    refinement op channel-first (2, N, N+1) in float64.  A numpy copy of
-    quflow_tpu/parallel/stepper.py:344-360."""
-    op_bc = shear_operator(N, kind, params)
-    fac = TridiagFactors(op_bc)
-    # refinement must evaluate residuals of the SAME (bc'd) system the base
-    # solve factorizes, in float64
-    op_cols = np.stack([op_bc[:, 0, :].T, op_bc[:, 1, :].T]).astype(np.float64)
-    return (
-        np.ascontiguousarray(fac.w.T),
-        np.ascontiguousarray(fac.binv.T),
-        np.ascontiguousarray(fac.u.T),
-        op_cols,
-    )
-
-
 def factors_from_numpy(w, binv, u, op, *, device, dtype):
     """Host factors, as ``quflow_tpu.parallel.stepper._shear_factors_cached``
-    or :func:`_shear_factors_cached` return them, -> tensors on ``device``:
+    or ops.shear_solve._shear_factors_cached return them, -> tensors on ``device``:
     ``w``/``binv``/``u`` cast (by numpy, as quflow_tpu casts them) to the
     real working dtype of the complex state ``dtype``, ``op`` (None, or the
     (2, N, N+1) refinement operator) kept float64."""
-    rd = _real_dtype(dtype)
+    rd = real_dtype(dtype)
     dev = config.device(device)
-    out = [_to_device(a, rd, dev) for a in (w, binv, u)]
+    out = [to_device(a, rd, dev) for a in (w, binv, u)]
     out.append(None if op is None else
                torch.from_numpy(np.asarray(op, dtype=np.float64)).to(dev))
     return tuple(out)
-
-
-def _to_device(a, rdtype, device):
-    """Host array -> contiguous tensor on ``device``, cast by numpy (as
-    quflow_tpu casts its host operators)."""
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(rdtype))
-                            ).to(device)
 
 
 def _real_factors(N, dtype, *, device, with_op=False):
@@ -248,7 +192,7 @@ def _step_setup(N, dt, maxit, dtype, refine):
     ('m0' for complex64, 0 for complex128, as the JAX steppers resolve it
     on the shear layout) and vareps = dt / (2 hbar) rounded to the working
     precision, as the JAX steppers round their scalars."""
-    rdtype = _real_dtype(dtype)
+    rdtype = real_dtype(dtype)
     if maxit < 1:
         raise ValueError(f"maxit={maxit}: a step needs at least one "
                          "fixed-point iteration")
@@ -381,21 +325,11 @@ def build_dw_step_fn(*args, **kwargs):
         "not come over'); use build_step_fn(..., dtype=np.complex128)")
 
 
-def _laplace_core(P, op):
-    """The quantized Laplacian (bc=False) of P (..., N, N) on the shear
-    layout; ``op`` is the channel-first (2, N, N+1) operator of
-    :func:`_mhd_lap_op`."""
-    return shear2mat(dot_cols(op, mat2shear(P, tracefree=False)))
-
-
 def _mhd_lap_op(N, dtype, *, device):
     """The bc=False shear Laplacian, channel-first (2, N, N+1), in the real
-    working dtype of ``dtype`` on ``device``: the numpy array of
-    quflow_tpu's ``_mhd_lap_op(N, 'shear', rdtype)``, cast as the factors
-    are (:func:`factors_from_numpy`)."""
-    opn = shear_laplacian(N, bc=False)
-    return _to_device(np.stack([opn[:, 0, :].T, opn[:, 1, :].T]),
-                      _real_dtype(dtype), config.device(device))
+    working dtype of ``dtype`` on ``device`` (ops/laplacian._lap_cols, the
+    operator ``laplace`` applies)."""
+    return _lap_cols(N, real_dtype(dtype), config.device(device))
 
 
 def build_mhd_step_fn(
@@ -503,7 +437,7 @@ class _ResidentIntegrator:
         _check_layout(layout)
         _check_precision(precision)
         self.dtype = config.numpy_dtype(dtype)
-        _real_dtype(self.dtype)
+        real_dtype(self.dtype)
         self.maxit = maxit
         self.compsum = compsum
         self.refine = refine

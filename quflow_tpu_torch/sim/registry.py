@@ -2,9 +2,11 @@
 
 Counterpart of quflow_tpu/sim/registry.py: persisted callables are stored
 *by name* and resolved through this registry; arbitrary code never runs on
-load.  Only the names this port implements are registered: the loggers
-``energy_euler``, ``enstrophy`` and ``norm_L2``, and the integrators
-``isomp_torch`` and ``magmp_torch``.
+load.  The names quflow_tpu registers for the modules this port holds
+are registered (the solves and ``laplace``; ``isomp``, ``isomp_fixedpoint``,
+``isomp_quasinewton``, ``isomp_simple``; ``euler``, ``heun``, ``rk4``;
+``magmp``, ``magmp_fixedpoint``, ``solve_mhd``; the loggers and norms), and
+the port's own integrators ``isomp_torch`` and ``magmp_torch``.
 """
 
 from __future__ import annotations
@@ -106,13 +108,24 @@ def magmp_torch(W, dt, steps=100, maxit=5, fast=True, time=None,
 
 def _register_defaults():
     from .. import physics
+    from ..integrators import erk, mhd
+    from ..integrators import isospectral as iso
     from ..ops import geometry
+    from ..ops import laplacian as lap
 
     _REGISTRY.setdefault("isomp_torch", isomp_torch)
     _REGISTRY.setdefault("magmp_torch", magmp_torch)
-    _REGISTRY.setdefault("energy_euler", physics.energy_euler)
-    _REGISTRY.setdefault("enstrophy", physics.enstrophy)
-    _REGISTRY.setdefault("norm_L2", geometry.norm_L2)
+    for mod, names in (
+        (lap, ["solve_poisson", "solve_heat", "solve_helmholtz", "solve_viscdamp",
+               "solve_globalqg", "laplace"]),
+        (iso, ["isomp", "isomp_fixedpoint", "isomp_quasinewton", "isomp_simple"]),
+        (erk, ["euler", "heun", "rk4"]),
+        (mhd, ["magmp", "magmp_fixedpoint", "solve_mhd"]),
+        (physics, ["energy_euler", "enstrophy", "norm_H1", "norm_Hm1"]),
+        (geometry, ["norm_L2", "norm_Linf", "norm_L1", "integral"]),
+    ):
+        for nm in names:
+            _REGISTRY.setdefault(nm, getattr(mod, nm))
 
 
 _register_defaults()

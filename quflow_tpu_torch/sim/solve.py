@@ -8,11 +8,9 @@ restores W/time/all stored args from the file and appends the sim as a
 callback - the restart mechanism (bit-exact: proven by
 tests/test_simulation.py restart-equality test).
 
-A copy of quflow_tpu/sim/solve.py, with one difference: there is no
-default integrator until integrators/isospectral.py is ported (ROADMAP
-A6).  ``integrator=`` must be given, e.g. ``IsompTorch(...)``; solve does
-not switch to it on its own, because its fixed iteration count differs
-from the tolerance semantics of ``isomp``.
+A copy of quflow_tpu/sim/solve.py: the default integrator is ``isomp``
+(integrators/isospectral.py).  Keywords it does not take itself, ``device=``
+among them, pass through to the integrator.
 """
 
 from __future__ import annotations
@@ -20,6 +18,7 @@ from __future__ import annotations
 import inspect
 import warnings
 
+from ..integrators.isospectral import isomp
 from ..ops.geometry import hbar
 from .simulation import QuSimulation
 
@@ -108,10 +107,7 @@ def solve(
     dt = float(dt)
 
     if integrator is None:
-        raise NotImplementedError(
-            "solve() has no default integrator in quflow_tpu_torch until "
-            "integrators/isospectral.py is ported (ROADMAP.md A6); pass one, "
-            "e.g. integrator=IsompTorch(maxit=5, dtype=np.complex128)")
+        integrator = isomp
 
     integrator_kwargs = dict(kwargs)
     integrator_kwargs["time"] = time

@@ -13,7 +13,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
-from quflow_tpu_torch import config, physics  # noqa: E402
+from quflow_tpu_torch import config  # noqa: E402
+from quflow_tpu_torch.ops import shear_solve  # noqa: E402
 from quflow_tpu_torch.ops.cuda_scan_solve import (  # noqa: E402
     shear_scan,
     shear_scan_reference,
@@ -65,13 +66,15 @@ def cpu_rehearsal(monkeypatch):
 
     stand_in = {shear_thomas: counted(shear_thomas, shear_thomas_reference),
                 shear_scan: counted(shear_scan, shear_scan_reference)}
-    select = stepper.column_solver
+    select = shear_solve.column_solver
 
     def column_solver(solver=None):
         chosen = select(solver)
         return stand_in.get(chosen, chosen)
 
+    # the step builders' selector and the Poisson family's
     monkeypatch.setattr(stepper, "column_solver", column_solver)
+    monkeypatch.setattr(shear_solve, "column_solver", column_solver)
     monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps: (fn(), 0.0)[1])
     monkeypatch.setattr(chip_smoke, "graph_ms", lambda fn, reps: (fn(), 1.0)[1])
     # the card: what the smoke builds without device= lands here
@@ -80,9 +83,6 @@ def cpu_rehearsal(monkeypatch):
                                                       else dev))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.delenv("QUFLOW_PALLAS_KERNEL", raising=False)
-    physics._poisson.cache_clear()  # the energy logs' solve: built anew
-    yield
-    physics._poisson.cache_clear()
 
 
 def test_solve_bound():
@@ -130,15 +130,16 @@ def test_scan_and_mhd_phases_rehearse_on_cpu(cpu_rehearsal):
     assert all(r["max_abs_err"] == 0.0 for r in ragged)
     assert chip_smoke.ragged_bit_equal.__defaults__ == (
         (1, 7, 100, 257, 1000), (1, 3))
-    # the Euler path first, as in the smoke: its energy logs build the
-    # Poisson solve that the MHD logs reuse
+    # the Euler path first, as in the smoke
     chip_smoke.main_path_c64("cpu", N=32, steps=2, steps_out=1,
                              compare_steps=1)
     m64 = chip_smoke.mhd_c64("cpu", N=32, steps=10, steps_out=5,
                              compare_steps=2)
     assert m64["integrator_launches"] == {"shear_thomas": 0,
                                           "shear_scan": 10 * 5}
-    assert m64["log_launches"] == {"shear_thomas": 3, "shear_scan": 0}
+    # the logs' energy solves read the variable at each call, as every
+    # Poisson-family solve does
+    assert m64["log_launches"] == {"shear_thomas": 0, "shear_scan": 3}
     assert m64["kernel_vs_plain_10_steps"] == 0.0
     assert m64["scan_vs_thomas_10_steps"] <= 1e-5
     assert "QUFLOW_PALLAS_KERNEL" not in chip_smoke.os.environ
@@ -149,3 +150,33 @@ def test_scan_and_mhd_phases_rehearse_on_cpu(cpu_rehearsal):
     assert m128["tr_Theta2_drift"] <= 1e-10
     big = chip_smoke.mhd_large("cpu", N=24, steps=2)
     assert big["launches"] == {"shear_thomas": 0, "shear_scan": 10}
+
+
+def test_reference_phases_rehearse_on_cpu(cpu_rehearsal):
+    """Phases 10-13 at small N: the launch counts the smoke checks (one a
+    fixed-point iteration and one an energy log; the scan alone under the
+    variable; one a family solve; one a magmp iteration), the host syncs,
+    the gates."""
+    ref = chip_smoke.reference_euler("cpu", N=32, steps=10, steps_out=5,
+                                     compare_steps=2)
+    iterations = round(ref["iterations_per_step"] * 10)
+    assert ref["launches"] == ref["expected_launches"] == iterations + 3
+    assert ref["syncs"] == iterations
+    assert 0.0 < ref["sync_share"] < 1.0
+    assert ref["gate_tr_W2_drift"] <= 1e-10 and ref["gate_tr_W3_drift"] <= 1e-10
+    assert ref["gate_launches"] == round(ref["gate_iterations_per_step"] * 10
+                                         ) + 1
+    assert ref["kernel_vs_plain_10_steps"] == 0.0
+    qg = chip_smoke.reference_qg("cpu", N=32, steps=5)
+    assert qg["launches"] == {"shear_thomas": 0, "shear_scan": round(
+        qg["iterations_per_step"] * 5)}
+    assert qg["enstrophy_drift"] <= 1e-3 and qg["setup_s"] > 0.0
+    assert "QUFLOW_PALLAS_KERNEL" not in chip_smoke.os.environ
+    fam = chip_smoke.poisson_family("cpu", N=24)
+    assert fam["launches"] == 2 * len(chip_smoke.FAMILIES)
+    assert all(r["complex128_rel_err"] <= 1e-12 for r in fam["families"])
+    assert all(r["complex64_rel_err"] <= 1e-5 for r in fam["families"])
+    assert fam["laplace_round_trip"] <= 1e-10
+    mhd = chip_smoke.reference_mhd("cpu", N=24, steps=5)
+    assert mhd["launches"] == round(mhd["iterations_per_step"] * 5)
+    assert mhd["tr_Theta3_drift"] <= 1e-10

@@ -11,7 +11,7 @@ import torch
 import jax.numpy as jnp
 
 import quflow_tpu as qf
-from quflow_tpu.integrators import magmp
+from quflow_tpu.integrators import magmp, solve_mhd
 from quflow_tpu.models import MHDFlow as JMHDFlow
 from quflow_tpu.parallel import stepper as jst
 
@@ -21,7 +21,7 @@ from quflow_tpu_torch.ops.cuda_scan_solve import (
     shear_scan,
     shear_scan_reference,
 )
-from quflow_tpu_torch.ops.cuda_solve import shear_thomas_reference
+from quflow_tpu_torch.ops.cuda_solve import shear_thomas, shear_thomas_reference
 from quflow_tpu_torch.parallel import stepper as tst
 from quflow_tpu_torch.sim import registry
 
@@ -208,7 +208,7 @@ def test_magmp_torch_matches_magmp_tpu_warm_chunks():
                      ({"strang_splitting": ("heat", 1e-3)}, "A7"),
                      ({"warm_precision": "high"}, "A4"),
                      ({"warm_iters": 2}, "A4"),
-                     ({"layout": "wrapped"}, "A6")):
+                     ({"layout": "wrapped"}, "does not come over")):
         with pytest.raises(NotImplementedError, match=item):
             tst.build_mhd_step_fn(8, 0.1, device="cpu", **kw)
         with pytest.raises(NotImplementedError, match=item):
@@ -269,7 +269,7 @@ def test_magmp_torch_registry():
 
 def test_mhd_flow_matches():
     """random_initial bit-equal to quflow_tpu's; the stepper runs; the
-    reference-semantics hamiltonian/step raise naming A6."""
+    reference-semantics hamiltonian/step agree with quflow_tpu's."""
     for dtype in (np.complex64, np.complex128):
         S = MHDFlow(24, dtype).random_initial(lmax=6, seed=3)
         np.testing.assert_array_equal(
@@ -281,10 +281,13 @@ def test_mhd_flow_matches():
     z = torch.zeros_like(S)
     out = flow.stepper(0.1 * flow.hbar, steps=2, device="cpu")(S, z, z)[0]
     assert out.shape == S.shape and (out - S).abs().max() > 0
-    for call in (lambda: flow.hamiltonian(S.numpy()),
-                 lambda: flow.step(S.numpy(), 0.1)):
-        with pytest.raises(NotImplementedError, match="A6"):
-            call()
+    jflow = JMHDFlow(16, np.complex128)
+    for got, ref in zip(flow.hamiltonian(S.numpy(), device="cpu"),
+                        jflow.hamiltonian(S.numpy())):
+        np.testing.assert_allclose(got, np.asarray(ref), atol=1e-10)
+    got = flow.step(S.numpy().copy(), 0.1 * flow.hbar, steps=3, device="cpu")
+    ref = jflow.step(S.numpy().copy(), 0.1 * flow.hbar, steps=3)
+    assert _rel(got, ref) <= 1e-11
 
 
 @pytest.mark.cuda
@@ -296,7 +299,7 @@ def test_mhd_step_on_card_kernels_match_plain(cuda):
         lmax=6, seed=1)).to(cuda)
     z = torch.zeros_like(S0)
     dt = 0.25 * qt.hbar(N)
-    for kernel, plain in ((tst.shear_thomas, shear_thomas_reference),
+    for kernel, plain in ((shear_thomas, shear_thomas_reference),
                           (shear_scan, shear_scan_reference)):
         before = kernel.launches
         Sk = tst.build_mhd_step_fn(N, dt, steps=steps, maxit=maxit,
@@ -305,3 +308,114 @@ def test_mhd_step_on_card_kernels_match_plain(cuda):
         Sp = tst.build_mhd_step_fn(N, dt, steps=steps, maxit=maxit,
                                    device=cuda, solver=plain)(S0, z, z)[0]
         torch.testing.assert_close(Sk, Sp, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the reference-semantics MHD integrator (integrators/mhd.py)
+# ---------------------------------------------------------------------------
+
+def test_magmp_oracle(oracle):
+    """tests/test_mhd.py's reference case on the port: the oracle to
+    1e-10 and quflow_tpu's magmp to 1e-11, with the same stats."""
+    st0 = oracle["mhd_state0"]
+    dtm = float(oracle["mhd_dt"])
+    s_t, s_j = {}, {}
+    out = qt.magmp(st0.copy(), dtm, steps=20, tol=1e-12, maxit=20,
+                   stats=s_t, device="cpu")
+    np.testing.assert_allclose(out, oracle["mhd_state20"], atol=1e-10)
+    ref = magmp(st0.copy(), dtm, steps=20, tol=1e-12, maxit=20, stats=s_j)
+    np.testing.assert_allclose(out, ref, atol=1e-11)
+    assert s_t == s_j
+
+
+def test_solve_mhd_hamiltonian(oracle):
+    st = oracle["mhd_state0"]
+    P, B = qt.solve_mhd(st, device="cpu")
+    np.testing.assert_allclose(P, np.asarray(qf.solve_poisson(st[0],
+                                                              skewh=True)),
+                               atol=1e-13)
+    np.testing.assert_allclose(B, np.asarray(qf.laplace(st[1], skewh=True)),
+                               atol=1e-10)
+    Pt, Bt = qt.solve_mhd(torch.from_numpy(st))
+    np.testing.assert_array_equal(Pt.numpy(), P)
+    np.testing.assert_array_equal(Bt.numpy(), B)
+
+
+def test_magmp_conservation(oracle):
+    """Theta is advected isospectrally: its spectrum holds over 100
+    steps."""
+    st = oracle["mhd_state0"].copy()
+    e0 = np.sort(np.linalg.eigvalsh(-1j * st[1]))
+    out = qt.magmp(st.copy(), float(oracle["mhd_dt"]), steps=100, tol=1e-12,
+                   maxit=20, device="cpu")
+    np.testing.assert_allclose(np.sort(np.linalg.eigvalsh(-1j * out[1])), e0,
+                               atol=1e-9)
+
+
+@pytest.mark.parametrize("case", ["auto", "callback", "time", "forcing"])
+def test_magmp_options_match(oracle, case):
+    """The 'auto' tolerance (its stats key 'tol'), the callback (W_prev,
+    W_new - W_prev), a Hamiltonian that takes ``time``, and forcing,
+    each against quflow_tpu's magmp."""
+    st0 = oracle["mhd_state0"]
+    dtm = float(oracle["mhd_dt"])
+    kw_j = {"tol": 1e-12}
+    kw_t = dict(kw_j)
+    if case == "auto":
+        kw_t, kw_j = {}, {}
+    elif case == "callback":
+        seen = []
+        kw_t["callback"] = lambda W, dW: seen.append((W.copy(), dW.copy()))
+    elif case == "time":
+        def ham(W, time=0.0):
+            P, B = qt.solve_mhd(W)
+            return P * (1.0 + 0.1 * time), B
+
+        def jham(W, time=0.0):
+            P, B = solve_mhd(W)
+            return P * (1.0 + 0.1 * time), B
+
+        kw_t.update(hamiltonian=ham, time=0.2)
+        kw_j.update(hamiltonian=jham, time=0.2)
+    else:
+        F = np.stack([st0[0] * 0.01, st0[1] * 0.0])
+        kw_t["forcing"] = kw_j["forcing"] = lambda P, W: F
+    s_t, s_j = {}, {}
+    out = qt.magmp(st0.copy(), dtm, steps=10, stats=s_t, device="cpu", **kw_t)
+    ref = magmp(st0.copy(), dtm, steps=10, stats=s_j, **kw_j)
+    np.testing.assert_allclose(out, ref, atol=1e-11)
+    assert s_t == s_j
+    if case == "auto":
+        assert set(s_t) == {"tol", "iterations", "maxit"}
+    if case == "callback":
+        assert len(seen) == 10 and isinstance(seen[0][0], np.ndarray)
+        np.testing.assert_allclose(seen[0][0], st0)
+        for k in range(9):
+            np.testing.assert_allclose(seen[k + 1][0],
+                                       seen[k][0] + seen[k][1], atol=1e-13)
+
+
+def test_mhd_model():
+    """MHDFlow.step is magmp (tests/test_mhd.py's model case)."""
+    flow = MHDFlow(N=12)
+    st = flow.random_initial(lmax=5)
+    assert st.shape == (2, 12, 12)
+    out = flow.step(st.copy(), 0.1 * flow.hbar, steps=3, device="cpu")
+    assert out.shape == st.shape
+    assert np.abs(out - st).max() > 0
+    np.testing.assert_allclose(
+        out, JMHDFlow(N=12).step(st.copy(), 0.1 * flow.hbar, steps=3),
+        atol=1e-12)
+
+
+def test_magmp_torch_equals_magmp_at_fixed_iterations(oracle):
+    """MagmpTorch's fixed iteration count is the port's magmp with
+    tol=1e-18 and maxit=minit, complex128 (tests/test_mhd.py:56-83 checks
+    the same of quflow_tpu's production stepper)."""
+    st0 = oracle["mhd_state0"]
+    dtm = float(oracle["mhd_dt"])
+    ref = qt.magmp(st0.copy(), dtm, steps=20, tol=1e-18, maxit=8, minit=8,
+                   device="cpu")
+    out = tst.MagmpTorch(maxit=8, dtype=np.complex128, compsum=False,
+                         device="cpu")(st0.copy(), dtm, steps=20)
+    np.testing.assert_allclose(out, ref, atol=1e-12)

@@ -15,7 +15,12 @@ from quflow_tpu.ops.pallas_scan_solve import scan_base_cols
 from quflow_tpu.ops.tridiag import solve_factored as jsolve_factored
 from quflow_tpu.parallel import stepper as jst
 
-from quflow_tpu_torch.ops import cuda_build, cuda_scan_solve, cuda_solve
+from quflow_tpu_torch.ops import (
+    cuda_build,
+    cuda_scan_solve,
+    cuda_solve,
+    shear_solve,
+)
 from quflow_tpu_torch.ops.cuda_scan_solve import (
     chunk_rows,
     shear_scan,
@@ -158,8 +163,9 @@ def test_column_solver_selection(monkeypatch):
 
 
 def test_builders_solve_through_the_selected_kernel(monkeypatch):
-    """Every builder takes its column solve from the selector, read when
-    it is built: counted stand-ins show which one each step runs."""
+    """Every builder takes its column solve from the selector
+    (ops.shear_solve.column_solver), read when it is built: counted
+    stand-ins show which one each step runs."""
     calls = []
 
     def counted(name, fn):
@@ -168,9 +174,9 @@ def test_builders_solve_through_the_selected_kernel(monkeypatch):
             return fn(w, binv, u, d)
         return solve
 
-    monkeypatch.setattr(tst, "shear_thomas",
+    monkeypatch.setattr(shear_solve, "shear_thomas",
                         counted("thomas", shear_thomas_reference))
-    monkeypatch.setattr(tst, "shear_scan",
+    monkeypatch.setattr(shear_solve, "shear_scan",
                         counted("scan", shear_scan_reference))
     N, dt = 8, 0.1
     W = torch.from_numpy(_skewh(N)) * 0.1

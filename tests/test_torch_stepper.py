@@ -108,7 +108,7 @@ def test_isomp_torch_matches_isomp_tpu_warm_chunks():
     assert not np.array_equal(b(W0.copy(), dt, steps=25), first)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
     with pytest.raises(TypeError, match="per-call"):
         tst.IsompTorch(device="cpu")(_rand_skewh(8, 0), 0.1, steps=1, tol=1e-8)
     for kw, item in (({"tol": 1e-9}, "A7"), ({"mesh": object()}, "A9"),
@@ -116,7 +116,7 @@ def test_unported_options_raise():
                      ({"hamiltonian": ("globalqg", 1.0)}, "A7"),
                      ({"forcing": lambda P, W: W}, "A7"),
                      ({"strang_splitting": ("heat", 1e-3)}, "A7"),
-                     ({"layout": "wrapped"}, "A6"),
+                     ({"layout": "wrapped"}, "does not come over"),
                      ({"warm_precision": "high"}, "A4")):
         with pytest.raises(NotImplementedError, match=item):
             tst.build_step_fn(8, 0.1, device="cpu", **kw)
@@ -126,7 +126,9 @@ def test_unported_options_raise():
         tst.build_step_fn(8, 0.1, device="cpu", precision="high")
     with pytest.raises(NotImplementedError, match="complex128"):
         tst.build_dw_step_fn(8, 0.1)
-    with pytest.raises(NotImplementedError, match="A6"):
+    # solve's default integrator, isomp, needs the card unless told
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         qt.solve(_rand_skewh(8, 0), stepsize=0.1, steps=1, progress_bar=False)
     # the registry wrapper raises instead of dropping tol/minit/compsum
     for kw in ("tol", "minit", "compsum"):
