@@ -37,6 +37,14 @@ Phases, each printed as JSON lines:
   maxit 10) and ``MHDFlow(512).step`` (``magmp``, tol 1e-12, maxit 20),
   complex128, 20 steps a call: ms a step on the host clock, iterations a
   step, and one call under torch.profiler as in ``mhd``;
+- ``hooks``: the forced-dissipative QG step of chip_smoke.py phase 14a
+  (N=1024 complex64, maxit 5, timed forcing, viscdamp Strang with
+  theta 0.5; 20 steps a call): ms a step on the host clock, one call under
+  torch.profiler (the card's ms a step by kernel name, the idle share),
+  the card's ms of the step's two Strang half-steps and of their two
+  theta-scheme right-hand sides (the bare shear Laplacian) each run
+  alone, and their shares of the step; beside it the same QG step with
+  no hooks;
 - ``large``: ``shear_scan`` and ``shear_thomas`` at N=8192, B=1, complex64
   (128 chunks, the most a column can have): each one's relative error
   against a complex128 Thomas solve (the scan's at most 3 times the
@@ -59,7 +67,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from quflow_tpu_torch import hbar  # noqa: E402
-from quflow_tpu_torch.models import EulerFlow, MHDFlow  # noqa: E402
+from quflow_tpu_torch.models import EulerFlow, GlobalQGFlow, MHDFlow  # noqa: E402
 from quflow_tpu_torch.ops import cuda_build, cuda_scan_solve, cuda_solve  # noqa: E402
 from quflow_tpu_torch.ops.cuda_solve import (  # noqa: E402
     launch_solve,
@@ -71,6 +79,7 @@ from quflow_tpu_torch.ops.cuda_scan_solve import (  # noqa: E402
     shear_scan,
     shear_scan_reference,
 )
+from quflow_tpu_torch.parallel import stepper  # noqa: E402
 from quflow_tpu_torch.parallel.stepper import (  # noqa: E402
     _real_factors,
     build_mhd_step_fn,
@@ -301,6 +310,52 @@ def reference(device, steps=20):
         print(json.dumps(row), flush=True)
 
 
+def hooks(device, N=1024, n=20):
+    flow = GlobalQGFlow(N, np.complex64, gamma=chip_smoke.QG_GAMMA)
+    W0 = flow.random_initial(lmax=10, seed=42)
+    forcing = chip_smoke.qg_forcing(chip_smoke.band_forcing(
+        N, np.complex64, device, W0))
+    dt = 0.25 * hbar(N)
+    Wt = torch.from_numpy(W0).to(device)
+    z = torch.zeros_like(Wt)
+    timed = flow.stepper(dt, n, maxit=5, forcing=forcing,
+                         strang_splitting=chip_smoke.VISCDAMP, device=device)
+
+    def fn(W, dW, csum):
+        return timed(W, dW, csum, 0.0)
+
+    row = dict(phase="hooks", N=N, dtype="complex64", steps_a_call=n)
+    for name, run in (("hooked", fn),
+                      ("plain_qg", flow.stepper(dt, n, maxit=5,
+                                                device=device))):
+        readings = [step_ms(run, (Wt, z, z), calls=5, steps=n)
+                    for _ in range(3)]
+        prof = profiled(run, (Wt, z, z), steps=n, top=16)
+        row[name] = dict(ms_a_step=readings,
+                         median_ms=float(np.median(readings)), **prof)
+        row[name]["idle_share"] = 1 - prof["device_ms"] / float(
+            np.median(readings))
+    # the step's parts, each run alone: two Strang half-steps, and the two
+    # theta-scheme right-hand sides inside them
+    hook = stepper._strang_hook(chip_smoke.VISCDAMP, N, dt, np.complex64,
+                                np.float32(dt / 2), device,
+                                stepper.column_solver())
+    _, _, theta_rhs = stepper._resolve_strang_named(chip_smoke.VISCDAMP, dt)
+    cW, cL = (float(np.float32(c)) for c in theta_rhs)
+    lap = stepper._mhd_lap_op(N, np.complex64, device=device)
+
+    def rhs(W):
+        return cW * W + cL * stepper._laplace_core(W, lap)
+
+    step_ms_card = row["hooked"]["device_ms"]
+    for name, part in (("strang", lambda W: (hook(hook(W)),)),
+                       ("theta_rhs", lambda W: (rhs(rhs(W)),))):
+        ms = profiled(part, (Wt,), steps=1)["device_ms"]
+        row[f"{name}_device_ms"] = ms
+        row[f"{name}_share"] = ms / step_ms_card
+    print(json.dumps(row), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path,
@@ -360,6 +415,7 @@ def main():
          "steps": lambda: steps(device, libraries),
          "mhd": lambda: mhd(device),
          "reference": lambda: reference(device),
+         "hooks": lambda: hooks(device),
          "large": lambda: large(device)}[phase]()
         print(json.dumps({"phase_seconds": phase,
                           "s": time.perf_counter() - t0}), flush=True)

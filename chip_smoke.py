@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the repository root; it needs one CUDA device, nvcc, and nothing
-of JAX.  Thirteen phases, one line each; any failure ends the run with a
-nonzero exit code and no result line.
+of JAX.  Fourteen phases, one line each (phase 14 one for each of its
+parts); any failure ends the run with a nonzero exit code and no result
+line.
 
 1. device  - the card's name and power limit, as nvidia-smi reports them;
 2. build   - nvcc builds csrc/shear_thomas.cu and csrc/shear_scan.cu for
@@ -79,9 +80,40 @@ nonzero exit code and no result line.
 13. reference MHD path, complex128, N=512 - 50 steps of
              ``MHDFlow.step`` (``magmp``) at tol=1e-12, maxit=20: one
              launch per iteration (``laplace`` of Theta launches none);
-             tr(Theta^2), tr(Theta^3) drift <= 1e-10; steps/s.
+             tr(Theta^2), tr(Theta^3) drift <= 1e-10; steps/s;
+14. the hooked production stepper:
+    a. forced-dissipative QG, complex64, N=1024 - ``GlobalQGFlow.stepper``
+       with diagnostics, a timed forcing cos(t) F0 (F0 band-limited,
+       l in [8, 12], 1e-2 of W0's norm) and the viscdamp Strang splitting
+       (theta 0.5), 100 steps in calls of 20 on a card tensor: exactly
+       steps (maxit + 2) + calls ``shear_thomas`` launches (the fixed-point
+       solves, the two Strang half-steps, the diagnostics), none of the
+       scan; 10 steps through the kernel equal to 10 through the plain
+       solve to <= 1e-5 relative; steps/s beside phase 4's;
+    b. the same under QUFLOW_PALLAS_KERNEL=scan, 20 steps in one call:
+       ``shear_scan`` alone, 20 (maxit + 2) + 1 launches; 10 steps against
+       the plain scan to <= 1e-5;
+    c. the same configuration in complex128 at N=512 as a stepper with
+       tol=1e-300, minit=maxit=5 and as ``isomp`` with the callable
+       Hamiltonian, forcing and Strang splitting, 20 steps each: within
+       1e-11 of max|W|; the stepper's host syncs, one an iteration;
+    d. adaptive tol, Euler complex128, N=1024 - ``build_step_fn(tol=1e-12,
+       minit=1, maxit=20, compsum=True)``, 100 steps in calls of 20: one
+       launch and one host sync an iteration, the trajectory within 1e-11
+       relative of phase 10's gate run (``isomp``, the same tol), mean
+       iterations a step within 0.1 of its, tr(W^2), tr(W^3) drift
+       <= 1e-10;
+    e. MHD hooks, complex64, N=1024, under QUFLOW_PALLAS_KERNEL=scan -
+       ``build_mhd_step_fn`` with a fixed full-state forcing and the heat
+       Strang splitting (both components in one launch), 20 steps:
+       20 (maxit + 2) ``shear_scan`` launches; 5 steps against the plain
+       scan to <= 1e-5;
+    f. ``solve`` of a card tensor with ``IsompTorch`` (complex64, N=1024,
+       100 steps, outputs every 20): a card tensor back, no host copy of
+       any tensor (``Tensor.cpu``/``numpy``/``item``/``tolist`` counted),
+       steps/s beside phase 4's numpy figure.
 
-Every path (phases 4, 5, 7-13) runs with every launch count set to 0 just
+Every path (phases 4, 5, 7-14) runs with every launch count set to 0 just
 before it and read just after.  Then a JSON line of the kernels
 (name, source, the TPU kernel it replaces, launches on each path, error,
 times and bound at the main path's shape; ``library_ms`` null, since no
@@ -98,6 +130,7 @@ TFLOP/s float32, 34 float64): NVIDIA's data sheet of the H100 SXM.
 import contextlib
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -107,7 +140,15 @@ import numpy as np
 import torch
 from scipy.linalg import solve_banded
 
-from quflow_tpu_torch import energy_euler, enstrophy, hbar, isomp, solve
+from quflow_tpu_torch import (
+    energy_euler,
+    enstrophy,
+    hbar,
+    isomp,
+    random_shr,
+    shr2mat,
+    solve,
+)
 from quflow_tpu_torch.integrators import isospectral
 from quflow_tpu_torch.laplacian import tridiagonal
 from quflow_tpu_torch.models import EulerFlow, GlobalQGFlow, MHDFlow
@@ -126,6 +167,7 @@ from quflow_tpu_torch.ops.cuda_scan_solve import (
     shear_scan_reference,
 )
 from quflow_tpu_torch.ops.cuda_solve import shear_thomas, shear_thomas_reference
+from quflow_tpu_torch.parallel import stepper
 from quflow_tpu_torch.parallel.stepper import (
     IsompTorch,
     MagmpTorch,
@@ -549,29 +591,31 @@ def mhd_large(device, N=4096, steps=5, maxit=5):
 
 
 class SyncTimer:
-    """Counts the host syncs of isomp's fixed-point loop (one ``.item()``
-    of the residual norm an iteration, integrators/isospectral._residual)
-    and the host seconds spent in them, while installed."""
+    """Counts the host syncs of a fixed-point loop with a tolerance (one
+    ``.item()`` of the residual norm an iteration: ``_residual`` of
+    integrators/isospectral for isomp, of parallel/stepper for the
+    steppers) and the host seconds spent in them, while installed."""
 
-    def __init__(self):
+    def __init__(self, module=isospectral):
+        self.module = module
         self.calls = 0
         self.seconds = 0.0
 
     def __enter__(self):
-        self._residual = isospectral._residual
+        self._residual = self.module._residual
 
-        def timed(dW, dW_new):
+        def timed(a, b):
             t0 = time.perf_counter()
-            rn = self._residual(dW, dW_new)
+            rn = self._residual(a, b)
             self.seconds += time.perf_counter() - t0
             self.calls += 1
             return rn
 
-        isospectral._residual = timed
+        self.module._residual = timed
         return self
 
     def __exit__(self, *exc):
-        isospectral._residual = self._residual
+        self.module._residual = self._residual
 
 
 def chunk_iterations(log):
@@ -581,8 +625,10 @@ def chunk_iterations(log):
 
 
 def reference_euler(device, N=1024, steps=100, steps_out=20,
-                    compare_steps=10):
-    """Phase 10: the README's call on the card, complex128."""
+                    compare_steps=10, gate_out=None):
+    """Phase 10: the README's call on the card, complex128.  ``gate_out``,
+    a dict, gets the gate run's initial and final states and its
+    iterations a step (phase 14d holds the stepper to them)."""
     W0 = EulerFlow(N, np.complex128).random_initial(lmax=10, seed=42)
     c0 = casimirs(torch.from_numpy(W0).to(device))
     log = Logger()
@@ -627,6 +673,9 @@ def reference_euler(device, N=1024, steps=100, steps_out=20,
     if not (drift <= 1e-10).all():
         raise AssertionError(f"Casimir drift tr(W^2), tr(W^3) = {drift} > "
                              "1e-10 at tol=1e-12, compsum")
+    if gate_out is not None:
+        gate_out.update(W0=W0, W=Wg, steps=steps,
+                        iterations_per_step=gate_iterations / steps)
 
     # the same steps through the kernel and through the plain column solve
     dt = 0.25 * hbar(N)
@@ -814,13 +863,277 @@ def reference_mhd(device, N=512, steps=50):
                 steps_per_s=steps / sec)
 
 
+#: phase 14's forced-dissipative QG configuration
+QG_GAMMA = 1.0
+VISCDAMP = ("viscdamp", dict(nu=1e-4, alpha=0.01, theta=0.5))
+
+
+def band_forcing(N, dtype, device, W0, scale=1e-2):
+    """A fixed skew-Hermitian band-limited matrix F0 (``random_shr(lmax=12,
+    seed=7)`` with l < 8 zeroed), scaled to ``scale`` times W0's Frobenius
+    norm, on ``device``."""
+    omega = random_shr(lmax=12, seed=7)
+    omega[:8 ** 2] = 0.0
+    F0 = shr2mat(omega, N=N)
+    F0 *= scale * np.linalg.norm(W0) / np.linalg.norm(F0)
+    return torch.from_numpy(F0.astype(dtype)).to(device)
+
+
+def qg_forcing(F0):
+    """The timed forcing cos(t) F0 of phase 14."""
+    def forcing(P, W, time=0.0):
+        return math.cos(time) * F0
+    return forcing
+
+
+def ratio(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def finite(x):
+    return bool(torch.isfinite(torch.view_as_real(x) if x.is_complex()
+                               else x).all().item())
+
+
+def hooked_qg(device, kernel=shear_thomas, plain=shear_thomas_reference,
+              N=1024, steps=100, steps_out=20, maxit=5, compare_steps=10):
+    """Phases 14a (``shear_thomas``) and 14b (under
+    QUFLOW_PALLAS_KERNEL=scan, ``shear_scan``): the forced-dissipative QG
+    stepper, complex64."""
+    flow = GlobalQGFlow(N, np.complex64, gamma=QG_GAMMA)
+    W0 = flow.random_initial(lmax=10, seed=42)
+    forcing = qg_forcing(band_forcing(N, np.complex64, device, W0))
+    dt = 0.25 * hbar(N)
+    Wt = torch.from_numpy(W0).to(device)
+    z = torch.zeros_like(Wt)
+
+    def runner(n, **kw):
+        return flow.stepper(dt, n, maxit=maxit, forcing=forcing,
+                            strang_splitting=VISCDAMP, device=device, **kw)
+
+    runner(1)(Wt, z, z, 0.0)  # first call: host factors, cuBLAS set-up
+    fn = runner(steps_out, with_diagnostics=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    st = (Wt, z, z)
+    for k in range(steps // steps_out):
+        *st, diag = fn(*st, k * steps_out * dt)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    calls = steps // steps_out
+    expected = {k.__name__: 0 for k in KERNELS}
+    expected[kernel.__name__] = steps * (maxit + 2) + calls
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, expected {expected}")
+    W = st[0]
+    if W.shape != (N, N) or W.dtype != torch.complex64 or not finite(W):
+        raise AssertionError(f"bad state: {W.shape} {W.dtype}")
+    if not finite(diag):
+        raise AssertionError(f"non-finite diagnostics {diag}")
+
+    # the same steps through the kernel and through its plain version
+    Wk = runner(compare_steps, solver=kernel)(Wt, z, z, 0.0)[0]
+    Wp = runner(compare_steps, solver=plain)(Wt, z, z, 0.0)[0]
+    step_rel = ratio(Wk, Wp)
+    if not step_rel <= 1e-5:
+        raise AssertionError(f"{compare_steps} steps kernel vs plain: "
+                             f"relative difference {step_rel:.3e} > 1e-5")
+    return dict(N=N, steps=steps, steps_per_call=steps_out, maxit=maxit,
+                launches=counts, expected_launches=expected,
+                energy=diag[0].item(), enstrophy=diag[1].item(),
+                kernel_vs_plain_steps=compare_steps,
+                kernel_vs_plain=step_rel, stepper_steps_per_s=steps / sec)
+
+
+def hooked_vs_reference(device, N=512, steps=20, maxit=5):
+    """Phase 14c: the forced-dissipative QG stepper against the reference
+    loop ``isomp`` with the callable hooks, complex128."""
+    flow = GlobalQGFlow(N, np.complex128, gamma=QG_GAMMA)
+    W0 = flow.random_initial(lmax=10, seed=42)
+    forcing = qg_forcing(band_forcing(N, np.complex128, device, W0))
+    dt = 0.25 * hbar(N)
+    Wt = torch.from_numpy(W0).to(device)
+    z = torch.zeros_like(Wt)
+    fn = flow.stepper(dt, steps, maxit=maxit, minit=maxit, tol=1e-300,
+                      forcing=forcing, strang_splitting=VISCDAMP,
+                      device=device)
+    reset_counts()
+    with SyncTimer(stepper) as syncs:
+        Ws, _, _, iters = fn(Wt, z, z, 0.0)
+    stepper_counts = read_counts()
+    if (iters != maxit).any() or syncs.calls != steps * maxit:
+        raise AssertionError(f"iterations {iters.tolist()}, {syncs.calls} "
+                             "host syncs")
+    if stepper_counts["shear_thomas"] != steps * (maxit + 2):
+        raise AssertionError(f"stepper launches {stepper_counts}")
+    reset_counts()
+    Wr = isomp(Wt, dt, steps, time=0.0, tol=1e-300, minit=maxit, maxit=maxit,
+               compsum=True, forcing=forcing,
+               hamiltonian=functools.partial(solve_globalqg, gamma=QG_GAMMA,
+                                             skewh=True),
+               strang_splitting=functools.partial(
+                   solve_viscdamp, skewh=True, **VISCDAMP[1]))
+    isomp_counts = read_counts()
+    diff = ((Ws - Wr).abs().max() / Wr.abs().max()).item()
+    if not diff <= 1e-11:
+        raise AssertionError(f"stepper vs isomp: {diff:.3e} > 1e-11 of "
+                             "max|W|")
+    return dict(N=N, steps=steps, maxit=maxit, stepper_vs_isomp=diff,
+                stepper_launches=stepper_counts["shear_thomas"],
+                isomp_launches=isomp_counts["shear_thomas"],
+                stepper_syncs=syncs.calls)
+
+
+def adaptive_euler(device, gate, steps_out=20, tol=1e-12, maxit=20):
+    """Phase 14d: adaptive tol on the Euler stepper, complex128, against
+    phase 10's gate run (``gate``: its states and iterations)."""
+    W0, steps = gate["W0"], gate["steps"]
+    N = W0.shape[-1]
+    c0 = casimirs(torch.from_numpy(W0).to(device))
+    fn = build_step_fn(N, 0.25 * hbar(N), steps=steps_out, maxit=maxit,
+                       dtype=np.complex128, compsum=True, tol=tol, minit=1,
+                       device=device)
+    Wt = torch.from_numpy(W0).to(device)
+    z = torch.zeros_like(Wt)
+    series = []
+    reset_counts()
+    with SyncTimer(stepper) as syncs:
+        t0 = time.perf_counter()
+        st = (Wt, z, z)
+        for _ in range(steps // steps_out):
+            *st, iters = fn(*st)
+            series.append(iters)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    counts = read_counts()
+    iterations = int(torch.cat(series).sum())
+    if counts != {"shear_thomas": iterations, "shear_scan": 0}:
+        raise AssertionError(f"launches {counts} for {iterations} iterations")
+    if syncs.calls != iterations:
+        raise AssertionError(f"{syncs.calls} host syncs for {iterations} "
+                             "iterations")
+    W = st[0]
+    rel = ratio(W, torch.from_numpy(gate["W"]).to(device))
+    if not rel <= 1e-11:
+        raise AssertionError(f"stepper vs isomp's gate run: {rel:.3e} > 1e-11")
+    mean = iterations / steps
+    if not abs(mean - gate["iterations_per_step"]) <= 0.1:
+        raise AssertionError(f"{mean} iterations a step, isomp's gate "
+                             f"{gate['iterations_per_step']}")
+    drift = np.abs(casimirs(W) - c0) / np.abs(c0)
+    if not (drift <= 1e-10).all():
+        raise AssertionError(f"Casimir drift tr(W^2), tr(W^3) = {drift}")
+    return dict(N=N, steps=steps, tol=tol, maxit=maxit, launches=iterations,
+                syncs=syncs.calls, sync_s=syncs.seconds,
+                iterations_per_step=mean,
+                isomp_iterations_per_step=gate["iterations_per_step"],
+                vs_isomp_gate=rel, tr_W2_drift=drift[0], tr_W3_drift=drift[1],
+                stepper_steps_per_s=steps / sec)
+
+
+def hooked_mhd(device, N=1024, steps=20, maxit=5, compare_steps=5):
+    """Phase 14e: the MHD stepper with a fixed full-state forcing and the
+    named heat Strang splitting, complex64, under
+    QUFLOW_PALLAS_KERNEL=scan."""
+    S0 = MHDFlow(N, np.complex64).random_initial(lmax=10, seed=42)
+    F0 = band_forcing(N, np.complex64, device, S0[0])
+    F = torch.stack([F0, 0.1 * F0])
+    St = torch.from_numpy(S0).to(device)
+    z = torch.zeros_like(St)
+    dt = 0.25 * hbar(N)
+    with kernel_variable("scan"):
+        def runner(n, solver=None):
+            return build_mhd_step_fn(
+                N, dt, steps=n, maxit=maxit, dtype=np.complex64,
+                forcing=lambda P, S: F,
+                strang_splitting=("heat", {"nu": 1e-4}), device=device,
+                solver=solver)
+
+        runner(1)(St, z, z)
+        fn = runner(steps)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        S = fn(St, z, z)[0]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+    if counts != {"shear_thomas": 0, "shear_scan": steps * (maxit + 2)}:
+        raise AssertionError(f"launches {counts}, expected "
+                             f"{steps * (maxit + 2)} of shear_scan only")
+    if S.shape != (2, N, N) or not finite(S):
+        raise AssertionError(f"bad state {S.shape}")
+    Sk = runner(compare_steps, shear_scan)(St, z, z)[0]
+    Sp = runner(compare_steps, shear_scan_reference)(St, z, z)[0]
+    step_rel = ratio(Sk, Sp)
+    if not step_rel <= 1e-5:
+        raise AssertionError(f"{compare_steps} steps kernel vs plain: "
+                             f"relative difference {step_rel:.3e} > 1e-5")
+    return dict(N=N, steps=steps, maxit=maxit, launches=counts,
+                kernel_vs_plain_steps=compare_steps, kernel_vs_plain=step_rel,
+                stepper_steps_per_s=steps / sec)
+
+
+class HostCopies:
+    """Counts the calls of ``Tensor.cpu``, ``.numpy``, ``.item`` and
+    ``.tolist`` while installed: each copies a tensor to the host."""
+
+    NAMES = ("cpu", "numpy", "item", "tolist")
+
+    def __init__(self):
+        self.calls = dict.fromkeys(self.NAMES, 0)
+
+    def __enter__(self):
+        self._saved = {n: getattr(torch.Tensor, n) for n in self.NAMES}
+        for name, method in self._saved.items():
+            def counted(t, *a, _name=name, _method=method, **kw):
+                self.calls[_name] += 1
+                return _method(t, *a, **kw)
+            setattr(torch.Tensor, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, method in self._saved.items():
+            setattr(torch.Tensor, name, method)
+
+
+def solve_on_card(device, N=1024, steps=100, steps_out=20, maxit=5):
+    """Phase 14f: ``solve`` of a card tensor through ``IsompTorch``."""
+    W0 = EulerFlow(N, np.complex64).random_initial(lmax=10, seed=42)
+    Wt = torch.from_numpy(W0).to(device)
+    integrator = IsompTorch(maxit=maxit, dtype=np.complex64)
+    integrator(Wt, 0.25 * hbar(N), steps=steps_out)  # first call: set-up
+    torch.cuda.synchronize()
+    reset_counts()
+    with HostCopies() as copies:
+        t0 = time.perf_counter()
+        W = solve(Wt, stepsize=0.25, steps=steps, steps_out=steps_out,
+                  integrator=integrator, progress_bar=False)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    counts = read_counts()
+    if not isinstance(W, torch.Tensor) or W.device != Wt.device:
+        raise AssertionError(f"solve returned {type(W)}")
+    if any(copies.calls.values()):
+        raise AssertionError(f"host copies of tensors: {copies.calls}")
+    if counts != {"shear_thomas": steps * maxit, "shear_scan": 0}:
+        raise AssertionError(f"launches {counts}")
+    if W.dtype != torch.complex64 or not finite(W):
+        raise AssertionError(f"bad state {W.dtype}")
+    return dict(N=N, steps=steps, maxit=maxit, launches=counts,
+                host_copies=copies.calls, solve_steps_per_s=steps / sec)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; "
                  "this script needs a CUDA device")
     device = torch.device("cuda", 0)
-    # phases 3-5, 10, 12 and 13 hold shear_thomas, the default column
-    # solve; phases 7 and 11 set the variable for themselves
+    # phases 3-5, 10, 12, 13 and 14a, c, d, f hold shear_thomas, the
+    # default column solve; phases 7, 11, 14b and 14e set the variable for
+    # themselves
     os.environ.pop("QUFLOW_PALLAS_KERNEL", None)
 
     smi = subprocess.run(
@@ -864,7 +1177,8 @@ def main():
     big = mhd_large(device)
     print("phase 9 MHD c64 N=4096: " + json.dumps(big), flush=True)
 
-    ref = reference_euler(device)
+    gate = {}
+    ref = reference_euler(device, gate_out=gate)
     print("phase 10 reference Euler c128 N=1024: " + json.dumps(ref),
           flush=True)
 
@@ -877,6 +1191,28 @@ def main():
 
     rmhd = reference_mhd(device)
     print("phase 13 reference MHD c128 N=512: " + json.dumps(rmhd),
+          flush=True)
+
+    hq = hooked_qg(device)
+    hq["phase_4_stepper_steps_per_s"] = c64["stepper_steps_per_s"]
+    print("phase 14a hooked QG c64 N=1024: " + json.dumps(hq), flush=True)
+    with kernel_variable("scan"):
+        hq_scan = hooked_qg(device, shear_scan, shear_scan_reference,
+                            steps=20, steps_out=20)
+    print("phase 14b hooked QG c64 N=1024, scan: " + json.dumps(hq_scan),
+          flush=True)
+    hvr = hooked_vs_reference(device)
+    print("phase 14c hooked QG c128 N=512 vs isomp: " + json.dumps(hvr),
+          flush=True)
+    ad = adaptive_euler(device, gate)
+    print("phase 14d adaptive tol Euler c128 N=1024: " + json.dumps(ad),
+          flush=True)
+    hm = hooked_mhd(device)
+    print("phase 14e hooked MHD c64 N=1024, scan: " + json.dumps(hm),
+          flush=True)
+    card = solve_on_card(device)
+    card["phase_4_solve_steps_per_s"] = c64["solve_steps_per_s"]
+    print("phase 14f solve of a card tensor c64 N=1024: " + json.dumps(card),
           flush=True)
 
     def main_row(rows):
@@ -899,7 +1235,11 @@ def main():
             "reference_euler_c128_N1024": ref["launches"],
             "reference_euler_c128_N1024_gate": ref["gate_launches"],
             "poisson_family_N1024": fam["launches"],
-            "reference_mhd_c128_N512": rmhd["launches"]},
+            "reference_mhd_c128_N512": rmhd["launches"],
+            "hooked_qg_c64_N1024": hq["launches"]["shear_thomas"],
+            "hooked_qg_c128_N512": hvr["stepper_launches"],
+            "adaptive_euler_c128_N1024": ad["launches"],
+            "solve_card_tensor_c64_N1024": card["launches"]["shear_thomas"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         **timing(rows),
         "library_ms": None,
@@ -914,7 +1254,9 @@ def main():
             "mhd_c64_N1024_logs": m64["log_launches"]["shear_scan"],
             "mhd_c128_N512": m128["launches"]["shear_scan"],
             "mhd_c64_N4096": big["launches"]["shear_scan"],
-            "reference_qg_c64_N1024": qg["launches"]["shear_scan"]},
+            "reference_qg_c64_N1024": qg["launches"]["shear_scan"],
+            "hooked_qg_c64_N1024": hq_scan["launches"]["shear_scan"],
+            "hooked_mhd_c64_N1024": hm["launches"]["shear_scan"]},
         "max_abs_err": max(r["max_abs_err"] for r in scan_rows + ragged),
         **timing(scan_rows),
         "library_ms": None,

@@ -10,8 +10,12 @@ are imported at first use.
 The ported slices are the reference-semantics layer (the Poisson family
 of ops/laplacian.py and the ``laplacian`` compatibility package, the
 ``isomp``, Runge-Kutta and ``magmp`` integrators, the physics functionals,
-the Euler, MHD and global-QG models, and ``solve`` with ``isomp`` as its
-default) and the production steppers (``IsompTorch``, ``MagmpTorch``).
+geometry, spectral analysis and dynamics helpers, the Euler, MHD and
+global-QG models, and ``solve`` with ``isomp`` as its default) and the
+production steppers (``IsompTorch``, ``MagmpTorch`` and their build functions,
+with forcing, Strang splitting, named Hamiltonians and adaptive ``tol``).
+Still missing: persistence (``io``, ``create_runfile``), graphics and the
+cluster launcher.
 Every Poisson-family solve runs the column kernel on the card:
 
     import numpy as np
@@ -28,7 +32,19 @@ or, for the production speed, a fixed iteration count with no host sync:
 
 from . import config  # noqa: F401  (turns TF32 off; see config.py)
 
-from .utils import elm2ind, ind2elm, complex_dtype, real_dtype
+from .utils import (
+    elm2ind,
+    ind2elm,
+    complex_dtype,
+    real_dtype,
+    berezin_multipliers,
+    cart2sph,
+    sph2cart,
+    sphgrid,
+    qtime2seconds,
+    seconds2qtime,
+    poisson_finite_differences,
+)
 from .ops import geometry
 from .ops.geometry import (
     hbar,
@@ -38,6 +54,10 @@ from .ops.geometry import (
     norm_Linf,
     norm_L1,
     integral,
+    so3_generators,
+    rotate,
+    cartesian_generators,
+    grad,
 )
 # the compat subpackage re-exports the unified backend and the reference's
 # per-backend module paths (as quflow_tpu binds it)
@@ -52,15 +72,42 @@ from .ops.laplacian import (
 )
 from .laplacian.direct import compute_direct_laplacian
 from .quantization import (
+    basis_break_index,
     compute_basis,
     get_basis,
     shr2mat,
     mat2shr,
     shc2mat,
     mat2shc,
+    shr2mat_,
+    mat2shr_,
+    shc2mat_,
+    mat2shc_,
+    elmr2mat,
+    elmc2mat,
+    adjust_basis_orientation_,
+    shr2mat_serial_,
+    shr2mat_parallel_,
+    mat2shr_serial_,
+    mat2shr_parallel_,
 )
 from . import transforms
-from .transforms import fun2shc, shc2fun, fun2shr, shr2fun, shc2shr, shr2shc
+from .transforms import (
+    fun2shc,
+    shc2fun,
+    fun2shr,
+    shr2fun,
+    shc2shr,
+    shr2shc,
+    fun2img,
+    img2fun,
+    as_fun,
+    as_shr,
+    forward,
+    inverse,
+    mw2gl,
+    gl2mw,
+)
 from . import integrators
 from .integrators import (
     isomp,
@@ -81,12 +128,24 @@ from .integrators.mhd import solve_mhd
 from .integrators.isospectral import select_skewherm
 from . import physics
 from .physics import energy_euler, enstrophy, inner_H1, inner_Hm1
-from .analysis import random_shr
+from . import analysis
+from .analysis import (
+    scale_decomposition,
+    energy_spectrum,
+    enstrophy_spectrum,
+    random_shr,
+    gamma_ratio,
+)
+from . import dynamics
+from .dynamics import project_el, blob, north_blob
 from . import sim
-from .sim import QuSimulation, solve
+from . import simulation  # alias module, the reference's name
+from .sim import QuSimulation
+from .sim.solve import solve, in_notebook
 from . import models
 from .models import EulerFlow, GlobalQGFlow, MHDFlow
 from . import parallel
+from . import experimental
 from .parallel.stepper import IsompTorch, MagmpTorch
 
 __version__ = "0.1.0"

@@ -55,13 +55,15 @@ class EulerFlow:
         options, ``device=`` among them, pass through ``kwargs``)."""
         return isomp_fixedpoint(W, dt, steps=steps, **kwargs)
 
-    def stepper(self, dt, steps, maxit=5, compsum=True, *, device=None,
-                **kwargs):
+    def stepper(self, dt, steps, maxit=5, minit=5, compsum=True, *,
+                device=None, **kwargs):
         """The port's multi-step runner ``fn(W, dW, csum)`` on ``device``
-        (see parallel/stepper.build_step_fn; other options pass through
-        ``kwargs``)."""
+        (see parallel/stepper.build_step_fn).  The hooks (``forcing``,
+        ``strang_splitting``, ``hamiltonian``), ``tol`` and the other
+        options pass through ``kwargs``; ``minit`` acts only with
+        ``tol``."""
         from ..parallel.stepper import build_step_fn
 
         return build_step_fn(self.N, dt, steps=steps, maxit=maxit,
-                             dtype=self.dtype, compsum=compsum, device=device,
-                             **kwargs)
+                             dtype=self.dtype, compsum=compsum, minit=minit,
+                             device=device, **kwargs)

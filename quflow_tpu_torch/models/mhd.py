@@ -41,13 +41,14 @@ class MHDFlow(EulerFlow):
         options, ``device=`` among them, pass through ``kwargs``)."""
         return magmp_fixedpoint(state, dt, steps=steps, **kwargs)
 
-    def stepper(self, dt, steps, maxit=5, compsum=True, *, device=None,
-                **kwargs):
+    def stepper(self, dt, steps, maxit=5, minit=5, compsum=True, *,
+                device=None, **kwargs):
         """The port's multi-step runner ``fn(S, dS, csum)`` on ``device``
         (see parallel/stepper.build_mhd_step_fn; other options pass
-        through ``kwargs``)."""
+        through ``kwargs``).  quflow_tpu's MHDFlow inherits the Euler
+        stepper, with these parameters; this one steps both components."""
         from ..parallel.stepper import build_mhd_step_fn
 
         return build_mhd_step_fn(self.N, dt, steps=steps, maxit=maxit,
                                  dtype=self.dtype, compsum=compsum,
-                                 device=device, **kwargs)
+                                 minit=minit, device=device, **kwargs)

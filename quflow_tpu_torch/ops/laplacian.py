@@ -45,6 +45,7 @@ import torch
 from .. import config
 from . import shear_solve
 from .diagpack import mat2shear, num_rows, shear2mat, subtract_col0_mean
+from .geometry import _is_dia
 from .shear_solve import device_factors, real_dtype, to_device
 from .tridiag import dot_cols, packed_laplacian, shear_laplacian
 
@@ -73,14 +74,18 @@ def laplacian(N, bc=False, skewh=True):
     return _lap_op(N, num_rows(N, skewh), bc)
 
 
-@lru_cache(maxsize=16)
 def _lap_cols(N, rdtype, device):
     """The bc-free shear Laplacian, channel-first (2, N, N+1), in the real
     dtype ``rdtype`` on ``device``: the numpy array of quflow_tpu's
     ``_mhd_lap_op(N, 'shear', rdtype)``, cast by numpy as the factors are,
-    kept on the device."""
-    op = shear_laplacian(N, bc=False)
-    return to_device(np.stack([op[:, 0, :].T, op[:, 1, :].T]), rdtype, device)
+    kept in ops.shear_solve.device_cache."""
+    def build():
+        op = shear_laplacian(N, bc=False)
+        return (to_device(np.stack([op[:, 0, :].T, op[:, 1, :].T]), rdtype,
+                          device),)
+
+    return shear_solve.device_cache.get(
+        ("laplacian", N, np.dtype(rdtype), torch.device(device)), build)[0]
 
 
 def _laplace_core(P, op):
@@ -153,12 +158,6 @@ def _resolve_skewh(W, skewh):
     if _skewh_default is not None:
         return _skewh_default
     return _is_skewh(W)
-
-
-def _is_dia(A):
-    from scipy.sparse import issparse
-
-    return issparse(A) and A.format == "dia"
 
 
 def _dia_apply(A, fn_el, fn_dense):

@@ -1,7 +1,8 @@
 """The column solve of the shear layout as its callers reach it: which
 kernel runs (:func:`column_solver`), the host-prefactorized operator of
 each solve family (:func:`_shear_factors_cached`), and the copies of its
-factors on a device (:func:`device_factors`).
+factors on a device (:func:`device_factors`), kept in :data:`device_cache`,
+which ops/laplacian.py and ops/tridiag.py share for their device operators.
 
 The Poisson family's backend (ops/laplacian.py) and the production
 steppers (parallel/stepper.py) both solve through here, so the kernel
@@ -11,6 +12,7 @@ choice and the factor caches are one for the whole package.
 from __future__ import annotations
 
 import os
+from collections import OrderedDict
 from functools import lru_cache
 
 import numpy as np
@@ -21,7 +23,13 @@ from .cuda_scan_solve import shear_scan
 from .cuda_solve import shear_thomas
 from .tridiag import TridiagFactors, shear_operator
 
-__all__ = ["column_solver", "device_factors", "real_dtype", "to_device"]
+__all__ = ["column_solver", "device_factors", "device_cache", "real_dtype",
+           "to_device", "DEVICE_CACHE_BYTES"]
+
+#: bytes of device operators that :data:`device_cache` keeps, on all
+#: devices together.  One complex128 factor set at N=8192 is
+#: 3 N (N+1) 8 B = 1.6 GB, so two of them fit.
+DEVICE_CACHE_BYTES = 4 << 30
 
 
 def column_solver(solver=None):
@@ -84,12 +92,58 @@ def _shear_factors_cached(N, kind="poisson", params=()):
     )
 
 
-@lru_cache(maxsize=16)
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class DeviceCache:
+    """Least-recently-used tensors on devices, bounded in bytes by
+    :data:`DEVICE_CACHE_BYTES` (read at each insertion).  A value is a
+    tuple of tensors; one larger than the whole budget is returned to its
+    caller and not kept."""
+
+    def __init__(self):
+        self._values = OrderedDict()
+        self.nbytes = 0
+
+    def get(self, key, build):
+        """The value of ``key``, made by ``build()`` on a miss."""
+        value = self._values.get(key)
+        if value is not None:
+            self._values.move_to_end(key)
+            return value
+        value = build()
+        size = _nbytes(value)
+        if size > DEVICE_CACHE_BYTES:
+            return value
+        while self._values and self.nbytes + size > DEVICE_CACHE_BYTES:
+            self.nbytes -= _nbytes(self._values.popitem(last=False)[1])
+        self._values[key] = value
+        self.nbytes += size
+        return value
+
+    def clear(self):
+        self._values.clear()
+        self.nbytes = 0
+
+    def __len__(self):
+        return len(self._values)
+
+
+#: the device operators of the package: the column factors of every solve
+#: family, the shear Laplacian, the semiseparable m=0 inverses
+device_cache = DeviceCache()
+
+
 def device_factors(N, kind, params, rdtype, device):
     """``(w, binv, u)`` of :func:`_shear_factors_cached` cast to the real
-    dtype ``rdtype`` (numpy) on ``device`` (a torch.device), kept there: a
-    solve inside a loop (a Strang hook's ``solve_heat``, every fixed-point
-    iteration's Hamiltonian) then uploads nothing.  16 sets are kept on the
-    devices, each 3 (N, N+1) arrays."""
-    w, binv, u, _ = _shear_factors_cached(N, kind, params)
-    return tuple(to_device(a, rdtype, device) for a in (w, binv, u))
+    dtype ``rdtype`` (numpy) on ``device`` (a torch.device), kept in
+    :data:`device_cache`: a solve inside a loop (a Strang hook's
+    ``solve_heat``, every fixed-point iteration's Hamiltonian) then uploads
+    nothing while its set stays in the budget."""
+    def build():
+        w, binv, u, _ = _shear_factors_cached(N, kind, params)
+        return tuple(to_device(a, rdtype, device) for a in (w, binv, u))
+
+    return device_cache.get(("factors", N, kind, tuple(params),
+                             np.dtype(rdtype), torch.device(device)), build)

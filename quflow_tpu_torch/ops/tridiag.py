@@ -290,13 +290,20 @@ def _m0_semisep(N, kind="poisson", params=()):
     return (u / s).astype(np.float32), (v * s).astype(np.float32)
 
 
-@lru_cache(maxsize=16)
 def _m0_semisep_tensors(N, ham, dtype, device):
-    """``_m0_semisep`` on ``device`` in ``dtype``, kept there: a host copy
-    per solve would stall the device queue."""
-    uu, vv = _m0_semisep(N, *ham)
-    return (torch.as_tensor(uu, device=device).to(dtype),
-            torch.as_tensor(vv, device=device).to(dtype))
+    """``_m0_semisep`` on ``device`` in ``dtype``, kept in
+    ops.shear_solve.device_cache: a host copy per solve would stall the
+    device queue."""
+    from .shear_solve import device_cache
+
+    def build():
+        uu, vv = _m0_semisep(N, *ham)
+        return (torch.as_tensor(uu, device=device).to(dtype),
+                torch.as_tensor(vv, device=device).to(dtype))
+
+    kind, params = ham
+    return device_cache.get(("m0", N, kind, tuple(params), dtype,
+                             torch.device(device)), build)
 
 
 def m0_correction(x0, d0, main, off, ham=("poisson", ())):

@@ -180,3 +180,39 @@ def test_reference_phases_rehearse_on_cpu(cpu_rehearsal):
     mhd = chip_smoke.reference_mhd("cpu", N=24, steps=5)
     assert mhd["launches"] == round(mhd["iterations_per_step"] * 5)
     assert mhd["tr_Theta3_drift"] <= 1e-10
+
+
+def test_hooks_phases_rehearse_on_cpu(cpu_rehearsal):
+    """Phase 14 at small N: the launch counts it checks (maxit + 2 a step
+    and one a call with diagnostics; the scan alone under the variable;
+    one an adaptive iteration; one a fixed iteration of solve on a
+    tensor), the host syncs, the comparisons."""
+    hq = chip_smoke.hooked_qg("cpu", N=32, steps=10, steps_out=5,
+                              compare_steps=2)
+    assert hq["launches"] == hq["expected_launches"] == {
+        "shear_thomas": 10 * 7 + 2, "shear_scan": 0}
+    assert hq["kernel_vs_plain"] == 0.0
+    with chip_smoke.kernel_variable("scan"):
+        hs = chip_smoke.hooked_qg("cpu", shear_scan, shear_scan_reference,
+                                  N=32, steps=4, steps_out=4,
+                                  compare_steps=2)
+    assert hs["launches"] == {"shear_thomas": 0, "shear_scan": 4 * 7 + 1}
+    assert "QUFLOW_PALLAS_KERNEL" not in chip_smoke.os.environ
+    hvr = chip_smoke.hooked_vs_reference("cpu", N=32, steps=4)
+    assert hvr["stepper_vs_isomp"] <= 1e-11
+    assert hvr["stepper_launches"] == 4 * 7 and hvr["stepper_syncs"] == 20
+    # isomp's probe of the Hamiltonian for ``time`` fails before a solve
+    assert hvr["isomp_launches"] == 4 * 7
+    gate = {}
+    chip_smoke.reference_euler("cpu", N=32, steps=10, steps_out=5,
+                               compare_steps=2, gate_out=gate)
+    ad = chip_smoke.adaptive_euler("cpu", gate, steps_out=5)
+    assert ad["launches"] == ad["syncs"] == round(
+        ad["iterations_per_step"] * 10)
+    assert ad["vs_isomp_gate"] <= 1e-11 and ad["tr_W3_drift"] <= 1e-10
+    hm = chip_smoke.hooked_mhd("cpu", N=32, steps=4, compare_steps=2)
+    assert hm["launches"] == {"shear_thomas": 0, "shear_scan": 4 * 7}
+    assert hm["kernel_vs_plain"] == 0.0
+    card = chip_smoke.solve_on_card("cpu", N=32, steps=10, steps_out=5)
+    assert card["launches"] == {"shear_thomas": 50, "shear_scan": 0}
+    assert not any(card["host_copies"].values())

@@ -11,6 +11,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import jax.numpy as jnp
 
 import quflow_tpu as qf
 from quflow_tpu.models import EulerFlow as JEulerFlow
@@ -375,8 +376,8 @@ def test_euler_flow_reference_methods():
 
 
 def test_global_qg_flow():
-    """GlobalQGFlow.hamiltonian and .step against quflow_tpu's; its
-    production stepper waits for named Hamiltonians (A7)."""
+    """GlobalQGFlow.hamiltonian, .step and .stepper (the named QG
+    Hamiltonian on the production step) against quflow_tpu's."""
     flow = GlobalQGFlow(20, np.complex128, gamma=0.7)
     jflow = JGlobalQGFlow(20, np.complex128, gamma=0.7)
     W = flow.random_initial(lmax=6, seed=6)
@@ -389,8 +390,14 @@ def test_global_qg_flow():
                                                stats=sj), atol=1e-12)
     assert st == sj
     assert qt.GlobalQGFlow is GlobalQGFlow
-    with pytest.raises(NotImplementedError, match="A7"):
-        flow.stepper(dt, 1)
+    fj = jflow.stepper(dt, 4, planes_io=False)
+    ft = flow.stepper(dt, 4, device="cpu")
+    z = np.zeros_like(W)
+    Wj = np.asarray(fj(jnp.asarray(W), jnp.asarray(z), jnp.asarray(z))[0])
+    zt = torch.from_numpy(z)
+    Wt = ft(torch.from_numpy(W), zt, zt)[0].numpy()
+    assert np.abs(Wt - Wj).max() <= 1e-13 * np.abs(Wj).max()
+    assert np.abs(Wt - W).max() > 1e-6
 
 
 def test_registry_and_exports():
