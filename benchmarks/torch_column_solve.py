@@ -45,6 +45,11 @@ Phases, each printed as JSON lines:
   theta-scheme right-hand sides (the bare shear Laplacian) each run
   alone, and their shares of the step; beside it the same QG step with
   no hooks;
+- ``ensemble``: the batched Euler step (N=1024 complex64, maxit 5, 20
+  steps a call) at B in {1, 4, 16} members: ms a step on the host clock
+  (three readings), per-state steps/s, and one call under torch.profiler:
+  the card's ms a step by kernel name and the share of the step the card
+  idles;
 - ``large``: ``shear_scan`` and ``shear_thomas`` at N=8192, B=1, complex64
   (128 chunks, the most a column can have): each one's relative error
   against a complex128 Thomas solve (the scan's at most 3 times the
@@ -211,39 +216,7 @@ def step_ms(fn, st, calls=10, steps=20):
     return (time.perf_counter() - t0) * 1e3 / (steps * calls)
 
 
-def profiled(fn, st, steps=20, solve="shear_thomas", top=0):
-    """One call of ``steps`` steps under torch.profiler: the card's ms a
-    step, the column solve's share of it, the host-clock ms a step and,
-    with ``top``, the ``top`` kernels by time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn(*st)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn(*st)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device_us = solve_us = 0.0
-    by_name = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue  # an operator's entry repeats its kernels' time
-        t = e.self_device_time_total
-        device_us += t
-        if solve in e.key:
-            solve_us += t
-        if t > 0:
-            by_name.append((t, e.count, e.key))
-    row = {"device_ms": device_us / (1e3 * steps),
-           f"{solve}_ms": solve_us / (1e3 * steps),
-           "wall_ms_profiled": wall * 1e3 / steps}
-    if top:
-        row["kernels"] = [dict(name=key[:72], ms_a_step=t / (1e3 * steps),
-                               calls_a_step=n / steps)
-                          for t, n, key in sorted(by_name, reverse=True)[:top]]
-    return row
+profiled = chip_smoke.profiled
 
 
 def steps(device, libraries):
@@ -356,6 +329,28 @@ def hooks(device, N=1024, n=20):
     print(json.dumps(row), flush=True)
 
 
+def ensemble(device, N=1024, n=20, Bs=(1, 4, 16)):
+    """The batched Euler step at each ensemble size: host-clock ms a step,
+    per-state steps/s, and one call under torch.profiler."""
+    members = torch.from_numpy(chip_smoke.euler_members(
+        N, max(Bs), np.complex64)).to(device)
+    for B in Bs:
+        W0 = members[:B].contiguous()
+        z = torch.zeros_like(W0)
+        fn = build_step_fn(N, 0.25 * hbar(N), steps=n, maxit=5,
+                           dtype=np.complex64, batched=True, device=device)
+        readings = [step_ms(fn, (W0, z, z), calls=3, steps=n)
+                    for _ in range(3)]
+        row = dict(phase="ensemble", N=N, B=B, dtype="complex64",
+                   steps_a_call=n, ms_a_step=readings,
+                   median_ms=float(np.median(readings)),
+                   **profiled(fn, (W0, z, z), steps=n, top=10))
+        row["state_steps_per_s"] = B * 1e3 / row["median_ms"]
+        row["idle_share"] = 1 - row["device_ms"] / row["median_ms"]
+        print(json.dumps(row), flush=True)
+        del W0, z, fn
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path,
@@ -416,6 +411,7 @@ def main():
          "mhd": lambda: mhd(device),
          "reference": lambda: reference(device),
          "hooks": lambda: hooks(device),
+         "ensemble": lambda: ensemble(device),
          "large": lambda: large(device)}[phase]()
         print(json.dumps({"phase_seconds": phase,
                           "s": time.perf_counter() - t0}), flush=True)

@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the repository root; it needs one CUDA device, nvcc, and nothing
-of JAX.  Fourteen phases, one line each (phase 14 one for each of its
-parts); any failure ends the run with a nonzero exit code and no result
+of JAX.  Sixteen phases, one line each (phases 14-16 one for each of
+their parts); any failure ends the run with a nonzero exit code and no result
 line.
 
 1. device  - the card's name and power limit, as nvidia-smi reports them;
@@ -111,9 +111,38 @@ line.
     f. ``solve`` of a card tensor with ``IsompTorch`` (complex64, N=1024,
        100 steps, outputs every 20): a card tensor back, no host copy of
        any tensor (``Tensor.cpu``/``numpy``/``item``/``tolist`` counted),
-       steps/s beside phase 4's numpy figure.
+       steps/s beside phase 4's numpy figure;
+15. ensembles (``batched=True``):
+    a. Euler, complex64, N=1024, maxit 5, B in {1, 4, 16} members
+       (EulerFlow initial data of seeds 42, 43, ...), two calls of 20
+       steps: exactly 40 x 5 ``shear_thomas`` launches whatever B (one
+       launch solves every member); per-state steps/s; from one profiled
+       call the card's ms a step (torch.profiler, the kernels' own time),
+       ``shear_thomas``'s ms a step, and the share of the step the card
+       idles;
+    b. each member of the B=16 ensemble against its own unbatched run
+       over 10 steps: within 1e-5 of max|W|;
+    c. Euler, complex128, N=512, B=8, 200 steps: tr(W^2), tr(W^3) drift
+       <= 1e-10 on every member;
+    d. MHD, complex64, N=1024, B=4, heat Strang splitting, 20 steps under
+       QUFLOW_PALLAS_KERNEL=scan: 20 (maxit + 2) ``shear_scan`` launches,
+       each fixed-point solve of B=4 and each Strang half-step of 2 B = 8
+       (both components of every member); 5 steps against the plain scan
+       to <= 1e-5;
+    e. ``shear_thomas`` at N=1024, B=16 and ``shear_scan`` at N=1024, B=2
+       against their plain versions, as in phases 3 and 6 (bit-equal,
+       times, bounds);
+16. persistence and distribution on the card:
+    a. ``IsompTorch(warm=False)``, complex64, N=1024: two calls of 20
+       steps against 20 steps, ``save_checkpoint``, ``load_checkpoint``
+       and 20 steps: bit-equal;
+    b. a one-rank NCCL process group through ``initialize`` and
+       ``global_mesh``: phase 15a's B=16 run on the mesh, bit-equal with
+       the same launches; an adaptive run on the mesh (one all_reduce of
+       the residual an iteration, counted) equal to the same run without
+       it.
 
-Every path (phases 4, 5, 7-14) runs with every launch count set to 0 just
+Every path (phases 4, 5, 7-16) runs with every launch count set to 0 just
 before it and read just after.  Then a JSON line of the kernels
 (name, source, the TPU kernel it replaces, launches on each path, error,
 times and bound at the main path's shape; ``library_ms`` null, since no
@@ -134,6 +163,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -383,9 +413,14 @@ def main_path_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
 
 
 def casimirs(W):
+    """[tr(W^2) (real), tr(W^3) (imaginary part)] of W (..., N, N), numpy
+    (..., 2)."""
     W2 = W @ W
-    return np.array([torch.diagonal(W2, dim1=-2, dim2=-1).sum().real.item(),
-                     torch.diagonal(W2 @ W, dim1=-2, dim2=-1).sum().imag.item()])
+
+    def trace(A):
+        return torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
+
+    return torch.stack([trace(W2).real, trace(W2 @ W).imag], -1).cpu().numpy()
 
 
 def main_path_c128(device, N=512, steps=200, maxit=5):
@@ -1126,6 +1161,306 @@ def solve_on_card(device, N=1024, steps=100, steps_out=20, maxit=5):
                 host_copies=copies.calls, solve_steps_per_s=steps / sec)
 
 
+def profiled(fn, st, steps=20, solve="shear_thomas", top=0):
+    """One call of ``steps`` steps under torch.profiler: the card's ms a
+    step (the kernels' own time, summed), the column solve's ms a step,
+    the host-clock ms a step of the profiled call and, with ``top``, the
+    ``top`` kernels by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*st)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(*st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us = solve_us = 0.0
+    by_name = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue  # an operator's entry repeats its kernels' time
+        t = e.self_device_time_total
+        device_us += t
+        if solve in e.key:
+            solve_us += t
+        if t > 0:
+            by_name.append((t, e.count, e.key))
+    row = {"device_ms": device_us / (1e3 * steps),
+           f"{solve}_ms": solve_us / (1e3 * steps),
+           "wall_ms_profiled": wall * 1e3 / steps}
+    if top:
+        row["kernels"] = [dict(name=key[:72], ms_a_step=t / (1e3 * steps),
+                               calls_a_step=n / steps)
+                          for t, n, key in sorted(by_name, reverse=True)[:top]]
+    return row
+
+
+def euler_members(N, B, dtype, seed=42):
+    """B EulerFlow initial states (seeds seed, ..., seed + B - 1), stacked
+    (B, N, N)."""
+    return np.stack([EulerFlow(N, dtype).random_initial(lmax=10, seed=seed + b)
+                     for b in range(B)])
+
+
+class Recorded:
+    """A column solve that records the ensemble size (the product of the
+    leading axes) of each call, then calls ``solver``."""
+
+    def __init__(self, solver):
+        self.solver, self.batches = solver, []
+
+    def __call__(self, w, binv, u, d):
+        self.batches.append(int(np.prod(d.shape[:-2])))
+        return self.solver(w, binv, u, d)
+
+
+def ensemble_euler(device, N=1024, Bs=(1, 4, 16), steps_out=20, calls=2,
+                   maxit=5, compare_steps=10, out=None):
+    """Phase 15a-b: the batched Euler stepper, complex64, at each ensemble
+    size B (members: EulerFlow initial data of seeds 42, 43, ...): launches
+    (steps x maxit whatever B), per-state steps/s, and from one profiled
+    call the card's ms a step and its idle share; then every member of the
+    largest ensemble against its own unbatched run.  ``out`` gets the
+    largest run's initial and final states (phase 16b's reference)."""
+    dt = 0.25 * hbar(N)
+    steps = steps_out * calls
+    members = torch.from_numpy(euler_members(N, max(Bs), np.complex64)).to(
+        device)
+    rows = []
+    for B in Bs:
+        W0 = members[:B].contiguous()
+        z = torch.zeros_like(W0)
+        fn = build_step_fn(N, dt, steps=steps_out, maxit=maxit,
+                           dtype=np.complex64, batched=True, device=device)
+        fn(W0, z, z)  # first call: allocations, cuBLAS set-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        st = (W0, z, z)
+        for _ in range(calls):
+            st = fn(*st)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != {"shear_thomas": steps * maxit, "shear_scan": 0}:
+            raise AssertionError(f"B={B}: launches {counts}, expected "
+                                 f"{steps * maxit} of shear_thomas only")
+        if st[0].shape != (B, N, N) or not finite(st[0]):
+            raise AssertionError(f"B={B}: bad state {st[0].shape}")
+        prof = profiled(fn, (W0, z, z), steps=steps_out)
+        wall_ms = sec * 1e3 / steps
+        rows.append(dict(
+            B=B, steps=steps, launches=counts["shear_thomas"],
+            steps_per_s=steps / sec, state_steps_per_s=B * steps / sec,
+            wall_ms_a_step=wall_ms, device_ms_a_step=prof["device_ms"],
+            shear_thomas_ms_a_step=prof["shear_thomas_ms"],
+            idle_share=1.0 - prof["device_ms"] / wall_ms))
+        if out is not None and B == max(Bs):
+            out.update(W0=W0, W=st[0], launches=counts["shear_thomas"],
+                       steps_out=steps_out, calls=calls, maxit=maxit)
+
+    # each member of the largest ensemble against its own run; the
+    # tolerance, stated before the first run: 1e-5 of max|W| (complex64;
+    # the batched and the single GEMMs may round apart)
+    B = max(Bs)
+    z = torch.zeros_like(members)
+    WB = build_step_fn(N, dt, steps=compare_steps, maxit=maxit,
+                       dtype=np.complex64, batched=True, device=device)(
+        members, z, z)[0]
+    one = build_step_fn(N, dt, steps=compare_steps, maxit=maxit,
+                        dtype=np.complex64, device=device)
+    worst = max(ratio(WB[b], one(members[b], z[b], z[b])[0])
+                for b in range(B))
+    if not worst <= 1e-5:
+        raise AssertionError(f"member vs its own run over {compare_steps} "
+                             f"steps: {worst:.3e} > 1e-5")
+    return dict(N=N, maxit=maxit, dtype="complex64", by_B=rows,
+                members_vs_own_runs_steps=compare_steps,
+                members_vs_own_runs=worst)
+
+
+def ensemble_c128(device, N=512, B=8, steps=200, steps_out=50, maxit=5):
+    """Phase 15c: the batched Euler stepper, complex128, B members, 200
+    steps: tr(W^2), tr(W^3) drift <= 1e-10 on every member."""
+    W0 = torch.from_numpy(euler_members(N, B, np.complex128)).to(device)
+    c0 = casimirs(W0)
+    z = torch.zeros_like(W0)
+    fn = build_step_fn(N, 0.25 * hbar(N), steps=steps_out, maxit=maxit,
+                       dtype=np.complex128, batched=True, device=device)
+    reset_counts()
+    t0 = time.perf_counter()
+    st = (W0, z, z)
+    for _ in range(steps // steps_out):
+        st = fn(*st)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != {"shear_thomas": steps * maxit, "shear_scan": 0}:
+        raise AssertionError(f"launches {counts}")
+    if not finite(st[0]):
+        raise AssertionError("non-finite state")
+    drift = np.abs(casimirs(st[0]) - c0) / np.abs(c0)
+    if not (drift <= 1e-10).all():
+        raise AssertionError(f"Casimir drift tr(W^2), tr(W^3) by member "
+                             f"{drift.tolist()} > 1e-10")
+    return dict(N=N, B=B, steps=steps, maxit=maxit, launches=counts,
+                max_tr_W2_drift=drift[:, 0].max(),
+                max_tr_W3_drift=drift[:, 1].max(),
+                state_steps_per_s=B * steps / sec)
+
+
+def ensemble_mhd(device, N=1024, B=4, steps=20, maxit=5, compare_steps=5):
+    """Phase 15d: the batched MHD stepper, complex64, with the named heat
+    Strang splitting, under QUFLOW_PALLAS_KERNEL=scan: one launch of B
+    an iteration and one of 2 B a Strang half-step."""
+    S0 = torch.from_numpy(np.stack([
+        MHDFlow(N, np.complex64).random_initial(lmax=10, seed=42 + b)
+        for b in range(B)])).to(device)
+    z = torch.zeros_like(S0)
+    dt = 0.25 * hbar(N)
+    with kernel_variable("scan"):
+        def runner(n, solver):
+            return build_mhd_step_fn(
+                N, dt, steps=n, maxit=maxit, dtype=np.complex64,
+                batched=True, strang_splitting=("heat", {"nu": 1e-4}),
+                device=device, solver=solver)
+
+        solver = Recorded(stepper.column_solver())
+        fn = runner(steps, solver)
+        fn(S0, z, z)  # first call: host factors, cuBLAS set-up
+        torch.cuda.synchronize()
+        solver.batches.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        S = fn(S0, z, z)[0]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+    expected = [2 * B] + [B] * maxit + [2 * B]
+    if (counts != {"shear_thomas": 0, "shear_scan": steps * (maxit + 2)}
+            or solver.batches != expected * steps):
+        raise AssertionError(f"launches {counts}, ensemble sizes "
+                             f"{sorted(set(solver.batches))}")
+    if S.shape != (B, 2, N, N) or not finite(S):
+        raise AssertionError(f"bad state {S.shape}")
+    Sk = runner(compare_steps, shear_scan)(S0, z, z)[0]
+    Sp = runner(compare_steps, shear_scan_reference)(S0, z, z)[0]
+    step_rel = ratio(Sk, Sp)
+    if not step_rel <= 1e-5:
+        raise AssertionError(f"{compare_steps} steps kernel vs plain: "
+                             f"relative difference {step_rel:.3e} > 1e-5")
+    return dict(N=N, B=B, steps=steps, maxit=maxit, launches=counts,
+                launches_of_B=solver.batches.count(B),
+                launches_of_2B=solver.batches.count(2 * B),
+                kernel_vs_plain_steps=compare_steps, kernel_vs_plain=step_rel,
+                state_steps_per_s=B * steps / sec)
+
+
+def checkpoint_restart(device, N=1024, steps=20, maxit=5):
+    """Phase 16a: ``IsompTorch(warm=False)`` (each call a pure function of
+    the state), complex64, two calls of ``steps`` against one call, a
+    checkpoint saved and loaded, and the second call: bit-equal."""
+    from quflow_tpu_torch.parallel.distributed import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    W0 = torch.from_numpy(EulerFlow(N, np.complex64).random_initial(
+        lmax=10, seed=42)).to(device)
+    integ = IsompTorch(maxit=maxit, dtype=np.complex64, device=device,
+                       warm=False)
+    dt = 0.25 * hbar(N)
+    reset_counts()
+    straight = integ(integ(W0, dt, steps=steps), dt, steps=steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        half = integ(W0, dt, steps=steps)
+        path = save_checkpoint(tmp, (half,), step=steps)
+        (back,) = load_checkpoint(tmp, (half,), step=steps)
+        resumed = integ(back, dt, steps=steps)
+    counts = read_counts()
+    if counts != {"shear_thomas": 4 * steps * maxit, "shear_scan": 0}:
+        raise AssertionError(f"launches {counts}")
+    if back.device != W0.device or not torch.equal(resumed, straight):
+        raise AssertionError("the restart through the checkpoint is not "
+                             "bit-equal to the run without it")
+    return dict(N=N, steps=f"{steps} + {steps}", maxit=maxit,
+                checkpoint=os.path.basename(path), launches=counts,
+                bit_equal=True)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_dp(device, ensemble, backend=None, tol_steps=5, tol=1e-6,
+            maxit=10):
+    """Phase 16b: a one-rank process group (NCCL on the card) through
+    ``initialize`` and ``global_mesh``: the dp ensemble of phase 15's
+    largest run, bit-equal to it with the same launches; then an adaptive
+    run on the mesh, whose exit reads an all_reduce of the residual an
+    iteration, against the same run without the mesh."""
+    import torch.distributed as dist
+
+    from quflow_tpu_torch.parallel.distributed import global_mesh, initialize
+
+    if not initialize(init_method=f"tcp://localhost:{free_port()}",
+                      world_size=1, rank=0, backend=backend):
+        raise AssertionError("the process group did not come up")
+    try:
+        mesh = global_mesh()
+        name = dist.get_backend()
+        if mesh.shape != {"dp": 1, "tp": 1}:
+            raise AssertionError(f"mesh {mesh!r}")
+        W0 = ensemble["W0"]
+        N = W0.shape[-1]
+        dt = 0.25 * hbar(N)
+        z = torch.zeros_like(W0)
+        fn = build_step_fn(N, dt, steps=ensemble["steps_out"],
+                           maxit=ensemble["maxit"], dtype=np.complex64,
+                           batched=True, mesh=mesh, device=device)
+        reset_counts()
+        st = (W0, z, z)
+        for _ in range(ensemble["calls"]):
+            st = fn(*st)
+        counts = read_counts()
+        if counts["shear_thomas"] != ensemble["launches"]:
+            raise AssertionError(f"launches {counts}, phase 15: "
+                                 f"{ensemble['launches']}")
+        if not torch.equal(st[0], ensemble["W"]):
+            raise AssertionError("the dp run is not bit-equal to phase 15's")
+        reductions = []
+        reduce_max = mesh.max
+
+        def counted(value, dev):
+            reductions.append(value)
+            return reduce_max(value, dev)
+
+        mesh.max = counted
+        kw = dict(steps=tol_steps, maxit=maxit, tol=tol, dtype=np.complex64,
+                  batched=True, device=device)
+        on = build_step_fn(N, dt, mesh=mesh, **kw)(W0, z, z)
+        off = build_step_fn(N, dt, **kw)(W0, z, z)
+        if not (torch.equal(on[0], off[0]) and torch.equal(on[3], off[3])):
+            raise AssertionError("the adaptive run on the mesh differs from "
+                                 "the run without it")
+        if len(reductions) != int(on[3].sum()):
+            raise AssertionError(f"{len(reductions)} all_reduces for "
+                                 f"{int(on[3].sum())} iterations")
+    finally:
+        dist.destroy_process_group()
+    return dict(backend=name, mesh=mesh.shape, B=W0.shape[0],
+                launches=counts, bit_equal_to_phase_15=True,
+                adaptive_iterations=on[3].tolist(),
+                all_reduces=len(reductions))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; "
@@ -1215,6 +1550,32 @@ def main():
     print("phase 14f solve of a card tensor c64 N=1024: " + json.dumps(card),
           flush=True)
 
+    ensemble = {}
+    ens = ensemble_euler(device, out=ensemble)
+    print("phase 15a-b ensembles Euler c64 N=1024: " + json.dumps(ens),
+          flush=True)
+    ens128 = ensemble_c128(device)
+    print("phase 15c ensemble Euler c128 N=512: " + json.dumps(ens128),
+          flush=True)
+    ens_mhd = ensemble_mhd(device)
+    print("phase 15d ensemble MHD c64 N=1024, scan: " + json.dumps(ens_mhd),
+          flush=True)
+    # the kernels at the ensemble sizes of these paths that phases 3 and 6
+    # do not time: shear_thomas at B=16, shear_scan at B=2 (phase 14e's
+    # Strang launch)
+    ens_rows = kernel_vs_plain(device, Ns=(1024,), Bs=(16,))
+    scan_b2 = kernel_vs_plain(device, Ns=(1024,), Bs=(2,), kernel=shear_scan,
+                              plain=shear_scan_reference)
+    print("phase 15e kernels at B=16 (thomas) and B=2 (scan): "
+          + json.dumps(ens_rows + scan_b2), flush=True)
+
+    ckpt = checkpoint_restart(device)
+    print("phase 16a checkpoint restart c64 N=1024: " + json.dumps(ckpt),
+          flush=True)
+    dp = nccl_dp(device, ensemble)
+    print("phase 16b one-rank NCCL dp ensemble: " + json.dumps(dp),
+          flush=True)
+
     def main_row(rows):
         return next(r for r in rows if r["dtype"] == "complex64"
                     and r["N"] == 1024 and r["B"] == 1)
@@ -1239,8 +1600,14 @@ def main():
             "hooked_qg_c64_N1024": hq["launches"]["shear_thomas"],
             "hooked_qg_c128_N512": hvr["stepper_launches"],
             "adaptive_euler_c128_N1024": ad["launches"],
-            "solve_card_tensor_c64_N1024": card["launches"]["shear_thomas"]},
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "solve_card_tensor_c64_N1024": card["launches"]["shear_thomas"],
+            **{f"ensemble_euler_c64_N1024_B{r['B']}": r["launches"]
+               for r in ens["by_B"]},
+            "ensemble_euler_c128_N512_B8":
+                ens128["launches"]["shear_thomas"],
+            "checkpoint_restart_c64_N1024": ckpt["launches"]["shear_thomas"],
+            "nccl_dp_euler_c64_N1024_B16": dp["launches"]["shear_thomas"]},
+        "max_abs_err": max(r["max_abs_err"] for r in rows + ens_rows),
         **timing(rows),
         "library_ms": None,
     }, {
@@ -1256,8 +1623,10 @@ def main():
             "mhd_c64_N4096": big["launches"]["shear_scan"],
             "reference_qg_c64_N1024": qg["launches"]["shear_scan"],
             "hooked_qg_c64_N1024": hq_scan["launches"]["shear_scan"],
-            "hooked_mhd_c64_N1024": hm["launches"]["shear_scan"]},
-        "max_abs_err": max(r["max_abs_err"] for r in scan_rows + ragged),
+            "hooked_mhd_c64_N1024": hm["launches"]["shear_scan"],
+            "ensemble_mhd_c64_N1024_B4": ens_mhd["launches"]["shear_scan"]},
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in scan_rows + ragged + scan_b2),
         **timing(scan_rows),
         "library_ms": None,
     }]}), flush=True)

@@ -13,8 +13,10 @@ of ops/laplacian.py and the ``laplacian`` compatibility package, the
 geometry, spectral analysis and dynamics helpers, the Euler, MHD and
 global-QG models, and ``solve`` with ``isomp`` as its default) and the
 production steppers (``IsompTorch``, ``MagmpTorch`` and their build functions,
-with forcing, Strang splitting, named Hamiltonians and adaptive ``tol``).
-Still missing: persistence (``io``, ``create_runfile``), graphics and the
+with forcing, Strang splitting, named Hamiltonians and adaptive ``tol``,
+on one state, an ensemble (``batched``) or a ``torch.distributed`` mesh),
+and persistence (``io``, ``QuSimulation``, ``create_runfile``, the
+checkpoints of ``parallel.distributed``).  Still missing: graphics and the
 cluster launcher.
 Every Poisson-family solve runs the column kernel on the card:
 
@@ -138,9 +140,26 @@ from .analysis import (
 )
 from . import dynamics
 from .dynamics import project_el, blob, north_blob
+from . import io
+from .io import (
+    load_basis,
+    save_basis,
+    get_basis_dirs,
+    get_basis_files,
+    get_N_for_basis,
+    load_basis_hdf5,
+    load_basis_npy,
+    load_basis_mat,
+    save_basis_hdf5,
+    convert_mat_to_hdf5_basis,
+    determine_qtype,
+    QuData,
+    save,
+    load,
+)
 from . import sim
 from . import simulation  # alias module, the reference's name
-from .sim import QuSimulation
+from .sim import QuSimulation, create_runfile
 from .sim.solve import solve, in_notebook
 from . import models
 from .models import EulerFlow, GlobalQGFlow, MHDFlow

@@ -10,3 +10,5 @@ from .stepper import (
     to_planes,
     from_planes,
 )
+from .mesh import Mesh, make_mesh, row_blocks, shard_state, gather_state
+from . import distributed

@@ -32,6 +32,22 @@ recurrence in chunks, one thread per column and chunk).  The host factors
 come from the cache of ops.shear_solve, which the Poisson family of
 ops/laplacian.py shares.
 
+Ensembles and meshes.  A state may carry leading axes; ``batched=True``
+says, as in quflow_tpu, that the first is an ensemble axis (and requires
+it).  Every member is solved in the same launch of the column kernel, and
+under ``tol`` the exit reads the batch-max residual.  ``mesh`` (a
+parallel.mesh.Mesh over torch.distributed ranks) runs the step on each
+rank's piece of the state (parallel.mesh.shard_state): over 'dp' each
+replica steps its own members with no communication, and the ``tol`` exit
+takes the max over every rank (one all_reduce an iteration) so that every
+rank runs the same iterations, as JAX's while-loop does.  Over 'tp' > 1
+the rows are split (Euler and Poisson only): the solve is the distributed
+scan of parallel/shard_shear.py, and each GEMM all_gathers the operand it
+needs whole, the full W for P W and the full P for W P and (P W) P, which
+is two gathers an iteration.  The commutator P W - (P W)^H is formed as
+P W - W P, equal for the skew-Hermitian pair up to rounding, so it stays
+local.
+
 Options of the JAX stepper that this port does not run yet raise
 NotImplementedError naming the ROADMAP.md item that ports them.
 """
@@ -52,6 +68,8 @@ from ..ops.shear_solve import (
 )
 from ..ops.laplacian import _lap_cols, _laplace_core
 from ..ops.tridiag import refine_m0, solve_factored
+from .mesh import Mesh
+from .shard_shear import ShardedShearOperator, poisson_sharded
 
 __all__ = [
     "build_step_fn",
@@ -69,8 +87,6 @@ __all__ = [
 #: JAX stepper options the port does not run yet: name -> (the value the
 #: port runs, the ROADMAP.md item that ports the rest)
 _NOT_PORTED = {
-    "mesh": (None, "A9 (ensembles and multi-GPU)"),
-    "batched": (False, "A9 (ensembles and multi-GPU)"),
     "warm_precision": (None, "A4 (warm schedule, after the TF32 question)"),
     "warm_iters": (None, "A4 (warm schedule, after the TF32 question)"),
 }
@@ -140,17 +156,30 @@ def _resolve_strang_named(strang_splitting, dt):
         "'viscdamp', or pass a callable (h, W) -> W")
 
 
-def _check_layout(layout):
-    """Every shear layout is the shear path here ('shear_pallas' is the
-    one the JAX package picks on the TPU at N >= 4096): on the card each
-    shear solve is a kernel anyway."""
-    if layout in ("auto", "shear", "shear_pallas", None):
-        return
-    if layout in ("shard", "shear_shard"):
+_TP_ITEM = "see ROADMAP.md A9 (the tensor-parallel halo)"
+
+
+def _resolve_layout(layout, mesh):
+    """The solve layout: 'shear', or 'shear_shard' under a mesh whose 'tp'
+    axis splits the rows.  Every shear layout is the shear path here
+    ('shear_pallas' is the one the JAX package picks on the TPU at
+    N >= 4096): on the card each shear solve is a kernel anyway."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh={mesh!r}: pass a quflow_tpu_torch.parallel."
+                        "mesh.Mesh (parallel.mesh.make_mesh)")
+    if layout in ("auto", "shear", "shear_pallas", "shear_shard", None):
+        if mesh is not None and mesh.tp > 1:
+            return "shear_shard"
+        if layout == "shear_shard" and mesh is None:
+            raise ValueError("layout='shear_shard' shards the rows over a "
+                             "mesh: pass mesh=")
+        return "shear"
+    if layout == "shard":
         raise NotImplementedError(
-            f"layout={layout!r} shards the solve over a mesh, not ported to "
-            "quflow_tpu_torch yet; see ROADMAP.md A9 (ensembles and "
-            "multi-GPU)")
+            "layout='shard' does not come over to quflow_tpu_torch: its "
+            "wrapped relayout is parallel/shard_pack.py's, which follows "
+            "'wrapped'; under a mesh the rows are split on the shear layout "
+            "(layout='shear_shard')")
     if layout in ("shear_pallas_il", "wrapped", "rolls", "pallas"):
         raise NotImplementedError(
             f"layout={layout!r} does not come over to quflow_tpu_torch: "
@@ -159,6 +188,23 @@ def _check_layout(layout):
             "row-packed layouts only to reproduce measured regressions (see "
             "ROADMAP.md, 'Some code does not come over')")
     raise ValueError(f"unknown layout {layout!r}")
+
+
+def _checked_state(W, batched, core_ndim):
+    """``W`` when ``batched`` finds its leading ensemble axis (a state of
+    ``core_ndim`` axes has none) and otherwise raises."""
+    if batched and W.ndim <= core_ndim:
+        raise ValueError(
+            f"batched=True needs a leading ensemble axis; got a state of "
+            f"shape {tuple(W.shape)}")
+    return W
+
+
+def _reduce_max(mesh, device):
+    """The host-side max over the mesh's ranks, or None off a mesh."""
+    if mesh is None:
+        return None
+    return lambda value: mesh.max(value, device)
 
 
 def _check_precision(precision):
@@ -300,14 +346,14 @@ def _residual(dW_new, dW):
     return (dW_new - dW).abs().sum(-1).max().item()
 
 
-def _fixed_point(iterate, W, dW, maxit, tol, minit):
+def _fixed_point(iterate, W, dW, maxit, tol, minit, reduce_max=None):
     """The fixed-point loop of one step from the warm start ``dW``.
     ``iterate(W, dW) -> (dW_new, *rest)``.  Without ``tol``: exactly
     ``maxit`` iterations, no host sync.  With ``tol``: quflow_tpu's
     adaptive rule (quflow_tpu/parallel/stepper.py:773-807), exit once
     i >= minit and (rn <= tol or rn >= rn_old), rn the :func:`_residual`
-    of the iteration, at most ``maxit`` iterations.  Returns (dW, rest,
-    iterations)."""
+    of the iteration (its max over a mesh's ranks through ``reduce_max``),
+    at most ``maxit`` iterations.  Returns (dW, rest, iterations)."""
     if tol is None:
         for _ in range(maxit):
             dW, *rest = iterate(W, dW)
@@ -315,7 +361,10 @@ def _fixed_point(iterate, W, dW, maxit, tol, minit):
     i, rn, rn_old = 0, np.inf, np.inf
     while i < maxit and not (i >= minit and (rn <= tol or rn >= rn_old)):
         dW_new, *rest = iterate(W, dW)
-        rn_old, rn = rn, _residual(dW_new, dW)
+        rn_new = _residual(dW_new, dW)
+        if reduce_max is not None:
+            rn_new = reduce_max(rn_new)
+        rn_old, rn = rn, rn_new
         dW = dW_new
         i += 1
     return dW, rest, i
@@ -331,19 +380,43 @@ def _update(S, upd, csum, compsum):
     return tS, (tS - S) - y
 
 
-def _strang_hook(strang_splitting, N, dt, dtype, half_dt, device, solver):
+def _refuse_hooks_on_rows(ham_callable, forcing, strang_splitting, dt):
+    """Under a mesh with 'tp' > 1 the hooks that would see only a block of
+    rows raise: callables (a Hamiltonian, forcing, a Strang step) and the
+    theta-scheme Strang step, whose Laplacian needs a halo row."""
+    hooks = [name for name, hook in (("hamiltonian", ham_callable),
+                                     ("forcing", forcing)) if hook is not None]
+    if callable(strang_splitting):
+        hooks.append("strang_splitting")
+    elif (strang_splitting is not None
+          and _resolve_strang_named(strang_splitting, dt)[2] is not None):
+        hooks.append("strang_splitting with theta != 1")
+    if hooks:
+        raise NotImplementedError(
+            f"{', '.join(hooks)} under a mesh with 'tp' > 1 is not ported to "
+            f"quflow_tpu_torch yet; {_TP_ITEM}")
+
+
+def _strang_hook(strang_splitting, N, dt, dtype, half_dt, device, solver,
+                 mesh=None):
     """The Strang half-step ``S -> S`` of a stepper, or None.  A callable
     gets ``(dt/2, S)`` with dt/2 in the working precision.  A named
     dissipation is prefactorized here at h = dt/2 and solved on the shear
     layout with refine=0 and the trace handling of every solve; theta != 1
     first forms cW S + cL Delta S with the bare shear Laplacian.  A stacked
     state (..., 2, N, N) is solved in one launch: the column solves of its
-    components are independent, so this is bit-equal to one solve each."""
+    components are independent, so this is bit-equal to one solve each.
+    With ``mesh`` (rows split over 'tp'), the named step without a theta
+    right-hand side solves on the sharded shear layout."""
     if strang_splitting is None:
         return None
     if callable(strang_splitting):
         return lambda S: _like(strang_splitting(half_dt, S), S)
     kind, params, theta_rhs = _resolve_strang_named(strang_splitting, dt)
+    if mesh is not None:
+        opr = _sharded_operator(N, dtype, mesh, device, kind=kind,
+                                params=params)
+        return lambda S: poisson_sharded(S, opr)
     sw, sbinv, su = _real_factors(N, dtype, device=device, kind=kind,
                                   params=params)
     lap = None
@@ -361,15 +434,18 @@ def _strang_hook(strang_splitting, N, dt, dtype, half_dt, device, solver):
     return strang_half
 
 
-def _runner(step, steps, tol, t0_type, timed, finish=None):
+def _runner(step, steps, tol, t0_type, timed, finish=None, batched=False,
+            core_ndim=2):
     """The runner of a stepper: ``fn(W, dW, csum[, t0]) -> (W, dW, csum[,
     iterations][, diagnostics])``.  ``step(W, dW, csum, t) -> (W, dW, csum,
     iterations)``; time ``t`` is a numpy scalar of the working precision
     (``t0_type``), advanced by the step; under ``tol`` the per-step counts
     come back as an int32 (steps,) CPU tensor; ``finish(W, t)``, when
-    given, appends its result."""
+    given, appends its result.  ``batched`` requires a leading ensemble
+    axis on a state of ``core_ndim`` axes."""
     @torch.no_grad()
     def run(W, dW, csum, t0=0.0):
+        _checked_state(W, batched, core_ndim)
         t = t0_type(t0)
         counts = []
         for _ in range(steps):
@@ -387,20 +463,41 @@ def _runner(step, steps, tol, t0_type, timed, finish=None):
     return lambda W, dW, csum: run(W, dW, csum)
 
 
+def _sharded_operator(N, dtype, mesh, device, kind="poisson", params=(),
+                      with_op=False):
+    """The row-sharded operator (parallel/shard_shear.py) of a solve family
+    for this rank of ``mesh``."""
+    fac = _real_factors(N, dtype, device=device, with_op=with_op, kind=kind,
+                        params=params)
+    return ShardedShearOperator(*fac[:3], mesh,
+                                op=fac[3] if with_op else None,
+                                ham=(kind, tuple(params)))
+
+
 def build_poisson_fn(N, dtype=np.complex64, mesh=None, batched=False,
                      planes_io=False, layout="auto", *, device=None,
                      solver=None):
     """Batched Poisson solve W -> P on ``device`` for complex ``dtype``
     state (..., N, N), through the column solve of :func:`column_solver`.
     With ``planes_io`` it takes and returns quflow_tpu's split planes
-    (2, ..., N, N)."""
-    _refuse_not_ported(mesh=mesh, batched=batched)
-    _check_layout(layout)
+    (2, ..., N, N).  ``batched`` requires a leading ensemble axis; under
+    ``mesh`` each rank solves its piece of the state (the rows of its
+    block when 'tp' > 1, through parallel/shard_shear.py)."""
+    layout = _resolve_layout(layout, mesh)
     solver = column_solver(solver)
-    w, binv, u = _real_factors(N, dtype, device=device)
+    if layout == "shear_shard":
+        opr = _sharded_operator(N, dtype, mesh, device)
+
+        def solve(W):
+            return poisson_sharded(W, opr)
+    else:
+        w, binv, u = _real_factors(N, dtype, device=device)
+
+        def solve(W):
+            return _poisson_core(W, w, binv, u, solver=solver)
 
     def poisson(W):
-        return _poisson_core(W, w, binv, u, solver=solver)
+        return solve(_checked_state(W, batched, 2))
 
     if planes_io:
         dev = config.device(device)
@@ -473,9 +570,8 @@ def build_step_fn(
     ``precision`` accepts only 'highest': both tiers run full-precision
     GEMMs (see quflow_tpu_torch.config).
     """
-    _refuse_not_ported(mesh=mesh, batched=batched,
-                       warm_precision=warm_precision, warm_iters=warm_iters)
-    _check_layout(layout)
+    _refuse_not_ported(warm_precision=warm_precision, warm_iters=warm_iters)
+    layout = _resolve_layout(layout, mesh)
     _check_precision(precision)
     device = config.device(device)  # no card and no device=: raises
     refine, vareps_r, half_dt, dt_r = _step_setup(N, dt, maxit, dtype, refine,
@@ -486,19 +582,39 @@ def build_step_fn(
     solver = column_solver(solver)
     ham_kind, ham_params, ham_callable, ham_timed = _resolve_ham(hamiltonian)
     force_timed = forcing is not None and _has_time_param(forcing)
-    if ham_callable is None:
+    sharded = layout == "shear_shard"
+    if sharded:
+        _refuse_hooks_on_rows(ham_callable, forcing, strang_splitting, dt)
+        if refine not in (0, "m0"):
+            raise ValueError("under a mesh with 'tp' > 1 refine is 0 or 'm0'")
+        opr = _sharded_operator(N, dtype, mesh, device, kind=ham_kind,
+                                params=ham_params, with_op=refine == "m0")
+    elif ham_callable is None:
         w, binv, u, op = _real_factors(N, dtype, device=device, with_op=True,
                                        kind=ham_kind, params=ham_params)
     strang_half = _strang_hook(strang_splitting, N, dt, dtype, half_dt,
-                               device, solver)
+                               device, solver, mesh if sharded else None)
+    reduce_max = _reduce_max(mesh, device)
 
     def apply_ham(W, t):
         if ham_callable is not None:
             if ham_timed:
                 return _like(ham_callable(W, time=t), W)
             return _like(ham_callable(W), W)
+        if sharded:
+            return poisson_sharded(W, opr)
         return _poisson_core(W, w, binv, u, refine=refine, op=op,
                              solver=solver, ham=(ham_kind, ham_params))
+
+    def products(Phalf, Whalf):
+        """(P W, P W - (P W)^H, (P W) P) of this rank's rows."""
+        if not sharded:
+            PW = Phalf @ Whalf
+            PWc = PW - PW.mH
+            return PW, PWc, PW @ Phalf
+        Pf = mesh.gather_rows(Phalf, N)
+        PW = Phalf @ mesh.gather_rows(Whalf, N)
+        return PW, PW - Whalf @ Pf, PW @ Pf
 
     def step(W, dW, csum, t):
         if strang_half is not None:
@@ -508,9 +624,8 @@ def build_step_fn(
         def iterate(W, dW):
             Whalf = W + dW
             Phalf = apply_ham(Whalf, thalf) * vareps
-            PW = Phalf @ Whalf
-            PWc = PW - PW.mH
-            dW = PW @ Phalf + PWc
+            PW, PWc, PWP = products(Phalf, Whalf)
+            dW = PWP + PWc
             FW = None
             if forcing is not None:
                 # on the unscaled midpoint pair, weighted dt/2
@@ -521,7 +636,7 @@ def build_step_fn(
             return dW, PWc, FW
 
         dW, (PWc, FW), iters = _fixed_point(iterate, W, dW, maxit, tol_r,
-                                            minit)
+                                            minit, reduce_max)
         W, csum = _update(W, 2.0 * PWc, csum, compsum)
         if FW is not None:
             W = W + 2.0 * FW  # outside the Kahan pair, as quflow_tpu adds it
@@ -532,14 +647,18 @@ def build_step_fn(
 
     def diagnostics(W, t):
         """Energy -<W, P>/2 (P through the Hamiltonian in force) and
-        enstrophy <W, W>/2 of each state."""
+        enstrophy <W, W>/2 of each state (summed over the row blocks of a
+        sharded state)."""
         P = apply_ham(W, t)
-        inner_WP = torch.sum(W * torch.conj(P), dim=(-2, -1)).real / N
-        inner_WW = torch.sum(W * torch.conj(W), dim=(-2, -1)).real / N
+        inner = torch.stack([torch.sum(W * torch.conj(P), dim=(-2, -1)),
+                             torch.sum(W * torch.conj(W), dim=(-2, -1))])
+        if sharded:
+            inner = mesh.tp_sum(inner)
+        inner_WP, inner_WW = inner.real / N
         return torch.stack([-inner_WP / 2.0, inner_WW / 2.0], dim=-1)
 
     run = _runner(step, steps, tol, rd.type, ham_timed or force_timed,
-                  diagnostics if with_diagnostics else None)
+                  diagnostics if with_diagnostics else None, batched)
     return _planes_runner(run, device) if planes_io else run
 
 
@@ -602,11 +721,15 @@ def build_mhd_step_fn(
       dissipation applied to each component with the same coefficients
       (both components in one launch of the column solve).
 
-    There are no diagnostics, as in quflow_tpu.
+    There are no diagnostics, as in quflow_tpu.  ``batched`` and ``mesh``
+    as in :func:`build_step_fn`, except that a mesh whose 'tp' axis splits
+    the rows raises: the Laplacian of Theta needs a halo row.
     """
-    _refuse_not_ported(mesh=mesh, batched=batched,
-                       warm_precision=warm_precision, warm_iters=warm_iters)
-    _check_layout(layout)
+    _refuse_not_ported(warm_precision=warm_precision, warm_iters=warm_iters)
+    if _resolve_layout(layout, mesh) == "shear_shard":
+        raise NotImplementedError(
+            "build_mhd_step_fn under a mesh with 'tp' > 1 is not ported to "
+            f"quflow_tpu_torch yet; {_TP_ITEM}")
     _check_precision(precision)
     ham_kind, ham_params, ham_callable, _ = _resolve_ham(hamiltonian)
     if ham_callable is not None:
@@ -626,6 +749,7 @@ def build_mhd_step_fn(
     lap = _mhd_lap_op(N, dtype, device=device)
     strang_half = _strang_hook(strang_splitting, N, dt, dtype, half_dt,
                                device, solver)
+    reduce_max = _reduce_max(mesh, config.device(device))
 
     def step(S, dS, csum, t):
         if strang_half is not None:
@@ -655,7 +779,7 @@ def build_mhd_step_fn(
             return dS, PWc, BTc, FW
 
         dS, (PWc, BTc, FW), iters = _fixed_point(iterate, S, dS, maxit,
-                                                 tol_r, minit)
+                                                 tol_r, minit, reduce_max)
         upd = 2.0 * PWc
         upd[..., 0, :, :] += 2.0 * BTc  # W gets 2(PWc + BTc)
         S, csum = _update(S, upd, csum, compsum)
@@ -666,7 +790,8 @@ def build_mhd_step_fn(
             S = strang_half(S)
         return S, dS, csum, t, iters
 
-    run = _runner(step, steps, tol, rd.type, force_timed)
+    run = _runner(step, steps, tol, rd.type, force_timed, batched=batched,
+                  core_ndim=3)
     return _planes_runner(run, device) if planes_io else run
 
 
@@ -677,7 +802,9 @@ class _ResidentIntegrator:
     (N, dt, steps, device).  A tensor state is stepped on its own device
     and a tensor of its dtype comes back, with no host copy; a numpy state
     goes to ``device`` and comes back as numpy, written into a writeable
-    input as quflow_tpu's integrators do.  The physics (``hamiltonian``,
+    input as quflow_tpu's integrators do.  Under ``mesh`` the state is this
+    rank's piece (parallel.mesh.shard_state); ``batched`` as in the
+    builders.  The physics (``hamiltonian``,
     ``forcing``, ``strang_splitting``, ``tol``/``minit``) is set on the
     constructor; ``time`` reaches a timed hook.  The column solve is chosen
     once, at construction (:func:`column_solver`)."""
@@ -695,10 +822,15 @@ class _ResidentIntegrator:
         # TF32 question, so 'auto' means none here
         if warm_precision == "auto":
             warm_precision = None
-        _refuse_not_ported(mesh=mesh, batched=batched,
-                           warm_precision=warm_precision, warm_iters=warm_iters)
-        _check_layout(layout)
+        _refuse_not_ported(warm_precision=warm_precision, warm_iters=warm_iters)
+        self.layout = _resolve_layout(layout, mesh)
+        if self.layout == "shear_shard" and self._build is build_mhd_step_fn:
+            raise NotImplementedError(
+                "MagmpTorch under a mesh with 'tp' > 1 is not ported to "
+                f"quflow_tpu_torch yet; {_TP_ITEM}")
         _check_precision(precision)
+        self.mesh = mesh
+        self.batched = batched
         self.dtype = config.numpy_dtype(dtype)
         real_dtype(self.dtype)
         self.maxit = maxit
@@ -729,6 +861,7 @@ class _ResidentIntegrator:
                 compsum=self.compsum, refine=self.refine, tol=self.tol,
                 minit=self.minit, hamiltonian=self.hamiltonian,
                 forcing=self.forcing, strang_splitting=self.strang_splitting,
+                mesh=self.mesh, batched=self.batched, layout=self.layout,
                 device=device, solver=self.solver,
             )
         return self._fns[key]

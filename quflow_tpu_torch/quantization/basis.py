@@ -10,10 +10,12 @@ reference quflow/quantization.py:25-113 (``basis_break_index``,
 (``get_basis``), re-implemented with vectorized numpy + scipy on the host
 (the basis is an off-hot-path I/O object; see SURVEY.md section 7.1.6).
 
-A numpy copy of quflow_tpu/quantization/basis.py without the disk cache.
+A numpy copy of quflow_tpu/quantization/basis.py.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 from scipy.linalg import eigh_tridiagonal
@@ -97,14 +99,23 @@ def compute_basis(N, dtype=np.float64):
 
 
 def get_basis(N, allow_compute=True, dtype=np.float64):
-    """Basis for band limit N: memory cache -> compute.  The disk-cache
-    layer between the two (quflow_tpu.io.load_basis/save_basis) waits for
-    the port of io.py."""
+    """Basis for band limit N: memory cache -> disk cache -> compute (the
+    disk layer is quflow_tpu_torch.io.load_basis/save_basis, searched
+    through QUFLOW_BASIS_PATH; QUFLOW_SAVE_COMPUTED_BASIS writes a computed
+    basis back, as in the reference)."""
     key = (N, np.dtype(dtype))
     if key in _basis_cache:
         return _basis_cache[key]
-    if not allow_compute:
-        return None
-    basis = compute_basis(N, dtype=dtype)
-    _basis_cache[key] = basis
+
+    from .. import io as qio
+
+    basis = qio.load_basis(N)
+    if basis is None and allow_compute:
+        basis = compute_basis(N, dtype=dtype)
+        save_env = os.environ.get("QUFLOW_SAVE_COMPUTED_BASIS", "0")
+        if save_env not in ("0", "false", "False", "FALSE"):
+            qio.save_basis(basis)
+    if basis is not None:
+        basis = np.asarray(basis, dtype=dtype)
+        _basis_cache[key] = basis
     return basis

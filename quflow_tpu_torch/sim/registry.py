@@ -6,7 +6,10 @@ load.  The names quflow_tpu registers for the modules this port holds
 are registered (the solves and ``laplace``; ``isomp``, ``isomp_fixedpoint``,
 ``isomp_quasinewton``, ``isomp_simple``; ``euler``, ``heun``, ``rk4``;
 ``magmp``, ``magmp_fixedpoint``, ``solve_mhd``; the loggers and norms), and
-the port's own integrators ``isomp_torch`` and ``magmp_torch``.
+the port's own integrators ``isomp_torch`` and ``magmp_torch``.  A file that
+quflow_tpu wrote names its device integrators ``isomp_tpu`` and
+``magmp_tpu``; here those names resolve to ``isomp_torch`` and
+``magmp_torch``, so that such a file resumes on the port.
 """
 
 from __future__ import annotations
@@ -113,8 +116,9 @@ def _register_defaults():
     from ..ops import geometry
     from ..ops import laplacian as lap
 
-    _REGISTRY.setdefault("isomp_torch", isomp_torch)
-    _REGISTRY.setdefault("magmp_torch", magmp_torch)
+    for nm, fn in (("isomp_torch", isomp_torch), ("magmp_torch", magmp_torch),
+                   ("isomp_tpu", isomp_torch), ("magmp_tpu", magmp_torch)):
+        _REGISTRY.setdefault(nm, fn)
     for mod, names in (
         (lap, ["solve_poisson", "solve_heat", "solve_helmholtz", "solve_viscdamp",
                "solve_globalqg", "laplace"]),

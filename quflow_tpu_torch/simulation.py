@@ -1,6 +1,5 @@
 """Reference-compatible alias module: ``quflow.simulation`` ->
-quflow_tpu_torch.sim (the counterpart of quflow_tpu/simulation.py).
-``create_runfile`` waits for the persistence slice (ROADMAP A5)."""
+quflow_tpu_torch.sim (the counterpart of quflow_tpu/simulation.py)."""
 
 from .sim.simulation import (
     QuSimulation,
@@ -8,10 +7,12 @@ from .sim.simulation import (
     _default_qutypes,
 )
 from .sim.solve import solve
+from .sim.runfile import create_runfile
 
 __all__ = [
     "QuSimulation",
     "solve",
+    "create_runfile",
     "_default_qutypes",
     "_default_qutype2varname",
 ]

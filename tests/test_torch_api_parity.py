@@ -1,7 +1,7 @@
 """quflow_tpu_torch's top level against the reference's public names:
 every name of tests/test_api_parity.py's list resolves on the port, except
-those whose modules are later slices (ROADMAP A5 persistence, A10
-graphics and the cluster launcher), listed here and expected missing."""
+those whose modules are later slices (ROADMAP A10 graphics and the
+cluster launcher), listed here and expected missing."""
 
 import importlib
 
@@ -14,12 +14,6 @@ from test_api_parity import REFERENCE_PUBLIC_NAMES
 
 #: name -> the ROADMAP.md item that ports it
 EXPECTED_MISSING = {
-    **dict.fromkeys(
-        ["QuData", "save", "load", "load_basis", "save_basis",
-         "load_basis_hdf5", "load_basis_npy", "load_basis_mat",
-         "save_basis_hdf5", "convert_mat_to_hdf5_basis", "determine_qtype",
-         "get_basis_dirs", "get_basis_files", "get_N_for_basis",
-         "create_runfile"], "A5"),
     **dict.fromkeys(
         ["adjust_colormap_brightness", "resample", "plot", "plot2",
          "Animation", "create_animation", "create_animation2", "spy",
@@ -48,7 +42,7 @@ def test_expected_missing_are_reference_names():
 def test_alias_modules(module):
     ours = importlib.import_module(f"quflow_tpu_torch.{module}")
     theirs = importlib.import_module(f"quflow_tpu.{module}")
-    missing = {"create_runfile", "IsompTPU", "MagmpTPU", "build_dw_step_fn",
+    missing = {"IsompTPU", "MagmpTPU", "build_dw_step_fn",
                "build_dw_mhd_step_fn"}
     for name in set(theirs.__all__) - missing:
         assert hasattr(ours, name), f"{module}.{name}"

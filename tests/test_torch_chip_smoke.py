@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -216,3 +217,60 @@ def test_hooks_phases_rehearse_on_cpu(cpu_rehearsal):
     card = chip_smoke.solve_on_card("cpu", N=32, steps=10, steps_out=5)
     assert card["launches"] == {"shear_thomas": 50, "shear_scan": 0}
     assert not any(card["host_copies"].values())
+
+
+def test_ensemble_phases_rehearse_on_cpu(cpu_rehearsal, monkeypatch):
+    """Phase 15 at small N: launches steps x maxit whatever the ensemble
+    size, the members against their own runs, the complex128 drift gate
+    on every member, the MHD ensemble's launches of B and of 2 B."""
+    monkeypatch.setattr(chip_smoke, "profiled", lambda fn, st, steps=20: {
+        "device_ms": 0.5, "shear_thomas_ms": 0.1, "wall_ms_profiled": 1.0})
+    out = {}
+    ens = chip_smoke.ensemble_euler("cpu", N=24, Bs=(1, 3), steps_out=3,
+                                    calls=2, compare_steps=2, out=out)
+    assert [r["launches"] for r in ens["by_B"]] == [6 * 5, 6 * 5]
+    assert [r["B"] for r in ens["by_B"]] == [1, 3]
+    for r in ens["by_B"]:
+        assert r["state_steps_per_s"] == pytest.approx(
+            r["B"] * r["steps_per_s"])
+        assert r["idle_share"] == pytest.approx(
+            1 - 0.5 / r["wall_ms_a_step"])
+    assert ens["members_vs_own_runs"] <= 1e-5
+    assert out["W"].shape == (3, 24, 24) and out["launches"] == 30
+    e128 = chip_smoke.ensemble_c128("cpu", N=32, B=2, steps=10, steps_out=5)
+    assert e128["launches"] == {"shear_thomas": 50, "shear_scan": 0}
+    assert e128["max_tr_W2_drift"] <= 1e-10
+    em = chip_smoke.ensemble_mhd("cpu", N=24, B=2, steps=3, compare_steps=2)
+    assert em["launches"] == {"shear_thomas": 0, "shear_scan": 3 * 7}
+    assert (em["launches_of_B"], em["launches_of_2B"]) == (15, 6)
+    assert em["kernel_vs_plain"] == 0.0
+    assert "QUFLOW_PALLAS_KERNEL" not in chip_smoke.os.environ
+    rows = chip_smoke.kernel_vs_plain("cpu", Ns=(16,), Bs=(16,))
+    assert all(r["max_abs_err"] == 0.0 for r in rows)
+
+
+def test_persistence_phases_rehearse_on_cpu(cpu_rehearsal):
+    """Phase 16 at small N: the checkpoint restart bit-equal; a one-rank
+    group (gloo here, NCCL on the card) runs phase 15's ensemble on the
+    mesh bit-equal, and its adaptive run makes one all_reduce an
+    iteration."""
+    import torch.distributed as dist
+
+    ckpt = chip_smoke.checkpoint_restart("cpu", N=24, steps=3)
+    assert ckpt["bit_equal"]
+    assert ckpt["launches"] == {"shear_thomas": 4 * 3 * 5, "shear_scan": 0}
+    # phase 15's largest run, as ensemble_euler hands it on: two calls
+    W0 = torch.from_numpy(chip_smoke.euler_members(24, 2, np.complex64))
+    z = torch.zeros_like(W0)
+    fn = stepper.build_step_fn(24, 0.25 * chip_smoke.hbar(24), steps=3,
+                               maxit=5, dtype=np.complex64, batched=True,
+                               device="cpu")
+    chip_smoke.reset_counts()
+    st = fn(*fn(W0, z, z))
+    ens = dict(W0=W0, W=st[0], launches=shear_thomas.launches, steps_out=3,
+               calls=2, maxit=5)
+    dp = chip_smoke.nccl_dp("cpu", ens, backend="gloo", tol_steps=2)
+    assert not dist.is_initialized()
+    assert dp["backend"] == "gloo" and dp["bit_equal_to_phase_15"]
+    assert dp["launches"]["shear_thomas"] == 30
+    assert dp["all_reduces"] == sum(dp["adaptive_iterations"]) > 0

@@ -23,6 +23,7 @@ from quflow_tpu_torch.ops.cuda_scan_solve import (
 )
 from quflow_tpu_torch.ops.cuda_solve import shear_thomas, shear_thomas_reference
 from quflow_tpu_torch.parallel import stepper as tst
+from quflow_tpu_torch.parallel.mesh import Mesh
 from quflow_tpu_torch.sim import registry
 
 torch.set_num_threads(1)
@@ -201,7 +202,14 @@ def test_magmp_torch_matches_magmp_tpu_warm_chunks():
         b(S0.copy(), dt, steps=1, tol=1e-8)
     # warm_precision='auto' means none, as in IsompTorch
     assert tst.MagmpTorch(warm_precision="auto", device="cpu").maxit == 5
-    for kw, item in (({"mesh": object()}, "A9"), ({"batched": True}, "A9"),
+    # an ensemble runs; a mesh whose 'tp' axis splits the rows raises A9
+    Sb2 = tst.MagmpTorch(maxit=6, dtype=np.complex128, device="cpu",
+                         batched=True)(np.stack([S0, S0[::-1]]), dt, steps=2)
+    np.testing.assert_array_equal(Sb2[0], tst.MagmpTorch(
+        maxit=6, dtype=np.complex128, device="cpu")(S0.copy(), dt, steps=2))
+    rows = Mesh(dp=1, tp=2, rank=0, ranks=[0, 1])
+    for kw, item in (({"mesh": rows}, "A9"),
+                     ({"layout": "shard"}, "does not come over"),
                      ({"warm_precision": "high"}, "A4"),
                      ({"warm_iters": 2}, "A4"),
                      ({"layout": "wrapped"}, "does not come over")):

@@ -17,6 +17,7 @@ import quflow_tpu_torch as qt
 from quflow_tpu_torch.models import EulerFlow
 from quflow_tpu_torch.ops.cuda_solve import shear_thomas, shear_thomas_reference
 from quflow_tpu_torch.parallel import stepper as tst
+from quflow_tpu_torch.parallel.mesh import Mesh
 from quflow_tpu_torch.sim import registry
 
 torch.set_num_threads(1)
@@ -111,8 +112,22 @@ def test_isomp_torch_matches_isomp_tpu_warm_chunks():
 def test_unported_options_raise(monkeypatch):
     with pytest.raises(TypeError, match="per-call"):
         tst.IsompTorch(device="cpu")(_rand_skewh(8, 0), 0.1, steps=1, tol=1e-8)
-    for kw, item in (({"mesh": object()}, "A9"),
-                     ({"batched": True}, "A9"),
+    # A9's options run: an ensemble, and a mesh of one rank (a Mesh with no
+    # process group only answers questions of shape)
+    W2 = np.stack([_rand_skewh(8, 0), _rand_skewh(8, 1)])
+    one = Mesh(dp=1, tp=1, rank=0, ranks=[0])
+    for kw in ({"batched": True}, {"mesh": one}):
+        out = tst.IsompTorch(device="cpu", dtype=np.complex128, **kw)(
+            W2.copy(), 0.1, steps=2)
+        for b in range(2):
+            np.testing.assert_array_equal(out[b], tst.IsompTorch(
+                device="cpu", dtype=np.complex128)(W2[b].copy(), 0.1, steps=2))
+    with pytest.raises(ValueError, match="ensemble axis"):
+        tst.build_step_fn(8, 0.1, device="cpu", batched=True)(
+            *(torch.zeros(8, 8, dtype=torch.complex64),) * 3)
+    with pytest.raises(TypeError, match="Mesh"):
+        tst.build_step_fn(8, 0.1, device="cpu", mesh=object())
+    for kw, item in (({"layout": "shard"}, "does not come over"),
                      ({"layout": "wrapped"}, "does not come over"),
                      ({"warm_precision": "high"}, "A4"),
                      ({"warm_iters": 2}, "A4")):
