@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Run from the repository root; it needs one CUDA device, nvcc, and nothing
-of JAX.  Sixteen phases, one line each (phases 14-16 one for each of
-their parts); any failure ends the run with a nonzero exit code and no result
-line.
+Run from the repository root; it needs one CUDA device, nvcc, g++, and
+nothing of JAX.  Eighteen phases, one line each (phases 14-18 one for each
+of their parts); any failure ends the run with a nonzero exit code and no
+result line.
 
 1. device  - the card's name and power limit, as nvidia-smi reports them;
 2. build   - nvcc builds csrc/shear_thomas.cu and csrc/shear_scan.cu for
@@ -140,9 +140,42 @@ line.
        ``global_mesh``: phase 15a's B=16 run on the mesh, bit-equal with
        the same launches; an adaptive run on the mesh (one all_reduce of
        the residual an iteration, counted) equal to the same run without
-       it.
+       it;
+17. the warm (mixed-precision) schedule, complex64, N=1024 - since
+    ``warm_precision='auto'`` resolves to 'high' for complex64 at
+    'highest', phases 4, 7, 14f and 16a already run it through
+    ``IsompTorch()``/``MagmpTorch()``:
+    a. ``IsompTorch()`` against ``IsompTorch(warm_precision=None)``, 1000
+       steps in calls of 100 from the README state: exactly 5
+       ``shear_thomas`` launches a step in both; the enstrophy (tr(W^2))
+       drift <= 1e-4 in both and the tr(W^3) drift; the largest deviation
+       of the two trajectories; the GEMM kernels a step from a profile:
+       6 TF32 and 4 full-precision warm, 10 full-precision not (the
+       kernels told apart by one profiled product with TF32 on and one
+       with it off, named in the line);
+    b. phase 15a's B=16 ensemble with warm_precision 'high' against None,
+       read in turns in one process: per-state steps/s, CGEMM ms a step,
+       the idle share;
+    c. phase 7 (``MagmpTorch()``, warm) against the same run with
+       ``warm_precision=None``: the energy and Theta spectrum gates
+       (<= 1e-4 over 100 steps) in both;
+    d. precision 'highest_karatsuba' against 'highest', 100 steps: the
+       deviation, the GEMM ms a step of each;
+    e. adaptive tol (1e-6, maxit 10) with a warm prefix of 2: the counts a
+       step leave the prefix out (launches = steps x 2 + their sum);
+18. the modules of the last slice on the card:
+    a. ``build_shr2mat_fn``/``build_mat2shr_fn`` in complex128 against
+       the host ``shr2mat``/``mat2shr`` at N=1024, lmax 10 and 128:
+       within 1e-12 relative, the round trip too; ``basis_tensor``'s
+       host seconds, each map's ms;
+    b. ``build_synthesis_fn``/``build_analysis_fn`` at L=256 in float64
+       against the host Gauss-Legendre transform within 1e-10, and the
+       round trip; float32's errors; ms;
+    c. ``native.solve_poisson_native`` (g++ builds native/quflow_host.cpp
+       into quflow_tpu_torch/_build/) against ``solve_poisson`` on the
+       card, complex128, N=512: within 1e-13 N; one launch.
 
-Every path (phases 4, 5, 7-16) runs with every launch count set to 0 just
+Every path (phases 4, 5, 7-18) runs with every launch count set to 0 just
 before it and read just after.  Then a JSON line of the kernels
 (name, source, the TPU kernel it replaces, launches on each path, error,
 times and bound at the main path's shape; ``library_ms`` null, since no
@@ -171,6 +204,7 @@ import torch
 from scipy.linalg import solve_banded
 
 from quflow_tpu_torch import (
+    config,
     energy_euler,
     enstrophy,
     hbar,
@@ -493,12 +527,14 @@ def theta_spectrum(S, device):
 
 
 def mhd_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
-            compare_steps=10):
-    """Phase 7, with QUFLOW_PALLAS_KERNEL=scan set for this phase only."""
+            compare_steps=10, warm_precision="auto"):
+    """Phase 7, with QUFLOW_PALLAS_KERNEL=scan set for this phase only;
+    phase 17c runs it again with ``warm_precision=None``."""
     S0 = MHDFlow(N, np.complex64).random_initial(lmax=10, seed=42)
     lam0 = theta_spectrum(S0, device)
     with kernel_variable("scan"):
-        integrator = MagmpTorch(maxit=maxit, dtype=np.complex64, device=device)
+        integrator = MagmpTorch(maxit=maxit, dtype=np.complex64, device=device,
+                                warm_precision=warm_precision)
         log = MHDLogger(N, device)
         reset_counts()
         log(S0)
@@ -555,7 +591,9 @@ def mhd_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
         st = fn(*st)
     torch.cuda.synchronize()
     stepper_s = time.perf_counter() - t0
-    return dict(N=N, steps=steps, maxit=maxit, integrator_launches=integ,
+    return dict(N=N, steps=steps, maxit=maxit,
+                warm_precision=integrator.warm_precision,
+                integrator_launches=integ,
                 log_launches=log.launches, energy_drift=e_drift,
                 theta_spectrum_drift=spec_drift,
                 cross_helicity_drift=float(np.abs(X - X[0]).max()
@@ -1161,40 +1199,43 @@ def solve_on_card(device, N=1024, steps=100, steps_out=20, maxit=5):
                 host_copies=copies.calls, solve_steps_per_s=steps / sec)
 
 
-def profiled(fn, st, steps=20, solve="shear_thomas", top=0):
-    """One call of ``steps`` steps under torch.profiler: the card's ms a
-    step (the kernels' own time, summed), the column solve's ms a step,
-    the host-clock ms a step of the profiled call and, with ``top``, the
-    ``top`` kernels by time."""
+def kernel_table(fn, steps):
+    """One call of ``fn`` (``steps`` steps) under torch.profiler, after a
+    warm-up call: {kernel name: (launches a step, ms a step)} of the
+    card's kernels, and the host-clock ms a step of the profiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn(*st)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(*st)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device_us = solve_us = 0.0
-    by_name = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue  # an operator's entry repeats its kernels' time
-        t = e.self_device_time_total
-        device_us += t
-        if solve in e.key:
-            solve_us += t
-        if t > 0:
-            by_name.append((t, e.count, e.key))
-    row = {"device_ms": device_us / (1e3 * steps),
-           f"{solve}_ms": solve_us / (1e3 * steps),
-           "wall_ms_profiled": wall * 1e3 / steps}
+    # kernel entries only: an operator's entry repeats its kernels' time
+    table = {e.key: (e.count / steps, e.self_device_time_total / (1e3 * steps))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA}
+    return table, wall * 1e3 / steps
+
+
+def profiled(fn, st, steps=20, solve="shear_thomas", top=0):
+    """One call of ``steps`` steps under torch.profiler (kernel_table): the
+    card's ms a step (the kernels' own time, summed), the column solve's
+    ms a step, the host-clock ms a step of the profiled call and, with
+    ``top``, the ``top`` kernels by time."""
+    table, wall_ms = kernel_table(lambda: fn(*st), steps)
+    row = {"device_ms": sum(ms for _, ms in table.values()),
+           f"{solve}_ms": sum(ms for key, (_, ms) in table.items()
+                              if solve in key),
+           "wall_ms_profiled": wall_ms}
     if top:
-        row["kernels"] = [dict(name=key[:72], ms_a_step=t / (1e3 * steps),
-                               calls_a_step=n / steps)
-                          for t, n, key in sorted(by_name, reverse=True)[:top]]
+        by_time = sorted(((ms, n, key) for key, (n, ms) in table.items()
+                          if ms > 0), reverse=True)
+        row["kernels"] = [dict(name=key[:72], ms_a_step=ms, calls_a_step=n)
+                          for ms, n, key in by_time[:top]]
     return row
 
 
@@ -1461,6 +1502,394 @@ def nccl_dp(device, ensemble, backend=None, tol_steps=5, tol=1e-6,
                 all_reduces=len(reductions))
 
 
+def gemm_kernels(device, shape, dtype=torch.complex64, reps=3):
+    """The kernels cuBLAS runs for a complex product of two ``shape``
+    tensors: (those of the full-precision product only, those of the TF32
+    product only), from ``reps`` profiled products of each.  A kernel both
+    run (a split-K reduction, say) is in neither.  A profile that shows
+    no kernel (the profiler can miss a short window) is taken again, up
+    to three times."""
+    g = torch.Generator(device=device).manual_seed(7)
+    a, b = (torch.randn(shape, dtype=dtype, device=device, generator=g)
+            for _ in range(2))
+
+    def products():
+        for _ in range(reps):
+            a @ b
+
+    def tf32_products():
+        with config.tf32_matmul():
+            products()
+
+    def names(fn):
+        for _ in range(3):
+            table = kernel_table(fn, reps)[0]
+            if table:
+                return set(table)
+        return set()
+
+    full, tf32 = names(products), names(tf32_products)
+    return full - tf32, tf32 - full
+
+
+def is_tf32_gemm(name):
+    """Whether cuBLAS's kernel ``name`` is a GEMM on tensor cores (TF32 for
+    float32 operands: 'tensorop', 'tf32' in the name) and not one on the
+    FP32 pipes ('ffma', 'simt')."""
+    name = name.lower()
+    return "gemm" in name and ("tensorop" in name or "tf32" in name)
+
+
+def gemm_split(table, full, tf32):
+    """The GEMM kernels of a kernel table: ({name: launches a step} of the
+    full-precision ones, the same of the TF32 ones).  A kernel is TF32 if
+    the TF32 probe of gemm_kernels ran it (``tf32``) or, when neither
+    probe did, if is_tf32_gemm says so; full-precision if the other probe
+    ran it (``full``) or it is named like a GEMM."""
+    split = ({}, {})
+    for k, (count, _) in table.items():
+        if k in tf32 or (k not in full and is_tf32_gemm(k)):
+            split[1][k] = count
+        elif k in full or "gemm" in k.lower():
+            split[0][k] = count
+    return split
+
+
+def gemm_counts(table, full, tf32):
+    """(full-precision GEMM launches a step, TF32 GEMM launches a step,
+    GEMM ms a step) of a kernel table (see gemm_split)."""
+    on_full, on_tf32 = gemm_split(table, full, tf32)
+    ms = sum(table[k][1] for k in (*on_full, *on_tf32))
+    return sum(on_full.values()), sum(on_tf32.values()), ms
+
+
+def top_kernels(table, n=6):
+    return [dict(name=k[:80], launches_a_step=c, ms_a_step=ms)
+            for k, (c, ms) in sorted(table.items(), key=lambda kv: -kv[1][1])
+            [:n]]
+
+
+def warm_euler(device, N=1024, steps=1000, chunk=100, maxit=5):
+    """Phase 17a: ``IsompTorch()`` (warm 'high': the first maxit - 2
+    iterations on TF32 GEMMs) against ``IsompTorch(warm_precision=None)``,
+    Euler complex64 from the README state, ``steps`` steps in calls of
+    ``chunk`` on a card tensor: exactly maxit ``shear_thomas`` launches a
+    step in both; enstrophy (tr(W^2)) drift <= 1e-4 in both (the c64
+    gate) and the tr(W^3) drift; the largest deviation between the two
+    trajectories at the end of each call; from one profiled call of each,
+    the GEMMs a step: 2 (maxit - 2) TF32 and 4 full-precision ones warm,
+    2 maxit full-precision ones not."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("cuBLAS's TF32 flag is on before phase 17a: "
+                             "an earlier phase left it changed")
+    W0 = torch.from_numpy(EulerFlow(N, np.complex64).random_initial(
+        lmax=10, seed=42)).to(device)
+    dt = 0.25 * hbar(N)
+    c0 = casimirs(W0)
+    full_k, tf32_k = gemm_kernels(device, (N, N))
+    out, snaps = {}, {}
+    warm_iters = maxit - 2
+    expected_gemms = {"warm": (4, 2 * warm_iters), "full": (2 * maxit, 0)}
+    for name, kw in (("warm", {}), ("full", {"warm_precision": None})):
+        integ = IsompTorch(maxit=maxit, dtype=np.complex64, device=device, **kw)
+        W = W0.clone()
+        snaps[name] = []
+        drift = np.zeros(2)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps // chunk):
+            W = integ(W, dt, steps=chunk)
+            snaps[name].append(W)
+            drift = np.maximum(drift, np.abs(casimirs(W) - c0) / np.abs(c0))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != {"shear_thomas": steps * maxit, "shear_scan": 0}:
+            raise AssertionError(f"{name}: launches {counts}, expected "
+                                 f"{steps * maxit} of shear_thomas only")
+        if not finite(W):
+            raise AssertionError(f"{name}: non-finite state")
+        if not drift[0] <= 1e-4:
+            raise AssertionError(f"{name}: enstrophy drift {drift[0]:.3e} "
+                                 "> 1e-4")
+        table, _ = kernel_table(lambda: integ(W, dt, steps=2), 2)
+        n_full, n_tf32, gemm_ms = gemm_counts(table, full_k, tf32_k)
+        if (round(n_full, 6), round(n_tf32, 6)) != expected_gemms[name]:
+            raise AssertionError(
+                f"{name}: GEMMs a step {n_full} full, {n_tf32} TF32, "
+                f"expected {expected_gemms[name]}; kernels "
+                f"{top_kernels(table, 12)}")
+        on_full, on_tf32 = gemm_split(table, full_k, tf32_k)
+        out[name] = dict(warm_precision=integ.warm_precision,
+                         launches=counts["shear_thomas"],
+                         enstrophy_drift=drift[0], tr_W3_drift=drift[1],
+                         gemms_a_step_full=n_full, gemms_a_step_tf32=n_tf32,
+                         full_gemm_kernels=on_full, tf32_gemm_kernels=on_tf32,
+                         gemm_ms_a_step=gemm_ms, steps_per_s=steps / sec)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the warm runs left cuBLAS's TF32 flag on")
+    deviation = max(ratio(a, b) for a, b in zip(snaps["warm"], snaps["full"]))
+    return dict(N=N, steps=steps, maxit=maxit, warm_iters=warm_iters,
+                probe_full_kernels=sorted(full_k),
+                probe_tf32_kernels=sorted(tf32_k),
+                max_trajectory_deviation=deviation, **out)
+
+
+def warm_ensemble(device, N=1024, B=16, steps_out=20, calls=2, maxit=5):
+    """Phase 17b: phase 15a's B=16 ensemble (``build_step_fn``,
+    ``batched=True``) with warm_precision 'high' against None, read in
+    turns in one process (full, warm, warm, full): launches; per-state
+    steps/s of each reading; from one profiled call of each, the card's
+    ms a step, CGEMM ms a step (the GEMM kernels' own time) and the idle
+    share (1 - device ms / the readings' median host ms a step); the
+    relative difference of the two after one call."""
+    members = torch.from_numpy(euler_members(N, B, np.complex64)).to(device)
+    z = torch.zeros_like(members)
+    dt = 0.25 * hbar(N)
+    steps = steps_out * calls
+    fns = {name: build_step_fn(N, dt, steps=steps_out, maxit=maxit,
+                               dtype=np.complex64, batched=True,
+                               warm_precision=wp, device=device)
+           for name, wp in (("full", None), ("warm", "high"))}
+    first = {name: fn(members, z, z)[0] for name, fn in fns.items()}
+    full_k, tf32_k = gemm_kernels(device, (B, N, N))
+    readings = {"full": [], "warm": []}
+    launches = {}
+    for name in ("full", "warm", "warm", "full"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        st = (members, z, z)
+        for _ in range(calls):
+            st = fns[name](*st)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != {"shear_thomas": steps * maxit, "shear_scan": 0}:
+            raise AssertionError(f"{name}: launches {counts}")
+        if not finite(st[0]):
+            raise AssertionError(f"{name}: non-finite state")
+        readings[name].append(B * steps / sec)
+        launches[name] = counts["shear_thomas"]
+    rows = {}
+    for name, fn in fns.items():
+        table, wall_ms = kernel_table(lambda: fn(members, z, z), steps_out)
+        n_full, n_tf32, gemm_ms = gemm_counts(table, full_k, tf32_k)
+        device_ms = sum(ms for _, ms in table.values())
+        host_ms = B * 1e3 / float(np.median(readings[name]))
+        rows[name] = dict(state_steps_per_s=readings[name],
+                          device_ms_a_step=device_ms,
+                          cgemm_ms_a_step=gemm_ms,
+                          gemms_a_step_full=n_full,
+                          gemms_a_step_tf32=n_tf32,
+                          shear_thomas_ms_a_step=sum(
+                              ms for k, (_, ms) in table.items()
+                              if "shear_thomas" in k),
+                          host_ms_a_step=host_ms,
+                          idle_share=1.0 - device_ms / host_ms,
+                          top_kernels=top_kernels(table, 4))
+    speedup = (float(np.median(readings["warm"]))
+               / float(np.median(readings["full"])))
+    return dict(N=N, B=B, steps=steps, maxit=maxit, launches=launches,
+                probe_full_kernels=sorted(full_k),
+                probe_tf32_kernels=sorted(tf32_k),
+                warm_vs_full_after_one_call=ratio(first["warm"],
+                                                  first["full"]),
+                per_state_speedup=speedup, **rows)
+
+
+def warm_mhd(device, warm, **phase_7):
+    """Phase 17c: phase 7's result ``warm`` (``MagmpTorch()``, now warm
+    'high') against the same run (``phase_7``: mhd_c64's sizes) with
+    ``warm_precision=None``: both hold the energy and Theta spectrum gates
+    (<= 1e-4 over 100 steps, checked in mhd_c64)."""
+    if warm["warm_precision"] != "high":
+        raise AssertionError(f"MagmpTorch() resolved 'auto' to "
+                             f"{warm['warm_precision']!r}")
+    full = mhd_c64(device, warm_precision=None, **phase_7)
+    keys = ("warm_precision", "integrator_launches", "energy_drift",
+            "theta_spectrum_drift", "cross_helicity_drift",
+            "solve_steps_per_s")
+    return dict(warm={k: warm[k] for k in keys},
+                full={k: full[k] for k in keys})
+
+
+def karatsuba_euler(device, N=1024, steps=100, maxit=5):
+    """Phase 17d: precision 'highest_karatsuba' (each complex product as
+    three real float32 products) against 'highest', Euler complex64 from
+    the README state, ``steps`` steps: launches, the relative deviation of
+    the two, and each one's GEMM ms a step from one profiled call."""
+    W0 = torch.from_numpy(EulerFlow(N, np.complex64).random_initial(
+        lmax=10, seed=42)).to(device)
+    z = torch.zeros_like(W0)
+    dt = 0.25 * hbar(N)
+    out, states = {}, {}
+    for prec in ("highest", "highest_karatsuba"):
+        fn = build_step_fn(N, dt, steps=steps, maxit=maxit,
+                           dtype=np.complex64, precision=prec, device=device)
+        reset_counts()
+        states[prec] = fn(W0, z, z)[0]
+        counts = read_counts()
+        if counts != {"shear_thomas": steps * maxit, "shear_scan": 0}:
+            raise AssertionError(f"{prec}: launches {counts}")
+        if not finite(states[prec]):
+            raise AssertionError(f"{prec}: non-finite state")
+        two = build_step_fn(N, dt, steps=2, maxit=maxit, dtype=np.complex64,
+                            precision=prec, device=device)
+        table, wall_ms = kernel_table(lambda: two(W0, z, z), 2)
+        out[prec] = dict(launches=counts["shear_thomas"],
+                         gemm_ms_a_step=gemm_counts(table, set(), set())[2],
+                         device_ms_a_step=sum(ms for _, ms in table.values()),
+                         wall_ms_a_step_profiled=wall_ms)
+    return dict(N=N, steps=steps, maxit=maxit,
+                karatsuba_vs_highest=ratio(states["highest_karatsuba"],
+                                           states["highest"]), **out)
+
+
+def adaptive_warm(device, N=1024, steps=20, maxit=10, warm_iters=2,
+                  tol=1e-6):
+    """Phase 17e: ``build_step_fn(tol=...)`` with a warm prefix
+    (warm_precision 'high', ``warm_iters``), Euler complex64: the per-step
+    counts report only the full-precision iterations, so the launches are
+    steps x warm_iters + their sum; beside, the counts without a prefix."""
+    W0 = torch.from_numpy(EulerFlow(N, np.complex64).random_initial(
+        lmax=10, seed=42)).to(device)
+    z = torch.zeros_like(W0)
+    dt = 0.25 * hbar(N)
+    runs = {}
+    for name, kw in (("warm", dict(warm_precision="high",
+                                   warm_iters=warm_iters)), ("full", {})):
+        fn = build_step_fn(N, dt, steps=steps, maxit=maxit, tol=tol,
+                           dtype=np.complex64, device=device, **kw)
+        reset_counts()
+        W, _, _, counts = fn(W0, z, z)
+        launches = read_counts()["shear_thomas"]
+        prefix = steps * warm_iters if name == "warm" else 0
+        if launches != prefix + int(counts.sum()):
+            raise AssertionError(f"{name}: {launches} launches for counts "
+                                 f"{counts.tolist()} and a prefix of "
+                                 f"{prefix}")
+        if not (counts.min() >= 1 and counts.max() <= maxit and finite(W)):
+            raise AssertionError(f"{name}: counts {counts.tolist()}")
+        runs[name] = dict(launches=launches, counts=counts.tolist(),
+                          mean_count=float(counts.float().mean()))
+    return dict(N=N, steps=steps, maxit=maxit, tol=tol, warm_iters=warm_iters,
+                **runs)
+
+
+def device_maps(device, N=1024, lmaxes=(10, 128)):
+    """Phase 18a: ``build_shr2mat_fn``/``build_mat2shr_fn`` in complex128
+    against the host ``shr2mat``/``mat2shr`` (both streaming truncated
+    basis blocks) at N, each band limit: within 1e-12 relative to the
+    largest entry; the seconds of ``basis_tensor``'s host build and the ms
+    of each map on the card."""
+    from quflow_tpu_torch import mat2shr
+    from quflow_tpu_torch.quantization import torchmaps
+
+    rows = []
+    for lmax in lmaxes:
+        t0 = time.perf_counter()
+        torchmaps.basis_tensor(N, lmax)
+        build_s = time.perf_counter() - t0
+        to_mat = torchmaps.build_shr2mat_fn(N, lmax, np.complex128,
+                                            device=device)
+        to_shr = torchmaps.build_mat2shr_fn(N, lmax, np.complex128,
+                                            device=device)
+        omega = np.random.RandomState(lmax).randn((lmax + 1) ** 2)
+        W_host = shr2mat(omega, N=N)
+        om = torch.from_numpy(omega).to(device)
+        W = to_mat(om)
+        mat_err = ratio(W, torch.from_numpy(W_host).to(device))
+        Wt = torch.from_numpy(W_host).to(device)
+        om_host = torch.from_numpy(mat2shr(W_host, elmax=lmax)).to(device)
+        shr_err = ratio(to_shr(Wt), om_host)
+        trip = ratio(to_shr(W), om)
+        if not max(mat_err, shr_err, trip) <= 1e-12:
+            raise AssertionError(f"lmax={lmax}: shr2mat {mat_err:.3e}, "
+                                 f"mat2shr {shr_err:.3e}, round trip "
+                                 f"{trip:.3e} > 1e-12")
+        rows.append(dict(N=N, lmax=lmax, basis_tensor_s=build_s,
+                         shr2mat_rel_err=mat_err, mat2shr_rel_err=shr_err,
+                         round_trip_rel_err=trip,
+                         shr2mat_ms=cuda_ms(lambda: to_mat(om), 10),
+                         mat2shr_ms=cuda_ms(lambda: to_shr(Wt), 10)))
+    return rows
+
+
+def device_sht(device, L=256):
+    """Phase 18b: ``build_synthesis_fn``/``build_analysis_fn`` at L in
+    float64 against the host Gauss-Legendre transform (ops/sht.py) within
+    1e-10, and the round trip; float32's error against the float64 host
+    reported; ms of each on the card."""
+    from quflow_tpu_torch import shr2shc
+    from quflow_tpu_torch.ops.sht import shanalysis, shsynthesis
+    from quflow_tpu_torch.ops import sht_torch
+
+    flm = shr2shc(np.random.RandomState(L).randn(L * L))
+    planes = torch.from_numpy(np.stack([flm.real, flm.imag])).to(device)
+    t0 = time.perf_counter()
+    f_host = shsynthesis(flm, L, reality=True)
+    host_s = time.perf_counter() - t0
+    ref_f = torch.from_numpy(np.stack([f_host, np.zeros_like(f_host)])
+                             ).to(device)
+    fl_host = shanalysis(f_host, L, reality=True)
+    ref_flm = torch.from_numpy(np.stack([fl_host.real, fl_host.imag])
+                               ).to(device)
+    out = dict(L=L, host_synthesis_s=host_s)
+    for dtype, gate in ((np.float64, 1e-10), (np.float32, None)):
+        t0 = time.perf_counter()
+        syn = sht_torch.build_synthesis_fn(L, dtype, device=device)
+        ana = sht_torch.build_analysis_fn(L, dtype, device=device)
+        setup_s = time.perf_counter() - t0
+        f = syn(planes)
+        back = ana(f)
+        errs = dict(synthesis=ratio(f.double(), ref_f),
+                    analysis=ratio(ana(ref_f.to(f.dtype)).double(), ref_flm),
+                    round_trip=ratio(back.double(), planes))
+        if gate is not None and not max(errs.values()) <= gate:
+            raise AssertionError(f"{np.dtype(dtype).name}: {errs} > {gate}")
+        name = np.dtype(dtype).name
+        out[name] = dict(**{f"{k}_rel_err": v for k, v in errs.items()},
+                         setup_s=setup_s,
+                         synthesis_ms=cuda_ms(lambda: syn(planes), 10),
+                         analysis_ms=cuda_ms(lambda: ana(f), 10))
+    return out
+
+
+def native_poisson(device, N=512):
+    """Phase 18c: ``native.solve_poisson_native`` (native/quflow_host.cpp
+    built into quflow_tpu_torch/_build/ on the card's host) against the
+    port's ``solve_poisson`` on the card, complex128: within 1e-13 N
+    (tests/test_native.py's tolerance); the build's seconds, each solve's
+    ms."""
+    from quflow_tpu_torch import native
+
+    rng = np.random.RandomState(N)
+    W = rng.randn(N, N) + 1j * rng.randn(N, N)
+    W = W - W.conj().T
+    t0 = time.perf_counter()
+    if not native.available():
+        native.solve_poisson_native(W)  # raises with the build's reason
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    P_host = native.solve_poisson_native(W)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    reset_counts()
+    P = solve_poisson(W, skewh=True)  # numpy in: the default device, the card
+    counts = read_counts()
+    err = float(np.abs(P - P_host).max())
+    if not err <= 1e-13 * N:
+        raise AssertionError(f"native vs solve_poisson: {err:.3e} > "
+                             f"{1e-13 * N:.1e}")
+    if counts != {"shear_thomas": 1, "shear_scan": 0}:
+        raise AssertionError(f"launches {counts}")
+    Wt = torch.from_numpy(W).to(device)
+    return dict(N=N, build_s=build_s, threads=native.threads(),
+                max_abs_err=err, launches=counts, native_ms=host_ms,
+                card_ms=cuda_ms(lambda: solve_poisson(Wt, skewh=True), 10))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; "
@@ -1576,6 +2005,31 @@ def main():
     print("phase 16b one-rank NCCL dp ensemble: " + json.dumps(dp),
           flush=True)
 
+    we = warm_euler(device)
+    print("phase 17a warm schedule Euler c64 N=1024: " + json.dumps(we),
+          flush=True)
+    wens = warm_ensemble(device)
+    print("phase 17b warm ensemble Euler c64 N=1024 B=16: "
+          + json.dumps(wens), flush=True)
+    wm = warm_mhd(device, m64)
+    print("phase 17c warm MHD c64 N=1024, scan: " + json.dumps(wm),
+          flush=True)
+    kara = karatsuba_euler(device)
+    print("phase 17d highest_karatsuba Euler c64 N=1024: " + json.dumps(kara),
+          flush=True)
+    aw = adaptive_warm(device)
+    print("phase 17e adaptive tol with a warm prefix c64 N=1024: "
+          + json.dumps(aw), flush=True)
+
+    maps = device_maps(device)
+    print("phase 18a device quantization maps c128 N=1024: "
+          + json.dumps(maps), flush=True)
+    sht = device_sht(device)
+    print("phase 18b device SHT L=256: " + json.dumps(sht), flush=True)
+    nat = native_poisson(device)
+    print("phase 18c native host Poisson vs solve_poisson c128 N=512: "
+          + json.dumps(nat), flush=True)
+
     def main_row(rows):
         return next(r for r in rows if r["dtype"] == "complex64"
                     and r["N"] == 1024 and r["B"] == 1)
@@ -1606,7 +2060,15 @@ def main():
             "ensemble_euler_c128_N512_B8":
                 ens128["launches"]["shear_thomas"],
             "checkpoint_restart_c64_N1024": ckpt["launches"]["shear_thomas"],
-            "nccl_dp_euler_c64_N1024_B16": dp["launches"]["shear_thomas"]},
+            "nccl_dp_euler_c64_N1024_B16": dp["launches"]["shear_thomas"],
+            "warm_euler_c64_N1024": we["warm"]["launches"],
+            "warm_off_euler_c64_N1024": we["full"]["launches"],
+            "warm_ensemble_euler_c64_N1024_B16": wens["launches"]["warm"],
+            "karatsuba_euler_c64_N1024":
+                kara["highest_karatsuba"]["launches"],
+            "adaptive_warm_euler_c64_N1024": aw["warm"]["launches"],
+            "native_vs_solve_poisson_c128_N512":
+                nat["launches"]["shear_thomas"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows + ens_rows),
         **timing(rows),
         "library_ms": None,
@@ -1624,7 +2086,10 @@ def main():
             "reference_qg_c64_N1024": qg["launches"]["shear_scan"],
             "hooked_qg_c64_N1024": hq_scan["launches"]["shear_scan"],
             "hooked_mhd_c64_N1024": hm["launches"]["shear_scan"],
-            "ensemble_mhd_c64_N1024_B4": ens_mhd["launches"]["shear_scan"]},
+            "ensemble_mhd_c64_N1024_B4": ens_mhd["launches"]["shear_scan"],
+            "warm_mhd_c64_N1024": m64["integrator_launches"]["shear_scan"],
+            "warm_off_mhd_c64_N1024":
+                wm["full"]["integrator_launches"]["shear_scan"]},
         "max_abs_err": max(r["max_abs_err"]
                            for r in scan_rows + ragged + scan_b2),
         **timing(scan_rows),

@@ -7,18 +7,20 @@ that the tests hold this package against.  This package imports torch,
 numpy and scipy, never jax; h5py (QuSimulation) and tqdm (progress bars)
 are imported at first use.
 
-The ported slices are the reference-semantics layer (the Poisson family
+The port covers the reference-semantics layer (the Poisson family
 of ops/laplacian.py and the ``laplacian`` compatibility package, the
 ``isomp``, Runge-Kutta and ``magmp`` integrators, the physics functionals,
 geometry, spectral analysis and dynamics helpers, the Euler, MHD and
-global-QG models, and ``solve`` with ``isomp`` as its default) and the
+global-QG models, and ``solve`` with ``isomp`` as its default), the
 production steppers (``IsompTorch``, ``MagmpTorch`` and their build functions,
-with forcing, Strang splitting, named Hamiltonians and adaptive ``tol``,
-on one state, an ensemble (``batched``) or a ``torch.distributed`` mesh),
-and persistence (``io``, ``QuSimulation``, ``create_runfile``, the
-checkpoints of ``parallel.distributed``).  Still missing: graphics and the
-cluster launcher.
-Every Poisson-family solve runs the column kernel on the card:
+with forcing, Strang splitting, named Hamiltonians, adaptive ``tol`` and
+the mixed-precision schedule, on one state, an ensemble (``batched``) or
+a ``torch.distributed`` mesh), persistence (``io``, ``QuSimulation``, ``create_runfile``, the
+checkpoints of ``parallel.distributed``), the device quantization maps and
+SHT (``quantization.torchmaps``, ``ops.sht_torch``), the native host
+kernels (``native``), graphics, the cluster launcher and the profiling
+entry (``python -m quflow_tpu_torch.profiling``).  ``graphics`` imports
+matplotlib at first use.  Every Poisson-family solve runs the column kernel on the card:
 
     import numpy as np
     import quflow_tpu_torch as qf
@@ -46,6 +48,7 @@ from .utils import (
     qtime2seconds,
     seconds2qtime,
     poisson_finite_differences,
+    run_cluster,
 )
 from .ops import geometry
 from .ops.geometry import (
@@ -166,5 +169,17 @@ from .models import EulerFlow, GlobalQGFlow, MHDFlow
 from . import parallel
 from . import experimental
 from .parallel.stepper import IsompTorch, MagmpTorch
+from . import graphics  # matplotlib is imported at first use
+from .graphics import (
+    plot,
+    plot2,
+    spy,
+    resample,
+    Animation,
+    create_animation,
+    create_animation2,
+    adjust_colormap_brightness,
+)
+from . import cluster
 
 __version__ = "0.1.0"

@@ -7,22 +7,26 @@ Two precision tiers, chosen per builder by its complex ``dtype``:
 * ``complex64``  - float32 factors, CGEMM, with the float64-residual
   correction of the m=0 system on by default (``refine='m0'``).
 
-Both tiers run full-precision GEMMs.  The JAX package's matmul precision
-names ('highest', 'high', 'default') count bf16 passes of the TPU's matrix
-unit and have no CUDA meaning, so the port does not take them.  TF32 would
-silently cut float32 products to about three decimal digits, so importing
-this module turns it off for cuBLAS and cuDNN:
+Both tiers run full-precision GEMMs unless a step builder is told
+otherwise.  TF32 would silently cut float32 products to about three
+decimal digits, so importing this module turns it off for cuBLAS and
+cuDNN:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-This is process-wide, like every torch backend flag.  Nothing else global
-is touched: torch's default dtype stays float32 (unlike quflow_tpu, which
-enables x64 on import), and every builder takes an explicit ``dtype`` and
-``device``.
+This is process-wide, like every torch backend flag.  The steppers'
+precision names 'high' and 'default' (quflow_tpu's warm schedule) turn
+cuBLAS's TF32 on around their complex64 GEMMs only, through
+:func:`tf32_matmul`, which restores the flag afterwards.  Nothing else
+global is touched: torch's default dtype stays float32 (unlike quflow_tpu,
+which enables x64 on import), and every builder takes an explicit
+``dtype`` and ``device``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -31,7 +35,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["device", "to_tensor", "like_input", "torch_dtype", "numpy_dtype",
-           "TIERS"]
+           "tf32_matmul", "TIERS"]
 
 #: complex state dtype -> real working dtype of its solve
 TIERS = {
@@ -92,3 +96,17 @@ def numpy_dtype(dtype):
     if isinstance(dtype, torch.dtype):
         return next(k for k, v in _TORCH_OF.items() if v == dtype)
     return np.dtype(dtype)
+
+
+@contextlib.contextmanager
+def tf32_matmul():
+    """cuBLAS float32 and complex64 products run on TF32 tensor cores
+    inside the block (``torch.backends.cuda.matmul.allow_tf32``); the
+    flag's previous value comes back when the block ends, however it
+    ends.  CPU products are unaffected."""
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous

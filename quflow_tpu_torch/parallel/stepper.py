@@ -48,6 +48,19 @@ is two gathers an iteration.  The commutator P W - (P W)^H is formed as
 P W - W P, equal for the skew-Hermitian pair up to rounding, so it stays
 local.
 
+Precision.  ``precision`` names the GEMMs as quflow_tpu does: 'highest'
+is a full-precision cuBLAS CGEMM/ZGEMM; 'high' and 'default' run the
+same complex64 GEMM on TF32 tensor cores (JAX's own name for
+``Precision.HIGH`` is tensorfloat32, and XLA's GPU backend runs DEFAULT
+float32 dots as TF32), switched on around each such call only
+(``config.tf32_matmul``); complex128 ignores TF32.  A ``_karatsuba``
+suffix forms the complex product from three real products.  The
+mixed-precision schedule ``warm_precision``/``warm_iters`` runs the first
+``warm_iters`` fixed-point iterations (default maxit - 2) at
+``warm_precision`` and the rest at ``precision``; under ``tol`` the warm
+iterations are a fixed prefix and the per-step counts report only the
+full-precision ones.
+
 Options of the JAX stepper that this port does not run yet raise
 NotImplementedError naming the ROADMAP.md item that ports them.
 """
@@ -83,23 +96,6 @@ __all__ = [
     "to_planes",
     "from_planes",
 ]
-
-#: JAX stepper options the port does not run yet: name -> (the value the
-#: port runs, the ROADMAP.md item that ports the rest)
-_NOT_PORTED = {
-    "warm_precision": (None, "A4 (warm schedule, after the TF32 question)"),
-    "warm_iters": (None, "A4 (warm schedule, after the TF32 question)"),
-}
-
-
-def _refuse_not_ported(**options):
-    for name, value in options.items():
-        ported, item = _NOT_PORTED[name]
-        if value != ported:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to quflow_tpu_torch yet; "
-                f"see ROADMAP.md {item}")
-
 
 def _has_time_param(fn):
     """Whether the hook ``fn`` takes ``time``, from its signature (the
@@ -207,12 +203,59 @@ def _reduce_max(mesh, device):
     return lambda value: mesh.max(value, device)
 
 
-def _check_precision(precision):
-    if precision != "highest":
+#: precision name -> whether its complex64 GEMMs run on TF32 tensor cores
+_TF32 = {"highest": False, "high": True, "default": True}
+
+
+def _karatsuba(product):
+    """The complex product of ``a`` and ``b`` as three real ``product``s
+    (quflow_tpu/parallel/stepper.py:673-684)."""
+    def mm(a, b):
+        ar, ai, br, bi = a.real, a.imag, b.real, b.imag
+        t1 = product(ar, br)
+        t2 = product(ai, bi)
+        t3 = product(ar + ai, br + bi)
+        return torch.complex(t1 - t2, t3 - t1 - t2)
+
+    return mm
+
+
+def _make_mm(spec, dtype):
+    """The GEMM of precision name ``spec`` for complex ``dtype`` state:
+    'highest', 'high' or 'default', each optionally with '_karatsuba'.
+    'high' and 'default' run complex64 products on TF32 tensor cores,
+    the flag set around each call and restored after it; complex128 and
+    'highest' run full-precision cuBLAS."""
+    name = str(spec)
+    base = name[:-len("_karatsuba")] if name.endswith("_karatsuba") else name
+    if base not in _TF32:
         raise ValueError(
-            f"precision={precision!r}: the TPU's bf16-pass precisions have "
-            "no CUDA meaning; quflow_tpu_torch runs full-precision GEMMs "
-            "(precision='highest') in both dtype tiers")
+            f"precision={spec!r}: use 'highest', 'high' or 'default', "
+            "optionally with '_karatsuba'")
+    mm = _karatsuba(torch.matmul) if base != name else torch.matmul
+    if not (_TF32[base] and real_dtype(dtype) == np.float32):
+        return mm
+
+    def mm_tf32(a, b):
+        with config.tf32_matmul():
+            return mm(a, b)
+
+    return mm_tf32
+
+
+def _schedule(precision, warm_precision, warm_iters, maxit, dtype):
+    """quflow_tpu's mixed-precision fixed point
+    (quflow_tpu/parallel/stepper.py:690-694) -> ``(mm, warm_iters,
+    mm_warm)``: the first ``warm_iters`` iterations (default maxit - 2,
+    at most maxit) run ``mm_warm``, the rest ``mm``; no warm iterations
+    without ``warm_precision``."""
+    mm = _make_mm(precision, dtype)
+    if warm_precision is None:
+        return mm, 0, None
+    mm_warm = _make_mm(warm_precision, dtype)
+    if warm_iters is None:
+        warm_iters = max(maxit - 2, 0)
+    return mm, min(int(warm_iters), maxit), mm_warm
 
 
 class _Fac:
@@ -346,16 +389,25 @@ def _residual(dW_new, dW):
     return (dW_new - dW).abs().sum(-1).max().item()
 
 
-def _fixed_point(iterate, W, dW, maxit, tol, minit, reduce_max=None):
+def _fixed_point(iterate, W, dW, maxit, tol, minit, reduce_max=None,
+                 warm=(0, None)):
     """The fixed-point loop of one step from the warm start ``dW``.
-    ``iterate(W, dW) -> (dW_new, *rest)``.  Without ``tol``: exactly
-    ``maxit`` iterations, no host sync.  With ``tol``: quflow_tpu's
-    adaptive rule (quflow_tpu/parallel/stepper.py:773-807), exit once
-    i >= minit and (rn <= tol or rn >= rn_old), rn the :func:`_residual`
-    of the iteration (its max over a mesh's ranks through ``reduce_max``),
-    at most ``maxit`` iterations.  Returns (dW, rest, iterations)."""
+    ``iterate(W, dW, mm) -> (dW_new, *rest)`` with ``mm`` its GEMM.
+    ``warm = (warm_iters, mm_warm)``: the first ``warm_iters`` iterations
+    run ``mm_warm``, as a fixed prefix in either mode.  Without ``tol``:
+    ``maxit`` iterations in all, no host sync.  With ``tol``: after the
+    prefix, quflow_tpu's adaptive rule
+    (quflow_tpu/parallel/stepper.py:773-807), exit once i >= minit and
+    (rn <= tol or rn >= rn_old), rn the :func:`_residual` of the iteration
+    (its max over a mesh's ranks through ``reduce_max``), at most
+    ``maxit`` iterations, which is the count returned (the prefix is not
+    counted).  Returns (dW, rest, iterations)."""
+    warm_iters, mm_warm = warm
+    rest = []
+    for _ in range(warm_iters):
+        dW, *rest = iterate(W, dW, mm_warm)
     if tol is None:
-        for _ in range(maxit):
+        for _ in range(maxit - warm_iters):
             dW, *rest = iterate(W, dW)
         return dW, rest, maxit
     i, rn, rn_old = 0, np.inf, np.inf
@@ -567,12 +619,14 @@ def build_step_fn(
     JAX stepper does on its shear layout).  ``solver`` is the column solve
     (default: :func:`column_solver`, a CUDA kernel on a CUDA device);
     ``ops.cuda_solve.shear_thomas_reference`` runs the plain version.
-    ``precision`` accepts only 'highest': both tiers run full-precision
-    GEMMs (see quflow_tpu_torch.config).
+    ``precision``, ``warm_precision`` and ``warm_iters``: the GEMMs'
+    precision names and the mixed-precision schedule of quflow_tpu (see
+    the module's note); under a mesh whose 'tp' axis splits the rows
+    they act on each rank's row-local GEMMs.
     """
-    _refuse_not_ported(warm_precision=warm_precision, warm_iters=warm_iters)
     layout = _resolve_layout(layout, mesh)
-    _check_precision(precision)
+    mm, warm_iters, mm_warm = _schedule(precision, warm_precision,
+                                        warm_iters, maxit, dtype)
     device = config.device(device)  # no card and no device=: raises
     refine, vareps_r, half_dt, dt_r = _step_setup(N, dt, maxit, dtype, refine,
                                                   tol, minit)
@@ -606,25 +660,25 @@ def build_step_fn(
         return _poisson_core(W, w, binv, u, refine=refine, op=op,
                              solver=solver, ham=(ham_kind, ham_params))
 
-    def products(Phalf, Whalf):
+    def products(Phalf, Whalf, mm):
         """(P W, P W - (P W)^H, (P W) P) of this rank's rows."""
         if not sharded:
-            PW = Phalf @ Whalf
+            PW = mm(Phalf, Whalf)
             PWc = PW - PW.mH
-            return PW, PWc, PW @ Phalf
+            return PW, PWc, mm(PW, Phalf)
         Pf = mesh.gather_rows(Phalf, N)
-        PW = Phalf @ mesh.gather_rows(Whalf, N)
-        return PW, PW - Whalf @ Pf, PW @ Pf
+        PW = mm(Phalf, mesh.gather_rows(Whalf, N))
+        return PW, PW - mm(Whalf, Pf), mm(PW, Pf)
 
     def step(W, dW, csum, t):
         if strang_half is not None:
             W = strang_half(W)
         thalf = t + half_dt
 
-        def iterate(W, dW):
+        def iterate(W, dW, mm=mm):
             Whalf = W + dW
             Phalf = apply_ham(Whalf, thalf) * vareps
-            PW, PWc, PWP = products(Phalf, Whalf)
+            PW, PWc, PWP = products(Phalf, Whalf, mm)
             dW = PWP + PWc
             FW = None
             if forcing is not None:
@@ -636,7 +690,8 @@ def build_step_fn(
             return dW, PWc, FW
 
         dW, (PWc, FW), iters = _fixed_point(iterate, W, dW, maxit, tol_r,
-                                            minit, reduce_max)
+                                            minit, reduce_max,
+                                            (warm_iters, mm_warm))
         W, csum = _update(W, 2.0 * PWc, csum, compsum)
         if FW is not None:
             W = W + 2.0 * FW  # outside the Kahan pair, as quflow_tpu adds it
@@ -711,7 +766,9 @@ def build_mhd_step_fn(
     or pass zeros.  Each iteration is one solve of W, one Laplacian of
     Theta and six complex GEMMs; after the loop, the Kahan-compensated
     update (``compsum``).  ``tol``/``minit``, ``refine``, ``solver``,
-    ``precision`` and ``planes_io`` as in :func:`build_step_fn`.
+    ``precision``, ``warm_precision``/``warm_iters`` and ``planes_io`` as
+    in :func:`build_step_fn` (the '_karatsuba' names too, which
+    quflow_tpu's MHD stepper does not take).
 
     * ``hamiltonian``: a named family for P (B = Delta Theta stays); a
       callable raises NotImplementedError, as in quflow_tpu.
@@ -725,12 +782,12 @@ def build_mhd_step_fn(
     as in :func:`build_step_fn`, except that a mesh whose 'tp' axis splits
     the rows raises: the Laplacian of Theta needs a halo row.
     """
-    _refuse_not_ported(warm_precision=warm_precision, warm_iters=warm_iters)
     if _resolve_layout(layout, mesh) == "shear_shard":
         raise NotImplementedError(
             "build_mhd_step_fn under a mesh with 'tp' > 1 is not ported to "
             f"quflow_tpu_torch yet; {_TP_ITEM}")
-    _check_precision(precision)
+    mm, warm_iters, mm_warm = _schedule(precision, warm_precision,
+                                        warm_iters, maxit, dtype)
     ham_kind, ham_params, ham_callable, _ = _resolve_ham(hamiltonian)
     if ham_callable is not None:
         raise NotImplementedError(
@@ -756,19 +813,19 @@ def build_mhd_step_fn(
             S = strang_half(S)
         thalf = t + half_dt
 
-        def iterate(S, dS):
+        def iterate(S, dS, mm=mm):
             Shalf = S + dS
             Thalf = Shalf[..., 1, :, :]
             Phalf = _poisson_core(Shalf[..., 0, :, :], w, binv, u,
                                   refine=refine, op=op, solver=solver,
                                   ham=(ham_kind, ham_params)) * vareps
             Bhalf = _laplace_core(Thalf, lap) * vareps
-            PW = Phalf[..., None, :, :] @ Shalf  # (P W, P Theta)
-            BT = Bhalf @ Thalf
-            BTP = BT @ Phalf
+            PW = mm(Phalf[..., None, :, :], Shalf)  # (P W, P Theta)
+            BT = mm(Bhalf, Thalf)
+            BTP = mm(BT, Phalf)
             PWc = PW - PW.mH
             BTc = BT - BT.mH
-            dS = PW @ Phalf[..., None, :, :] + PWc
+            dS = mm(PW, Phalf[..., None, :, :]) + PWc
             dS[..., 0, :, :] += BTP - BTP.mH + BTc  # W only
             FW = None
             if forcing is not None:
@@ -779,7 +836,8 @@ def build_mhd_step_fn(
             return dS, PWc, BTc, FW
 
         dS, (PWc, BTc, FW), iters = _fixed_point(iterate, S, dS, maxit,
-                                                 tol_r, minit, reduce_max)
+                                                 tol_r, minit, reduce_max,
+                                                 (warm_iters, mm_warm))
         upd = 2.0 * PWc
         upd[..., 0, :, :] += 2.0 * BTc  # W gets 2(PWc + BTc)
         S, csum = _update(S, upd, csum, compsum)
@@ -805,9 +863,12 @@ class _ResidentIntegrator:
     input as quflow_tpu's integrators do.  Under ``mesh`` the state is this
     rank's piece (parallel.mesh.shard_state); ``batched`` as in the
     builders.  The physics (``hamiltonian``,
-    ``forcing``, ``strang_splitting``, ``tol``/``minit``) is set on the
-    constructor; ``time`` reaches a timed hook.  The column solve is chosen
-    once, at construction (:func:`column_solver`)."""
+    ``forcing``, ``strang_splitting``, ``tol``/``minit``) and the GEMMs'
+    schedule (``precision``, ``warm_precision``, ``warm_iters``) are set
+    on the constructor; ``time`` reaches a timed hook.  The column solve is
+    chosen once, at construction (:func:`column_solver`).
+    ``warm_precision='auto'`` resolves by quflow_tpu's rule for the
+    integrator (``_auto_warm``)."""
 
     _build = None  # the step builder, set by each subclass
 
@@ -817,22 +878,21 @@ class _ResidentIntegrator:
                  warm_iters=None, hamiltonian="poisson", forcing=None,
                  strang_splitting=None, layout="auto", *, device=None,
                  solver=None):
-        # 'auto' is quflow_tpu's mixed-precision schedule; the port runs
-        # every iteration at full precision until ROADMAP A4 settles the
-        # TF32 question, so 'auto' means none here
-        if warm_precision == "auto":
-            warm_precision = None
-        _refuse_not_ported(warm_precision=warm_precision, warm_iters=warm_iters)
         self.layout = _resolve_layout(layout, mesh)
         if self.layout == "shear_shard" and self._build is build_mhd_step_fn:
             raise NotImplementedError(
                 "MagmpTorch under a mesh with 'tp' > 1 is not ported to "
                 f"quflow_tpu_torch yet; {_TP_ITEM}")
-        _check_precision(precision)
         self.mesh = mesh
         self.batched = batched
         self.dtype = config.numpy_dtype(dtype)
         real_dtype(self.dtype)
+        if warm_precision == "auto":
+            warm_precision = self._auto_warm(self.dtype, precision)
+        _schedule(precision, warm_precision, warm_iters, maxit, self.dtype)
+        self.precision = precision
+        self.warm_precision = warm_precision
+        self.warm_iters = warm_iters
         self.maxit = maxit
         self.compsum = compsum
         self.refine = refine
@@ -859,12 +919,25 @@ class _ResidentIntegrator:
             self._fns[key] = type(self)._build(
                 N, dt, steps=steps, maxit=self.maxit, dtype=self.dtype,
                 compsum=self.compsum, refine=self.refine, tol=self.tol,
-                minit=self.minit, hamiltonian=self.hamiltonian,
+                minit=self.minit, precision=self.precision,
+                warm_precision=self.warm_precision,
+                warm_iters=self.warm_iters, hamiltonian=self.hamiltonian,
                 forcing=self.forcing, strang_splitting=self.strang_splitting,
                 mesh=self.mesh, batched=self.batched, layout=self.layout,
                 device=device, solver=self.solver,
             )
         return self._fns[key]
+
+    @staticmethod
+    def _auto_warm(dtype, precision):
+        """``warm_precision='auto'`` for complex ``dtype`` at ``precision``:
+        'high' (or 'high_karatsuba') for complex64 at 'highest' (or
+        'highest_karatsuba'), None otherwise, as IsompTPU resolves it
+        (quflow_tpu/parallel/stepper.py:919-933)."""
+        if dtype != np.complex64 or not str(precision).startswith("highest"):
+            return None
+        return ("high_karatsuba" if str(precision).endswith("_karatsuba")
+                else "high")
 
     def _check_state(self, shape):
         pass
@@ -923,7 +996,10 @@ class IsompTorch(_ResidentIntegrator):
 
     With ``tol``, ``stats`` gets 'iterations' (the mean a step),
     'iterations_series' (int32, one a step), 'number_of_maxit' (the steps
-    at the cap) and 'maxit' (their fraction).
+    at the cap) and 'maxit' (their fraction).  By default
+    (``warm_precision='auto'``) a complex64 run at 'highest' takes its
+    first maxit - 2 iterations on TF32 GEMMs, as IsompTPU takes them at
+    3-pass bf16.
     """
 
     _build = staticmethod(build_step_fn)
@@ -937,9 +1013,18 @@ class MagmpTorch(_ResidentIntegrator):
 
         integrator = MagmpTorch(maxit=5, dtype=np.complex64)
         solve(S0, stepsize=0.25, steps=..., integrator=integrator, callback=cb)
+
+    ``warm_precision='auto'`` is 'high' for complex64 at exactly
+    'highest' and None otherwise, as MagmpTPU resolves it
+    (quflow_tpu/parallel/stepper.py:1057-1067).
     """
 
     _build = staticmethod(build_mhd_step_fn)
+
+    @staticmethod
+    def _auto_warm(dtype, precision):
+        return ("high" if dtype == np.complex64 and str(precision) == "highest"
+                else None)
 
     def _check_state(self, shape):
         if len(shape) < 3 or shape[-3] != 2:

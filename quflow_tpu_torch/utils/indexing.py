@@ -136,6 +136,18 @@ def seconds2qtime(t, N):
     return t * np.sqrt(N**2 - 1) / 2.0
 
 
+def run_cluster(filename, time, inner_time, step_size, *, device=None):
+    """Legacy helper (reference utils.py:242-281): launch the simulation
+    file as a local job through the modern launcher, ``cluster.solve``,
+    which runs it on ``device`` (the CUDA device by default)."""
+    from .. import cluster
+
+    return cluster.solve(
+        filename, backend="local", simtime=time, dt_out=inner_time,
+        stepsize=step_size, device=device,
+    )
+
+
 def poisson_finite_differences(omegafun, psifun, grid="gl"):
     """Finite-difference Poisson bracket on the (N, 2N-1) grid.
 

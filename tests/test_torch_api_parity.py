@@ -1,9 +1,11 @@
 """quflow_tpu_torch's top level against the reference's public names:
-every name of tests/test_api_parity.py's list resolves on the port, except
-those whose modules are later slices (ROADMAP A10 graphics and the
-cluster launcher), listed here and expected missing."""
+every name of tests/test_api_parity.py's list resolves on the port, the
+module aliases carry their counterparts' names, and no module of the
+port, nor chip_smoke.py, imports JAX or quflow_tpu."""
 
 import importlib
+import re
+from pathlib import Path
 
 import pytest
 
@@ -12,29 +14,64 @@ import quflow_tpu_torch as qt
 
 from test_api_parity import REFERENCE_PUBLIC_NAMES
 
-#: name -> the ROADMAP.md item that ports it
-EXPECTED_MISSING = {
-    **dict.fromkeys(
-        ["adjust_colormap_brightness", "resample", "plot", "plot2",
-         "Animation", "create_animation", "create_animation2", "spy",
-         "run_cluster"], "A10"),
-}
+ROOT = Path(__file__).resolve().parent.parent
+
+#: name -> the ROADMAP.md item that ports it; empty since every item landed
+EXPECTED_MISSING = {}
 
 
 @pytest.mark.parametrize("name", REFERENCE_PUBLIC_NAMES)
 def test_reference_public_name(name):
     assert hasattr(qf, name)
-    if name in EXPECTED_MISSING:
-        # the list shrinks as each item lands: a name that resolves must
-        # leave it
-        assert not hasattr(qt, name), (
-            f"{name} is ported; take it off EXPECTED_MISSING")
-    else:
-        assert hasattr(qt, name), f"{name} is missing from quflow_tpu_torch"
+    assert name not in EXPECTED_MISSING
+    assert hasattr(qt, name), f"{name} is missing from quflow_tpu_torch"
 
 
 def test_expected_missing_are_reference_names():
     assert set(EXPECTED_MISSING) <= set(REFERENCE_PUBLIC_NAMES)
+
+
+@pytest.mark.parametrize("module", ["graphics", "cluster"])
+def test_a10_modules(module):
+    """graphics and cluster carry every name of quflow_tpu's modules."""
+    ours = importlib.import_module(f"quflow_tpu_torch.{module}")
+    theirs = importlib.import_module(f"quflow_tpu.{module}")
+    for name in theirs.__all__:
+        assert hasattr(ours, name), f"{module}.{name}"
+    assert getattr(qt, module) is ours
+
+
+#: an import of JAX or of quflow_tpu (not quflow_tpu_torch), as a
+#: statement or through importlib/__import__
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|jaxlib)\b|from\s+(jax|jaxlib)\b"
+    r"|import\s+quflow_tpu\b(?!_)|from\s+quflow_tpu\b(?!_))"
+    r"|import_module\(\s*['\"](jax|quflow_tpu)\b(?!_)"
+    r"|__import__\(\s*['\"](jax|quflow_tpu)\b(?!_)", re.M)
+
+
+def test_forbidden_imports_pattern():
+    for line in ("import jax", "from jax import lax", "import jax.numpy as jnp",
+                 "    from quflow_tpu.ops import sht", "import quflow_tpu as qf",
+                 "importlib.import_module('quflow_tpu.native')"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import quflow_tpu_torch as qt", "from quflow_tpu_torch import x",
+                 "from .ops import jaxlike", "# import jax in a comment? no",
+                 "from .. import config"):
+        assert not FORBIDDEN.search(line), line
+
+
+def test_port_never_imports_jax_or_quflow_tpu():
+    """Every module of quflow_tpu_torch/ and chip_smoke.py: no import of
+    JAX or of quflow_tpu, not even a module of it that does not import
+    JAX."""
+    files = sorted((ROOT / "quflow_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 40
+    offenders = [f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
+                 for path in files
+                 for m in FORBIDDEN.finditer(path.read_text())]
+    assert not offenders, offenders
 
 
 @pytest.mark.parametrize("module", ["simulation", "experimental",

@@ -50,14 +50,15 @@ class _Spy:
         return shear_thomas_reference(w, binv, u, d)
 
 
-def _run(kind, dtype, tol, strang=None):
+def _run(kind, dtype, tol, strang=None, **schedule):
     """(the port's outputs, quflow_tpu's outputs, the spy) of one batched
-    run of ``kind`` ('euler' or 'mhd')."""
+    run of ``kind`` ('euler' or 'mhd'); ``schedule`` (warm_precision,
+    warm_iters) goes to both builders."""
     dt = 0.2 * jst.hbar(N)
     shape = (B, N, N) if kind == "euler" else (B, 2, N, N)
     S = _states(shape, 11, dtype)
     kw = dict(steps=STEPS, maxit=MAXIT, dtype=dtype, batched=True, tol=tol,
-              strang_splitting=strang)
+              strang_splitting=strang, **schedule)
     jb = jst.build_step_fn if kind == "euler" else jst.build_mhd_step_fn
     tb = tst.build_step_fn if kind == "euler" else tst.build_mhd_step_fn
     Sj = jnp.asarray(S)
@@ -88,6 +89,23 @@ def test_batched_matches_quflow_tpu(kind, tol, dtype):
     assert spy.batches == [B] * iters
 
 
+@pytest.mark.parametrize("tol", [None, 1e-5])
+@pytest.mark.parametrize("kind", ["euler", "mhd"])
+def test_batched_warm_schedule_matches_quflow_tpu(kind, tol):
+    """The warm schedule on an ensemble (complex64, warm 'high' for 2 of
+    maxit iterations): the states and, under tol, the per-step counts as
+    quflow_tpu's; the warm prefix is one column solve of the whole
+    ensemble an iteration, and the counts leave it out."""
+    out, ref, spy = _run(kind, np.complex64, tol, warm_precision="high",
+                         warm_iters=2)
+    _close(out[0].numpy(), ref[0], np.complex64)
+    iters = STEPS * MAXIT
+    if tol is not None:
+        np.testing.assert_array_equal(out[3].numpy(), ref[3])
+        iters = STEPS * 2 + int(out[3].sum())
+    assert spy.batches == [B] * iters
+
+
 def test_mhd_strang_is_one_solve_of_2b():
     """The named MHD Strang half-step solves both components of every
     member in one launch: B states give a solve of 2 B."""
@@ -115,20 +133,37 @@ def test_batched_poisson_matches_quflow_tpu(dtype):
             torch.from_numpy(W[0]))
 
 
+def _integrators(kind, dtype, seed):
+    """Two warm calls of the port's and quflow_tpu's batched drop-in
+    integrator of ``kind`` at their defaults: (port's, quflow_tpu's,
+    the port's integrator, quflow_tpu's)."""
+    dt = 0.2 * jst.hbar(N)
+    shape = (B, N, N) if kind == "euler" else (B, 2, N, N)
+    S = _states(shape, seed, dtype)
+    jcls = jst.IsompTPU if kind == "euler" else jst.MagmpTPU
+    tcls = tst.IsompTorch if kind == "euler" else tst.MagmpTorch
+    a = jcls(maxit=MAXIT, dtype=dtype, batched=True)
+    b = tcls(maxit=MAXIT, dtype=dtype, batched=True, device="cpu")
+    Sa = a(a(S.copy(), dt, steps=3), dt, steps=3)
+    Sb = b(b(S.copy(), dt, steps=3), dt, steps=3)
+    return Sb, Sa, b, a
+
+
 @pytest.mark.parametrize("kind", ["euler", "mhd"])
 def test_batched_integrators_match_quflow_tpu(kind):
     """IsompTorch/MagmpTorch(batched=True) against IsompTPU/MagmpTPU
     (batched=True), two warm calls, complex128."""
-    dt = 0.2 * jst.hbar(N)
-    shape = (B, N, N) if kind == "euler" else (B, 2, N, N)
-    S = _states(shape, 13, np.complex128)
-    jcls = jst.IsompTPU if kind == "euler" else jst.MagmpTPU
-    tcls = tst.IsompTorch if kind == "euler" else tst.MagmpTorch
-    a = jcls(maxit=MAXIT, dtype=np.complex128, batched=True)
-    b = tcls(maxit=MAXIT, dtype=np.complex128, batched=True, device="cpu")
-    Sa = a(a(S.copy(), dt, steps=3), dt, steps=3)
-    Sb = b(b(S.copy(), dt, steps=3), dt, steps=3)
+    Sb, Sa, _, _ = _integrators(kind, np.complex128, 13)
     _close(Sb, Sa, np.complex128)
+
+
+@pytest.mark.parametrize("kind", ["euler", "mhd"])
+def test_batched_integrators_warm_default_match_quflow_tpu(kind):
+    """The same in complex64, where both integrators' default
+    warm_precision='auto' resolves to the warm schedule 'high'."""
+    Sb, Sa, b, a = _integrators(kind, np.complex64, 13)
+    assert b.warm_precision == a.warm_precision == "high"
+    _close(Sb, Sa, np.complex64)
 
 
 def test_members_match_their_own_runs():

@@ -274,3 +274,115 @@ def test_persistence_phases_rehearse_on_cpu(cpu_rehearsal):
     assert dp["backend"] == "gloo" and dp["bit_equal_to_phase_15"]
     assert dp["launches"]["shear_thomas"] == 30
     assert dp["all_reduces"] == sum(dp["adaptive_iterations"]) > 0
+
+
+class _GemmSpy(torch.overrides.TorchFunctionMode):
+    """Counts the products a call makes, by the state of cuBLAS's TF32
+    flag at each: the CPU's stand-in for the profiler's kernel names."""
+
+    def __init__(self):
+        super().__init__()
+        self.flags = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (torch.matmul, torch.Tensor.__matmul__):
+            self.flags.append(torch.backends.cuda.matmul.allow_tf32)
+        return func(*args, **(kwargs or {}))
+
+
+def _fake_kernel_table(fn, steps):
+    """kernel_table on the CPU: the products of one call of ``fn`` as two
+    'kernels', one for each state of the TF32 flag."""
+    spy = _GemmSpy()
+    with spy:
+        fn()
+    n_tf32 = sum(spy.flags)
+    n_full = len(spy.flags) - n_tf32
+    return ({"gemm_full": (n_full / steps, 0.1 * n_full / steps),
+             "gemm_tf32": (n_tf32 / steps, 0.05 * n_tf32 / steps),
+             "shear_thomas_kernel": (5.0, 0.01)}, 1.0)
+
+
+@pytest.fixture
+def gemm_rehearsal(cpu_rehearsal, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "kernel_table", _fake_kernel_table)
+    monkeypatch.setattr(chip_smoke, "gemm_kernels",
+                        lambda device, shape: ({"gemm_full"}, {"gemm_tf32"}))
+
+
+def test_gemm_split():
+    """The kernels of a profile told apart: by the probes' names first,
+    then by cuBLAS's naming (tensorop/tf32 against ffma)."""
+    table = {
+        "sm80_xmma_gemm_cf32cf32_f32f32_cf32_nn_n_tilesize64x64x8_ffma":
+            (4.0, 1.0),
+        "cutlass_80_tensorop_c1688gemm_64x64_16x4_nn_align1": (6.0, 0.5),
+        "probe_full_kernel": (1.0, 0.1),
+        "shear_thomas_kernel<float, 64, 4>": (5.0, 0.2)}
+    full, tf32 = chip_smoke.gemm_split(table, {"probe_full_kernel"}, set())
+    assert full == {table_key: table[table_key][0] for table_key in (
+        "sm80_xmma_gemm_cf32cf32_f32f32_cf32_nn_n_tilesize64x64x8_ffma",
+        "probe_full_kernel")}
+    assert tf32 == {"cutlass_80_tensorop_c1688gemm_64x64_16x4_nn_align1": 6.0}
+    assert chip_smoke.gemm_counts(table, {"probe_full_kernel"}, set()) == (
+        5.0, 6.0, 1.6)
+
+
+def test_warm_phases_rehearse_on_cpu(gemm_rehearsal):
+    """Phase 17 at small N: maxit launches a step with and without the
+    warm schedule, 6 warm-precision (TF32 on the card) and 4 full GEMMs a
+    step against 10, the c64 gates, the ensemble in turns, phase 7 without
+    the warm schedule, the karatsuba products, the adaptive counts without
+    the warm prefix."""
+    we = chip_smoke.warm_euler("cpu", N=24, steps=20, chunk=10)
+    assert we["warm"]["warm_precision"] == "high"
+    assert we["full"]["warm_precision"] is None
+    assert we["warm"]["launches"] == we["full"]["launches"] == 100
+    assert (we["warm"]["gemms_a_step_full"],
+            we["warm"]["gemms_a_step_tf32"]) == (4, 6)
+    assert (we["full"]["gemms_a_step_full"],
+            we["full"]["gemms_a_step_tf32"]) == (10, 0)
+    # every name is a full float32 product on the CPU
+    assert we["max_trajectory_deviation"] == 0.0
+    assert we["warm"]["enstrophy_drift"] <= 1e-4
+    ens = chip_smoke.warm_ensemble("cpu", N=24, B=3, steps_out=3, calls=2)
+    assert ens["launches"] == {"full": 30, "warm": 30}
+    assert len(ens["warm"]["state_steps_per_s"]) == 2
+    assert ens["warm"]["gemms_a_step_tf32"] == 6
+    assert ens["full"]["gemms_a_step_tf32"] == 0
+    assert ens["warm_vs_full_after_one_call"] == 0.0
+    m64 = chip_smoke.mhd_c64("cpu", N=32, steps=10, steps_out=5,
+                             compare_steps=2)
+    assert m64["warm_precision"] == "high"
+    wm = chip_smoke.warm_mhd("cpu", m64, N=32, steps=10, steps_out=5,
+                             compare_steps=2)
+    assert wm["full"]["warm_precision"] is None
+    assert wm["full"]["energy_drift"] <= 1e-4
+    assert wm["full"]["integrator_launches"]["shear_scan"] == 50
+    kara = chip_smoke.karatsuba_euler("cpu", N=24, steps=6)
+    assert kara["highest_karatsuba"]["launches"] == 30
+    assert 0.0 < kara["karatsuba_vs_highest"] <= 1e-5
+    aw = chip_smoke.adaptive_warm("cpu", N=24, steps=4)
+    assert aw["warm"]["launches"] == 4 * 2 + sum(aw["warm"]["counts"])
+    assert aw["full"]["launches"] == sum(aw["full"]["counts"])
+    assert "QUFLOW_PALLAS_KERNEL" not in chip_smoke.os.environ
+
+
+def test_slice_modules_phases_rehearse_on_cpu(cpu_rehearsal):
+    """Phase 18 at small sizes: the device maps against the host ones, the
+    device SHT against the host transform, the native solve against
+    solve_poisson with one launch."""
+    maps = chip_smoke.device_maps("cpu", N=64, lmaxes=(5, 16))
+    assert [r["lmax"] for r in maps] == [5, 16]
+    assert all(r["shr2mat_rel_err"] <= 1e-12 and r["round_trip_rel_err"]
+               <= 1e-12 for r in maps)
+    sht = chip_smoke.device_sht("cpu", L=16)
+    assert sht["float64"]["round_trip_rel_err"] <= 1e-10
+    assert sht["float32"]["synthesis_rel_err"] <= 1e-5
+    from quflow_tpu_torch import native
+
+    if not native.available():
+        pytest.skip("no C++ toolchain for the native phase")
+    nat = chip_smoke.native_poisson("cpu", N=32)
+    assert nat["launches"] == {"shear_thomas": 1, "shear_scan": 0}
+    assert nat["max_abs_err"] <= 1e-13 * 32

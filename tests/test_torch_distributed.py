@@ -27,6 +27,10 @@ N_DP, B_DP, N_MHD = 16, 4, 12
 N_TP2, N_TP4 = 16, 13
 STEPS, MAXIT = 3, 5
 TOL = 1e-10
+#: the warm schedule on a dp and a tp mesh (complex64; on the CPU every
+#: precision name is a full float32 product, in both packages)
+WARM_DP = dict(warm_precision="high", warm_iters=3)
+WARM_TP = dict(warm_precision="high_karatsuba", warm_iters=2)
 
 
 def _skewh(rng, *shape):
@@ -131,6 +135,8 @@ def worker(world, init, rank, inputs, outdir):
         _run_case(out, "dp_mhd", inp["S_dp"], dp, True, mhd=True, tol=TOL,
                   maxit=10)
         _run_case(out, "dp_poisson", inp["W_dp"], dp, True, poisson=True)
+        _run_case(out, "dp_warm_c64", inp["W_dp"], dp, True,
+                  dtype=np.complex64, **WARM_DP)
         _checkpoint_case(out, outdir, inp, dp)
         tp = make_mesh(dp=1)  # tp = 2
         _run_case(out, "tp2", inp["W_tp2"], tp, False, with_diagnostics=True)
@@ -138,6 +144,8 @@ def worker(world, init, rank, inputs, outdir):
                   strang_splitting=("heat", {"nu": 1e-3}))
         _run_case(out, "tp2_c64", inp["W_tp2"], tp, False, dtype=np.complex64)
         _run_case(out, "tp2_poisson", inp["W_tp2"], tp, False, poisson=True)
+        _run_case(out, "tp2_warm_c64", inp["W_tp2"], tp, False,
+                  dtype=np.complex64, **WARM_TP)
     else:
         tp = make_mesh(dp=1)  # tp = 4 over N = 13: rows 4, 3, 3, 3
         _run_case(out, "tp4", inp["W_tp4"], tp, False, with_diagnostics=True)
@@ -214,30 +222,37 @@ def _jax_poisson(W, dtype=np.complex128):
     return np.asarray(fn(jnp.asarray(W.astype(dtype))))
 
 
-@pytest.mark.parametrize("case", ["dp", "dp_tol", "dp_mhd", "dp_poisson"])
+@pytest.mark.parametrize("case", ["dp", "dp_tol", "dp_mhd", "dp_poisson",
+                                  "dp_warm_c64"])
 def test_dp_matches_quflow_tpu(two, case):
     inp = make_inputs()
+    dtype = np.complex64 if case.endswith("c64") else np.complex128
     if case == "dp_poisson":
         ref = [_jax_poisson(inp["W_dp"])]
     elif case == "dp_mhd":
         ref = _jax_step(inp["S_dp"], mhd=True, tol=TOL, maxit=10)
+    elif case == "dp_warm_c64":
+        ref = _jax_step(inp["W_dp"], dtype=dtype, batched=True, **WARM_DP)
     else:
         ref = _jax_step(inp["W_dp"], batched=True, **(
             dict(tol=TOL, maxit=10) if case == "dp_tol" else {}))
     for r in range(2):  # every rank gathers the whole ensemble
-        _close(two[r][case], ref[0])
+        _close(two[r][case], ref[0], dtype)
     if case in ("dp_tol", "dp_mhd"):
         # the batch-max exit over both ranks: JAX's iteration counts
         for r in range(2):
             np.testing.assert_array_equal(two[r][case + "_iters"], ref[3])
 
 
-@pytest.mark.parametrize("case", ["tp2", "tp2_tol", "tp2_c64", "tp2_poisson"])
+@pytest.mark.parametrize("case", ["tp2", "tp2_tol", "tp2_c64", "tp2_poisson",
+                                  "tp2_warm_c64"])
 def test_tp2_matches_quflow_tpu(two, case):
     W = make_inputs()["W_tp2"]
     dtype = np.complex64 if case.endswith("c64") else np.complex128
     if case == "tp2_poisson":
         ref = [_jax_poisson(W)]
+    elif case == "tp2_warm_c64":
+        ref = _jax_step(W, dtype=dtype, **WARM_TP)
     elif case == "tp2_tol":
         ref = _jax_step(W, tol=TOL, maxit=10,
                         strang_splitting=("heat", {"nu": 1e-3}))

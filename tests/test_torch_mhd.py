@@ -200,8 +200,11 @@ def test_magmp_torch_matches_magmp_tpu_warm_chunks():
         b(S0[0].copy(), dt, steps=1)
     with pytest.raises(TypeError, match="MagmpTorch does not accept per-call"):
         b(S0.copy(), dt, steps=1, tol=1e-8)
-    # warm_precision='auto' means none, as in IsompTorch
-    assert tst.MagmpTorch(warm_precision="auto", device="cpu").maxit == 5
+    # warm_precision='auto' resolves as MagmpTPU resolves it
+    for kw in ({}, {"dtype": np.complex128}, {"precision": "high"}):
+        assert tst.MagmpTorch(warm_precision="auto", device="cpu",
+                              **kw).warm_precision == jst.MagmpTPU(
+            warm_precision="auto", **kw).warm_precision
     # an ensemble runs; a mesh whose 'tp' axis splits the rows raises A9
     Sb2 = tst.MagmpTorch(maxit=6, dtype=np.complex128, device="cpu",
                          batched=True)(np.stack([S0, S0[::-1]]), dt, steps=2)
@@ -210,17 +213,65 @@ def test_magmp_torch_matches_magmp_tpu_warm_chunks():
     rows = Mesh(dp=1, tp=2, rank=0, ranks=[0, 1])
     for kw, item in (({"mesh": rows}, "A9"),
                      ({"layout": "shard"}, "does not come over"),
-                     ({"warm_precision": "high"}, "A4"),
-                     ({"warm_iters": 2}, "A4"),
                      ({"layout": "wrapped"}, "does not come over")):
         with pytest.raises(NotImplementedError, match=item):
             tst.build_mhd_step_fn(8, 0.1, device="cpu", **kw)
         with pytest.raises(NotImplementedError, match=item):
             tst.MagmpTorch(device="cpu", **kw)
-    with pytest.raises(ValueError, match="no CUDA meaning"):
-        tst.build_mhd_step_fn(8, 0.1, device="cpu", precision="high")
-    with pytest.raises(ValueError, match="no CUDA meaning"):
-        tst.MagmpTorch(device="cpu", precision="default")
+    # the warm schedule's options and every precision name build; an
+    # unknown name raises at construction (JAX's MHD stepper raises a
+    # KeyError when it builds its program)
+    for kw in ({"warm_precision": "high"}, {"warm_iters": 2},
+               {"precision": "default"}, {"precision": "high_karatsuba"}):
+        tst.build_mhd_step_fn(8, 0.1, device="cpu", **kw)
+        tst.MagmpTorch(device="cpu", **kw)
+    for kw in ({"precision": "tf32"}, {"warm_precision": "bf16"}):
+        with pytest.raises(ValueError, match="precision"):
+            tst.build_mhd_step_fn(8, 0.1, device="cpu", **kw)
+        with pytest.raises(ValueError, match="precision"):
+            tst.MagmpTorch(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_mhd_warm_schedule_matches_jax(precision):
+    """The MHD warm schedule against JAX's build_mhd_step_fn: warm
+    iterations at ``precision`` (warm_iters=3 of maxit=5) within 1e-6 of
+    JAX's in complex64 (every name is full float32 on the CPU, as
+    tests/test_parallel.py says); under tol, the counts of the
+    full-precision iterations equal JAX's; the '_karatsuba' warm, which
+    only the port's MHD stepper takes, to float32 roundoff of the pure
+    schedule."""
+    N = 16
+    S0 = _rand_mhd_state(N, seed=5, dtype=np.complex64)
+    dt = 0.3 * qf.hbar(N)
+    Sp = jnp.asarray(jst.to_planes(S0).astype(np.float32))
+    zj = jnp.zeros_like(Sp)
+    St = torch.from_numpy(S0)
+    zt = torch.zeros_like(St)
+
+    def ours(**kw):
+        return tst.build_mhd_step_fn(N, dt, dtype=np.complex64,
+                                     device="cpu", **kw)(St, zt, zt)
+
+    def theirs(**kw):
+        return jst.build_mhd_step_fn(N, dt, dtype=np.complex64, **kw)(
+            Sp, zj, zj)
+
+    kw = dict(steps=4, maxit=5, warm_precision=precision, warm_iters=3)
+    warm = ours(**kw)[0].numpy()
+    np.testing.assert_allclose(
+        warm, jst.from_planes(np.asarray(theirs(**kw)[0])), atol=1e-6)
+    np.testing.assert_array_equal(warm, ours(steps=4, maxit=5)[0].numpy())
+    np.testing.assert_allclose(
+        ours(steps=4, maxit=5, warm_precision=precision + "_karatsuba")[0]
+        .numpy(), warm, atol=1e-6)
+    kw = dict(steps=3, maxit=10, tol=1e-6, warm_precision=precision,
+              warm_iters=2)
+    out, jout = ours(**kw), theirs(**kw)
+    np.testing.assert_array_equal(out[3].numpy(), np.asarray(jout[3]))
+    np.testing.assert_allclose(out[0].numpy(),
+                               jst.from_planes(np.asarray(jout[0])),
+                               atol=1e-6)
 
 
 def test_solve_with_magmp_torch_matches():

@@ -128,15 +128,23 @@ def test_unported_options_raise(monkeypatch):
     with pytest.raises(TypeError, match="Mesh"):
         tst.build_step_fn(8, 0.1, device="cpu", mesh=object())
     for kw, item in (({"layout": "shard"}, "does not come over"),
-                     ({"layout": "wrapped"}, "does not come over"),
-                     ({"warm_precision": "high"}, "A4"),
-                     ({"warm_iters": 2}, "A4")):
+                     ({"layout": "wrapped"}, "does not come over")):
         with pytest.raises(NotImplementedError, match=item):
             tst.build_step_fn(8, 0.1, device="cpu", **kw)
         with pytest.raises(NotImplementedError, match=item):
             tst.IsompTorch(device="cpu", **kw)
-    with pytest.raises(ValueError, match="no CUDA meaning"):
-        tst.build_step_fn(8, 0.1, device="cpu", precision="high")
+    # the warm schedule's options build (their runs: the twins below); a
+    # precision name quflow_tpu does not know raises at construction
+    for kw in ({"warm_precision": "high"}, {"warm_iters": 2},
+               {"precision": "high"}, {"precision": "default_karatsuba"}):
+        tst.build_step_fn(8, 0.1, device="cpu", **kw)
+        tst.IsompTorch(device="cpu", **kw)
+    for kw in ({"precision": "tf32"}, {"warm_precision": "bf16"},
+               {"precision": "fast_karatsuba"}):
+        with pytest.raises(ValueError, match="precision"):
+            tst.build_step_fn(8, 0.1, device="cpu", **kw)
+        with pytest.raises(ValueError, match="precision"):
+            tst.IsompTorch(device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="complex128"):
         tst.build_dw_step_fn(8, 0.1)
     # solve's default integrator, isomp, needs the card unless told
@@ -148,6 +156,164 @@ def test_unported_options_raise(monkeypatch):
         with pytest.raises(TypeError, match=kw):
             registry.isomp_torch(_rand_skewh(8, 0), 0.1, steps=1,
                                  device="cpu", **{kw: 1})
+
+
+PRECISIONS = ["highest", "high", "default", "highest_karatsuba",
+              "high_karatsuba", "default_karatsuba"]
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_precision_names_match_jax(precision):
+    """Every precision name of quflow_tpu, 5 steps at N=24 complex64 and
+    complex128, against JAX's build_step_fn at that name: on the CPU every
+    name is a full-precision product on both sides (JAX lowers its bf16
+    pass counts to the same f32 dot, the port sets TF32 for CUDA only),
+    so complex64 within 5e-5 (the step test's tolerance) and complex128
+    within 1e-11."""
+    N = 24
+    dt = 0.25 * qf.hbar(N)
+    for dtype, tol in ((np.complex64, 5e-5), (np.complex128, 1e-11)):
+        W = _rand_skewh(N, seed=11, dtype=dtype)
+        z = jnp.zeros_like(jnp.asarray(W))
+        Wj = np.asarray(jst.build_step_fn(
+            N, dt, steps=5, maxit=5, dtype=dtype, planes_io=False,
+            layout="shear", precision=precision)(jnp.asarray(W), z, z)[0])
+        zt = torch.zeros(N, N, dtype=qt.config.torch_dtype(dtype))
+        Wt = tst.build_step_fn(N, dt, steps=5, maxit=5, dtype=dtype,
+                               precision=precision, device="cpu")(
+            torch.from_numpy(W), zt, zt)[0]
+        assert _rel(Wt.numpy(), Wj) <= tol, (dtype, precision)
+
+
+def test_stepper_mixed_precision_schedule():
+    """Twin of tests/test_parallel.py::test_stepper_mixed_precision_schedule:
+    the warm schedule 'high' at warm_iters=3 against JAX's within 1e-6 and
+    against the port's pure schedule exactly (every name is full float32
+    on the CPU); the '_karatsuba' warm (three real products) to float32
+    roundoff; under tol the warm prefix runs first and the counts, equal
+    to JAX's, report only the full-precision iterations."""
+    N = 32
+    W0 = _rand_skewh(N, seed=3, dtype=np.complex64)
+    dt = 0.25 * qf.hbar(N)
+    Wp = jnp.asarray(jst.to_planes(W0).astype(np.float32))
+    zj = jnp.zeros_like(Wp)
+    zt = torch.zeros(N, N, dtype=torch.complex64)
+    Wt0 = torch.from_numpy(W0)
+
+    def ours(**kw):
+        return tst.build_step_fn(N, dt, dtype=np.complex64, device="cpu",
+                                 **kw)(Wt0, zt, zt)
+
+    def theirs(**kw):
+        return jst.build_step_fn(N, dt, dtype=np.complex64, planes_io=True,
+                                 **kw)(Wp, zj, zj)
+
+    pure = ours(steps=5, maxit=5)[0].numpy()
+    warm = ours(steps=5, maxit=5, warm_precision="high", warm_iters=3)
+    jwarm = jst.from_planes(np.asarray(theirs(
+        steps=5, maxit=5, warm_precision="high", warm_iters=3)[0]))
+    np.testing.assert_allclose(warm[0].numpy(), jwarm, atol=1e-6)
+    np.testing.assert_array_equal(warm[0].numpy(), pure)
+    kara = ours(steps=5, maxit=5, warm_precision="high_karatsuba",
+                warm_iters=3)[0].numpy()
+    np.testing.assert_allclose(kara, pure, atol=1e-6)
+    assert not np.array_equal(kara, pure)  # three products, other sums
+    # the default warm_iters is maxit - 2, capped at maxit
+    np.testing.assert_array_equal(
+        ours(steps=2, maxit=5, warm_precision="high")[0].numpy(),
+        ours(steps=2, maxit=5, warm_precision="high", warm_iters=3)[0].numpy())
+    np.testing.assert_array_equal(
+        ours(steps=2, maxit=2, warm_precision="high_karatsuba",
+             warm_iters=9)[0].numpy(),
+        ours(steps=2, maxit=2, precision="highest_karatsuba")[0].numpy())
+    # adaptive: the warm prefix, then the tol loop; counts as JAX's
+    kw = dict(steps=4, maxit=10, tol=1e-7, warm_precision="high",
+              warm_iters=2)
+    out = ours(**kw)
+    jout = theirs(**kw)
+    iters = out[3].numpy()
+    assert iters.shape == (4,) and (iters >= 1).all() and (iters <= 10).all()
+    np.testing.assert_array_equal(iters, np.asarray(jout[3]))
+    np.testing.assert_allclose(out[0].numpy(),
+                               jst.from_planes(np.asarray(jout[0])),
+                               atol=1e-6)
+
+
+def test_warm_iterations_are_a_prefix_not_counted(monkeypatch):
+    """Under tol the warm iterations run before the adaptive loop, each
+    one column solve, and the per-step counts leave them out: launches =
+    steps x warm_iters + the counts' sum."""
+    N = 16
+    W = torch.from_numpy(_rand_skewh(N, seed=4))
+    z = torch.zeros_like(W)
+    calls = []
+
+    def counted(w, binv, u, d):
+        calls.append(1)
+        return shear_thomas_reference(w, binv, u, d)
+
+    out = tst.build_step_fn(N, 0.25 * qf.hbar(N), steps=3, maxit=8,
+                            tol=1e-12, dtype=np.complex128,
+                            warm_precision="high", warm_iters=2,
+                            device="cpu", solver=counted)(W, z, z)
+    assert len(calls) == 3 * 2 + int(out[3].sum())
+    assert (out[3].numpy() <= 8).all()
+
+
+def test_isomp_torch_warm_auto_default():
+    """Twin of tests/test_stepper_hooks.py::test_isomp_tpu_warm_auto_default
+    for IsompTorch and MagmpTorch: 'auto' resolves as IsompTPU and
+    MagmpTPU resolve it (MagmpTPU only at exactly 'highest'; the port's MHD
+    stepper also takes the '_karatsuba' names, which JAX's does not)."""
+    cases = [{}, {"precision": "highest_karatsuba"},
+             {"dtype": np.complex128}, {"precision": "high"},
+             {"precision": "default_karatsuba"}, {"warm_precision": None},
+             {"warm_precision": "default"},
+             {"warm_precision": "high_karatsuba", "warm_iters": 1}]
+    for kw in cases:
+        a, b = jst.IsompTPU(**kw), tst.IsompTorch(device="cpu", **kw)
+        assert (b.warm_precision, b.warm_iters) == (
+            a.warm_precision, a.warm_iters), kw
+    assert tst.IsompTorch(device="cpu").warm_precision == "high"
+    for kw in cases:
+        b = tst.MagmpTorch(device="cpu", **kw)
+        if "_karatsuba" not in str(kw.get("precision", "")):
+            a = jst.MagmpTPU(**kw)
+            assert b.warm_precision == a.warm_precision, kw
+    assert tst.MagmpTorch(device="cpu").warm_precision == "high"
+    assert tst.MagmpTorch(
+        device="cpu", precision="highest_karatsuba").warm_precision is None
+
+
+def test_tf32_flag_restored(monkeypatch):
+    """The warm GEMMs of a complex64 step run with cuBLAS's TF32 flag on
+    and every other GEMM with it off; the flag reads the same before and
+    after a warm step (and after a product that raises); complex128 never
+    sets it."""
+    seen = []
+    matmul = torch.matmul
+
+    def recording(a, b):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return matmul(a, b)
+
+    monkeypatch.setattr(torch, "matmul", recording)
+    before = torch.backends.cuda.matmul.allow_tf32
+    N = 12
+    for dtype, warm_flags in ((np.complex64, [True] * 6),
+                              (np.complex128, [False] * 6)):
+        seen.clear()
+        W = torch.from_numpy(_rand_skewh(N, seed=1, dtype=dtype))
+        z = torch.zeros_like(W)
+        tst.build_step_fn(N, 0.1, steps=1, maxit=5, dtype=dtype,
+                          warm_precision="high", device="cpu")(W, z, z)
+        assert seen == warm_flags + [False] * 4, dtype
+        assert torch.backends.cuda.matmul.allow_tf32 is before
+    mm = tst._make_mm("high", np.complex64)
+    with pytest.raises(RuntimeError):
+        mm(torch.zeros(2, 3, dtype=torch.complex64),
+           torch.zeros(2, 3, dtype=torch.complex64))
+    assert torch.backends.cuda.matmul.allow_tf32 is before
 
 
 def test_euler_flow_matches():
@@ -257,3 +423,30 @@ def test_step_on_card_kernel_matches_plain(cuda):
     Wp = tst.build_step_fn(N, dt, steps=steps, maxit=maxit, device=cuda,
                            solver=shear_thomas_reference)(W0, z, z)[0]
     torch.testing.assert_close(Wk, Wp, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_warm_products_run_tf32_on_card(cuda):
+    """On the card 'high' and 'default' run complex64 products on TF32
+    (within 1e-2 of a complex128 product, and further from it than the
+    full-precision product's 1e-5), restore the flag, and leave complex128
+    products full precision (equal to 'highest')."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    A, B = (torch.randn(256, 256, dtype=torch.complex64, device=cuda,
+                        generator=g) for _ in range(2))
+    ref = A.to(torch.complex128) @ B.to(torch.complex128)
+
+    def rel(x):
+        return ((x.to(torch.complex128) - ref).abs().max()
+                / ref.abs().max()).item()
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    full = rel(tst._make_mm("highest", np.complex64)(A, B))
+    assert full <= 1e-5
+    for name in ("high", "default", "high_karatsuba"):
+        err = rel(tst._make_mm(name, np.complex64)(A, B))
+        assert full < err <= 1e-2, (name, err)
+        assert torch.backends.cuda.matmul.allow_tf32 is before
+    A2, B2 = A.to(torch.complex128), B.to(torch.complex128)
+    assert torch.equal(tst._make_mm("high", np.complex128)(A2, B2),
+                       tst._make_mm("highest", np.complex128)(A2, B2))

@@ -182,6 +182,27 @@ def test_forced_dissipative_qg_combined(W0):
     assert _dist(fn(W, z, z)[0], ref) < ATOL
 
 
+def test_hooks_with_warm_schedule(W0):
+    """The warm schedule through the hooks: the forced-dissipative QG step
+    with warm 'high' (3 of 5 iterations), and a timed forcing under tol
+    with a warm prefix of 2, against quflow_tpu's build_step_fn with the
+    same schedule (complex128, where every name is a full product in both
+    packages: equal to the pure schedule); the counts as JAX's."""
+    warm = dict(warm_precision="high", warm_iters=3)
+    kw = dict(hamiltonian=("globalqg", GAMMA), forcing=force,
+              strang_splitting=("viscdamp", VISC))
+    out = run_port(W0, **kw, **warm)[0]
+    assert _dist(out, run_jax(W0, **kw, **warm)[0]) < ATOL
+    assert torch.equal(out, run_port(W0, **kw)[0])
+    kw = dict(forcing=force_t_port, tol=1e-12, minit=1,
+              warm_precision="default", warm_iters=2)
+    W, _, _, iters = run_port(W0, t0=(0.2,), maxit=10, **kw)
+    Wj, _, _, iters_j = run_jax(W0, t0=(0.2,), maxit=10,
+                                **{**kw, "forcing": force_t_jax})
+    assert _dist(W, Wj) < ATOL
+    np.testing.assert_array_equal(iters.numpy(), np.asarray(iters_j))
+
+
 def test_globalqg_f32_m0_refinement(W0, monkeypatch):
     """refine='m0' corrects the complex64 QG solve against the *QG* m=0
     system, through that family's semiseparable inverse."""
@@ -532,6 +553,15 @@ def test_mhd_timed_forcing_and_tol(S0):
     Sj, _, _, iters_j = run_mhd(S0, port=False, forcing=f_j, t0=(0.4,), **kw)
     assert _dist(S, Sj) < ATOL
     np.testing.assert_array_equal(iters.numpy(), np.asarray(iters_j))
+
+
+def test_mhd_hooks_with_warm_schedule(S0):
+    """MHD forcing and the named heat Strang step with warm 'high' against
+    quflow_tpu's build_mhd_step_fn with the same schedule."""
+    kw = dict(forcing=force_mhd, strang_splitting=("heat", {"nu": 1e-3}),
+              warm_precision="high", warm_iters=3)
+    out = run_mhd(S0, **kw)[0]
+    assert _dist(out, run_mhd(S0, port=False, **kw)[0]) < ATOL
 
 
 def test_mhd_strang_named_matches_callable(S0):
