@@ -4,14 +4,14 @@
     python3 chip_smoke.py
 
 Run from the repository root; it needs one CUDA device, nvcc, g++, and
-nothing of JAX.  Eighteen phases, one line each (phases 14-18 one for each
+nothing of JAX.  Twenty phases, one line each (phases 14-19 one for each
 of their parts); any failure ends the run with a nonzero exit code and no
 result line.
 
 1. device  - the card's name and power limit, as nvidia-smi reports them;
-2. build   - nvcc builds csrc/shear_thomas.cu and csrc/shear_scan.cu for
-             sm_90a, one compiler each, started together (seconds, ptxas
-             register counts);
+2. build   - nvcc builds csrc/shear_thomas.cu, csrc/shear_scan.cu and
+             csrc/shear_block.cu for sm_90a, one compiler each, started
+             together (seconds, ptxas register counts);
 3. kernel  - ``shear_thomas`` against its plain PyTorch version on the card
              at N in {512, 1024, 2048, 4096} (the two main-path shapes and
              larger ones), batch in {1, 4, 8}, complex64 and complex128:
@@ -175,7 +175,38 @@ result line.
        into quflow_tpu_torch/_build/) against ``solve_poisson`` on the
        card, complex128, N=512: within 1e-13 N; one launch.
 
-Every path (phases 4, 5, 7-18) runs with every launch count set to 0 just
+19. the row-sharded solve and the tp step:
+    a. ``shear_block`` (one rank's block sweeps) at N in {512, 1024,
+       4096}, complex64 and complex128, batch in {1, 4}, with the row
+       blocks of tp in {2, 3, 4} (3 gives uneven blocks) folded in one
+       process as the ranks fold them: bit-equal to its plain version;
+       the folded result within 1e-13 of ``shear_thomas`` over the whole
+       column in complex128, relative to the largest entry; in complex64
+       against the float64 solve of the same float32 system, within 1e-6
+       or three times the serial solve's own error, the larger (a float32
+       solve of the ill-conditioned low-m columns errs by ~1e-5 at
+       N=4096, serial or folded), its difference from ``shear_thomas``
+       reported raw and after the m=0 correction; one rank's three launches timed at N=1024, tp=2 and
+       N=4096, tp=4, B=1 (CUDA-graph replay, the plain version's time,
+       the bound of its rows, the share);
+    b. MHD, complex64, N=1024, ``MagmpTorch()`` on a tp = 2 mesh of two
+       processes sharing the card (this script run with ``--tp-rank``),
+       20 steps, against one-rank ``MagmpTorch()``: within 5e-5 of the
+       largest entry; each rank launches ``shear_block`` exactly 3 times
+       an iteration and gathers rows 6 times; steps/s of both.  NCCL is
+       tried first, then gloo; a backend that refuses two ranks on one
+       card at set-up (the group's bring-up and a probe of each
+       collective) is named with its message, and if both refuse, a line
+       says so; any failure after the probe fails the phase;
+20. the double-word steppers, N=512: ``build_dw_step_fn`` 200 steps and
+    ``build_dw_mhd_step_fn`` 50 steps, maxit 5, dw_iters 2, float64
+    planes: tr(W^2), tr(W^3) and tr(Theta^2), tr(Theta^3) drift
+    <= 1e-10; one ``shear_thomas`` launch an iteration; the GEMM kernels
+    a step by name (6 CGEMM + 4 ZGEMM for Euler, 12 + 8 launches of its
+    18 + 12 products for MHD); steps/s of the dw and the complex128 Euler
+    steppers in turns, beside phase 5's.
+
+Every path (phases 4, 5, 7-20) runs with every launch count set to 0 just
 before it and read just after.  Then a JSON line of the kernels
 (name, source, the TPU kernel it replaces, launches on each path, error,
 times and bound at the main path's shape; ``library_ms`` null, since no
@@ -216,7 +247,19 @@ from quflow_tpu_torch import (
 from quflow_tpu_torch.integrators import isospectral
 from quflow_tpu_torch.laplacian import tridiagonal
 from quflow_tpu_torch.models import EulerFlow, GlobalQGFlow, MHDFlow
-from quflow_tpu_torch.ops import cuda_build, cuda_scan_solve, cuda_solve
+from quflow_tpu_torch.ops import (
+    cuda_block_solve,
+    cuda_build,
+    cuda_scan_solve,
+    cuda_solve,
+)
+from quflow_tpu_torch.ops.cuda_block_solve import (
+    BACKWARD,
+    FORWARD,
+    SUMMARY,
+    shear_block,
+    shear_block_reference,
+)
 from quflow_tpu_torch.ops.laplacian import (
     laplace,
     solve_globalqg,
@@ -225,30 +268,41 @@ from quflow_tpu_torch.ops.laplacian import (
     solve_poisson,
     solve_viscdamp,
 )
-from quflow_tpu_torch.ops.tridiag import shear_operator
+from quflow_tpu_torch.ops.tridiag import refine_m0, shear_operator
 from quflow_tpu_torch.ops.cuda_scan_solve import (
     shear_scan,
     shear_scan_reference,
 )
 from quflow_tpu_torch.ops.cuda_solve import shear_thomas, shear_thomas_reference
 from quflow_tpu_torch.parallel import stepper
+from quflow_tpu_torch.parallel.mesh import Mesh
+from quflow_tpu_torch.parallel.shard_shear import (
+    ShardedShearOperator,
+    solve_shear_blocks,
+)
 from quflow_tpu_torch.parallel.stepper import (
     IsompTorch,
     MagmpTorch,
     _laplace_core,
     _mhd_lap_op,
     _real_factors,
+    build_dw_mhd_step_fn,
+    build_dw_step_fn,
     build_mhd_step_fn,
     build_step_fn,
+    to_planes,
 )
 
+#: the column solves, whose counts every single-device path reads;
+#: shear_block, the row-sharded solve's kernel, is reset with them and read
+#: by the tp path (phase 19b)
 KERNELS = (shear_thomas, shear_scan)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.complex64: 67e12, torch.complex128: 34e12}
 
 
 def reset_counts():
-    for k in KERNELS:
+    for k in (*KERNELS, shear_block):
         k.launches = 0
 
 
@@ -299,12 +353,13 @@ def graph_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def solve_bound(N, B, dtype):
+def solve_bound(N, B, dtype, rows=None):
     """The least time (ms) the card could take for a column solve of B
-    complex (N, N+1) arrays, and what bounds it: 'bytes' or 'operations'
-    (see the module's note)."""
+    complex (N, N+1) arrays, or of ``rows`` of their rows (one rank's block
+    sweeps), and what bounds it: 'bytes' or 'operations' (see the
+    module's note)."""
     real = 4 if dtype == torch.complex64 else 8
-    elements = N * (N + 1)
+    elements = (N if rows is None else rows) * (N + 1)
     t_bytes = (4 * real * B + 3 * real) * elements / HBM_BYTES_PER_S
     t_ops = 10 * B * elements / PEAK_OPS_PER_S[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -1890,7 +1945,442 @@ def native_poisson(device, N=512):
                 card_ms=cuda_ms(lambda: solve_poisson(Wt, skewh=True), 10))
 
 
+#: phase 19a's shapes timed: (N, tp) of phase 19b's path, and the largest
+BLOCK_TIMED = ((1024, 2), (4096, 4))
+#: phase 19a's gates on the folded sweeps: complex128 against the
+#: unsharded solve, relative to the largest entry; complex64 against the
+#: float64 solve of the same float32 system, within 1e-6 or this many
+#: times the serial float32 solve's own error, the larger (block_sweeps)
+BLOCK_GATE_C128 = 1e-13
+BLOCK_ACCURACY_C64 = 3.0
+
+
+def block_sweeps(device, Ns=(512, 1024, 4096), Bs=(1, 4), tps=(2, 3, 4),
+                 timed=BLOCK_TIMED, reps=20, plain_reps=2):
+    """Phase 19a: the row blocks of tp ranks swept by ``shear_block`` and
+    folded in one process, as the ranks fold them
+    (shard_shear.solve_shear_blocks), against the same with the plain
+    version (bit-equal), and against the unsharded solve: in complex128
+    within BLOCK_GATE_C128 of ``shear_thomas``, relative to the largest
+    entry.  In complex64 a float32 solve of the ill-conditioned low-m
+    columns (m = 0, +-1) errs by ~1e-5 at N=4096, serial or folded, so
+    each is held against the float64 solve of the same float32 system
+    (``shear_thomas`` on the factors widened), the folded one's error
+    within 1e-6 or BLOCK_ACCURACY_C64 times the serial one's, the larger;
+    its difference from
+    ``shear_thomas`` is reported, raw and after the m=0 correction that
+    every complex64 solve of the steppers applies.  Then one rank's three
+    launches timed at the ``timed`` shapes, B=1 (see time_block).
+    Returns (rows, timings)."""
+    rows, timings = [], []
+    for dtype, N, B, w, binv, u, d in solve_inputs(device, Ns, Bs):
+        whole = shear_thomas(w, binv, u, d)
+        c64 = dtype == torch.complex64
+        if c64:
+            op = _real_factors(N, dtype, device=device, with_op=True)[3]
+            exact = shear_thomas(w.double(), binv.double(), u.double(),
+                                 d.to(torch.complex128))
+            serial_err = ratio(whole, exact)
+        for tp in tps:
+            x = solve_shear_blocks(w, binv, u, d, tp, shear_block)
+            plain = solve_shear_blocks(w, binv, u, d, tp,
+                                       shear_block_reference)
+            err = (x - plain).abs().max().item()
+            if err != 0.0:
+                raise AssertionError(
+                    f"shear_block {dtype} N={N} B={B} tp={tp}: max abs "
+                    f"error {err:.3e} against its plain version")
+            row = dict(dtype=str(dtype).split(".")[-1], N=N, B=B, tp=tp,
+                       max_abs_err=err, vs_shear_thomas_rel=ratio(x, whole))
+            if c64:
+                row.update(
+                    vs_f64_rel=ratio(x, exact),
+                    shear_thomas_vs_f64_rel=serial_err,
+                    vs_shear_thomas_rel_m0=ratio(
+                        refine_m0(x, d, op), refine_m0(whole.clone(), d, op)))
+                ok = row["vs_f64_rel"] <= max(1e-6,
+                                              BLOCK_ACCURACY_C64 * serial_err)
+            else:
+                ok = row["vs_shear_thomas_rel"] <= BLOCK_GATE_C128
+            if not ok:
+                raise AssertionError(f"shear_block against the unsharded "
+                                     f"solve: {row}")
+            rows.append(row)
+            if B == 1 and (N, tp) in timed:
+                timings.append(time_block(dtype, N, tp, w, binv, u, d, reps,
+                                          plain_reps))
+    return rows, timings
+
+
+def time_block(dtype, N, tp, w, binv, u, d, reps, plain_reps):
+    """One rank's three launches (summary, forward with the backward
+    summary, backward) on the block of rank 1 of ``tp``: ms by CUDA-graph
+    replay, the plain version's ms by CUDA events, the bound of its rows
+    and the share."""
+    opr = ShardedShearOperator(w, binv, u, Mesh(1, tp, 1, range(tp)))
+    a, b = opr.rows
+    D = d[..., a:b, :].contiguous()
+    carry = d[..., 0, :].contiguous()  # any carry: the time is the same
+    fac = (opr.w, opr.binv, opr.u)
+
+    def three(block):
+        def run():
+            block(SUMMARY, *fac, D)
+            y, _ = block(FORWARD, *fac, D, carry)
+            block(BACKWARD, *fac, y, carry)
+        return run
+
+    ms = graph_ms(three(shear_block), reps)
+    plain_ms = cuda_ms(three(shear_block_reference), plain_reps)
+    bound_ms, bound_by = solve_bound(N, D.shape[0], dtype, rows=b - a)
+    return dict(dtype=str(dtype).split(".")[-1], N=N, tp=tp, B=D.shape[0],
+                rows=b - a, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, share=bound_ms / ms)
+
+
+def tp_rank(rank, backend, tmp, N, steps, maxit, device, dtype):
+    """A rank of phase 19b, in a process of its own (``chip_smoke.py
+    --tp-rank ...``): bring up the two-rank group on ``backend`` (its
+    rendezvous a file in ``tmp``) and probe each collective of the tp
+    step on ``device`` tensors; a refusal up to here is written to
+    ``refused_<rank>.txt`` and is no failure.  Then ``MagmpTorch()`` in
+    ``dtype`` on the tp = 2 mesh, ``steps`` steps of this rank's rows of
+    the state in ``tmp``: its row gathers and ``shear_block`` launches,
+    its seconds, and (rank 0) the gathered state, into
+    ``rank_<rank>.npz``.  Any failure after the probe raises.  On the CPU
+    (the rehearsal of tests/test_torch_chip_smoke.py) the plain sweeps
+    are counted as the kernel's launches."""
+    import torch.distributed as dist
+
+    from quflow_tpu_torch.parallel import shard_shear
+    from quflow_tpu_torch.parallel.distributed import initialize
+    from quflow_tpu_torch.parallel.mesh import (
+        gather_state,
+        make_mesh,
+        shard_state,
+    )
+
+    device = torch.device(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    if device.type == "cpu":
+        def counted_sweep(*args):
+            shear_block.launches += 1
+            return shear_block_reference(*args)
+
+        shard_shear.shear_block = counted_sweep
+    try:
+        initialize(init_method=f"file://{os.path.join(tmp, 'init')}",
+                   world_size=2, rank=rank, backend=backend)
+        mesh = make_mesh(dp=1)
+        x = torch.full((3, 4), 1.0 + rank, dtype=torch.complex64,
+                       device=device)
+        mesh.tp_gather(x)
+        mesh.tp_sum(x)
+        mesh.shift(x, x, torch.empty_like(x), torch.empty_like(x))
+        sync()
+    except Exception as exc:  # a refusal at set-up: reported, not failed
+        msg = f"{type(exc).__name__}: {exc}".strip().splitlines()[0][:300]
+        with open(os.path.join(tmp, f"refused_{rank}.txt"), "w") as f:
+            f.write(msg)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        return
+    open(os.path.join(tmp, f"probed_{rank}"), "w").close()
+    try:
+        S0 = np.load(os.path.join(tmp, f"S0_{dtype}.npy"))
+        piece = torch.from_numpy(shard_state(S0, mesh)).to(device)
+        gathers = []
+        gather = mesh.gather_rows
+
+        def counted(*args, **kw):
+            gathers.append(1)
+            return gather(*args, **kw)
+
+        mesh.gather_rows = counted
+        integ = MagmpTorch(maxit=maxit, dtype=dtype, mesh=mesh, device=device)
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = integ(piece, 0.25 * hbar(N), steps=steps)
+        sync()
+        sec = time.perf_counter() - t0
+        launches = dict(read_counts(), shear_block=shear_block.launches)
+        n_gathers = len(gathers)
+        mesh.gather_rows = gather
+        full = gather_state(out, mesh).cpu().numpy()
+        np.savez(os.path.join(tmp, f"rank_{rank}.npz"),
+                 state=full if rank == 0 else np.zeros(0),
+                 launches=json.dumps(launches), gathers=n_gathers,
+                 seconds=sec, backend=dist.get_backend())
+        dist.barrier()  # neither rank tears down while the other works
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(backend, tmp, N, steps, maxit, timeout, device, dtype):
+    """Two processes of ``tp_rank`` on ``backend``: None when both ran, or
+    the refusal (what a rank reported, or how it ended before the probe
+    passed).  A failure after the probe raises."""
+    for f in os.listdir(tmp):
+        if not f.startswith("S0_"):
+            os.remove(os.path.join(tmp, f))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         backend, tmp, str(N), str(steps), str(maxit), str(device), dtype],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs, timed_out = [], False
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                timed_out = True
+                logs.append("")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if not all(os.path.exists(os.path.join(tmp, f"probed_{r}"))
+               for r in range(2)):
+        # refused at set-up: what a rank wrote, else how its process ended
+        for r in range(2):
+            path = os.path.join(tmp, f"refused_{r}.txt")
+            if os.path.exists(path):
+                return open(path).read()
+        if timed_out:
+            return f"timed out after {timeout} s"
+        tail = [ln for log in logs for ln in log.splitlines() if ln.strip()]
+        return (tail[-1] if tail else "exited")[:300]
+    if timed_out or any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"phase 19b on {backend} failed after the "
+                             "group came up:\n" + "\n".join(
+                                 log[-3000:] for log in logs))
+    return None
+
+
+#: phase 19b's tolerance of the tp run against one rank, of the largest
+#: entry: tests/test_torch_distributed.py's, or TP_SPREAD times the spread
+#: of two one-rank runs (see tp_mhd), the larger
+TP_TOL = {"complex64": 5e-5, "complex128": 1e-12}
+TP_SPREAD = 3.0
+
+
+def tp_mhd(device, N=1024, steps=20, maxit=5, backends=("nccl", "gloo"),
+           timeout=300):
+    """Phase 19b: MHD at N, ``MagmpTorch()`` on a tp = 2 mesh of two
+    processes sharing the card against one-rank ``MagmpTorch()`` on the
+    same state, ``steps`` steps, complex64 (the production default, warm)
+    and complex128.  Two valid one-rank runs, through ``shear_thomas``
+    and through ``shear_scan``, part by their solves' roundings, which
+    MHD at N=1024 grows (phase 7: 2.8e-4 in complex64 after 10 steps);
+    the tp run (the block sweeps' fold, W P standing in for (P W)^H) must
+    lie within TP_TOL or TP_SPREAD times that spread of the
+    ``shear_thomas`` run.  Each rank launches ``shear_block`` 3 times an
+    iteration and gathers rows 4 times (S, P, B, Theta B), 6 in complex64
+    (the m=0 correction's two columns), checked exactly.  NCCL is tried
+    first, then gloo (whose collectives stage card tensors through the
+    host); a backend that refuses two ranks on one card at set-up is
+    reported with its message, and if both refuse, the phase says so and
+    returns the refusals."""
+    dt = 0.25 * hbar(N)
+    iters = steps * maxit
+    out = dict(N=N, steps=steps, maxit=maxit, launches_a_solve=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("complex64", "complex128"):
+            S0 = MHDFlow(N, np.dtype(name)).random_initial(lmax=10, seed=42)
+            np.save(os.path.join(tmp, f"S0_{name}.npy"), S0)
+            S0t = torch.from_numpy(S0).to(device)
+            runs = {}
+            for solver in (shear_thomas, shear_scan):
+                kw = dict(maxit=maxit, dtype=name, device=device,
+                          solver=solver)
+                MagmpTorch(**kw)(S0t, dt, steps=1)  # first use: operators
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[solver.__name__] = MagmpTorch(**kw)(S0t, dt, steps=steps)
+                torch.cuda.synchronize()
+                runs[solver.__name__ + "_s"] = time.perf_counter() - t0
+            if "backend" not in out:
+                out["refusals"] = {}
+                for backend in backends:
+                    refusal = run_ranks(backend, tmp, N, steps, maxit,
+                                        timeout, device, name)
+                    if refusal is None:
+                        out["backend"] = backend
+                        break
+                    out["refusals"][backend] = refusal
+                else:
+                    return dict(out, ran=False)
+            elif run_ranks(out["backend"], tmp, N, steps, maxit, timeout,
+                           device, name) is not None:
+                raise AssertionError(f"{out['backend']} refused the "
+                                     f"{name} run after the complex64 one "
+                                     "ran")
+            ranks = [dict(np.load(os.path.join(tmp, f"rank_{r}.npz")))
+                     for r in range(2)]
+            launches = [json.loads(str(r["launches"])) for r in ranks]
+            gathers = [int(r["gathers"]) for r in ranks]
+            per_iter = 6 if name == "complex64" else 4
+            for r in range(2):
+                if launches[r] != {"shear_thomas": 0, "shear_scan": 0,
+                                   "shear_block": 3 * iters}:
+                    raise AssertionError(
+                        f"{name} rank {r}: launches {launches[r]}, expected "
+                        f"{3 * iters} of shear_block only")
+                if gathers[r] != per_iter * iters:
+                    raise AssertionError(
+                        f"{name} rank {r}: {gathers[r]} row gathers, "
+                        f"expected {per_iter * iters}")
+            state = torch.from_numpy(ranks[0]["state"]).to(device)
+            if not finite(state):
+                raise AssertionError(f"the {name} tp run is not finite")
+            ref = runs["shear_thomas"]
+            spread = ratio(runs["shear_scan"], ref)
+            dev = ratio(state, ref)
+            tol = max(TP_TOL[name], TP_SPREAD * spread)
+            if not dev <= tol:
+                raise AssertionError(
+                    f"{name} tp = 2 against one rank: {dev:.3e} > {tol:.3e} "
+                    f"(scan against thomas {spread:.3e})")
+            out[name] = dict(
+                vs_one_rank=dev, scan_vs_thomas=spread, tolerance=tol,
+                launches_by_rank=launches, gathers_by_rank=gathers,
+                tp_steps_per_s=steps / max(float(r["seconds"])
+                                           for r in ranks),
+                one_rank_steps_per_s=steps / runs["shear_thomas_s"])
+    return dict(out, ran=True)
+
+
+def product_kernels(device, shapes, dtype, reps=3):
+    """The kernels of complex ``dtype`` products of tensors of each pair of
+    ``shapes``, from profiled products (a profile that shows no kernel is
+    taken again, up to three times); copies and elementwise kernels left
+    out."""
+    names = set()
+    g = torch.Generator(device=device).manual_seed(11)
+    for sa, sb in shapes:
+        a = torch.randn(sa, dtype=dtype, device=device, generator=g)
+        b = torch.randn(sb, dtype=dtype, device=device, generator=g)
+        for _ in range(3):
+            table = kernel_table(lambda: [a @ b for _ in range(reps)], reps)[0]
+            if table:
+                names |= {k for k in table if "elementwise" not in k
+                          and "copy" not in k.lower()}
+                break
+    return names
+
+
+def dw_steppers(device, N=512, steps=200, mhd_steps=50, maxit=5, dw_iters=2,
+                chunk=50):
+    """Phase 20: ``build_dw_step_fn`` (``steps`` steps) and
+    ``build_dw_mhd_step_fn`` (``mhd_steps``) at N, maxit 5, dw_iters 2,
+    from the README states in float64 planes: relative drift of tr(W^2),
+    tr(W^3) and of tr(Theta^2), tr(Theta^3) <= 1e-10; ``shear_thomas``
+    launched once an iteration; the GEMM kernels a step by name from a
+    profile, told apart by probed complex64 and complex128 products:
+    Euler 2 (maxit - dw_iters) = 6 CGEMMs and 2 dw_iters = 4 ZGEMMs, MHD
+    4 (maxit - dw_iters) = 12 and 8 (its 6 products an iteration are 4
+    launches: two batched over the components); steps/s of the dw Euler
+    stepper and the complex128 one (``build_step_fn``) in turns."""
+    dt = 0.25 * hbar(N)
+    shapes = [((N, N), (N, N)), ((1, N, N), (2, N, N)),
+              ((2, N, N), (1, N, N))]
+    k64 = product_kernels(device, shapes, torch.complex64)
+    k128 = product_kernels(device, shapes, torch.complex128)
+    c64_k, c128_k = k64 - k128, k128 - k64
+
+    def of(name, probed, tag):
+        """A GEMM kernel of the probed products or, where the profiler
+        missed the probe's short window, named by cuBLAS for the type."""
+        return name in probed or ("gemm" in name.lower() and tag in name)
+
+    def gemms(fn, st):
+        table, _ = kernel_table(lambda: fn(*st), 2)
+        return (sum(c for k, (c, _) in table.items() if of(k, c64_k, "cf32")),
+                sum(c for k, (c, _) in table.items() if of(k, c128_k, "cf64")),
+                table)
+
+    warm = maxit - dw_iters
+    out = {}
+    for name, build, S0, n_steps, comp, per_iter in (
+            ("euler", build_dw_step_fn,
+             EulerFlow(N, np.complex128).random_initial(lmax=10, seed=42),
+             steps, None, 2),
+            ("mhd", build_dw_mhd_step_fn,
+             MHDFlow(N, np.complex128).random_initial(lmax=10, seed=42),
+             mhd_steps, 1, 4)):
+        St = torch.from_numpy(S0).to(device)
+        c0 = casimirs(St if comp is None else St[comp])
+        n_chunk = min(chunk, n_steps)
+        fn = build(N, dt, steps=n_chunk, maxit=maxit, dw_iters=dw_iters,
+                   device=device)
+        Sp = to_planes(St)
+        st = (Sp, torch.zeros_like(Sp), torch.zeros_like(Sp))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps // n_chunk):
+            st = fn(*st)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != {"shear_thomas": n_steps * maxit, "shear_scan": 0}:
+            raise AssertionError(f"dw {name}: launches {counts}")
+        S = torch.complex(st[0][0], st[0][1])
+        if not finite(S):
+            raise AssertionError(f"dw {name}: non-finite state")
+        drift = (np.abs(casimirs(S if comp is None else S[comp]) - c0)
+                 / np.abs(c0))
+        if not (drift <= 1e-10).all():
+            raise AssertionError(f"dw {name}: Casimir drift {drift} > 1e-10")
+        two = build(N, dt, steps=2, maxit=maxit, dw_iters=dw_iters,
+                    device=device)
+        n64, n128, table = gemms(two, st)
+        expected = (per_iter * warm, per_iter * dw_iters)
+        if (round(n64, 6), round(n128, 6)) != expected:
+            raise AssertionError(
+                f"dw {name}: GEMM kernels a step {n64} complex64, {n128} "
+                f"complex128, expected {expected}; kernels "
+                f"{top_kernels(table, 12)}")
+        out[name] = dict(steps=n_steps, launches=counts["shear_thomas"],
+                         casimir_drift=drift.tolist(),
+                         cgemm_kernels_a_step=n64, zgemm_kernels_a_step=n128,
+                         products_a_step=(6 if name == "mhd" else 2) * maxit,
+                         steps_per_s=n_steps / sec)
+    # in turns: the dw Euler stepper and the complex128 one
+    W0 = torch.from_numpy(EulerFlow(N, np.complex128).random_initial(
+        lmax=10, seed=42)).to(device)
+    runs = {"dw": build_dw_step_fn(N, dt, steps=chunk, maxit=maxit,
+                                   dw_iters=dw_iters, device=device),
+            "c128": build_step_fn(N, dt, steps=chunk, maxit=maxit,
+                                  dtype=np.complex128, device=device)}
+    states = {"dw": to_planes(W0), "c128": W0}
+    turns = {"dw": [], "c128": []}
+    for name in ("dw", "c128", "c128", "dw"):
+        X = states[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name](X, torch.zeros_like(X), torch.zeros_like(X))
+        torch.cuda.synchronize()
+        turns[name].append(chunk / (time.perf_counter() - t0))
+    return dict(N=N, maxit=maxit, dw_iters=dw_iters,
+                probed_cgemm_kernels=sorted(k[:72] for k in c64_k),
+                probed_zgemm_kernels=sorted(k[:72] for k in c128_k),
+                turns_steps_per_s=turns, **out)
+
+
 def main():
+    if sys.argv[1:2] == ["--tp-rank"]:  # a rank of phase 19b
+        rank, backend, tmp, N, steps, maxit, device, dtype = sys.argv[2:10]
+        tp_rank(int(rank), backend, tmp, int(N), int(steps), int(maxit),
+                device, dtype)
+        return
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; "
                  "this script needs a CUDA device")
@@ -1907,7 +2397,8 @@ def main():
     print(smi.splitlines()[0], flush=True)
 
     t0 = time.perf_counter()
-    libs = cuda_build.build_all([cuda_solve.LIBRARY, cuda_scan_solve.LIBRARY])
+    libs = cuda_build.build_all([cuda_solve.LIBRARY, cuda_scan_solve.LIBRARY,
+                                 cuda_block_solve.LIBRARY])
     report = " ;; ".join(
         f"{lib.name}: {ptxas_summary(lib.with_suffix('.log').read_text())}"
         for lib in libs)
@@ -2030,6 +2521,21 @@ def main():
     print("phase 18c native host Poisson vs solve_poisson c128 N=512: "
           + json.dumps(nat), flush=True)
 
+    blocks, block_times = block_sweeps(device)
+    print("phase 19a block sweeps vs plain and vs shear_thomas: "
+          + json.dumps(dict(rows=blocks, timed=block_times)), flush=True)
+    tp = tp_mhd(device)
+    if not tp["ran"]:
+        print("phase 19b: two ranks on one card refused at set-up by "
+              + "; ".join(f"{b}: {m}" for b, m in tp["refusals"].items()),
+              flush=True)
+    print("phase 19b tp = 2 MHD N=1024: " + json.dumps(tp), flush=True)
+
+    dw = dw_steppers(device)
+    dw["phase_5_solve_steps_per_s"] = c128["solve_steps_per_s"]
+    print("phase 20 double-word steppers c128 N=512: " + json.dumps(dw),
+          flush=True)
+
     def main_row(rows):
         return next(r for r in rows if r["dtype"] == "complex64"
                     and r["N"] == 1024 and r["B"] == 1)
@@ -2093,6 +2599,23 @@ def main():
         "max_abs_err": max(r["max_abs_err"]
                            for r in scan_rows + ragged + scan_b2),
         **timing(scan_rows),
+        "library_ms": None,
+    }, {
+        "name": "shear_block",
+        "route": "cuda",
+        "source": "quflow_tpu_torch/csrc/shear_block.cu",
+        "replaces": "quflow_tpu/parallel/shard_shear.py:124 (XLA "
+                    "associative_scan, not Pallas)",
+        "launches": (tp["complex64"]["launches_by_rank"][0]["shear_block"]
+                     if tp["ran"] else 0),
+        "launches_by_path": {
+            f"tp_mhd_{c}_N1024_rank{r}": n["shear_block"]
+            for c in ("complex64", "complex128") if tp["ran"]
+            for r, n in enumerate(tp[c]["launches_by_rank"])},
+        "max_abs_err": max(r["max_abs_err"] for r in blocks),
+        # one rank's three launches at phase 19b's shape (N=1024, tp=2)
+        **{k: block_times[0][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "share")},
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,8 @@ quflow_tpu/experimental.py re-exports its own.
 from .parallel.stepper import (
     IsompTorch,
     MagmpTorch,
+    build_dw_mhd_step_fn,
+    build_dw_step_fn,
     build_mhd_step_fn,
     build_poisson_fn,
     build_step_fn,
@@ -25,6 +27,8 @@ __all__ = [
     "build_step_fn",
     "build_poisson_fn",
     "build_mhd_step_fn",
+    "build_dw_step_fn",
+    "build_dw_mhd_step_fn",
     "to_planes",
     "from_planes",
     "DiagTriDiagOp",

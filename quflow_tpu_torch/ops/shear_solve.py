@@ -44,7 +44,10 @@ def column_solver(solver=None):
     One difference from quflow_tpu: there the variable acts only where the
     layout resolves to 'shear_pallas' (on the TPU, N >= 4096, or when
     named) and any other value silently means 'thomas'.  Here it acts on
-    every shear solve, since every one is a kernel."""
+    every single-device shear solve, since every one is a kernel.  A solve
+    whose rows are split over a mesh's 'tp' > 1 ranks
+    (parallel/shard_shear.py) launches ops.cuda_block_solve.shear_block
+    whatever the variable says."""
     if solver is not None:
         return solver
     name = os.environ.get("QUFLOW_PALLAS_KERNEL", "thomas")

@@ -2,6 +2,8 @@ from .stepper import (
     build_step_fn,
     build_mhd_step_fn,
     build_poisson_fn,
+    build_dw_step_fn,
+    build_dw_mhd_step_fn,
     column_solver,
     IsompTorch,
     MagmpTorch,

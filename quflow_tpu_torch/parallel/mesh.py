@@ -16,7 +16,9 @@ Mesh rank r is replica ``r // tp`` and row block ``r % tp``, as JAX's
 the state: :func:`shard_state` cuts a full state into a rank's piece and
 :func:`gather_state` puts the pieces back together (they stand in for
 quflow_tpu's ``state_sharding`` and ``rows_spec``).  Complex tensors cross
-the process group as real views, which every backend moves.
+the process group as real views, which every backend moves.  A gloo group
+moves host memory, so there a tensor on a card crosses through a host copy
+(two ranks on one card, where NCCL refuses a second rank, run this way).
 """
 
 from __future__ import annotations
@@ -88,13 +90,29 @@ class Mesh:
 
         return dist
 
+    def _wire(self, x):
+        """``x`` as the group moves it: a contiguous real tensor (a complex
+        one as its real view), copied to the host where the group is
+        gloo's and ``x`` lies on a card."""
+        r = _real(x)
+        if r.device.type != "cpu" and self._dist().get_backend(
+                self.group) == "gloo":
+            r = r.cpu()
+        return r
+
+    def _unwire(self, r, like):
+        """What the group delivered in ``r``, back on ``like``'s device and
+        complex where ``like`` is."""
+        return _unreal(r.to(like.device), like)
+
     def max(self, value, device):
         """The max of a Python float over every rank of the mesh (one
         all_reduce), as a Python float."""
         if self.size == 1 and self.group is None:
             return float(value)
         dist = self._dist()
-        t = torch.tensor([value], dtype=torch.float64, device=device)
+        t = self._wire(torch.tensor([value], dtype=torch.float64,
+                                    device=device))
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return float(t.item())
 
@@ -102,21 +120,19 @@ class Mesh:
         """``x`` summed over this replica's row blocks (one all_reduce)."""
         if self.tp == 1:
             return x
-        dist = self._dist()
-        r = _real(x)
-        dist.all_reduce(r, group=self.tp_group)
-        return _unreal(r, x)
+        r = self._wire(x)
+        self._dist().all_reduce(r, group=self.tp_group)
+        return self._unwire(r, x)
 
     def tp_gather(self, x):
         """The ``tp`` equal-shaped tensors ``x`` of this replica's ranks,
         stacked on a new leading axis in row order (one all_gather)."""
         if self.tp == 1:
             return x[None]
-        dist = self._dist()
-        r = _real(x)
+        r = self._wire(x)
         out = [torch.empty_like(r) for _ in range(self.tp)]
-        dist.all_gather(out, r, group=self.tp_group)
-        return torch.stack([_unreal(o, x) for o in out])
+        self._dist().all_gather(out, r, group=self.tp_group)
+        return torch.stack([self._unwire(o, x) for o in out])
 
     def gather_rows(self, x, N, axis=-2):
         """The full N rows of the row-sharded ``x`` (rows on ``axis``) on
@@ -145,17 +161,17 @@ class Mesh:
         ops, got = [], []
         for buf, peer in ((send_prev, t - 1), (send_next, t + 1)):
             if buf is not None and 0 <= peer < self.tp:
-                ops.append(dist.isend(_real(buf), self._tp_peer(peer)))
+                ops.append(dist.isend(self._wire(buf), self._tp_peer(peer)))
         for buf, peer in ((recv_prev, t - 1), (recv_next, t + 1)):
             if buf is not None and 0 <= peer < self.tp:
-                r = _real(buf)
+                r = self._wire(buf)
                 ops.append(dist.irecv(r, self._tp_peer(peer)))
-                got.append(_unreal(r, buf))
+                got.append((r, buf))
             else:
                 got.append(None)
         for op in ops:
             op.wait()
-        return tuple(got)
+        return tuple(None if g is None else self._unwire(*g) for g in got)
 
 
 def make_mesh(dp=1, group=None):
@@ -214,9 +230,8 @@ def gather_state(piece, mesh, batched=False):
     piece = torch.as_tensor(piece)
     full = mesh.gather_rows(piece, piece.shape[-1])
     if batched and mesh.dp > 1:
-        dist = mesh._dist()
-        r = _real(full)
+        r = mesh._wire(full)
         out = [torch.empty_like(r) for _ in range(mesh.dp)]
-        dist.all_gather(out, r, group=mesh.dp_group)
-        full = torch.cat([_unreal(o, full) for o in out])
+        mesh._dist().all_gather(out, r, group=mesh.dp_group)
+        full = torch.cat([mesh._unwire(o, full) for o in out])
     return full

@@ -41,12 +41,17 @@ rank's piece of the state (parallel.mesh.shard_state): over 'dp' each
 replica steps its own members with no communication, and the ``tol`` exit
 takes the max over every rank (one all_reduce an iteration) so that every
 rank runs the same iterations, as JAX's while-loop does.  Over 'tp' > 1
-the rows are split (Euler and Poisson only): the solve is the distributed
-scan of parallel/shard_shear.py, and each GEMM all_gathers the operand it
-needs whole, the full W for P W and the full P for W P and (P W) P, which
-is two gathers an iteration.  The commutator P W - (P W)^H is formed as
-P W - W P, equal for the skew-Hermitian pair up to rounding, so it stays
-local.
+the rows are split: every solve is the block sweep of
+parallel/shard_shear.py (the ``shear_block`` kernel on the card, three
+launches a solve), and each GEMM all_gathers the operand it needs whole:
+the full W for P W and the full P for W P and (P W) P, two gathers an
+Euler iteration (the MHD step's four: :func:`build_mhd_step_fn`).  The
+commutator P W - (P W)^H is formed as P W - W P, equal for the
+skew-Hermitian pair up to rounding, so it stays local.  Every hook runs
+under 'tp': a callable (Hamiltonian, forcing, Strang step) sees the whole
+state, as under JAX's GSPMD, through the gathers the products make
+anyway or one of its own, and this rank keeps its rows; the theta-scheme
+Strang step takes its Laplacian with a halo row.
 
 Precision.  ``precision`` names the GEMMs as quflow_tpu does: 'highest'
 is a full-precision cuBLAS CGEMM/ZGEMM; 'high' and 'default' run the
@@ -61,8 +66,15 @@ mixed-precision schedule ``warm_precision``/``warm_iters`` runs the first
 iterations are a fixed prefix and the per-step counts report only the
 full-precision ones.
 
-Options of the JAX stepper that this port does not run yet raise
-NotImplementedError naming the ROADMAP.md item that ports them.
+The double-word steppers (:func:`build_dw_step_fn`,
+:func:`build_dw_mhd_step_fn`) keep quflow_tpu's contract, float64 planes
+in and out and an f64-accurate finish, on these builders in complex128:
+the H100 multiplies complex128 natively, so the Ozaki split of
+ops/dwgemm.py is a ZGEMM here.
+
+The layouts that quflow_tpu keeps only to reproduce measured regressions
+('shard', 'wrapped', 'rolls', 'pallas', 'shear_pallas_il') raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -72,6 +84,7 @@ import torch
 
 from .. import config
 from ..ops.diagpack import mat2shear, shear2mat, subtract_col0_mean
+from ..ops.dwgemm import split_params
 from ..ops.geometry import hbar
 from ..ops.shear_solve import (
     _shear_factors_cached,
@@ -82,11 +95,18 @@ from ..ops.shear_solve import (
 from ..ops.laplacian import _lap_cols, _laplace_core
 from ..ops.tridiag import refine_m0, solve_factored
 from .mesh import Mesh
-from .shard_shear import ShardedShearOperator, poisson_sharded
+from .shard_shear import (
+    ShardedLaplacian,
+    ShardedShearOperator,
+    laplace_sharded,
+    poisson_sharded,
+)
 
 __all__ = [
     "build_step_fn",
     "build_mhd_step_fn",
+    "build_dw_step_fn",
+    "build_dw_mhd_step_fn",
     "build_poisson_fn",
     "column_solver",
     "IsompTorch",
@@ -150,9 +170,6 @@ def _resolve_strang_named(strang_splitting, dt):
     raise ValueError(
         f"unknown named strang_splitting kind {kind!r}; use 'heat', "
         "'viscdamp', or pass a callable (h, W) -> W")
-
-
-_TP_ITEM = "see ROADMAP.md A9 (the tensor-parallel halo)"
 
 
 def _resolve_layout(layout, mesh):
@@ -225,7 +242,11 @@ def _make_mm(spec, dtype):
     'highest', 'high' or 'default', each optionally with '_karatsuba'.
     'high' and 'default' run complex64 products on TF32 tensor cores,
     the flag set around each call and restored after it; complex128 and
-    'highest' run full-precision cuBLAS."""
+    'highest' run full-precision cuBLAS.  A callable ``(a, b) -> a @ b``
+    is taken as the GEMM itself (the double-word steppers' warm
+    product)."""
+    if callable(spec):
+        return spec
     name = str(spec)
     base = name[:-len("_karatsuba")] if name.endswith("_karatsuba") else name
     if base not in _TF32:
@@ -432,21 +453,24 @@ def _update(S, upd, csum, compsum):
     return tS, (tS - S) - y
 
 
-def _refuse_hooks_on_rows(ham_callable, forcing, strang_splitting, dt):
-    """Under a mesh with 'tp' > 1 the hooks that would see only a block of
-    rows raise: callables (a Hamiltonian, forcing, a Strang step) and the
-    theta-scheme Strang step, whose Laplacian needs a halo row."""
-    hooks = [name for name, hook in (("hamiltonian", ham_callable),
-                                     ("forcing", forcing)) if hook is not None]
-    if callable(strang_splitting):
-        hooks.append("strang_splitting")
-    elif (strang_splitting is not None
-          and _resolve_strang_named(strang_splitting, dt)[2] is not None):
-        hooks.append("strang_splitting with theta != 1")
-    if hooks:
-        raise NotImplementedError(
-            f"{', '.join(hooks)} under a mesh with 'tp' > 1 is not ported to "
-            f"quflow_tpu_torch yet; {_TP_ITEM}")
+class _Rows:
+    """Under a mesh whose 'tp' axis splits the rows: the gather of a
+    row-sharded tensor's full rows (``full``, one all_gather) and the cut
+    of this rank's rows from a full tensor (``mine``).  Off such a mesh
+    both are the identity.  A hook that takes the state sees it whole, as
+    quflow_tpu's hooks see it under GSPMD: the stepper gathers the
+    operand, calls the hook and keeps its own rows."""
+
+    def __init__(self, mesh, N):
+        self.mesh, self.N = mesh, N
+        self.sharded = mesh is not None and mesh.tp > 1
+        self.a, self.b = mesh.rows(N) if self.sharded else (0, N)
+
+    def full(self, X):
+        return self.mesh.gather_rows(X, self.N) if self.sharded else X
+
+    def mine(self, X):
+        return X[..., self.a:self.b, :] if self.sharded else X
 
 
 def _strang_hook(strang_splitting, N, dt, dtype, half_dt, device, solver,
@@ -458,29 +482,36 @@ def _strang_hook(strang_splitting, N, dt, dtype, half_dt, device, solver,
     first forms cW S + cL Delta S with the bare shear Laplacian.  A stacked
     state (..., 2, N, N) is solved in one launch: the column solves of its
     components are independent, so this is bit-equal to one solve each.
-    With ``mesh`` (rows split over 'tp'), the named step without a theta
-    right-hand side solves on the sharded shear layout."""
+    With ``mesh`` (rows split over 'tp'), a callable sees the whole state
+    (one gather) and the named step solves on the sharded shear layout,
+    its Laplacian with a halo row (parallel/shard_shear.py)."""
     if strang_splitting is None:
         return None
+    rows = _Rows(mesh, N)
     if callable(strang_splitting):
-        return lambda S: _like(strang_splitting(half_dt, S), S)
+        return lambda S: rows.mine(_like(strang_splitting(half_dt,
+                                                          rows.full(S)), S))
     kind, params, theta_rhs = _resolve_strang_named(strang_splitting, dt)
-    if mesh is not None:
-        opr = _sharded_operator(N, dtype, mesh, device, kind=kind,
-                                params=params)
-        return lambda S: poisson_sharded(S, opr)
-    sw, sbinv, su = _real_factors(N, dtype, device=device, kind=kind,
-                                  params=params)
-    lap = None
+    lap = cW = cL = None
     if theta_rhs is not None:
         rd = real_dtype(dtype)
         cW, cL = (float(rd.type(c)) for c in theta_rhs)
         lap = _mhd_lap_op(N, dtype, device=device)
+    if rows.sharded:
+        opr = _sharded_operator(N, dtype, mesh, device, kind=kind,
+                                params=params)
+        lap = None if lap is None else ShardedLaplacian(lap, mesh)
+
+        def strang_sharded(S):
+            rhs = S if lap is None else cW * S + cL * laplace_sharded(S, lap)
+            return poisson_sharded(rhs, opr)
+
+        return strang_sharded
+    sw, sbinv, su = _real_factors(N, dtype, device=device, kind=kind,
+                                  params=params)
 
     def strang_half(S):
-        rhs = S
-        if lap is not None:
-            rhs = cW * S + cL * _laplace_core(S, lap)
+        rhs = S if lap is None else cW * S + cL * _laplace_core(S, lap)
         return _poisson_core(rhs, sw, sbinv, su, refine=0, solver=solver)
 
     return strang_half
@@ -637,12 +668,13 @@ def build_step_fn(
     ham_kind, ham_params, ham_callable, ham_timed = _resolve_ham(hamiltonian)
     force_timed = forcing is not None and _has_time_param(forcing)
     sharded = layout == "shear_shard"
+    rows = _Rows(mesh if sharded else None, N)
     if sharded:
-        _refuse_hooks_on_rows(ham_callable, forcing, strang_splitting, dt)
         if refine not in (0, "m0"):
             raise ValueError("under a mesh with 'tp' > 1 refine is 0 or 'm0'")
-        opr = _sharded_operator(N, dtype, mesh, device, kind=ham_kind,
-                                params=ham_params, with_op=refine == "m0")
+        if ham_callable is None:
+            opr = _sharded_operator(N, dtype, mesh, device, kind=ham_kind,
+                                    params=ham_params, with_op=refine == "m0")
     elif ham_callable is None:
         w, binv, u, op = _real_factors(N, dtype, device=device, with_op=True,
                                        kind=ham_kind, params=ham_params)
@@ -650,25 +682,30 @@ def build_step_fn(
                                device, solver, mesh if sharded else None)
     reduce_max = _reduce_max(mesh, device)
 
+    def call_ham(W, t):
+        return _like(ham_callable(W, time=t) if ham_timed
+                     else ham_callable(W), W)
+
     def apply_ham(W, t):
+        """P of the state W (this rank's rows under tp)."""
         if ham_callable is not None:
-            if ham_timed:
-                return _like(ham_callable(W, time=t), W)
-            return _like(ham_callable(W), W)
+            return rows.mine(call_ham(rows.full(W), t))
         if sharded:
             return poisson_sharded(W, opr)
         return _poisson_core(W, w, binv, u, refine=refine, op=op,
                              solver=solver, ham=(ham_kind, ham_params))
 
-    def products(Phalf, Whalf, mm):
-        """(P W, P W - (P W)^H, (P W) P) of this rank's rows."""
-        if not sharded:
-            PW = mm(Phalf, Whalf)
-            PWc = PW - PW.mH
-            return PW, PWc, mm(PW, Phalf)
-        Pf = mesh.gather_rows(Phalf, N)
-        PW = mm(Phalf, mesh.gather_rows(Whalf, N))
-        return PW, PW - mm(Whalf, Pf), mm(PW, Pf)
+    def midpoint(Whalf, t):
+        """(P, the full P, the full W) of the midpoint, P scaled by vareps.
+        Under tp the row-local products take the full operands, one gather
+        each; a callable Hamiltonian sees the full W and gives the full P,
+        so P's gather goes."""
+        Wf = rows.full(Whalf)
+        if ham_callable is not None:
+            Pf = call_ham(Wf, t) * vareps
+            return rows.mine(Pf), Pf, Wf
+        Phalf = apply_ham(Whalf, t) * vareps
+        return Phalf, rows.full(Phalf), Wf
 
     def step(W, dW, csum, t):
         if strang_half is not None:
@@ -677,15 +714,17 @@ def build_step_fn(
 
         def iterate(W, dW, mm=mm):
             Whalf = W + dW
-            Phalf = apply_ham(Whalf, thalf) * vareps
-            PW, PWc, PWP = products(Phalf, Whalf, mm)
-            dW = PWP + PWc
+            Phalf, Pf, Wf = midpoint(Whalf, thalf)
+            PW = mm(Phalf, Wf)
+            # under tp, W P stands in for (P W)^H: it is this rank's rows
+            PWc = PW - (mm(Whalf, Pf) if sharded else PW.mH)
+            dW = mm(PW, Pf) + PWc
             FW = None
             if forcing is not None:
                 # on the unscaled midpoint pair, weighted dt/2
-                args = (Phalf / vareps, Whalf)
-                FW = _like(forcing(*args, time=thalf) if force_timed
-                           else forcing(*args), W) * half
+                args = (Pf / vareps, Wf)
+                FW = rows.mine(_like(forcing(*args, time=thalf) if force_timed
+                                     else forcing(*args), W)) * half
                 dW = dW + FW
             return dW, PWc, FW
 
@@ -715,15 +754,6 @@ def build_step_fn(
     run = _runner(step, steps, tol, rd.type, ham_timed or force_timed,
                   diagnostics if with_diagnostics else None, batched)
     return _planes_runner(run, device) if planes_io else run
-
-
-def build_dw_step_fn(*args, **kwargs):
-    """Not ported: the double-word (Ozaki-split bf16) GEMM mode exists in
-    quflow_tpu because the TPU v5e has no float64 matmul.  The H100 runs
-    complex128 GEMMs natively: use ``build_step_fn(dtype=np.complex128)``."""
-    raise NotImplementedError(
-        "the double-word mode is not ported (see ROADMAP.md, 'Some code does "
-        "not come over'); use build_step_fn(..., dtype=np.complex128)")
 
 
 def _mhd_lap_op(N, dtype, *, device):
@@ -779,13 +809,19 @@ def build_mhd_step_fn(
       (both components in one launch of the column solve).
 
     There are no diagnostics, as in quflow_tpu.  ``batched`` and ``mesh``
-    as in :func:`build_step_fn`, except that a mesh whose 'tp' axis splits
-    the rows raises: the Laplacian of Theta needs a halo row.
+    as in :func:`build_step_fn`.  Under a mesh whose 'tp' axis splits the
+    rows, the solve is parallel/shard_shear.py's and the Laplacian of
+    Theta takes a halo row from each neighbour; each product takes this
+    rank's rows of its left operand and the whole right one, so each
+    Hermitian part costs a product of its own, standing in for the
+    conjugate transpose (the pair is skew-Hermitian): rows of P S and
+    S P (S = (W, Theta)), B Theta and Theta B, (P S) P, (B Theta) P and
+    P (Theta B) for -((B Theta) P)^H.  That is 10 products an iteration
+    for the single device's 6, and 4 row gathers: S, P, B and Theta B.
+    Forcing and a callable Strang step see the whole state, as in
+    :func:`build_step_fn`.
     """
-    if _resolve_layout(layout, mesh) == "shear_shard":
-        raise NotImplementedError(
-            "build_mhd_step_fn under a mesh with 'tp' > 1 is not ported to "
-            f"quflow_tpu_torch yet; {_TP_ITEM}")
+    layout = _resolve_layout(layout, mesh)
     mm, warm_iters, mm_warm = _schedule(precision, warm_precision,
                                         warm_iters, maxit, dtype)
     ham_kind, ham_params, ham_callable, _ = _resolve_ham(hamiltonian)
@@ -801,12 +837,40 @@ def build_mhd_step_fn(
     vareps, half = float(vareps_r), float(half_dt)
     solver = column_solver(solver)
     force_timed = forcing is not None and _has_time_param(forcing)
-    w, binv, u, op = _real_factors(N, dtype, device=device, with_op=True,
-                                   kind=ham_kind, params=ham_params)
+    sharded = layout == "shear_shard"
+    rows = _Rows(mesh if sharded else None, N)
     lap = _mhd_lap_op(N, dtype, device=device)
+    if sharded:
+        if refine not in (0, "m0"):
+            raise ValueError("under a mesh with 'tp' > 1 refine is 0 or 'm0'")
+        opr = _sharded_operator(N, dtype, mesh, device, kind=ham_kind,
+                                params=ham_params, with_op=refine == "m0")
+        slap = ShardedLaplacian(lap, mesh)
+    else:
+        w, binv, u, op = _real_factors(N, dtype, device=device, with_op=True,
+                                       kind=ham_kind, params=ham_params)
     strang_half = _strang_hook(strang_splitting, N, dt, dtype, half_dt,
-                               device, solver)
+                               device, solver, mesh if sharded else None)
     reduce_max = _reduce_max(mesh, config.device(device))
+
+    def products(Phalf, Bhalf, Shalf, mm):
+        """Of this rank's rows: the skew part of P S (S = (W, Theta)),
+        (P S) P, the skew part of B Theta, and (B Theta) P -
+        ((B Theta) P)^H; and the full P and S that forcing takes."""
+        Thalf = Shalf[..., 1, :, :]
+        if not sharded:
+            PS = mm(Phalf[..., None, :, :], Shalf)  # (P W, P Theta)
+            BT = mm(Bhalf, Thalf)
+            BTP = mm(BT, Phalf)
+            return (PS - PS.mH, mm(PS, Phalf[..., None, :, :]), BT - BT.mH,
+                    BTP - BTP.mH, Phalf, Shalf)
+        Sf, Pf, Bf = (rows.full(X) for X in (Shalf, Phalf, Bhalf))
+        PS = mm(Phalf[..., None, :, :], Sf)
+        BT = mm(Bhalf, Sf[..., 1, :, :])
+        TBf = rows.full(mm(Thalf, Bf))
+        return (PS - mm(Shalf, Pf[..., None, :, :]),
+                mm(PS, Pf[..., None, :, :]), BT - rows.mine(TBf),
+                mm(BT, Pf) + mm(Phalf, TBf), Pf, Sf)
 
     def step(S, dS, csum, t):
         if strang_half is not None:
@@ -816,24 +880,24 @@ def build_mhd_step_fn(
         def iterate(S, dS, mm=mm):
             Shalf = S + dS
             Thalf = Shalf[..., 1, :, :]
-            Phalf = _poisson_core(Shalf[..., 0, :, :], w, binv, u,
-                                  refine=refine, op=op, solver=solver,
-                                  ham=(ham_kind, ham_params)) * vareps
-            Bhalf = _laplace_core(Thalf, lap) * vareps
-            PW = mm(Phalf[..., None, :, :], Shalf)  # (P W, P Theta)
-            BT = mm(Bhalf, Thalf)
-            BTP = mm(BT, Phalf)
-            PWc = PW - PW.mH
-            BTc = BT - BT.mH
-            dS = mm(PW, Phalf[..., None, :, :]) + PWc
-            dS[..., 0, :, :] += BTP - BTP.mH + BTc  # W only
+            if sharded:
+                Phalf = poisson_sharded(Shalf[..., 0, :, :], opr) * vareps
+                Bhalf = laplace_sharded(Thalf, slap) * vareps
+            else:
+                Phalf = _poisson_core(Shalf[..., 0, :, :], w, binv, u,
+                                      refine=refine, op=op, solver=solver,
+                                      ham=(ham_kind, ham_params)) * vareps
+                Bhalf = _laplace_core(Thalf, lap) * vareps
+            PSc, PSP, BTc, BTPc, Pf, Sf = products(Phalf, Bhalf, Shalf, mm)
+            dS = PSP + PSc
+            dS[..., 0, :, :] += BTPc + BTc  # W only
             FW = None
             if forcing is not None:
-                args = (Phalf / vareps, Shalf)
-                FW = _like(forcing(*args, time=thalf) if force_timed
-                           else forcing(*args), S) * half
+                args = (Pf / vareps, Sf)
+                FW = rows.mine(_like(forcing(*args, time=thalf) if force_timed
+                                     else forcing(*args), S)) * half
                 dS = dS + FW
-            return dS, PWc, BTc, FW
+            return dS, PSc, BTc, FW
 
         dS, (PWc, BTc, FW), iters = _fixed_point(iterate, S, dS, maxit,
                                                  tol_r, minit, reduce_max,
@@ -879,10 +943,6 @@ class _ResidentIntegrator:
                  strang_splitting=None, layout="auto", *, device=None,
                  solver=None):
         self.layout = _resolve_layout(layout, mesh)
-        if self.layout == "shear_shard" and self._build is build_mhd_step_fn:
-            raise NotImplementedError(
-                "MagmpTorch under a mesh with 'tp' > 1 is not ported to "
-                f"quflow_tpu_torch yet; {_TP_ITEM}")
         self.mesh = mesh
         self.batched = batched
         self.dtype = config.numpy_dtype(dtype)
@@ -1031,3 +1091,149 @@ class MagmpTorch(_ResidentIntegrator):
             raise ValueError(
                 f"MagmpTorch expects a two-component MHD state (..., 2, N, N) "
                 f"= stack([W, Theta]); got shape {shape}")
+
+
+# ---------------------------------------------------------------------------
+# The double-word steppers: quflow_tpu's f64-accurate mode on complex128
+# ---------------------------------------------------------------------------
+
+def _complex64_product(a, b):
+    """The warm GEMM of the double-word steppers: the complex128 operands
+    rounded to complex64, one full-precision CGEMM, the product widened
+    back (quflow_tpu's f32-'highest' product of planes)."""
+    return torch.matmul(a.to(torch.complex64),
+                        b.to(torch.complex64)).to(a.dtype)
+
+
+def _on_planes(hook, strang=False):
+    """A hook of the double-word steppers, which takes and gives split
+    float64 planes (2, ..., N, N), as a hook of the complex steppers; a
+    Strang step's first argument, h, passes through.  A hook that takes
+    ``time`` still does."""
+    if not callable(hook):
+        return hook
+
+    def complex_of(Pp, like):
+        Pp = torch.as_tensor(Pp, dtype=torch.float64, device=like.device)
+        return torch.complex(Pp[0], Pp[1])
+
+    if strang:
+        return lambda h, S: complex_of(hook(h, to_planes(S)), S)
+    if _has_time_param(hook):
+        return lambda *args, time: complex_of(
+            hook(*map(to_planes, args), time=time), args[0])
+    return lambda *args: complex_of(hook(*map(to_planes, args)), args[0])
+
+
+def _dw_warm_iters(N, maxit, dw_iters, target_bits, mesh):
+    """The f32 warm iterations of a double-word schedule, maxit -
+    min(dw_iters, maxit), after quflow_tpu's checks: ``target_bits`` as
+    ops/dwgemm.split_params takes it, and under a mesh an N that the
+    'tp' axis divides (quflow_tpu has no uneven split in dw)."""
+    split_params(N, target_bits)
+    if mesh is not None and N % mesh.tp:
+        raise ValueError(
+            f"the dw stepper requires N divisible by the tensor-shard count "
+            f"(N={N}, shards={mesh.tp}); no scatter fallback in dw")
+    return maxit - min(dw_iters, maxit)
+
+
+def build_dw_step_fn(
+    N,
+    dt,
+    steps=1,
+    maxit=5,
+    dw_iters=2,
+    compsum=True,
+    target_bits=50,
+    with_diagnostics=False,
+    tol=None,
+    minit=1,
+    mesh=None,
+    batched=False,
+    hamiltonian="poisson",
+    forcing=None,
+    strang_splitting=None,
+    *,
+    device=None,
+    solver=None,
+):
+    """The isospectral-midpoint runner in double-word precision, the
+    counterpart of quflow_tpu's ``build_dw_step_fn`` (same parameters in
+    the same order), on :func:`build_step_fn` in complex128.
+
+    State in and out as split float64 planes (2, [E,] N, N):
+    ``fn(Wp, dWp, cp) -> (Wp, dWp, cp[, iters][, diag])``, with a trailing
+    ``t0`` when a hook takes ``time``.  The first ``maxit - dw_iters``
+    fixed-point iterations run their GEMMs in complex64 (operands rounded,
+    one full-precision CGEMM, the product widened back); the last
+    ``dw_iters`` run complex128 ZGEMMs, which the Ozaki split of
+    quflow_tpu approximates to 2^-50.  The solves (no refinement), packs
+    and update are complex128.  ``target_bits`` is checked as
+    ops/dwgemm.split_params checks it and otherwise ignored: the ZGEMM is
+    exact to float64 rounding already.
+
+    * ``tol``: the fixed warm prefix, then the adaptive exit on the dw
+      iterations only, at most ``maxit`` of them; their counts a step come
+      back as an int32 (steps,) tensor.
+    * Hooks take planes: a callable Hamiltonian ``Wp -> Pp``, forcing
+      ``f(Pp, Wp[, time])`` on the unscaled midpoint pair, a Strang step
+      ``(h, Wp) -> Wp``; named families and named Strang dissipations as
+      in :func:`build_step_fn`.
+    * ``mesh``/``batched`` as in :func:`build_step_fn`; under a mesh N
+      must divide by 'tp' (ValueError otherwise, as in quflow_tpu).
+    * ``with_diagnostics`` appends [energy, enstrophy] of the final state.
+    """
+    warm = _dw_warm_iters(N, maxit, dw_iters, target_bits, mesh)
+    return build_step_fn(
+        N, dt, steps=steps, maxit=maxit, dtype=np.complex128,
+        compsum=compsum, mesh=mesh, batched=batched, precision="highest",
+        planes_io=True, refine=0, with_diagnostics=with_diagnostics,
+        tol=tol, minit=minit, warm_precision=_complex64_product,
+        warm_iters=warm, hamiltonian=_on_planes(hamiltonian),
+        forcing=_on_planes(forcing),
+        strang_splitting=_on_planes(strang_splitting, strang=True),
+        device=device, solver=solver)
+
+
+def build_dw_mhd_step_fn(
+    N,
+    dt,
+    steps=1,
+    maxit=5,
+    dw_iters=2,
+    compsum=True,
+    target_bits=50,
+    tol=None,
+    minit=1,
+    mesh=None,
+    batched=False,
+    hamiltonian="poisson",
+    forcing=None,
+    strang_splitting=None,
+    *,
+    device=None,
+    solver=None,
+):
+    """The magnetic-midpoint runner in double-word precision, the
+    counterpart of quflow_tpu's ``build_dw_mhd_step_fn`` (same parameters
+    in the same order), on :func:`build_mhd_step_fn` in complex128.
+
+    State in and out as split float64 planes (2, [E,] 2, N, N) of
+    (W, Theta): ``fn(Sp, dSp, cp) -> (Sp, dSp, cp[, iters])``.  The
+    schedule, ``target_bits``, ``tol``, ``mesh`` and ``batched`` as in
+    :func:`build_dw_step_fn`; the six products of an iteration as in
+    :func:`build_mhd_step_fn` (two of them batched over the components).
+    ``hamiltonian`` is a named family (a callable raises
+    NotImplementedError, as in quflow_tpu); forcing ``f(Pp, Sp[, time])``
+    on full-state planes and a Strang step ``(h, Sp) -> Sp`` take planes.
+    """
+    warm = _dw_warm_iters(N, maxit, dw_iters, target_bits, mesh)
+    return build_mhd_step_fn(
+        N, dt, steps=steps, maxit=maxit, dtype=np.complex128,
+        precision="highest", planes_io=True, compsum=compsum, refine=0,
+        mesh=mesh, batched=batched, tol=tol, minit=minit,
+        warm_precision=_complex64_product, warm_iters=warm,
+        hamiltonian=hamiltonian, forcing=_on_planes(forcing),
+        strang_splitting=_on_planes(strang_splitting, strang=True),
+        device=device, solver=solver)

@@ -79,8 +79,7 @@ def test_port_never_imports_jax_or_quflow_tpu():
 def test_alias_modules(module):
     ours = importlib.import_module(f"quflow_tpu_torch.{module}")
     theirs = importlib.import_module(f"quflow_tpu.{module}")
-    missing = {"IsompTPU", "MagmpTPU", "build_dw_step_fn",
-               "build_dw_mhd_step_fn"}
+    missing = {"IsompTPU", "MagmpTPU"}
     for name in set(theirs.__all__) - missing:
         assert hasattr(ours, name), f"{module}.{name}"
     if module == "experimental":

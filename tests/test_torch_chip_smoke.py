@@ -386,3 +386,97 @@ def test_slice_modules_phases_rehearse_on_cpu(cpu_rehearsal):
     nat = chip_smoke.native_poisson("cpu", N=32)
     assert nat["launches"] == {"shear_thomas": 1, "shear_scan": 0}
     assert nat["max_abs_err"] <= 1e-13 * 32
+
+
+def test_block_phase_rehearses_on_cpu(cpu_rehearsal):
+    """Phase 19a at small N: every (dtype, N, B, tp) bit-equal to the plain
+    version and within the gates of the unsharded solve; the timed rows
+    at their shapes with the bound of one rank's rows; the defaults are
+    the card's shapes."""
+    rows, times = chip_smoke.block_sweeps(
+        "cpu", Ns=(16, 24), Bs=(1, 2), tps=(2, 3, 4), timed=((24, 4),))
+    assert len(rows) == 2 * 2 * 2 * 3
+    assert all(r["max_abs_err"] == 0.0 for r in rows)
+    for r in rows:
+        if r["dtype"] == "complex128":
+            assert r["vs_shear_thomas_rel"] <= chip_smoke.BLOCK_GATE_C128
+            assert "vs_f64_rel" not in r
+        else:
+            assert r["vs_f64_rel"] <= max(1e-6, chip_smoke.BLOCK_ACCURACY_C64
+                                          * r["shear_thomas_vs_f64_rel"])
+            assert r["vs_shear_thomas_rel_m0"] <= 1e-6
+    assert [(t["dtype"], t["N"], t["tp"], t["rows"]) for t in times] == [
+        ("complex64", 24, 4, 6), ("complex128", 24, 4, 6)]
+    for t in times:
+        dtype = getattr(torch, t["dtype"])
+        assert (t["bound_ms"], t["bound_by"]) == chip_smoke.solve_bound(
+            24, 1, dtype, rows=6)
+        assert t["share"] == t["bound_ms"] / t["ms"]
+    assert chip_smoke.block_sweeps.__defaults__[:3] == (
+        (512, 1024, 4096), (1, 4), (2, 3, 4))
+    assert chip_smoke.BLOCK_TIMED == ((1024, 2), (4096, 4))
+    # (16 B + 12) R (N+1) bytes at 3.35 TB/s, twice that in complex128
+    ms, by = chip_smoke.solve_bound(4096, 1, torch.complex64, rows=1024)
+    assert by == "bytes"
+    assert ms == pytest.approx(28 * 1024 * 4097 / 3.35e9, rel=1e-12)
+
+
+def test_tp_phase_rehearses_on_cpu(cpu_rehearsal):
+    """Phase 19b at small N on the CPU: the two ranks run this script
+    with --tp-rank; NCCL (absent here) is refused at set-up and named,
+    gloo runs; the launches and gathers of each rank and the tp run
+    against one rank."""
+    tp = chip_smoke.tp_mhd("cpu", N=16, steps=2, timeout=120)
+    assert tp["ran"] and tp["backend"] == "gloo"
+    assert set(tp["refusals"]) == {"nccl"} and tp["refusals"]["nccl"]
+    for name, gathers in (("complex64", 6), ("complex128", 4)):
+        run = tp[name]
+        assert run["launches_by_rank"] == [{"shear_thomas": 0,
+                                            "shear_scan": 0,
+                                            "shear_block": 3 * 2 * 5}] * 2
+        assert run["gathers_by_rank"] == [gathers * 2 * 5] * 2
+        assert run["vs_one_rank"] <= chip_smoke.TP_TOL[name]
+        assert run["tolerance"] == max(chip_smoke.TP_TOL[name],
+                                       3 * run["scan_vs_thomas"])
+    refused = chip_smoke.tp_mhd("cpu", N=16, steps=2, backends=("nccl",),
+                                timeout=120)
+    assert not refused["ran"] and set(refused["refusals"]) == {"nccl"}
+
+
+def _dtype_kernel_table(fn, steps):
+    """kernel_table on the CPU: the products of one call of ``fn`` as one
+    'kernel' for each complex dtype."""
+    counts = {torch.complex64: 0, torch.complex128: 0}
+
+    class Spy(torch.overrides.TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.matmul, torch.Tensor.__matmul__):
+                counts[args[0].dtype] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Spy():
+        fn()
+    return ({"gemm_c64": (counts[torch.complex64] / steps, 0.1),
+             "gemm_c128": (counts[torch.complex128] / steps, 0.2)}, 1.0)
+
+
+def test_dw_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
+    """Phase 20 at small N: the drift gates, one launch an iteration, the
+    GEMMs a step by dtype (6 + 4 for Euler, 12 + 8 launches for MHD), the
+    steppers in turns."""
+    monkeypatch.setattr(chip_smoke, "kernel_table", _dtype_kernel_table)
+    monkeypatch.setattr(chip_smoke, "product_kernels",
+                        lambda device, shapes, dtype: {
+                            torch.complex64: {"gemm_c64"},
+                            torch.complex128: {"gemm_c128"}}[dtype])
+    dw = chip_smoke.dw_steppers("cpu", N=128, steps=4, mhd_steps=2, chunk=2)
+    assert dw["euler"]["launches"] == 4 * 5 and dw["mhd"]["launches"] == 10
+    assert (dw["euler"]["cgemm_kernels_a_step"],
+            dw["euler"]["zgemm_kernels_a_step"]) == (6, 4)
+    assert (dw["mhd"]["cgemm_kernels_a_step"],
+            dw["mhd"]["zgemm_kernels_a_step"]) == (12, 8)
+    assert dw["mhd"]["products_a_step"] == 30
+    assert max(dw["euler"]["casimir_drift"] + dw["mhd"]["casimir_drift"]) \
+        <= 1e-10
+    assert [len(v) for v in dw["turns_steps_per_s"].values()] == [2, 2]
+    assert chip_smoke.dw_steppers.__defaults__[:4] == (512, 200, 50, 5)

@@ -10,12 +10,19 @@ The workers run this file as a script (``python test_torch_distributed.py
 quflow_tpu_torch only.  Each group of workers runs every case of its size
 once, and the tests read what it wrote.
 
-Tolerances: complex128 1e-12 of the largest entry (the sharded solve scans
-in another order than the single-device one, and the commutator is
-P W - W P instead of P W - (P W)^H: both equal up to rounding); complex64
-5e-5, as tests/test_torch_stepper.py::test_step_fn_matches_jax_10_steps.
+Tolerances: complex128 1e-12 of the largest entry (the sharded solve folds
+its blocks' carries where the single-device one runs one chain, and the
+commutator is P W - W P instead of P W - (P W)^H: both equal up to
+rounding); complex64 5e-5, as
+tests/test_torch_stepper.py::test_step_fn_matches_jax_10_steps.
+
+The tp runs also count what they cost: the row gathers
+(``Mesh.gather_rows``) and the block sweeps (``shear_block``, three a
+solve) an iteration.  The hooks that compute are written once for each
+package, torch here and jax.numpy in the parent.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -31,12 +38,24 @@ TOL = 1e-10
 #: precision name is a full float32 product, in both packages)
 WARM_DP = dict(warm_precision="high", warm_iters=3)
 WARM_TP = dict(warm_precision="high_karatsuba", warm_iters=2)
+GAMMA = 1.7
+VISC = dict(nu=1e-3, alpha=0.02)
+T0 = 0.7
 
 
 def _skewh(rng, *shape):
     W = rng.randn(*shape) + 1j * rng.randn(*shape)
     W = W - np.conj(np.swapaxes(W, -1, -2))
     return W / np.abs(W).max()
+
+
+def _mhd_state(rng, N):
+    """A random MHD state (W, Theta) whose Theta is 1/20 of W's scale: a
+    random Theta of W's scale has B = Delta Theta too large for the
+    fixed point at these N (it diverges in quflow_tpu as here)."""
+    S = _skewh(rng, 2, N, N)
+    S[1] *= 0.05
+    return S
 
 
 def make_inputs():
@@ -47,6 +66,8 @@ def make_inputs():
         "W_tp2": _skewh(rng, N_TP2, N_TP2),
         "W_tp4": _skewh(rng, N_TP4, N_TP4),
         "W_dptp": _skewh(rng, 2, N_TP4, N_TP4),
+        "S_tp2": _mhd_state(rng, N_TP2),
+        "S_tp4": _mhd_state(rng, N_TP4),
     }
 
 
@@ -55,11 +76,97 @@ def _dt(N):
 
 
 # --------------------------------------------------------------------------
+# the hooks: arithmetic that runs on either package's arrays, or one for
+# each package (the workers import no JAX)
+# --------------------------------------------------------------------------
+
+def force(P, W):
+    return 0.05 * (P @ W - W @ P)
+
+
+def force_mhd(P, S):
+    return 0.04 * (P[..., None, :, :] @ S - S @ P[..., None, :, :])
+
+
+def force_t_port(P, W, time=0.0):
+    return 0.03 * math.sin(time) * (P - W)
+
+
+def ham_port(W):
+    from quflow_tpu_torch.ops.laplacian import solve_globalqg
+
+    return solve_globalqg(W, gamma=GAMMA, skewh=True)
+
+
+def strang_port(h, W):
+    from quflow_tpu_torch.ops.laplacian import solve_viscdamp
+
+    return solve_viscdamp(h, W, theta=1, skewh=True, **VISC)
+
+
+def _cmm(Ap, Bp):
+    """The complex product of float64 planes (a planes hook's arithmetic,
+    on either package's arrays)."""
+    return [Ap[0] @ Bp[0] - Ap[1] @ Bp[1], Ap[0] @ Bp[1] + Ap[1] @ Bp[0]]
+
+
+def force_planes_port(Pp, Wp):
+    import torch
+
+    return 0.05 * (torch.stack(_cmm(Pp, Wp)) - torch.stack(_cmm(Wp, Pp)))
+
+
+#: the tp = 2 hook cases: name -> (the port's step options, the Euler or
+#: MHD state, and t0 for a timed runner)
+HOOK_CASES = {
+    "tp2_ham": (dict(hamiltonian=ham_port), "W_tp2", None),
+    "tp2_force_t": (dict(forcing=force_t_port), "W_tp2", T0),
+    "tp2_strang_c": (dict(strang_splitting=strang_port), "W_tp2", None),
+    "tp2_theta": (dict(strang_splitting=("viscdamp", dict(theta=0.5, **VISC))),
+                  "W_tp2", None),
+    "tp2_mhd_hooks": (dict(forcing=force_mhd,
+                           strang_splitting=("viscdamp", VISC)),
+                      "S_tp2", None),
+}
+
+
+# --------------------------------------------------------------------------
 # the workers (torch and quflow_tpu_torch only)
 # --------------------------------------------------------------------------
 
+class _Counts:
+    """Counts the row gathers of ``mesh`` and the block sweeps of the
+    sharded solve while it is entered."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        from quflow_tpu_torch.parallel import shard_shear
+
+        self.gathers = self.sweeps = 0
+        gather, sweep = self.mesh.gather_rows, shard_shear.shear_block
+
+        def counted_gather(*args, **kw):
+            self.gathers += 1
+            return gather(*args, **kw)
+
+        def counted_sweep(*args, **kw):
+            self.sweeps += 1
+            return sweep(*args, **kw)
+
+        self._undo = (gather, sweep)
+        self.mesh.gather_rows = counted_gather
+        shard_shear.shear_block = counted_sweep
+        return self
+
+    def __exit__(self, *exc):
+        from quflow_tpu_torch.parallel import shard_shear
+
+        self.mesh.gather_rows, shard_shear.shear_block = self._undo
+
 def _run_case(out, name, W, mesh, batched, dtype=np.complex128, mhd=False,
-              poisson=False, **kw):
+              poisson=False, t0=None, **kw):
     import torch
     from quflow_tpu_torch.parallel import stepper as tst
     from quflow_tpu_torch.parallel.mesh import gather_state, shard_state
@@ -75,12 +182,43 @@ def _run_case(out, name, W, mesh, batched, dtype=np.complex128, mhd=False,
                mesh=mesh, batched=batched, device="cpu",
                **{"maxit": MAXIT, **kw})
     z = torch.zeros_like(piece)
-    res = fn(piece, z, z)
+    with _Counts(mesh) as counts:
+        res = fn(piece, z, z, *(() if t0 is None else (t0,)))
     out[name] = gather_state(res[0], mesh, batched).numpy()
+    out[name + "_counts"] = np.array([counts.gathers, counts.sweeps])
     if kw.get("tol") is not None:
         out[name + "_iters"] = res[3].numpy()
     if kw.get("with_diagnostics"):
         out[name + "_diag"] = res[-1].numpy()
+
+
+def _integrator_case(out, name, S, mesh):
+    """MagmpTorch under the mesh, two calls of STEPS steps."""
+    import torch
+    from quflow_tpu_torch.parallel import stepper as tst
+    from quflow_tpu_torch.parallel.mesh import gather_state, shard_state
+
+    integ = tst.MagmpTorch(maxit=MAXIT, dtype=np.complex128, mesh=mesh,
+                           device="cpu")
+    piece = torch.from_numpy(shard_state(S, mesh))
+    dt = _dt(S.shape[-1])
+    out[name] = gather_state(integ(integ(piece, dt, steps=STEPS), dt,
+                                   steps=STEPS), mesh).numpy()
+
+
+def _dw_case(out, name, W, mesh, **kw):
+    """build_dw_step_fn under the mesh on float64 planes (2, N, N), the
+    pure double-word schedule."""
+    import torch
+    from quflow_tpu_torch.parallel import stepper as tst
+    from quflow_tpu_torch.parallel.mesh import gather_state, shard_state
+
+    N = W.shape[-1]
+    fn = tst.build_dw_step_fn(N, _dt(N), steps=STEPS, maxit=MAXIT,
+                              dw_iters=MAXIT, mesh=mesh, device="cpu", **kw)
+    piece = torch.from_numpy(shard_state(np.stack([W.real, W.imag]), mesh))
+    z = torch.zeros_like(piece)
+    out[name] = gather_state(fn(piece, z, z)[0], mesh).numpy()
 
 
 def _checkpoint_case(out, tmp, inp, mesh):
@@ -146,16 +284,27 @@ def worker(world, init, rank, inputs, outdir):
         _run_case(out, "tp2_poisson", inp["W_tp2"], tp, False, poisson=True)
         _run_case(out, "tp2_warm_c64", inp["W_tp2"], tp, False,
                   dtype=np.complex64, **WARM_TP)
+        _run_case(out, "tp2_mhd", inp["S_tp2"], tp, False, mhd=True,
+                  tol=TOL, maxit=10)
+        _run_case(out, "tp2_mhd_c64", inp["S_tp2"], tp, False, mhd=True,
+                  dtype=np.complex64)
+        _integrator_case(out, "tp2_magmp", inp["S_tp2"], tp)
+        for name, (kw, state, t0) in HOOK_CASES.items():
+            _run_case(out, name, inp[state], tp, False, t0=t0,
+                      mhd=state.startswith("S"), **kw)
+        _dw_case(out, "tp2_dw", inp["W_tp2"], tp, forcing=force_planes_port)
     else:
         tp = make_mesh(dp=1)  # tp = 4 over N = 13: rows 4, 3, 3, 3
         _run_case(out, "tp4", inp["W_tp4"], tp, False, with_diagnostics=True)
         _run_case(out, "tp4_c64", inp["W_tp4"], tp, False, dtype=np.complex64)
         _run_case(out, "tp4_poisson", inp["W_tp4"], tp, False, poisson=True)
+        _run_case(out, "tp4_mhd", inp["S_tp4"], tp, False, mhd=True)
         both = make_mesh(dp=2)  # dp = 2, tp = 2 over N = 13: rows 7, 6
         _run_case(out, "dptp", inp["W_dptp"], both, True, tol=TOL, maxit=10)
     np.savez(os.path.join(outdir, f"rank_{rank}.npz"), **out)
     import torch.distributed as dist
 
+    dist.barrier()  # neither rank tears down while the other works
     dist.destroy_process_group()
 
 
@@ -200,17 +349,47 @@ def _close(a, b, dtype=np.complex128):
     assert np.abs(a - b).max() <= tol * np.abs(b).max()
 
 
-def _jax_step(W, dtype=np.complex128, mhd=False, **kw):
+def _jax_step(W, dtype=np.complex128, mhd=False, t0=None, steps=STEPS, **kw):
     import jax.numpy as jnp
     from quflow_tpu.parallel import stepper as jst
 
     build = jst.build_mhd_step_fn if mhd else jst.build_step_fn
     N = W.shape[-1]
-    fn = build(N, _dt(N), steps=STEPS, dtype=dtype, planes_io=False,
+    fn = build(N, _dt(N), steps=steps, dtype=dtype, planes_io=False,
                layout="shear", **{"maxit": MAXIT, **kw})
     Wj = jnp.asarray(W.astype(dtype))
     z = jnp.zeros_like(Wj)
-    return [np.asarray(a) for a in fn(Wj, z, z)]
+    t0 = () if t0 is None else (t0,)
+    return [np.asarray(a) for a in fn(Wj, z, z, *t0)]
+
+
+def force_t_jax(P, W, time=0.0):
+    import jax.numpy as jnp
+
+    return 0.03 * jnp.sin(time) * (P - W)
+
+
+def force_planes_jax(Pp, Wp):
+    import jax.numpy as jnp
+
+    return 0.05 * (jnp.stack(_cmm(Pp, Wp)) - jnp.stack(_cmm(Wp, Pp)))
+
+
+def _jax_hooks(case):
+    """quflow_tpu's options for the port's HOOK_CASES entry ``case``."""
+    from functools import partial
+
+    from quflow_tpu.ops import laplacian as jl
+
+    kw = dict(HOOK_CASES[case][0])
+    if case == "tp2_ham":
+        kw["hamiltonian"] = partial(jl.solve_globalqg, gamma=GAMMA, skewh=True)
+    elif case == "tp2_force_t":
+        kw["forcing"] = force_t_jax
+    elif case == "tp2_strang_c":
+        kw["strang_splitting"] = partial(jl.solve_viscdamp, theta=1,
+                                         skewh=True, **VISC)
+    return kw
 
 
 def _jax_poisson(W, dtype=np.complex128):
@@ -266,13 +445,17 @@ def test_tp2_matches_quflow_tpu(two, case):
         np.testing.assert_array_equal(two[1]["tp2_tol_iters"], ref[3])
 
 
-@pytest.mark.parametrize("case", ["tp4", "tp4_c64", "tp4_poisson", "dptp"])
+@pytest.mark.parametrize("case", ["tp4", "tp4_c64", "tp4_poisson", "dptp",
+                                  "tp4_mhd"])
 def test_tp4_odd_n_matches_quflow_tpu(four, case):
-    """tp = 4 over N = 13 (uneven row blocks) and dp = 2 x tp = 2."""
+    """tp = 4 over N = 13 (uneven row blocks; the MHD step too) and
+    dp = 2 x tp = 2."""
     inp = make_inputs()
     dtype = np.complex64 if case.endswith("c64") else np.complex128
     if case == "tp4_poisson":
         ref = [_jax_poisson(inp["W_tp4"])]
+    elif case == "tp4_mhd":
+        ref = _jax_step(inp["S_tp4"], mhd=True)
     elif case == "dptp":
         ref = _jax_step(inp["W_dptp"], batched=True, tol=TOL, maxit=10)
     else:
@@ -284,6 +467,89 @@ def test_tp4_odd_n_matches_quflow_tpu(four, case):
             np.testing.assert_allclose(four[r]["tp4_diag"], ref[-1], rtol=1e-12)
     if case == "dptp":
         np.testing.assert_array_equal(four[3]["dptp_iters"], ref[3])
+
+
+@pytest.mark.parametrize("case", ["tp2_mhd", "tp2_mhd_c64", "tp2_magmp"])
+def test_tp2_mhd_matches_quflow_tpu(two, case):
+    """The MHD step with its rows over tp = 2 (the halo Laplacian, the
+    row-local products): with tol, in complex64, and through MagmpTorch
+    (two calls), against quflow_tpu's single-device step."""
+    S = make_inputs()["S_tp2"]
+    dtype = np.complex64 if case.endswith("c64") else np.complex128
+    if case == "tp2_magmp":
+        ref = _jax_step(S, mhd=True, steps=2 * STEPS)
+    elif case == "tp2_mhd":
+        ref = _jax_step(S, mhd=True, tol=TOL, maxit=10)
+    else:
+        ref = _jax_step(S, dtype=dtype, mhd=True)
+    for r in range(2):
+        _close(two[r][case], ref[0], dtype)
+    if case == "tp2_mhd":
+        np.testing.assert_array_equal(two[0]["tp2_mhd_iters"], ref[3])
+
+
+@pytest.mark.parametrize("case", list(HOOK_CASES))
+def test_tp2_hooks_match_quflow_tpu(two, case):
+    """Every hook under tp = 2: a callable Hamiltonian, timed forcing and a
+    callable Strang step see the whole state; the theta-scheme Strang step
+    takes its Laplacian with a halo row; the MHD step with forcing and the
+    named Strang step.  Against quflow_tpu's single-device step with the
+    same hooks."""
+    kw, state, t0 = HOOK_CASES[case]
+    ref = _jax_step(make_inputs()[state], t0=t0, mhd=state.startswith("S"),
+                    **_jax_hooks(case))
+    for r in range(2):
+        _close(two[r][case], ref[0])
+
+
+#: the row gathers and block sweeps of one call of each tp case (STEPS steps
+#: of MAXIT iterations, complex128 unless named): Euler gathers W and P an
+#: iteration, MHD S, P, B and Theta B, complex64 adds the m=0 correction's
+#: two; every solve is 3 sweeps; a callable Hamiltonian gathers W only and
+#: solves nothing; a callable Strang step gathers the state twice a step;
+#: the named ones solve twice a step; diagnostics solve once
+ITERS = STEPS * MAXIT
+COUNTS = {
+    "tp2": (2 * ITERS, 3 * ITERS + 3),
+    "tp2_mhd_c64": (6 * ITERS, 3 * ITERS),
+    "tp2_ham": (ITERS, 0),
+    "tp2_force_t": (2 * ITERS, 3 * ITERS),
+    "tp2_strang_c": (2 * ITERS + 2 * STEPS, 3 * ITERS),
+    "tp2_theta": (2 * ITERS, 3 * ITERS + 6 * STEPS),
+    "tp2_mhd_hooks": (4 * ITERS, 3 * ITERS + 6 * STEPS),
+    "tp4_mhd": (4 * ITERS, 3 * ITERS),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COUNTS) + ["tp2_mhd"])
+def test_tp_gathers_and_sweeps(two, four, case):
+    """What a tp step costs in collectives and launches, counted on every
+    rank: Mesh.gather_rows calls and shear_block sweeps of one call."""
+    out = four if case.startswith("tp4") else two
+    for rank in out:
+        got = tuple(rank[case + "_counts"])
+        if case == "tp2_mhd":  # with tol: by the iterations it ran
+            iters = int(rank["tp2_mhd_iters"].sum())
+            assert got == (4 * iters, 3 * iters)
+        else:
+            assert got == COUNTS[case]
+
+
+def test_tp2_dw_matches_quflow_tpu(two):
+    """build_dw_step_fn with forcing on float64 planes under tp = 2
+    against quflow_tpu's single-device double-word step (the pure dw
+    schedule: the ZGEMM here, the Ozaki split there)."""
+    import jax.numpy as jnp
+    from quflow_tpu.parallel import stepper as jst
+
+    W = make_inputs()["W_tp2"]
+    fn = jst.build_dw_step_fn(N_TP2, _dt(N_TP2), steps=STEPS, maxit=MAXIT,
+                              dw_iters=MAXIT, forcing=force_planes_jax)
+    Wp = jnp.asarray(np.stack([W.real, W.imag]))
+    z = jnp.zeros_like(Wp)
+    ref = np.asarray(fn(Wp, z, z)[0])
+    for r in range(2):
+        _close(two[r]["tp2_dw"], ref)
 
 
 def test_dp_checkpoint_restart(two):
@@ -338,8 +604,10 @@ def test_checkpoint_interchanges_with_quflow_tpu(tmp_path, monkeypatch,
 
 
 def test_tp_refusals():
-    """What the tp path does not run yet raises and names ROADMAP A9: MHD,
-    callables, the theta-scheme Strang step; 'shard' does not come over."""
+    """Under a tp mesh every option builds (MHD, every hook); what still
+    raises: the layouts that do not come over, 'shear_shard' without a
+    mesh, a callable MHD Hamiltonian (as in quflow_tpu), and a double-word
+    stepper over an N that tp does not divide (as in quflow_tpu)."""
     from quflow_tpu_torch.parallel import stepper as tst
     from quflow_tpu_torch.parallel.mesh import Mesh
 
@@ -347,19 +615,27 @@ def test_tp_refusals():
     for kw in ({"hamiltonian": lambda W: W}, {"forcing": lambda P, W: W},
                {"strang_splitting": lambda h, W: W},
                {"strang_splitting": ("viscdamp", {"theta": 0.5})}):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tst.build_step_fn(8, 0.1, mesh=rows, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tst.IsompTorch(mesh=rows, device="cpu",
-                       forcing=lambda P, W: W)(np.zeros((4, 8)), 0.1, steps=1)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tst.build_mhd_step_fn(8, 0.1, mesh=rows, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tst.MagmpTorch(mesh=rows, device="cpu")
-    with pytest.raises(NotImplementedError, match="does not come over"):
-        tst.build_poisson_fn(8, mesh=rows, layout="shard", device="cpu")
+        tst.build_step_fn(8, 0.1, mesh=rows, device="cpu", **kw)
+    tst.build_mhd_step_fn(8, 0.1, mesh=rows, device="cpu",
+                          strang_splitting=("viscdamp", {"theta": 0.5}))
+    tst.MagmpTorch(mesh=rows, device="cpu", forcing=lambda P, S: S)
+    for layout in ("shard", "wrapped", "rolls", "pallas", "shear_pallas_il"):
+        for build in (tst.build_step_fn, tst.build_mhd_step_fn):
+            with pytest.raises(NotImplementedError, match="does not come over"):
+                build(8, 0.1, mesh=rows, layout=layout, device="cpu")
+        with pytest.raises(NotImplementedError, match="does not come over"):
+            tst.build_poisson_fn(8, mesh=rows, layout=layout, device="cpu")
+        with pytest.raises(NotImplementedError, match="does not come over"):
+            tst.MagmpTorch(mesh=rows, layout=layout, device="cpu")
     with pytest.raises(ValueError, match="mesh"):
         tst.build_poisson_fn(8, layout="shear_shard", device="cpu")
+    with pytest.raises(NotImplementedError, match="named"):
+        tst.build_mhd_step_fn(8, 0.1, mesh=rows, device="cpu",
+                              hamiltonian=lambda W: W)
+    for build in (tst.build_dw_step_fn, tst.build_dw_mhd_step_fn):
+        with pytest.raises(ValueError, match="divisible"):
+            build(9, 0.1, mesh=rows, device="cpu")
+        build(8, 0.1, mesh=rows, device="cpu")
 
 
 if __name__ == "__main__":

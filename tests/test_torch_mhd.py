@@ -205,14 +205,17 @@ def test_magmp_torch_matches_magmp_tpu_warm_chunks():
         assert tst.MagmpTorch(warm_precision="auto", device="cpu",
                               **kw).warm_precision == jst.MagmpTPU(
             warm_precision="auto", **kw).warm_precision
-    # an ensemble runs; a mesh whose 'tp' axis splits the rows raises A9
+    # an ensemble runs; a mesh whose 'tp' axis splits the rows builds (its
+    # runs: tests/test_torch_distributed.py); the layouts that do not come
+    # over raise
     Sb2 = tst.MagmpTorch(maxit=6, dtype=np.complex128, device="cpu",
                          batched=True)(np.stack([S0, S0[::-1]]), dt, steps=2)
     np.testing.assert_array_equal(Sb2[0], tst.MagmpTorch(
         maxit=6, dtype=np.complex128, device="cpu")(S0.copy(), dt, steps=2))
     rows = Mesh(dp=1, tp=2, rank=0, ranks=[0, 1])
-    for kw, item in (({"mesh": rows}, "A9"),
-                     ({"layout": "shard"}, "does not come over"),
+    tst.build_mhd_step_fn(8, 0.1, device="cpu", mesh=rows)
+    assert tst.MagmpTorch(device="cpu", mesh=rows).layout == "shear_shard"
+    for kw, item in (({"layout": "shard"}, "does not come over"),
                      ({"layout": "wrapped"}, "does not come over")):
         with pytest.raises(NotImplementedError, match=item):
             tst.build_mhd_step_fn(8, 0.1, device="cpu", **kw)

@@ -145,8 +145,11 @@ def test_unported_options_raise(monkeypatch):
             tst.build_step_fn(8, 0.1, device="cpu", **kw)
         with pytest.raises(ValueError, match="precision"):
             tst.IsompTorch(device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="complex128"):
-        tst.build_dw_step_fn(8, 0.1)
+    # the double-word stepper builds (its runs: tests/test_torch_dw.py) and
+    # refuses what quflow_tpu's refuses: a contraction too long to split
+    tst.build_dw_step_fn(8, 0.1, device="cpu")
+    with pytest.raises(ValueError, match="too large"):
+        tst.build_dw_step_fn(1 << 21, 0.1, device="cpu")
     # solve's default integrator, isomp, needs the card unless told
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
