@@ -186,9 +186,14 @@ result line.
        or three times the serial solve's own error, the larger (a float32
        solve of the ill-conditioned low-m columns errs by ~1e-5 at
        N=4096, serial or folded), its difference from ``shear_thomas``
-       reported raw and after the m=0 correction; one rank's three launches timed at N=1024, tp=2 and
-       N=4096, tp=4, B=1 (CUDA-graph replay, the plain version's time,
-       the bound of its rows, the share);
+       reported raw and after the m=0 correction.  Then one rank's
+       launches at (N, tp, B) in (1024, 2, 1), (4096, 4, 1), (1024, 2, 4)
+       and (8192, 4, 1), both dtypes: each phase bit-equal to the plain
+       version; the three launches and each phase alone timed (CUDA-graph
+       replay), the plain version's time, the bound of its rows and the
+       share, the floor of three launches separated by collectives (64 B
+       an element at complex64, B=1) and its share, the kernel's
+       geometry;
     b. MHD, complex64, N=1024, ``MagmpTorch()`` on a tp = 2 mesh of two
        processes sharing the card (this script run with ``--tp-rank``),
        20 steps, against one-rank ``MagmpTorch()``: within 5e-5 of the
@@ -196,8 +201,8 @@ result line.
        an iteration and gathers rows 6 times; steps/s of both.  NCCL is
        tried first, then gloo; a backend that refuses two ranks on one
        card at set-up (the group's bring-up and a probe of each
-       collective) is named with its message, and if both refuse, a line
-       says so; any failure after the probe fails the phase;
+       collective) is named with its message; if both refuse, the run
+       fails, and so does any failure after the probe;
 20. the double-word steppers, N=512: ``build_dw_step_fn`` 200 steps and
     ``build_dw_mhd_step_fn`` 50 steps, maxit 5, dw_iters 2, float64
     planes: tr(W^2), tr(W^3) and tr(Theta^2), tr(Theta^3) drift
@@ -366,6 +371,13 @@ def solve_bound(N, B, dtype, rows=None):
                                         else "operations")
 
 
+def seeded_rhs(device, N, B, dtype):
+    """A random (B, N, N+1) complex ``dtype`` rhs on ``device``, seeded by
+    N and B."""
+    g = torch.Generator(device=device).manual_seed(1000 * N + B)
+    return torch.randn(B, N, N + 1, dtype=dtype, device=device, generator=g)
+
+
 def solve_inputs(device, Ns, Bs):
     """(dtype, N, B, w, binv, u, d) for both dtypes, every N and B: the
     Poisson factors and a seeded random rhs on ``device``."""
@@ -373,9 +385,7 @@ def solve_inputs(device, Ns, Bs):
         for N in Ns:
             w, binv, u = _real_factors(N, dtype, device=device)
             for B in Bs:
-                g = torch.Generator(device=device).manual_seed(1000 * N + B)
-                yield dtype, N, B, w, binv, u, torch.randn(
-                    B, N, N + 1, dtype=dtype, device=device, generator=g)
+                yield dtype, N, B, w, binv, u, seeded_rhs(device, N, B, dtype)
 
 
 def bit_equal(kernel, plain, dtype, N, B, w, binv, u, d):
@@ -1945,14 +1955,34 @@ def native_poisson(device, N=512):
                 card_ms=cuda_ms(lambda: solve_poisson(Wt, skewh=True), 10))
 
 
-#: phase 19a's shapes timed: (N, tp) of phase 19b's path, and the largest
-BLOCK_TIMED = ((1024, 2), (4096, 4))
+#: phase 19a's shapes timed, (N, tp, B): phase 19b's path, the largest of
+#: the checked shapes, a batch of several strips a block, and a rank's
+#: block of a shard that a run across cards holds (where y may not stay in
+#: shared memory)
+BLOCK_TIMED = ((1024, 2, 1), (4096, 4, 1), (1024, 2, 4), (8192, 4, 1))
 #: phase 19a's gates on the folded sweeps: complex128 against the
 #: unsharded solve, relative to the largest entry; complex64 against the
 #: float64 solve of the same float32 system, within 1e-6 or this many
 #: times the serial float32 solve's own error, the larger (block_sweeps)
 BLOCK_GATE_C128 = 1e-13
 BLOCK_ACCURACY_C64 = 3.0
+#: the bytes of each phase an element of one batch entry, and of the
+#: factors, in units of the real type: SUMMARY reads d, w; FORWARD d, w,
+#: binv, u and writes y; BACKWARD reads y, binv, u and writes x
+BLOCK_PHASE_BYTES = {"summary": (2, 1), "forward": (4, 3),
+                     "backward": (4, 2)}
+
+
+def block_floor(N, B, dtype, rows):
+    """The least ms of each phase of one rank's sweeps, and of the three,
+    by the bytes that three launches separated by collectives cannot avoid
+    (BLOCK_PHASE_BYTES) over 3.35 TB/s: 64 B an element at complex64, B=1,
+    against solve_bound's 28."""
+    real = 4 if dtype == torch.complex64 else 8
+    ms = {name: 1e3 * (per * B + fac) * real * rows * (N + 1)
+          / HBM_BYTES_PER_S
+          for name, (per, fac) in BLOCK_PHASE_BYTES.items()}
+    return ms, sum(ms.values())
 
 
 def block_sweeps(device, Ns=(512, 1024, 4096), Bs=(1, 4), tps=(2, 3, 4),
@@ -1969,9 +1999,9 @@ def block_sweeps(device, Ns=(512, 1024, 4096), Bs=(1, 4), tps=(2, 3, 4),
     within 1e-6 or BLOCK_ACCURACY_C64 times the serial one's, the larger;
     its difference from
     ``shear_thomas`` is reported, raw and after the m=0 correction that
-    every complex64 solve of the steppers applies.  Then one rank's three
-    launches timed at the ``timed`` shapes, B=1 (see time_block).
-    Returns (rows, timings)."""
+    every complex64 solve of the steppers applies.  Then one rank's
+    launches timed at the ``timed`` (N, tp, B), both dtypes (see
+    time_block).  Returns (rows, timings)."""
     rows, timings = [], []
     for dtype, N, B, w, binv, u, d in solve_inputs(device, Ns, Bs):
         whole = shear_thomas(w, binv, u, d)
@@ -2006,17 +2036,22 @@ def block_sweeps(device, Ns=(512, 1024, 4096), Bs=(1, 4), tps=(2, 3, 4),
                 raise AssertionError(f"shear_block against the unsharded "
                                      f"solve: {row}")
             rows.append(row)
-            if B == 1 and (N, tp) in timed:
-                timings.append(time_block(dtype, N, tp, w, binv, u, d, reps,
-                                          plain_reps))
+    for dtype in (torch.complex64, torch.complex128):
+        for N, tp, B in timed:
+            w, binv, u = _real_factors(N, dtype, device=device)
+            timings.append(time_block(dtype, N, tp, w, binv, u,
+                                      seeded_rhs(device, N, B, dtype), reps,
+                                      plain_reps))
     return rows, timings
 
 
 def time_block(dtype, N, tp, w, binv, u, d, reps, plain_reps):
-    """One rank's three launches (summary, forward with the backward
-    summary, backward) on the block of rank 1 of ``tp``: ms by CUDA-graph
-    replay, the plain version's ms by CUDA events, the bound of its rows
-    and the share."""
+    """One rank's launches on the block of rank 1 of ``tp``: each phase
+    (summary, forward with the backward summary, backward) bit-equal to
+    the plain version; the three together and each alone in ms by
+    CUDA-graph replay, the plain version's ms by CUDA events, the bound of
+    its rows and the share, the floor of three launches (block_floor) and
+    its share, and, on a card, the kernel's geometry."""
     opr = ShardedShearOperator(w, binv, u, Mesh(1, tp, 1, range(tp)))
     a, b = opr.rows
     D = d[..., a:b, :].contiguous()
@@ -2030,12 +2065,46 @@ def time_block(dtype, N, tp, w, binv, u, d, reps, plain_reps):
             block(BACKWARD, *fac, y, carry)
         return run
 
+    y, x_end = shear_block(FORWARD, *fac, D, carry)
+    y_ref, x_end_ref = shear_block_reference(FORWARD, *fac, D, carry)
+    got = (shear_block(SUMMARY, *fac, D)[1], y, x_end,
+           shear_block(BACKWARD, *fac, y_ref, carry)[0])
+    ref = (shear_block_reference(SUMMARY, *fac, D)[1], y_ref, x_end_ref,
+           shear_block_reference(BACKWARD, *fac, y_ref, carry)[0])
+    err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    if err != 0.0:
+        raise AssertionError(f"shear_block {dtype} N={N} tp={tp} "
+                             f"B={D.shape[0]}: max abs error {err:.3e} "
+                             "against its plain version")
     ms = graph_ms(three(shear_block), reps)
+    phase_ms = {name: graph_ms(fn, reps) for name, fn in (
+        ("summary", lambda: shear_block(SUMMARY, *fac, D)),
+        ("forward", lambda: shear_block(FORWARD, *fac, D, carry)),
+        ("backward", lambda: shear_block(BACKWARD, *fac, y, carry)))}
     plain_ms = cuda_ms(three(shear_block_reference), plain_reps)
-    bound_ms, bound_by = solve_bound(N, D.shape[0], dtype, rows=b - a)
-    return dict(dtype=str(dtype).split(".")[-1], N=N, tp=tp, B=D.shape[0],
-                rows=b - a, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, share=bound_ms / ms)
+    B, rows = D.shape[0], b - a
+    bound_ms, bound_by = solve_bound(N, B, dtype, rows=rows)
+    phase_floor_ms, floor_ms = block_floor(N, B, dtype, rows)
+    geometry = (cuda_block_solve.geometry(B, rows, N + 1, dtype)
+                if D.device.type == "cuda" else None)
+    return dict(dtype=str(dtype).split(".")[-1], N=N, tp=tp, B=B,
+                rows=rows, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms,
+                phase_ms=phase_ms, phase_floor_ms=phase_floor_ms,
+                floor_ms=floor_ms, floor_share=floor_ms / ms,
+                geometry=geometry)
+
+
+def check_tp_ran(tp):
+    """Phase 19b's gate on its set-up: a backend may refuse two ranks on
+    one card (NCCL does; the refusal is named in the phase's line), but one
+    of them must bring the group up and run the phase; raises with the
+    refusals when none did."""
+    if not tp["ran"]:
+        raise AssertionError(
+            "phase 19b did not run: no backend brought up two ranks on one "
+            "card (" + "; ".join(f"{b}: {m}"
+                                 for b, m in tp["refusals"].items()) + ")")
 
 
 def tp_rank(rank, backend, tmp, N, steps, maxit, device, dtype):
@@ -2186,8 +2255,8 @@ def tp_mhd(device, N=1024, steps=20, maxit=5, backends=("nccl", "gloo"),
     (the m=0 correction's two columns), checked exactly.  NCCL is tried
     first, then gloo (whose collectives stage card tensors through the
     host); a backend that refuses two ranks on one card at set-up is
-    reported with its message, and if both refuse, the phase says so and
-    returns the refusals."""
+    reported with its message, and if both refuse, the phase returns the
+    refusals with ``ran`` false, which fails the run (check_tp_ran)."""
     dt = 0.25 * hbar(N)
     iters = steps * maxit
     out = dict(N=N, steps=steps, maxit=maxit, launches_a_solve=3)
@@ -2301,7 +2370,15 @@ def dw_steppers(device, N=512, steps=200, mhd_steps=50, maxit=5, dw_iters=2,
         return name in probed or ("gemm" in name.lower() and tag in name)
 
     def gemms(fn, st):
-        table, _ = kernel_table(lambda: fn(*st), 2)
+        """The GEMM launches a step of two steps of ``fn`` by type, from a
+        profile that holds every ``shear_thomas`` launch (maxit a step):
+        the profiler at times loses a window's first kernels, and such a
+        profile is taken again, up to three times."""
+        for _ in range(3):
+            table, _ = kernel_table(lambda: fn(*st), 2)
+            if sum(c for k, (c, _) in table.items()
+                   if "shear_thomas" in k) == maxit:
+                break
         return (sum(c for k, (c, _) in table.items() if of(k, c64_k, "cf32")),
                 sum(c for k, (c, _) in table.items() if of(k, c128_k, "cf64")),
                 table)
@@ -2525,10 +2602,7 @@ def main():
     print("phase 19a block sweeps vs plain and vs shear_thomas: "
           + json.dumps(dict(rows=blocks, timed=block_times)), flush=True)
     tp = tp_mhd(device)
-    if not tp["ran"]:
-        print("phase 19b: two ranks on one card refused at set-up by "
-              + "; ".join(f"{b}: {m}" for b, m in tp["refusals"].items()),
-              flush=True)
+    check_tp_ran(tp)
     print("phase 19b tp = 2 MHD N=1024: " + json.dumps(tp), flush=True)
 
     dw = dw_steppers(device)
@@ -2606,16 +2680,16 @@ def main():
         "source": "quflow_tpu_torch/csrc/shear_block.cu",
         "replaces": "quflow_tpu/parallel/shard_shear.py:124 (XLA "
                     "associative_scan, not Pallas)",
-        "launches": (tp["complex64"]["launches_by_rank"][0]["shear_block"]
-                     if tp["ran"] else 0),
+        "launches": tp["complex64"]["launches_by_rank"][0]["shear_block"],
         "launches_by_path": {
             f"tp_mhd_{c}_N1024_rank{r}": n["shear_block"]
-            for c in ("complex64", "complex128") if tp["ran"]
+            for c in ("complex64", "complex128")
             for r, n in enumerate(tp[c]["launches_by_rank"])},
-        "max_abs_err": max(r["max_abs_err"] for r in blocks),
+        "max_abs_err": max(r["max_abs_err"] for r in blocks + block_times),
         # one rank's three launches at phase 19b's shape (N=1024, tp=2)
         **{k: block_times[0][k]
-           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "share")},
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "share",
+                     "phase_ms")},
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

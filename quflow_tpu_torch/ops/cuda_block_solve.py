@@ -17,20 +17,24 @@ block of rows with ``shear_block``, one of three phases a launch:
 parallel/shard_shear.solve_shear_sharded gathers the end rows between the
 phases and folds the carries.  On a CUDA tensor ``shear_block`` launches
 the kernel of csrc/shear_block.cu (built at first use with nvcc into
-``quflow_tpu_torch/_build``, bound with ctypes); on a CPU tensor it runs
-:func:`shear_block_reference`, the plain PyTorch version with the same
-roundings in the same order.  Nothing falls back: a build or launch
-failure raises.
+``quflow_tpu_torch/_build``, bound with ctypes): a strip of neighbouring
+columns a block, on every SM, whose rows producer warps stream through
+shared-memory rings (cp.async, mbarriers) to a warp that runs the chains;
+:func:`geometry` reports what a shape gets.  On a CPU tensor it runs :func:`shear_block_reference`,
+the plain PyTorch version with the same roundings in the same order.
+Nothing falls back: a build or launch failure raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .cuda_build import CudaLibrary, bind_error_string, launcher_argtypes
 
-__all__ = ["shear_block", "shear_block_reference", "SUMMARY", "FORWARD",
-           "BACKWARD", "LIBRARY"]
+__all__ = ["shear_block", "shear_block_reference", "geometry", "GEOMETRY",
+           "SUMMARY", "FORWARD", "BACKWARD", "LIBRARY"]
 
 SUMMARY, FORWARD, BACKWARD = 0, 1, 2
 
@@ -101,7 +105,8 @@ def _check(phase, w, binv, u, d, carry):
 def shear_block(phase, w, binv, u, d, carry=None):
     """One phase of the block sweep (see :func:`shear_block_reference` for
     the arguments and what comes back).  CPU tensors go to
-    :func:`shear_block_reference`.  CUDA tensors go to the kernel;
+    :func:`shear_block_reference`.  CUDA tensors go to the kernel, one
+    launch whatever the shape (:func:`geometry` says how it is cut);
     ``shear_block.launches`` counts its launches."""
     _check(phase, w, binv, u, d, carry)
     if d.device.type == "cpu":
@@ -139,10 +144,38 @@ def shear_block(phase, w, binv, u, d, carry=None):
 
 shear_block.launches = 0
 
+#: the fields of :func:`geometry`, in the order the library reports them
+GEOMETRY = ("strip_columns", "batch_block", "threads", "blocks",
+            "resident_y", "ring_rows", "shared_bytes", "blocks_per_sm")
+
+
+def geometry(B, R, M, dtype, device=0):
+    """What the kernel launches for B complex ``dtype`` blocks of R rows
+    of M columns on CUDA device ``device``: the columns of a strip, the
+    batch entries of a block, the threads of a block and the blocks of
+    the grid, whether FORWARD keeps y in shared memory (else it reads y
+    back), and for each phase (SUMMARY, FORWARD, BACKWARD) the rows of its
+    rings, its bytes of shared memory a block and the blocks an SM runs
+    at once."""
+    lib = LIBRARY.load()
+    fn = (lib.shear_block_geometry_f32 if dtype == torch.complex64
+          else lib.shear_block_geometry_f64)
+    out = (ctypes.c_int * 14)()
+    err = fn(B, R, M, device, out)
+    if err != 0:
+        raise RuntimeError(f"shear_block geometry: cudaError_t {err} "
+                           f"({lib.shear_block_error(err).decode()})")
+    v = list(out)
+    return dict(zip(GEOMETRY, v[:5] + [tuple(v[5:8]), tuple(v[8:11]),
+                                       tuple(v[11:14])]))
+
 
 def _bind(lib):
     for fn in (lib.shear_block_f32, lib.shear_block_f64):
         launcher_argtypes(fn, 7, 5)
+    for fn in (lib.shear_block_geometry_f32, lib.shear_block_geometry_f64):
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
     bind_error_string(lib.shear_block_error)
 
 

@@ -390,11 +390,14 @@ def test_slice_modules_phases_rehearse_on_cpu(cpu_rehearsal):
 
 def test_block_phase_rehearses_on_cpu(cpu_rehearsal):
     """Phase 19a at small N: every (dtype, N, B, tp) bit-equal to the plain
-    version and within the gates of the unsharded solve; the timed rows
-    at their shapes with the bound of one rank's rows; the defaults are
-    the card's shapes."""
+    version and within the gates of the unsharded solve; the timed rows at
+    their (N, tp, B), both dtypes, an N outside the checked ones and a
+    batch among them, each phase bit-equal and timed alone, with the bound
+    and the three-launch floor of one rank's rows; the defaults are the
+    card's shapes."""
     rows, times = chip_smoke.block_sweeps(
-        "cpu", Ns=(16, 24), Bs=(1, 2), tps=(2, 3, 4), timed=((24, 4),))
+        "cpu", Ns=(16, 24), Bs=(1, 2), tps=(2, 3, 4),
+        timed=((24, 4, 1), (16, 2, 2), (40, 4, 1)))
     assert len(rows) == 2 * 2 * 2 * 3
     assert all(r["max_abs_err"] == 0.0 for r in rows)
     for r in rows:
@@ -405,20 +408,51 @@ def test_block_phase_rehearses_on_cpu(cpu_rehearsal):
             assert r["vs_f64_rel"] <= max(1e-6, chip_smoke.BLOCK_ACCURACY_C64
                                           * r["shear_thomas_vs_f64_rel"])
             assert r["vs_shear_thomas_rel_m0"] <= 1e-6
-    assert [(t["dtype"], t["N"], t["tp"], t["rows"]) for t in times] == [
-        ("complex64", 24, 4, 6), ("complex128", 24, 4, 6)]
+    assert [(t["dtype"], t["N"], t["tp"], t["B"], t["rows"])
+            for t in times] == [
+        (dt, N, tp, B, R) for dt in ("complex64", "complex128")
+        for N, tp, B, R in ((24, 4, 1, 6), (16, 2, 2, 8), (40, 4, 1, 10))]
     for t in times:
         dtype = getattr(torch, t["dtype"])
+        assert t["max_abs_err"] == 0.0 and t["geometry"] is None
         assert (t["bound_ms"], t["bound_by"]) == chip_smoke.solve_bound(
-            24, 1, dtype, rows=6)
+            t["N"], t["B"], dtype, rows=t["rows"])
         assert t["share"] == t["bound_ms"] / t["ms"]
+        assert set(t["phase_ms"]) == set(t["phase_floor_ms"]) == {
+            "summary", "forward", "backward"}
+        assert t["floor_ms"] == pytest.approx(sum(t["phase_floor_ms"].values()),
+                                              rel=1e-12)
+        assert t["floor_share"] == t["floor_ms"] / t["ms"]
     assert chip_smoke.block_sweeps.__defaults__[:3] == (
         (512, 1024, 4096), (1, 4), (2, 3, 4))
-    assert chip_smoke.BLOCK_TIMED == ((1024, 2), (4096, 4))
+    assert chip_smoke.BLOCK_TIMED == ((1024, 2, 1), (4096, 4, 1),
+                                      (1024, 2, 4), (8192, 4, 1))
     # (16 B + 12) R (N+1) bytes at 3.35 TB/s, twice that in complex128
     ms, by = chip_smoke.solve_bound(4096, 1, torch.complex64, rows=1024)
     assert by == "bytes"
     assert ms == pytest.approx(28 * 1024 * 4097 / 3.35e9, rel=1e-12)
+    # the floor of three launches: 12 + 28 + 24 = 64 B an element at
+    # complex64, B=1; (40 B + 24) in general, twice that in complex128
+    phase, floor = chip_smoke.block_floor(1024, 1, torch.complex64, 512)
+    assert phase["summary"] == pytest.approx(12 * 512 * 1025 / 3.35e9,
+                                             rel=1e-12)
+    assert phase["forward"] == pytest.approx(28 * 512 * 1025 / 3.35e9,
+                                             rel=1e-12)
+    assert floor == pytest.approx(64 * 512 * 1025 / 3.35e9, rel=1e-12)
+    _, floor = chip_smoke.block_floor(1024, 4, torch.complex128, 512)
+    assert floor == pytest.approx(2 * 184 * 512 * 1025 / 3.35e9, rel=1e-12)
+
+
+def test_tp_phase_that_did_not_run_fails_the_run():
+    """main()'s gate after phase 19b: a run where every backend refused
+    the two ranks raises, naming the refusals; a run that ran passes."""
+    refused = {"ran": False, "refusals": {"nccl": "invalid usage",
+                                          "gloo": "timed out after 300 s"}}
+    with pytest.raises(AssertionError, match="did not run.*nccl: invalid "
+                                             "usage; gloo: timed out"):
+        chip_smoke.check_tp_ran(refused)
+    chip_smoke.check_tp_ran({"ran": True, "backend": "gloo",
+                             "refusals": {"nccl": "invalid usage"}})
 
 
 def test_tp_phase_rehearses_on_cpu(cpu_rehearsal):
@@ -457,7 +491,8 @@ def _dtype_kernel_table(fn, steps):
     with Spy():
         fn()
     return ({"gemm_c64": (counts[torch.complex64] / steps, 0.1),
-             "gemm_c128": (counts[torch.complex128] / steps, 0.2)}, 1.0)
+             "gemm_c128": (counts[torch.complex128] / steps, 0.2),
+             "shear_thomas_kernel": (5.0, 0.3)}, 1.0)
 
 
 def test_dw_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
@@ -480,3 +515,38 @@ def test_dw_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
         <= 1e-10
     assert [len(v) for v in dw["turns_steps_per_s"].values()] == [2, 2]
     assert chip_smoke.dw_steppers.__defaults__[:4] == (512, 200, 50, 5)
+
+
+def test_dw_phase_profiles_again_when_kernels_are_lost(cpu_rehearsal,
+                                                      monkeypatch):
+    """Phase 20 counts GEMMs only from a profile that holds every
+    ``shear_thomas`` launch: a profile that lost the window's first kernels
+    is taken again, and a GEMM count short on a whole profile still
+    fails."""
+    tables = []
+
+    def lossy(fn, steps):
+        table, wall = _dtype_kernel_table(fn, steps)
+        tables.append(table)
+        if len(tables) % 2:        # every other profile lost two kernels
+            table = dict(table, gemm_c64=(table["gemm_c64"][0] - 0.5, 0.1),
+                         shear_thomas_kernel=(4.5, 0.3))
+        return table, wall
+
+    monkeypatch.setattr(chip_smoke, "kernel_table", lossy)
+    monkeypatch.setattr(chip_smoke, "product_kernels",
+                        lambda device, shapes, dtype: {
+                            torch.complex64: {"gemm_c64"},
+                            torch.complex128: {"gemm_c128"}}[dtype])
+    dw = chip_smoke.dw_steppers("cpu", N=128, steps=2, mhd_steps=2, chunk=2)
+    assert len(tables) == 4
+    assert (dw["euler"]["cgemm_kernels_a_step"],
+            dw["mhd"]["cgemm_kernels_a_step"]) == (6, 12)
+
+    def short(fn, steps):
+        table, wall = _dtype_kernel_table(fn, steps)
+        return dict(table, gemm_c64=(table["gemm_c64"][0] - 1, 0.1)), wall
+
+    monkeypatch.setattr(chip_smoke, "kernel_table", short)
+    with pytest.raises(AssertionError, match="GEMM kernels a step"):
+        chip_smoke.dw_steppers("cpu", N=128, steps=2, mhd_steps=2, chunk=2)

@@ -135,10 +135,19 @@ def test_phases_contract():
         shear_block(SUMMARY, *fac, D.real.contiguous())
 
 
+#: shapes of the card tests, (N, tp, B), that reach each branch of the
+#: kernel's geometry: strips of 1, 4 or 8 columns, the last one ragged
+#: (M = 101, 258, 1001, 1025, 2049); rows within one ring (R = 1, 34, 65,
+#: 512) and rings that wrap (R = 2048); y kept in shared memory and read
+#: back (R = 2048); several batch entries a block (B = 3 in blocks of 2,
+#: B = 4 in one)
+CARD_SHAPES = [(100, 3, 1), (257, 4, 3), (1024, 2, 1), (9, 9, 2),
+               (1000, 2, 1), (1024, 2, 4), (2048, 1, 1)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
-@pytest.mark.parametrize("N,tp,B", [(100, 3, 1), (257, 4, 3), (1024, 2, 1),
-                                    (9, 9, 2)])
+@pytest.mark.parametrize("N,tp,B", CARD_SHAPES)
 def test_kernel_matches_reference_on_card(cuda, dtype, N, tp, B):
     """Every phase of the kernel bit-equal to the plain version on the
     card, on uneven and one-row blocks; the folded kernel solve within
@@ -152,6 +161,54 @@ def test_kernel_matches_reference_on_card(cuda, dtype, N, tp, B):
     assert shear_block.launches - before == 3 * tp
     assert torch.equal(x, plain)
     assert _rel(x, shear_thomas_reference(w, binv, u, D)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("N,tp,B", CARD_SHAPES)
+def test_each_phase_matches_reference_on_card(cuda, dtype, N, tp, B):
+    """On every rank's block: SUMMARY's end row, FORWARD's y and end row,
+    BACKWARD's x, each bit-equal to the plain version's from the same
+    inputs, one launch a phase."""
+    w, binv, u = tst._real_factors(N, dtype, device=cuda)
+    D = _rhs(N, B, dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(N + B)
+    for a, b in row_blocks(N, tp):
+        fac = (w[a:b].contiguous(), binv[a:b].contiguous(),
+               u[a:b].contiguous())
+        d = D[:, a:b].contiguous()
+        carry = torch.randn(B, N + 1, dtype=dtype, device=cuda, generator=g)
+        before = shear_block.launches
+        got = (shear_block(SUMMARY, *fac, d)[1],
+               *shear_block(FORWARD, *fac, d, carry),
+               shear_block(BACKWARD, *fac, d, carry)[0])
+        torch.cuda.synchronize()
+        assert shear_block.launches - before == 3
+        ref = (shear_block_reference(SUMMARY, *fac, d)[1],
+               *shear_block_reference(FORWARD, *fac, d, carry),
+               shear_block_reference(BACKWARD, *fac, d, carry)[0])
+        for x, y in zip(got, ref):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_geometry_on_card(cuda):
+    """The geometry read from the built library: at N=1024, tp=2, B=1 a
+    wave of blocks (at least 128 of the 132 SMs) with y kept in shared
+    memory; a block of R = 2048 rows reads y back in complex128; a batch
+    of 4 shares a block; every phase's block fits and runs."""
+    geo = cuda_block_solve.geometry
+    for dtype in (torch.complex64, torch.complex128):
+        g = geo(1, 512, 1025, dtype)
+        assert set(g) == set(cuda_block_solve.GEOMETRY)
+        assert g["blocks"] >= 128 and g["resident_y"] == 1
+        assert g["threads"] in (64, 96)  # a computing warp, 1 or 2 copying
+        assert g["strip_columns"] * g["batch_block"] <= 32
+        assert all(r >= 512 for r in g["ring_rows"])
+        assert all(b <= 232448 for b in g["shared_bytes"])
+        assert all(n >= 1 for n in g["blocks_per_sm"])
+    assert geo(1, 2048, 2049, torch.complex128)["resident_y"] == 0
+    assert geo(4, 512, 1025, torch.complex64)["batch_block"] > 1
 
 
 def test_library_is_built_from_its_source():
