@@ -4,9 +4,15 @@
     python3 chip_smoke.py
 
 Run from the repository root; it needs one CUDA device, nvcc, g++, and
-nothing of JAX.  Twenty phases, one line each (phases 14-19 one for each
-of their parts); any failure ends the run with a nonzero exit code and no
-result line.
+nothing of JAX.  Twenty-one phases, one line each (phases 14-19 one for
+each of their parts); any failure ends the run with a nonzero exit code
+and no result line.  The step runners replay CUDA graphs wherever their
+builders' rule captures (parallel/capture.py): phases 4, 5, 7-10, 13,
+14d, 14f, 15-17 and 20 run captured (14a-c and 14e take callable hooks
+and run eagerly); each comparison with a column solve's plain
+version (phases 4, 7, 15d) runs eagerly, inside ``config.eager()``, since
+a captured plain solve is thousands of graph nodes; phase 21 holds the
+replays to eager runs.
 
 1. device  - the card's name and power limit, as nvidia-smi reports them;
 2. build   - nvcc builds csrc/shear_thomas.cu, csrc/shear_scan.cu and
@@ -211,8 +217,23 @@ result line.
     18 + 12 products for MHD); steps/s of the dw and the complex128 Euler
     steppers in turns, beside phase 5's.
 
-Every path (phases 4, 5, 7-20) runs with every launch count set to 0 just
-before it and read just after.  Then a JSON line of the kernels
+21. CUDA-graph replay against eager, in turns in one process (eager,
+    replay, replay, eager), each run built or called inside
+    ``config.eager()`` for its eager turns: Euler N=1024 c64 (warm
+    'high') at B=1 and B=16, Euler N=512 c128, MHD N=1024 c64 (warm,
+    ``shear_scan``), phase 14d's adaptive c128 N=1024 stepper, ``isomp``
+    N=1024 c128 (tol 'auto') and ``MHDFlow.step`` (``magmp``) N=512 c128
+    at tol 1e-12: the final states bit-equal (or the cuBLAS kernels that
+    differ named), the same launches, steps/s of each turn, from a
+    profiled call of each mode the card's ms a step, kernels a step, the
+    solve's launches a step against the counters' and the idle share;
+    the graph pool's bytes; a replay's outputs not overwritten by the next
+    call.
+
+Every path (phases 4, 5, 7-21) runs with every launch count set to 0 just
+before it and read just after; a replay adds the launches its graph
+recorded at capture (the warm-up's and the capture's own are taken
+back).  Then a JSON line of the kernels
 (name, source, the TPU kernel it replaces, launches on each path, error,
 times and bound at the main path's shape; ``library_ms`` null, since no
 PyTorch call solves banded or tridiagonal systems) and, last, the result
@@ -484,9 +505,10 @@ def main_path_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
     z = torch.zeros_like(Wt)
     Wk = build_step_fn(N, dt, steps=compare_steps, maxit=maxit,
                        dtype=np.complex64, device=device)(Wt, z, z)[0]
-    Wp = build_step_fn(N, dt, steps=compare_steps, maxit=maxit,
-                       dtype=np.complex64, device=device,
-                       solver=shear_thomas_reference)(Wt, z, z)[0]
+    with config.eager():  # the plain solve: thousands of nodes a graph
+        Wp = build_step_fn(N, dt, steps=compare_steps, maxit=maxit,
+                           dtype=np.complex64, device=device,
+                           solver=shear_thomas_reference)(Wt, z, z)[0]
     step_rel = ((Wk - Wp).abs().max() / Wp.abs().max()).item()
     if not step_rel <= 1e-5:
         raise AssertionError(f"{compare_steps} steps kernel vs plain: "
@@ -639,7 +661,8 @@ def mhd_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
                                  solver=solver)
 
     Sk = run(shear_scan)(St, z, z)[0]
-    Sp = run(shear_scan_reference)(St, z, z)[0]
+    with config.eager():  # the plain scan: thousands of nodes a graph
+        Sp = run(shear_scan_reference)(St, z, z)[0]
     St_thomas = run(shear_thomas)(St, z, z)[0]
     step_rel = ((Sk - Sp).abs().max() / Sp.abs().max()).item()
     if not step_rel <= 1e-5:
@@ -730,9 +753,10 @@ def mhd_large(device, N=4096, steps=5, maxit=5):
 
 class SyncTimer:
     """Counts the host syncs of a fixed-point loop with a tolerance (one
-    ``.item()`` of the residual norm an iteration: ``_residual`` of
+    ``.item()`` of the residual norm an iteration: ``_read`` of
     integrators/isospectral for isomp, of parallel/stepper for the
-    steppers) and the host seconds spent in them, while installed."""
+    steppers, eager or replayed) and the host seconds spent in them, while
+    installed."""
 
     def __init__(self, module=isospectral):
         self.module = module
@@ -740,20 +764,20 @@ class SyncTimer:
         self.seconds = 0.0
 
     def __enter__(self):
-        self._residual = self.module._residual
+        self._read = self.module._read
 
-        def timed(a, b):
+        def timed(rn):
             t0 = time.perf_counter()
-            rn = self._residual(a, b)
+            value = self._read(rn)
             self.seconds += time.perf_counter() - t0
             self.calls += 1
-            return rn
+            return value
 
-        self.module._residual = timed
+        self.module._read = timed
         return self
 
     def __exit__(self, *exc):
-        self.module._residual = self._residual
+        self.module._read = self._read
 
 
 def chunk_iterations(log):
@@ -1436,8 +1460,11 @@ def ensemble_mhd(device, N=1024, B=4, steps=20, maxit=5, compare_steps=5):
 
         solver = Recorded(stepper.column_solver())
         fn = runner(steps, solver)
-        fn(S0, z, z)  # first call: host factors, cuBLAS set-up
+        fn(S0, z, z)  # first call: host factors, cuBLAS set-up, capture
         torch.cuda.synchronize()
+        # the solver's Python runs where the step does: captured, at the
+        # warm-up and the capture of one step; eager, at every step
+        first = list(solver.batches)
         solver.batches.clear()
         reset_counts()
         t0 = time.perf_counter()
@@ -1447,20 +1474,23 @@ def ensemble_mhd(device, N=1024, B=4, steps=20, maxit=5, compare_steps=5):
         counts = read_counts()
     expected = [2 * B] + [B] * maxit + [2 * B]
     if (counts != {"shear_thomas": 0, "shear_scan": steps * (maxit + 2)}
-            or solver.batches != expected * steps):
+            or first != expected * (2 if fn.captured else steps)
+            or solver.batches != ([] if fn.captured else expected * steps)):
         raise AssertionError(f"launches {counts}, ensemble sizes "
-                             f"{sorted(set(solver.batches))}")
+                             f"{sorted(set(first))}")
     if S.shape != (B, 2, N, N) or not finite(S):
         raise AssertionError(f"bad state {S.shape}")
     Sk = runner(compare_steps, shear_scan)(S0, z, z)[0]
-    Sp = runner(compare_steps, shear_scan_reference)(S0, z, z)[0]
+    with config.eager():
+        Sp = runner(compare_steps, shear_scan_reference)(S0, z, z)[0]
     step_rel = ratio(Sk, Sp)
     if not step_rel <= 1e-5:
         raise AssertionError(f"{compare_steps} steps kernel vs plain: "
                              f"relative difference {step_rel:.3e} > 1e-5")
     return dict(N=N, B=B, steps=steps, maxit=maxit, launches=counts,
-                launches_of_B=solver.batches.count(B),
-                launches_of_2B=solver.batches.count(2 * B),
+                captured=fn.captured,
+                launches_of_B=expected.count(B) * steps,
+                launches_of_2B=expected.count(2 * B) * steps,
                 kernel_vs_plain_steps=compare_steps, kernel_vs_plain=step_rel,
                 state_steps_per_s=B * steps / sec)
 
@@ -2452,6 +2482,215 @@ def dw_steppers(device, N=512, steps=200, mhd_steps=50, maxit=5, dw_iters=2,
                 turns_steps_per_s=turns, **out)
 
 
+def capture_cases(device, n_large=1024, n_small=512, B=16, steps=None):
+    """Phase 21's runs: name -> (make, steps a call, the column solve it
+    launches).  ``make(eager)`` builds the run (inside ``config.eager()``
+    when ``eager``) and returns ``(runner or None, call)``; ``call()``
+    takes the run's steps from its fixed initial state and returns its
+    outputs, the final state first.  ``steps``, when given, replaces every
+    run's steps a call."""
+    def stepper_run(build, S0, steps_, **kw):
+        N = S0.shape[-1]
+        z = torch.zeros_like(S0)
+
+        def make(eager, steps=steps_):
+            with config.eager() if eager else contextlib.nullcontext():
+                fn = build(N, 0.25 * hbar(N), steps=steps, device=device,
+                           **kw)
+            return fn, lambda: fn(S0, z, z)
+        return make
+
+    def loop_run(fn, S0, steps_, **kw):
+        dt = 0.25 * hbar(S0.shape[-1])
+
+        def make(eager, steps=steps_):
+            def call():
+                with config.eager() if eager else contextlib.nullcontext():
+                    stats = {}
+                    return fn(S0, dt, steps=steps, stats=stats, **kw), stats
+            return None, call
+        return make
+
+    def euler(N, dtype, B=None):
+        W = (EulerFlow(N, dtype).random_initial(lmax=10, seed=42) if B is None
+             else euler_members(N, B, dtype))
+        return torch.from_numpy(W).to(device)
+
+    S_mhd = torch.from_numpy(MHDFlow(n_large, np.complex64).random_initial(
+        lmax=10, seed=42)).to(device)
+    S_mhd128 = torch.from_numpy(MHDFlow(n_small, np.complex128).random_initial(
+        lmax=10, seed=42)).to(device)
+    cases = {
+        f"euler_c64_N{n_large}_B1_warm": (stepper_run(
+            build_step_fn, euler(n_large, np.complex64), 50,
+            warm_precision="high"), 50, shear_thomas),
+        f"euler_c64_N{n_large}_B{B}_warm": (stepper_run(
+            build_step_fn, euler(n_large, np.complex64, B), 10,
+            warm_precision="high", batched=True), 10, shear_thomas),
+        f"euler_c128_N{n_small}": (stepper_run(
+            build_step_fn, euler(n_small, np.complex128), 50,
+            dtype=np.complex128), 50, shear_thomas),
+        f"mhd_c64_N{n_large}_scan_warm": (stepper_run(
+            build_mhd_step_fn, S_mhd, 20, warm_precision="high",
+            solver=shear_scan), 20, shear_scan),
+        f"adaptive_euler_c128_N{n_large}": (stepper_run(
+            build_step_fn, euler(n_large, np.complex128), 20,
+            dtype=np.complex128, compsum=True, tol=1e-12, maxit=20),
+            20, shear_thomas),
+        f"isomp_c128_N{n_large}": (loop_run(
+            isomp, euler(n_large, np.complex128), 20), 20, shear_thomas),
+        f"magmp_c128_N{n_small}": (loop_run(
+            MHDFlow(n_small, np.complex128).step, S_mhd128, 20, tol=1e-12,
+            maxit=20), 20, shear_thomas),
+    }
+    if steps is None:
+        return cases
+    return {name: (functools.partial(make, steps=steps), steps, kernel)
+            for name, (make, _, kernel) in cases.items()}
+
+
+def graph_pool_bytes(runner):
+    """The graph pool of a phase-21 replay: the runner's, or for isomp and
+    magmp that of the captured loop last used."""
+    if runner is not None:
+        graphs = runner.graphs
+    elif isospectral._LOOPS:
+        graphs = next(reversed(isospectral._LOOPS.values())).graphs
+    else:
+        graphs = None
+    return None if graphs is None else graphs.pool_bytes()
+
+
+def padded_table(call, steps, device, pad=32):
+    """kernel_table of ``call`` after ``pad`` spin kernels
+    (``torch.cuda._sleep``) on a card: the profiler can lose a window's
+    first kernels, and the spins are what it loses; they are dropped from
+    the table."""
+    def padded():
+        if torch.device(device).type == "cuda":
+            for _ in range(pad):
+                torch.cuda._sleep(1)
+        return call()
+
+    table, wall_ms = kernel_table(padded, steps)
+    return {k: v for k, v in table.items() if "spin_kernel" not in k}, wall_ms
+
+
+def replay_vs_eager(device, cases=None):
+    """Phase 21: each run of :func:`capture_cases` replayed (CUDA graphs)
+    against the same run eager (built or called inside ``config.eager()``),
+    in turns in one process (eager, replay, replay, eager) after a first
+    call of each: the final states (bit-equal expected), steps/s of each
+    turn, launches of the column solve a call (counters), and from one
+    profiled call of each mode the card's ms a step, the kernels a step,
+    the solve's launches a step (the profiled window opens with spin
+    kernels, which the profiler may lose in its place; a profile short of
+    the counters' is taken again, up to three times)
+    and the idle share (1 - device ms / the turns' median host ms a step);
+    the graph pool's bytes; a replay's outputs not overwritten by the next
+    call."""
+    cases = capture_cases(device) if cases is None else cases
+    rows = {}
+    for name, (make, steps, kernel) in cases.items():
+        runs = {mode: make(mode == "eager") for mode in ("eager", "replay")}
+        first_s, outs, turns, launches = {}, {}, {}, {}
+        for mode, (_, call) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()  # builds, uploads, and the replay's capture
+            torch.cuda.synchronize()
+            first_s[mode] = time.perf_counter() - t0
+        for mode in ("eager", "replay", "replay", "eager"):
+            call = runs[mode][1]
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            turns.setdefault(mode, []).append(
+                steps / (time.perf_counter() - t0))
+            n = read_counts()[kernel.__name__]
+            if launches.setdefault(mode, n) != n:
+                raise AssertionError(f"{name} {mode}: launches {n} and "
+                                     f"{launches[mode]} in two calls")
+            outs.setdefault(mode, out)
+        state = {m: o[0] for m, o in outs.items()}
+        diff = (state["replay"] - state["eager"]).abs().max().item()
+        if launches["replay"] != launches["eager"]:
+            raise AssertionError(f"{name}: launches {launches}")
+        if not finite(state["replay"]):
+            raise AssertionError(f"{name}: non-finite replay")
+        row = dict(kernel=kernel.__name__, steps=steps,
+                   bit_equal=bool(torch.equal(state["replay"],
+                                              state["eager"])),
+                   max_abs_diff=diff, launches_a_call=launches,
+                   first_call_s=first_s, steps_per_s=turns)
+        if len(outs["replay"]) > 3 and isinstance(outs["replay"][3],
+                                                  torch.Tensor):
+            row["iterations_equal"] = bool(torch.equal(outs["replay"][3],
+                                                       outs["eager"][3]))
+        elif isinstance(outs["replay"][-1], dict):
+            row["iterations_a_step"] = {m: o[-1]["iterations"]
+                                        for m, o in outs.items()}
+            row["iterations_equal"] = (outs["replay"][-1]["iterations"]
+                                       == outs["eager"][-1]["iterations"])
+        names = {}
+        for mode, (runner, call) in runs.items():
+            expected = launches[mode] / steps
+            for _ in range(3):
+                table, _ = padded_table(call, steps, device)
+                solves = sum(c for k, (c, _) in table.items()
+                             if kernel.__name__ in k)
+                if solves >= expected:
+                    break
+            device_ms = sum(ms for _, ms in table.values())
+            host_ms = 1e3 / float(np.median(turns[mode]))
+            names[mode] = set(table)
+            captured = (runner.captured or runner.captured_iteration
+                        if runner is not None else mode == "replay"
+                        and torch.device(device).type == "cuda")
+            row[mode] = dict(
+                captured=captured, device_ms_a_step=device_ms,
+                host_ms_a_step=host_ms, idle_share=1.0 - device_ms / host_ms,
+                kernels_a_step=sum(c for c, _ in table.values()),
+                solve_launches_a_step_profiled=solves,
+                solve_launches_a_step_counted=expected)
+            if round(solves, 6) != round(expected, 6):
+                raise AssertionError(
+                    f"{name} {mode}: the profile shows {solves} "
+                    f"{kernel.__name__} a step, the counters {expected}")
+        row["replay"]["graph_pool_bytes"] = graph_pool_bytes(
+            runs["replay"][0])
+        if not row["bit_equal"]:
+            # cuBLAS may pick other kernels under capture: name them; the
+            # earlier phases hold the captured runs to the drift gates
+            row["kernels_only_replay"] = sorted(k[:72] for k in
+                                                names["replay"] - names["eager"])
+            row["kernels_only_eager"] = sorted(k[:72] for k in
+                                               names["eager"] - names["replay"])
+            if not (row["kernels_only_replay"] or row["kernels_only_eager"]):
+                raise AssertionError(f"{name}: the replay differs from the "
+                                     f"eager run by {diff:.3e} on the same "
+                                     "kernels")
+        row["speedup"] = (float(np.median(turns["replay"]))
+                          / float(np.median(turns["eager"])))
+        if (not row["replay"]["captured"]
+                and torch.device(device).type == "cuda"):
+            raise AssertionError(f"{name}: the replay run did not capture")
+        # a replay's outputs are fresh: the next call leaves them be
+        runner, call = runs["replay"]
+        if runner is not None:
+            a = call()
+            kept = a[0].clone()
+            b = call()
+            if not torch.equal(a[0], kept) or a[0].data_ptr() == \
+                    b[0].data_ptr():
+                raise AssertionError(f"{name}: a replay's output was "
+                                     "overwritten by the next call")
+        rows[name] = row
+    return rows
+
+
 def main():
     if sys.argv[1:2] == ["--tp-rank"]:  # a rank of phase 19b
         rank, backend, tmp, N, steps, maxit, device, dtype = sys.argv[2:10]
@@ -2610,6 +2849,15 @@ def main():
     print("phase 20 double-word steppers c128 N=512: " + json.dumps(dw),
           flush=True)
 
+    replays = replay_vs_eager(device)
+    print("phase 21 CUDA-graph replay vs eager: " + json.dumps(replays),
+          flush=True)
+
+    def replayed(kernel):
+        """Phase 21's replayed paths of ``kernel``: launches of a call."""
+        return {f"replay_{name}": row["launches_a_call"]["replay"]
+                for name, row in replays.items() if row["kernel"] == kernel}
+
     def main_row(rows):
         return next(r for r in rows if r["dtype"] == "complex64"
                     and r["N"] == 1024 and r["B"] == 1)
@@ -2648,7 +2896,8 @@ def main():
                 kara["highest_karatsuba"]["launches"],
             "adaptive_warm_euler_c64_N1024": aw["warm"]["launches"],
             "native_vs_solve_poisson_c128_N512":
-                nat["launches"]["shear_thomas"]},
+                nat["launches"]["shear_thomas"],
+            **replayed("shear_thomas")},
         "max_abs_err": max(r["max_abs_err"] for r in rows + ens_rows),
         **timing(rows),
         "library_ms": None,
@@ -2669,7 +2918,8 @@ def main():
             "ensemble_mhd_c64_N1024_B4": ens_mhd["launches"]["shear_scan"],
             "warm_mhd_c64_N1024": m64["integrator_launches"]["shear_scan"],
             "warm_off_mhd_c64_N1024":
-                wm["full"]["integrator_launches"]["shear_scan"]},
+                wm["full"]["integrator_launches"]["shear_scan"],
+            **replayed("shear_scan")},
         "max_abs_err": max(r["max_abs_err"]
                            for r in scan_rows + ragged + scan_b2),
         **timing(scan_rows),

@@ -22,6 +22,12 @@ cuBLAS's TF32 on around their complex64 GEMMs only, through
 global is touched: torch's default dtype stays float32 (unlike quflow_tpu,
 which enables x64 on import), and every builder takes an explicit
 ``dtype`` and ``device``.
+
+On a card the step runners replay CUDA graphs (parallel/capture.py, the
+port's counterpart of ``jax.jit``).  :func:`eager`, the counterpart of
+``jax.disable_jit()``, makes runners built or first called inside it run
+every kernel from Python instead, so that a replay can be held to the
+eager run.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["device", "to_tensor", "like_input", "torch_dtype", "numpy_dtype",
-           "tf32_matmul", "TIERS"]
+           "tf32_matmul", "eager", "is_eager", "TIERS"]
 
 #: complex state dtype -> real working dtype of its solve
 TIERS = {
@@ -110,3 +116,26 @@ def tf32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = previous
+
+
+_eager_depth = 0
+
+
+@contextlib.contextmanager
+def eager():
+    """Runners built or first called inside the block run eagerly, as
+    ``jax.disable_jit()`` makes quflow_tpu's run: no CUDA graph is captured
+    or replayed (parallel/capture.py).  The choice sticks to a runner after
+    its first call.  It is for holding replays to eager runs (tests, the
+    smoke), not a per-call switch."""
+    global _eager_depth
+    _eager_depth += 1
+    try:
+        yield
+    finally:
+        _eager_depth -= 1
+
+
+def is_eager():
+    """Whether an :func:`eager` block is open."""
+    return _eager_depth > 0

@@ -3,14 +3,20 @@
 Counterpart of quflow_tpu/integrators/isospectral.py (reference
 quflow/integrators/isospectral.py: ``isomp_fixedpoint`` :338-613,
 ``isomp_quasinewton`` :155-255, ``isomp_simple`` :258-335,
-``estimate_stepsize`` :121-148), run eagerly on torch tensors.  The step
-loop is a Python loop.  The fixed-point loop keeps quflow_tpu's exit rule,
+``estimate_stepsize`` :121-148), on torch tensors.  The step loop is a
+Python loop.  The fixed-point loop keeps quflow_tpu's exit rule,
 
     stop when i >= minit and (rn <= tol or rn >= rn_old), or at i = maxit,
 
 with rn the inf-norm of the change of dW, read on the host once an
-iteration (one ``.item()``, the loop's only host sync).  The update is the
-last iteration's 2 (PW - (PW)^H), Kahan-compensated with ``compsum``.
+iteration (one ``.item()``, the loop's only host sync), where quflow_tpu
+exits a device ``lax.while_loop``.  On a CUDA device, with no
+``hamiltonian`` and no ``forcing``, the iteration is one CUDA graph
+(parallel/capture.py) replayed from that loop, kept between calls of the
+same configuration (the last few); otherwise, and inside
+``config.eager()``, every kernel is issued from Python.  Either way the
+counts and results are the same.  The update is the last iteration's
+2 (PW - (PW)^H), Kahan-compensated with ``compsum``.
 parallel.stepper.IsompTorch is the other integrator: a fixed iteration
 count with no sync, and other results.
 
@@ -26,6 +32,8 @@ them, so complex64 stays complex64.
 
 from __future__ import annotations
 
+import contextlib
+from collections import OrderedDict
 from functools import partial
 
 import numpy as np
@@ -159,36 +167,138 @@ def _auto_tol(W, Wt, dt, hb, sqrt_eps):
     return float(eps * dt / hb * norm)
 
 
-def _fixed_point(W, dW, ham, force, skewh, vareps, tol, dt_half, maxit,
-                 minit):
-    """One step's fixed-point loop from the warm start ``dW``.  Returns
-    (dW, PWc, FW, iterations, hit_maxit)."""
-    i, rn, rn_old = 0, np.inf, np.inf
+def _iteration(W, dW, ham, force, skewh, vareps, dt_half):
+    """One fixed-point iteration from ``dW``: (dW_new, PWc, FW)."""
+    Whalf = W + dW
+    Phalf = ham(Whalf) * vareps
+    PW = Phalf @ Whalf
+    dW_new = PW @ Phalf
+    if skewh:
+        PWc = PW - PW.mH
+    else:
+        PWc = PW - Whalf @ Phalf
+    dW_new = dW_new + PWc
     FW = None
+    if force is not None:
+        FW = force(Phalf / vareps, Whalf) * dt_half
+        dW_new = dW_new + FW
+    return dW_new, PWc, FW
+
+
+def _residual_norm(dW_new, dW):
+    """||dW - dW_new||_inf, a 0-d tensor on their device."""
+    return _norm_inf(dW - dW_new)
+
+
+def _read(rn):
+    """The residual ``rn`` (a 0-d tensor) as a Python float: the host sync
+    of an iteration."""
+    return rn.item()
+
+
+def _converge(iteration, tol, maxit, minit, reduce_max=None):
+    """quflow_tpu's exit rule (quflow_tpu/parallel/stepper.py:773-807)
+    over ``iteration()``, which runs one iteration and returns its residual
+    as a host float: stop when i >= minit and (rn <= tol or rn >= rn_old),
+    or at i = maxit; under a mesh rn is the max over its ranks
+    (``reduce_max``).  Returns (iterations, whether the cap ended the
+    loop).  The steppers of parallel/stepper.py exit by it too."""
+    i, rn, rn_old = 0, np.inf, np.inf
     while i < maxit and not (i >= minit and (rn <= tol or rn >= rn_old)):
-        Whalf = W + dW
-        Phalf = ham(Whalf) * vareps
-        PW = Phalf @ Whalf
-        dW_new = PW @ Phalf
-        if skewh:
-            PWc = PW - PW.mH
-        else:
-            PWc = PW - Whalf @ Phalf
-        dW_new = dW_new + PWc
-        if force is not None:
-            FW = force(Phalf / vareps, Whalf) * dt_half
-            dW_new = dW_new + FW
-        rn_old, rn = rn, _residual(dW, dW_new)
-        dW = dW_new
+        rn_new = iteration()
+        if reduce_max is not None:
+            rn_new = reduce_max(rn_new)
+        rn_old, rn = rn, rn_new
         i += 1
-    hit = i >= maxit and not (rn <= tol or rn >= rn_old)
-    return dW, PWc, FW, i, hit
+    return i, i >= maxit and not (rn <= tol or rn >= rn_old)
 
 
-def _residual(dW, dW_new):
-    """||dW - dW_new||_inf as a Python float: the host sync of an
-    iteration."""
-    return _norm_inf(dW - dW_new).item()
+class _Loop:
+    """The fixed-point loop of every step of a run, eager:
+    ``iteration(W, dW) -> (dW_new, *rest)`` from the warm start :attr:`dW`,
+    which the loop keeps between steps.  A call returns (the last
+    iteration's rest, iterations, whether the cap ended the loop)."""
+
+    def __init__(self, iteration, dW):
+        self.iteration, self.dW = iteration, dW
+
+    def __call__(self, W, tol, maxit, minit):
+        rest = []
+
+        def once():
+            dW_new, *rest[:] = self.iteration(W, self.dW)
+            rn = _read(_residual_norm(dW_new, self.dW))
+            self.dW = dW_new
+            return rn
+
+        return (rest, *_converge(once, tol, maxit, minit))
+
+    def reset(self):
+        self.dW = torch.zeros_like(self.dW)
+
+
+class _CapturedLoop:
+    """:class:`_Loop` on one captured iteration (parallel.capture.Iteration
+    over static W and dW): a step copies its W in and replays the graph
+    until the exit rule, one host read of the residual an iteration.  The
+    rest it returns are the graph's static buffers."""
+
+    def __init__(self, iteration, W):
+        from ..parallel import capture
+
+        self.W, dW = capture.static_copy(W), torch.zeros_like(W)
+        self.graphs = capture.Graphs(W.device)
+        self.it = capture.Iteration(self.graphs, iteration, _residual_norm,
+                                    self.W, dW)
+
+    def __call__(self, W, tol, maxit, minit):
+        self.W.copy_(W)
+        return (self.it.rest,
+                *_converge(lambda: _read(self.it()), tol, maxit, minit))
+
+    def reset(self):
+        self.it.dW.zero_()
+
+
+#: the captured loops of isomp and magmp between their calls, by the
+#: configuration their graph holds; each keeps a graph pool and its static
+#: state on the card, so only the last few are kept
+_LOOPS = OrderedDict()
+_LOOPS_KEPT = 4
+
+
+@contextlib.contextmanager
+def _fixed_point_loop(iteration, W, key):
+    """The fixed-point loop of a run from a zero warm start: eager
+    (:class:`_Loop`) when ``key`` is None, else the :class:`_CapturedLoop`
+    of ``key``, captured at the first run of that configuration (``key``
+    names all that its graph holds: the state's shape, dtype and device,
+    the scalars and the column solve) and kept for the next."""
+    if key is None:
+        yield _Loop(iteration, torch.zeros_like(W))
+        return
+    loop = _LOOPS.pop(key, None)  # a nested run of one key gets its own
+    if loop is None:
+        loop = _CapturedLoop(iteration, W)
+    loop.reset()
+    try:
+        yield loop
+    finally:
+        _LOOPS[key] = loop
+        while len(_LOOPS) > _LOOPS_KEPT:
+            _LOOPS.popitem(last=False)
+
+
+def _capture_key(name, W, *config_):
+    """The key of a captured loop of ``name`` for the state ``W``, or None
+    where the run stays eager (not a CUDA device, or config.eager())."""
+    from ..ops.shear_solve import column_solver
+    from ..parallel import capture
+
+    if not capture.available(W.device):
+        return None
+    return (name, tuple(W.shape), W.dtype, W.device, *config_,
+            column_solver())
 
 
 def isomp_fixedpoint(
@@ -218,13 +328,23 @@ def isomp_fixedpoint(
     W += 2(PW - (PW)^H) from the last iteration, optional forcing / Strang
     splitting / Kahan summation / per-step ``callback(W_prev, upd)`` and
     ``stats``: 'iterations' and 'number_of_maxit' a step, 'tol_auto').
-    The callback gets numpy for a numpy state, tensors for a tensor.
+    The callback gets numpy for a numpy state, tensors for a tensor (never
+    a buffer that a later step overwrites).
+
+    On a CUDA device with no ``hamiltonian`` and no ``forcing`` (outside
+    ``config.eager()``), each step's fixed-point iteration is one CUDA
+    graph (parallel/capture.py), captured at the call and replayed until
+    the exit rule, which reads the residual on the host once an
+    iteration as the eager loop does; a Strang splitting runs eagerly
+    between the replays.  Iteration counts and results are the eager
+    loop's.
     """
     _check_iterations(minit, maxit)
+    Wt = config.to_tensor(W, device)
+    captured = hamiltonian is None and forcing is None
     if hamiltonian is None:
         hamiltonian = partial(solve_poisson, skewh=skewh)
 
-    Wt = config.to_tensor(W, device)
     N = Wt.shape[-1]
     hb = hbar(N)
     rd = config.numpy_dtype(Wt.real.dtype)
@@ -264,37 +384,40 @@ def isomp_fixedpoint(
     def host(A):
         return config.like_input(A, W)
 
-    dW = torch.zeros_like(Wt)
-    csum = torch.zeros_like(Wt) if compsum else None
-    total_iters = total_maxit = 0
-    for _ in range(steps):
-        W_prev = Wt
-        if strang_splitting is not None:
-            Wt = _like(strang_splitting(float(dt) / 2, Wt), Wt)
-        if reinitialize:
-            dW = torch.zeros_like(dW)
-        dW, PWc, FW, i, hit = _fixed_point(
-            Wt, dW, ham, force, skewh, vareps, tol_r, float(dt_half), maxit,
-            minit)
-        upd = 2.0 * PWc
-        if compsum:
-            # Kahan compensated summation W += upd
-            y = upd - csum
-            tS = Wt + y
-            csum = (tS - Wt) - y
-            Wt = tS
-        else:
-            Wt = Wt + upd
-        if forcing is not None:
-            Wt = Wt + 2.0 * FW
-        if timed:
-            t = t + dt_r
-        if strang_splitting is not None:
-            Wt = _like(strang_splitting(float(dt) / 2, Wt), Wt)
-        if callback is not None:
-            callback(host(W_prev), host(upd))
-        total_iters += i
-        total_maxit += int(hit)
+    def iteration(Wh, dW):
+        return _iteration(Wh, dW, ham, force, skewh, vareps, float(dt_half))
+
+    key = (_capture_key("isomp", Wt, skewh, vareps, float(dt_half))
+           if captured else None)
+    with _fixed_point_loop(iteration, Wt, key) as loop:
+        csum = torch.zeros_like(Wt) if compsum else None
+        total_iters = total_maxit = 0
+        for _ in range(steps):
+            W_prev = Wt
+            if strang_splitting is not None:
+                Wt = _like(strang_splitting(float(dt) / 2, Wt), Wt)
+            if reinitialize:
+                loop.reset()
+            (PWc, FW), i, hit = loop(Wt, tol_r, maxit, minit)
+            upd = 2.0 * PWc
+            if compsum:
+                # Kahan compensated summation W += upd
+                y = upd - csum
+                tS = Wt + y
+                csum = (tS - Wt) - y
+                Wt = tS
+            else:
+                Wt = Wt + upd
+            if forcing is not None:
+                Wt = Wt + 2.0 * FW
+            if timed:
+                t = t + dt_r
+            if strang_splitting is not None:
+                Wt = _like(strang_splitting(float(dt) / 2, Wt), Wt)
+            if callback is not None:
+                callback(host(W_prev), host(upd))
+            total_iters += i
+            total_maxit += int(hit)
 
     if verbatim:
         print("Average number of iterations per step: {:.2f}".format(

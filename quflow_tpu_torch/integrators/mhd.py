@@ -14,7 +14,6 @@ Laplacian of Theta is elementwise.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from .. import config
 from ..ops.geometry import hbar
@@ -22,9 +21,10 @@ from ..ops.laplacian import laplace, solve_poisson
 from .isospectral import (
     _auto_tol,
     _check_iterations,
+    _capture_key,
+    _fixed_point_loop,
     _like,
     _probe_autonomous,
-    _residual,
 )
 
 __all__ = ["solve_mhd", "magmp_fixedpoint", "magmp"]
@@ -40,33 +40,26 @@ def solve_mhd(state, *, device=None):
     return P, B
 
 
-def _fixed_point(W, dW, ham, force, vareps, tol, dt_half, maxit, minit):
-    """One step's fixed-point loop from the warm start ``dW``.  Returns
-    (dW, PWc, BTc, FW, iterations, hit_maxit)."""
-    i, rn, rn_old = 0, np.inf, np.inf
+def _iteration(W, dW, ham, force, vareps, dt_half):
+    """One fixed-point iteration from ``dW``: (dW_new, PWc, BTc, FW)."""
+    Whalf = W + dW
+    Thetahalf = Whalf[1]
+    Phalf, Bhalf = ham(Whalf)
+    Phalf = Phalf * vareps
+    Bhalf = Bhalf * vareps
+    PWc = Phalf @ Whalf  # broadcasts over the 2 components
+    BTc = Bhalf @ Thetahalf
+    dW_new = PWc @ Phalf
+    BTP = BTc @ Phalf
+    PWc = PWc - PWc.mH
+    BTc = BTc - BTc.mH
+    dW_new = dW_new + PWc
+    dW_new[0] += BTP - BTP.mH + BTc
     FW = None
-    while i < maxit and not (i >= minit and (rn <= tol or rn >= rn_old)):
-        Whalf = W + dW
-        Thetahalf = Whalf[1]
-        Phalf, Bhalf = ham(Whalf)
-        Phalf = Phalf * vareps
-        Bhalf = Bhalf * vareps
-        PWc = Phalf @ Whalf  # broadcasts over the 2 components
-        BTc = Bhalf @ Thetahalf
-        dW_new = PWc @ Phalf
-        BTP = BTc @ Phalf
-        PWc = PWc - PWc.mH
-        BTc = BTc - BTc.mH
-        dW_new = dW_new + PWc
-        dW_new[0] += BTP - BTP.mH + BTc
-        if force is not None:
-            FW = force(Phalf / vareps, Whalf) * dt_half
-            dW_new = dW_new + FW
-        rn_old, rn = rn, _residual(dW, dW_new)
-        dW = dW_new
-        i += 1
-    hit = i >= maxit and not (rn <= tol or rn >= rn_old)
-    return dW, PWc, BTc, FW, i, hit
+    if force is not None:
+        FW = force(Phalf / vareps, Whalf) * dt_half
+        dW_new = dW_new + FW
+    return dW_new, PWc, BTc, FW
 
 
 def magmp_fixedpoint(
@@ -90,9 +83,15 @@ def magmp_fixedpoint(
 
     ``stats`` gets 'iterations' and 'maxit' (the fraction of steps that hit
     the cap) a step, and 'tol' when it is 'auto'; ``callback(W_prev,
-    W_new - W_prev)`` runs each step, with numpy for a numpy state."""
+    W_new - W_prev)`` runs each step, with numpy for a numpy state.
+
+    On a CUDA device with the default ``hamiltonian`` (:func:`solve_mhd`)
+    and no ``forcing`` (outside ``config.eager()``), each step's
+    fixed-point iteration is one CUDA graph, replayed until the exit rule
+    as in ``isomp_fixedpoint``."""
     _check_iterations(minit, maxit)
     Wt = config.to_tensor(W, device)
+    captured = hamiltonian is solve_mhd and forcing is None
     N = Wt.shape[-1]
     hb = hbar(N)
     rd = config.numpy_dtype(Wt.real.dtype)
@@ -129,25 +128,28 @@ def magmp_fixedpoint(
                              Whalf)
             return _like(forcing(P, Whalf), Whalf)
 
-    dW = torch.zeros_like(Wt)
-    total_iters = total_maxit = 0
-    for _ in range(steps):
-        if reinitialize:
-            dW = torch.zeros_like(dW)
-        dW, PWc, BTc, FW, i, hit = _fixed_point(
-            Wt, dW, ham, force, vareps, tol_r, float(dt_half), maxit, minit)
-        W_new = Wt + 2.0 * PWc
-        W_new[0] += 2.0 * BTc
-        if forcing is not None:
-            W_new = W_new + 2.0 * FW
-        if timed:
-            t = t + dt_r
-        if callback is not None:
-            callback(config.like_input(Wt, W),
-                     config.like_input(W_new - Wt, W))
-        Wt = W_new
-        total_iters += i
-        total_maxit += int(hit)
+    def iteration(Wh, dW):
+        return _iteration(Wh, dW, ham, force, vareps, float(dt_half))
+
+    key = _capture_key("magmp", Wt, vareps) if captured else None
+    with _fixed_point_loop(iteration, Wt, key) as loop:
+        total_iters = total_maxit = 0
+        for _ in range(steps):
+            if reinitialize:
+                loop.reset()
+            (PWc, BTc, FW), i, hit = loop(Wt, tol_r, maxit, minit)
+            W_new = Wt + 2.0 * PWc
+            W_new[0] += 2.0 * BTc
+            if forcing is not None:
+                W_new = W_new + 2.0 * FW
+            if timed:
+                t = t + dt_r
+            if callback is not None:
+                callback(config.like_input(Wt, W),
+                         config.like_input(W_new - Wt, W))
+            Wt = W_new
+            total_iters += i
+            total_maxit += int(hit)
 
     if verbatim:
         print("Average number of iterations per step: {:.2f}".format(

@@ -96,11 +96,13 @@ def _laplace_core(P, op):
 
 def _complex(W):
     """A real tensor as the complex tensor of its precision (the column
-    solve takes complex right-hand sides)."""
+    solve takes complex right-hand sides): float32 solves in complex64;
+    float64, integers and bools solve in complex128, as quflow_tpu solves
+    them in float64."""
     if W.is_complex():
         return W
-    return W.to(torch.complex128 if W.dtype == torch.float64
-                else torch.complex64)
+    return W.to(torch.complex64 if W.dtype == torch.float32
+                else torch.complex128)
 
 
 def _lower_mirrored(X):

@@ -11,6 +11,7 @@ choice and the factor caches are one for the whole package.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from collections import OrderedDict
 from functools import lru_cache
@@ -108,9 +109,32 @@ class DeviceCache:
     def __init__(self):
         self._values = OrderedDict()
         self.nbytes = 0
+        self._held = []  # the dicts of the open hold() blocks
+
+    @contextlib.contextmanager
+    def hold(self, held):
+        """Inside the block, :meth:`get` answers from the dict ``held``
+        first and puts every value it returns there.  A captured CUDA graph
+        (parallel/capture.py) keeps its ``held`` for as long as it lives:
+        an eviction then cannot free an operator the graph reads, and a
+        capture, which may not copy from the host, never rebuilds one its
+        warm-up made."""
+        self._held.append(held)
+        try:
+            yield
+        finally:
+            self._held.pop()
 
     def get(self, key, build):
         """The value of ``key``, made by ``build()`` on a miss."""
+        if self._held and key in self._held[-1]:
+            return self._held[-1][key]
+        value = self._get(key, build)
+        if self._held:
+            self._held[-1][key] = value
+        return value
+
+    def _get(self, key, build):
         value = self._values.get(key)
         if value is not None:
             self._values.move_to_end(key)

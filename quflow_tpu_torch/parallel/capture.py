@@ -1,0 +1,168 @@
+"""CUDA graphs of the step runners: the port's counterpart of ``jax.jit``.
+
+quflow_tpu compiles each runner into one XLA program: ``jax.jit`` of a
+``lax.scan`` over the steps (quflow_tpu/parallel/stepper.py:852-885 for
+``build_step_fn``, :1473 for the dw builder, :1964 for
+``build_mhd_step_fn``), the adaptive fixed point a device
+``lax.while_loop`` (quflow_tpu/integrators/isospectral.py:237-241,
+integrators/mhd.py:111-115).  Its counterpart here is a CUDA graph: the
+kernels of one step, or of one fixed-point iteration, are captured once
+with ``torch.cuda.CUDAGraph`` and then replayed, so that the host issues
+one graph launch where it issued every kernel.  This module is the one
+place where graphs are captured, replayed and counted.
+
+* :class:`Graphs` keeps the graphs of one runner: one private memory pool
+  (``torch.cuda.graph_pool_handle``), released with the runner, and the
+  device operators its graphs read (``ops.shear_solve.device_cache.hold``:
+  an eviction cannot free them under a graph, and a capture never uploads
+  one).  :meth:`Graphs.capture` runs each piece once eagerly on a side
+  stream, the warm-up (nvcc builds, cuBLAS handles and workspaces, device
+  operators uploaded), then captures each.
+* A piece reads and writes static tensors allocated outside the pool
+  (:func:`static_copy`); what it allocates itself is scratch.  So the pieces
+  of one runner share its pool and replay in any order.  The warm-up steps
+  the static tensors, so a caller loads them after a capture and before
+  each run: the caller's own trajectory is never stepped twice.
+* The kernels' launch counters (``shear_thomas.launches``, ...) advance in
+  Python, where a wrapper launches, and a replay launches without Python.
+  A graph records the counters' advance while it is captured,
+  :meth:`Graph.replay` adds it once a replay, and the warm-up's and the
+  capture's own advances are taken back.
+* :class:`Iteration` is one fixed-point iteration as a graph, replayed from
+  a host loop that keeps quflow_tpu's exit rule and reads the residual once
+  an iteration.
+
+Which runners capture is decided by their builders from the configuration
+alone (parallel/stepper.py, integrators/isospectral.py, integrators/mhd.py);
+:func:`available` is the part every rule shares.  A capture that fails
+raises: nothing falls back to eager.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import config
+from ..ops.cuda_block_solve import shear_block
+from ..ops.cuda_scan_solve import shear_scan
+from ..ops.cuda_solve import shear_thomas
+from ..ops.shear_solve import device_cache
+
+__all__ = ["available", "static_copy", "Graph", "Graphs", "Iteration",
+           "KERNELS"]
+
+#: the kernel wrappers whose ``launches`` a replay advances
+KERNELS = (shear_thomas, shear_scan, shear_block)
+
+
+def available(device):
+    """Whether work on ``device`` may be captured: a CUDA device, and no
+    ``config.eager()`` block open."""
+    return torch.device(device).type == "cuda" and not config.is_eager()
+
+
+def static_copy(x):
+    """A contiguous copy of ``x`` outside every graph pool: a buffer that
+    graphs read and write in place."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+class Graph:
+    """One captured piece.  ``advance`` pairs each kernel wrapper with the
+    launches the piece makes."""
+
+    def __init__(self, graph, advance):
+        self.graph = graph
+        self.advance = advance
+
+    def replay(self):
+        self.graph.replay()
+        for kernel, n in self.advance:
+            kernel.launches += n
+
+
+class Graphs:
+    """The graphs of one runner on ``device``: one private pool, one side
+    stream for warm-ups and captures, and the device operators they
+    hold."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pool = None
+        self.stream = None
+        self.held = {}
+
+    def capture(self, *pieces):
+        """Run each of ``pieces`` (callables of no argument) once eagerly,
+        then capture each into a :class:`Graph`; returns them in order."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(self.device)
+        saved = [k.launches for k in KERNELS]
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        graphs = []
+        try:
+            with torch.no_grad(), torch.cuda.device(self.device), \
+                    device_cache.hold(self.held):
+                with torch.cuda.stream(self.stream):
+                    for piece in pieces:
+                        piece()
+                for piece in pieces:
+                    graph = torch.cuda.CUDAGraph()
+                    start = [k.launches for k in KERNELS]
+                    with torch.cuda.graph(graph, pool=self.pool,
+                                          stream=self.stream):
+                        piece()
+                    graphs.append(Graph(graph, [
+                        (k, k.launches - s) for k, s in zip(KERNELS, start)
+                        if k.launches != s]))
+        finally:
+            for k, n in zip(KERNELS, saved):
+                k.launches = n
+        current.wait_stream(self.stream)
+        return graphs
+
+    def pool_bytes(self):
+        """Bytes the card holds in this runner's pool, summed over the
+        segments of ``torch.cuda.memory_snapshot()``; None where the
+        snapshot does not name a segment's pool."""
+        if self.pool is None:
+            return 0
+        segments = torch.cuda.memory_snapshot()
+        if segments and "segment_pool_id" not in segments[0]:
+            return None
+        return sum(s["total_size"] for s in segments
+                   if tuple(s["segment_pool_id"]) == tuple(self.pool))
+
+
+class Iteration:
+    """One fixed-point iteration ``iterate(W, dW) -> (dW_new, *rest)``
+    captured over the static tensors ``W`` (read) and ``dW`` (read, then
+    written).  A replay (a call) writes ``norm(dW_new, dW)`` into the 0-d
+    tensor :attr:`rn`, which it returns, then dW_new into ``dW`` and the
+    rest into :attr:`rest` (a None stays None).  The capture's warm-up
+    steps ``dW``: load it before the first call."""
+
+    def __init__(self, graphs, iterate, norm, W, dW):
+        self.W, self.dW = W, dW
+        self.rest = self.rn = None
+
+        def piece():
+            dW_new, *rest = iterate(self.W, self.dW)
+            rn = norm(dW_new, self.dW)
+            if self.rn is None:  # at the warm-up, outside the capture
+                self.rn = torch.empty_like(rn)
+                self.rest = [None if r is None else static_copy(r)
+                             for r in rest]
+            self.rn.copy_(rn)
+            self.dW.copy_(dW_new)
+            for buf, r in zip(self.rest, rest):
+                if buf is not None:
+                    buf.copy_(r)
+
+        (self.graph,) = graphs.capture(piece)
+
+    def __call__(self):
+        self.graph.replay()
+        return self.rn

@@ -155,22 +155,28 @@ class Mesh:
         the block before (None on the first), ``send_next`` to the block
         after (None on the last); returns ``(from_prev, from_next)``, empty
         tensors shaped like ``recv_prev``/``recv_next`` (None where there
-        is no neighbour) filled from them."""
+        is no neighbour) filled from them.  The sends and receives are
+        posted together, as ``P2POp``s of one ``batch_isend_irecv``: NCCL
+        needs concurrent point-to-point operations between peers grouped
+        (two ranks that both send first may otherwise deadlock), and gloo
+        takes the batch too."""
         dist = self._dist()
         t = self.tp_index
         ops, got = [], []
         for buf, peer in ((send_prev, t - 1), (send_next, t + 1)):
             if buf is not None and 0 <= peer < self.tp:
-                ops.append(dist.isend(self._wire(buf), self._tp_peer(peer)))
+                ops.append(dist.P2POp(dist.isend, self._wire(buf),
+                                      self._tp_peer(peer)))
         for buf, peer in ((recv_prev, t - 1), (recv_next, t + 1)):
             if buf is not None and 0 <= peer < self.tp:
                 r = self._wire(buf)
-                ops.append(dist.irecv(r, self._tp_peer(peer)))
+                ops.append(dist.P2POp(dist.irecv, r, self._tp_peer(peer)))
                 got.append((r, buf))
             else:
                 got.append(None)
-        for op in ops:
-            op.wait()
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
         return tuple(None if g is None else self._unwire(*g) for g in got)
 
 

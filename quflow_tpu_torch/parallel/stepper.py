@@ -21,9 +21,22 @@ dissipation solved on the shear layout), adaptive ``tol``/``minit`` with
 per-step iteration counts, and a timed runner ``fn(W, dW, csum, t0)`` when
 a hook takes ``time``.  State stays complex on the device; the runners
 take and return complex tensors unless ``planes_io`` asks for quflow_tpu's
-split planes.  They run eagerly: capturing a step in a CUDA graph is later
-work.  Under ``tol`` the loop reads its residual on the host once an
-iteration (:func:`_residual`), as ``isomp`` does.
+split planes.  Under ``tol`` the loop reads its residual on the host once
+an iteration (:func:`_read`), as ``isomp`` does.
+
+Compiled runners.  Where quflow_tpu jits a ``lax.scan`` over the steps,
+a runner here replays CUDA graphs (parallel/capture.py), by a rule that
+reads the configuration alone (:func:`_capture_mode`, visible as
+``run.captured`` and ``run.captured_iteration``): on a CUDA device, with
+no callable hook and no 'tp' > 1 mesh, the whole step is one graph
+replayed ``steps`` times a call; under ``tol`` the Strang halves, the warm
+prefix, one iteration and the update are graphs, and the host replays the
+iteration until the adaptive rule exits.  Callable hooks, 'tp' > 1, the
+CPU and runners built or first called inside ``config.eager()`` run
+eagerly, every kernel issued from Python.  A captured call copies its
+state into the graphs' static buffers and returns fresh tensors; the
+launch counters of the kernels advance once a replay by what the graph
+launches.
 
 The column solve is a CUDA kernel on the card, chosen by
 ops.shear_solve.column_solver when a step is built: ``shear_thomas`` (the
@@ -83,6 +96,8 @@ import numpy as np
 import torch
 
 from .. import config
+from ..integrators.isospectral import _converge
+from . import capture
 from ..ops.diagpack import mat2shear, shear2mat, subtract_col0_mean
 from ..ops.dwgemm import split_params
 from ..ops.geometry import hbar
@@ -345,17 +360,6 @@ def from_planes(Wri):
     return Wri[0] + 1j * Wri[1]
 
 
-def _planes_runner(run, device):
-    """``run`` over complex (W, dW, csum[, t0]) as a runner over quflow_tpu's
-    split planes: the first three inputs and outputs are (2, ..., N, N)
-    real; iteration counts and diagnostics pass through."""
-    def run_planes(Wri, dWri, cri, *t0):
-        out = run(*state_from_planes(Wri, dWri, cri, device=device), *t0)
-        return tuple(to_planes(a) for a in out[:3]) + tuple(out[3:])
-
-    return run_planes
-
-
 def _poisson_core(W, w, binv, u, refine=0, op=None, solver=None,
                   ham=("poisson", ())):
     """Shear-layout solve W -> P of the family whose factors are
@@ -403,11 +407,17 @@ def _like(x, W):
     return torch.as_tensor(x, dtype=W.dtype, device=W.device)
 
 
-def _residual(dW_new, dW):
+def _residual_norm(dW_new, dW):
     """The batch-max matrix inf-norm of dW_new - dW (max over rows of the
-    sum of |.| along the last axis, in the working precision) as a Python
-    float: the host sync of an adaptive iteration."""
-    return (dW_new - dW).abs().sum(-1).max().item()
+    sum of |.| along the last axis, in the working precision), a 0-d
+    tensor on their device."""
+    return (dW_new - dW).abs().sum(-1).max()
+
+
+def _read(rn):
+    """The residual ``rn`` (a 0-d tensor) as a Python float: the host sync
+    of an adaptive iteration."""
+    return rn.item()
 
 
 def _fixed_point(iterate, W, dW, maxit, tol, minit, reduce_max=None,
@@ -417,12 +427,10 @@ def _fixed_point(iterate, W, dW, maxit, tol, minit, reduce_max=None,
     ``warm = (warm_iters, mm_warm)``: the first ``warm_iters`` iterations
     run ``mm_warm``, as a fixed prefix in either mode.  Without ``tol``:
     ``maxit`` iterations in all, no host sync.  With ``tol``: after the
-    prefix, quflow_tpu's adaptive rule
-    (quflow_tpu/parallel/stepper.py:773-807), exit once i >= minit and
-    (rn <= tol or rn >= rn_old), rn the :func:`_residual` of the iteration
-    (its max over a mesh's ranks through ``reduce_max``), at most
-    ``maxit`` iterations, which is the count returned (the prefix is not
-    counted).  Returns (dW, rest, iterations)."""
+    prefix, quflow_tpu's adaptive exit (integrators/isospectral._converge)
+    over the :func:`_residual_norm` of each iteration, read on the host,
+    at most ``maxit`` iterations, which is the count returned (the prefix
+    is not counted).  Returns (dW, rest, iterations)."""
     warm_iters, mm_warm = warm
     rest = []
     for _ in range(warm_iters):
@@ -431,16 +439,16 @@ def _fixed_point(iterate, W, dW, maxit, tol, minit, reduce_max=None,
         for _ in range(maxit - warm_iters):
             dW, *rest = iterate(W, dW)
         return dW, rest, maxit
-    i, rn, rn_old = 0, np.inf, np.inf
-    while i < maxit and not (i >= minit and (rn <= tol or rn >= rn_old)):
-        dW_new, *rest = iterate(W, dW)
-        rn_new = _residual(dW_new, dW)
-        if reduce_max is not None:
-            rn_new = reduce_max(rn_new)
-        rn_old, rn = rn, rn_new
-        dW = dW_new
-        i += 1
-    return dW, rest, i
+    state = [dW, rest]
+
+    def iteration():
+        dW_new, *state[1] = iterate(W, state[0])
+        rn = _read(_residual_norm(dW_new, state[0]))
+        state[0] = dW_new
+        return rn
+
+    i, _ = _converge(iteration, tol, maxit, minit, reduce_max)
+    return state[0], state[1], i
 
 
 def _update(S, upd, csum, compsum):
@@ -517,33 +525,230 @@ def _strang_hook(strang_splitting, N, dt, dtype, half_dt, device, solver,
     return strang_half
 
 
-def _runner(step, steps, tol, t0_type, timed, finish=None, batched=False,
-            core_ndim=2):
-    """The runner of a stepper: ``fn(W, dW, csum[, t0]) -> (W, dW, csum[,
-    iterations][, diagnostics])``.  ``step(W, dW, csum, t) -> (W, dW, csum,
-    iterations)``; time ``t`` is a numpy scalar of the working precision
-    (``t0_type``), advanced by the step; under ``tol`` the per-step counts
-    come back as an int32 (steps,) CPU tensor; ``finish(W, t)``, when
-    given, appends its result.  ``batched`` requires a leading ensemble
-    axis on a state of ``core_ndim`` axes."""
-    @torch.no_grad()
-    def run(W, dW, csum, t0=0.0):
-        _checked_state(W, batched, core_ndim)
-        t = t0_type(t0)
+def _capture_mode(device, mesh, tol, *hooks):
+    """How the runner of a step builder runs on ``device``, by a rule that
+    reads the configuration and nothing else:
+
+    * 'step' - the whole step is one CUDA graph (parallel/capture.py),
+      replayed ``steps`` times a call: a CUDA device, no ``tol``, no
+      callable hook (Hamiltonian, forcing, Strang step), and no mesh or
+      one whose 'tp' axis is 1 (over 'dp' alone a fixed ``maxit`` runs no
+      collective);
+    * 'iteration' - the same with ``tol``: the Strang half-steps, the warm
+      prefix, one full-precision iteration and the update are graphs, and
+      the host replays the iteration until the adaptive rule exits;
+    * None - eager, every kernel issued from Python: the CPU, a 'tp' > 1
+      mesh (its row gathers go through gloo's host copies), any callable
+      hook (its numpy result reaches the card by a host copy), and any
+      runner built or first called inside ``config.eager()``.
+
+    Named Hamiltonians and Strang steps, the warm schedule, '_karatsuba',
+    ``batched`` and the column solver do not enter the rule."""
+    if (not capture.available(device) or (mesh is not None and mesh.tp > 1)
+            or any(callable(h) for h in hooks)):
+        return None
+    return "step" if tol is None else "iteration"
+
+
+class _Step:
+    """One step of a stepper, in the pieces its runner captures:
+    ``strang(S) -> S`` the Strang half-step (or None), ``iterate(W, dW, t,
+    mm) -> (dW_new, *rest)`` a fixed-point iteration at the midpoint time
+    ``t`` with the GEMM ``mm``, and ``update(W, rest, csum) -> (W, csum)``
+    the compensated update from the last iteration's ``rest``.  A call is
+    the eager step ``(W, dW, csum, t) -> (W, dW, csum, t + dt,
+    iterations)``."""
+
+    def __init__(self, strang, iterate, update, *, maxit, tol, minit,
+                 reduce_max, schedule, half_dt, dt):
+        self.strang, self.iterate, self.update = strang, iterate, update
+        self.maxit, self.tol, self.minit = maxit, tol, minit
+        self.reduce_max = reduce_max
+        self.mm, self.warm_iters, self.mm_warm = schedule
+        self.half_dt, self.dt = half_dt, dt
+
+    def head(self, W):
+        return W if self.strang is None else self.strang(W)
+
+    def tail(self, W, rest, csum):
+        W, csum = self.update(W, rest, csum)
+        return self.head(W), csum
+
+    def warm(self, W, dW, t):
+        """dW after the warm prefix (its ``warm_iters`` iterations)."""
+        for _ in range(self.warm_iters):
+            dW = self.iterate(W, dW, t, self.mm_warm)[0]
+        return dW
+
+    def __call__(self, W, dW, csum, t):
+        W = self.head(W)
+        thalf = t + self.half_dt
+
+        def iterate(W, dW, mm=self.mm):
+            return self.iterate(W, dW, thalf, mm)
+
+        dW, rest, iters = _fixed_point(iterate, W, dW, self.maxit, self.tol,
+                                       self.minit, self.reduce_max,
+                                       (self.warm_iters, self.mm_warm))
+        W, csum = self.tail(W, rest, csum)
+        return W, dW, csum, t + self.dt, iters
+
+
+class _StepGraph:
+    """The whole step as one graph over static W, dW and csum (mode
+    'step'), the counterpart of ``lax.scan(step, ..., length=steps)``:
+    a call loads its state, replays the graph ``steps`` times and returns
+    fresh tensors."""
+
+    def __init__(self, step, graphs, W, dW, csum, t):
+        self.step = step
+        self.state = [capture.static_copy(x) for x in (W, dW, csum)]
+
+        def piece():
+            out = step(*self.state, t)[:3]
+            for buf, x in zip(self.state, out):
+                buf.copy_(x)
+
+        (self.graph,) = graphs.capture(piece)
+
+    def __call__(self, W, dW, csum, t, steps):
+        for buf, x in zip(self.state, (W, dW, csum)):
+            buf.copy_(x)
+        for _ in range(steps):
+            self.graph.replay()
+            t = t + self.step.dt
+        return (*(buf.clone() for buf in self.state), t, None)
+
+
+class _AdaptiveGraphs:
+    """A step under ``tol`` as graphs (mode 'iteration'): the first Strang
+    half-step, the warm prefix, one full-precision iteration
+    (parallel.capture.Iteration, its residual into a 0-d tensor) and the
+    update with the second half-step.  The host replays the iteration until
+    the adaptive rule exits, one host read of the residual an iteration
+    (and under a mesh its max over the ranks), as the eager loop does."""
+
+    def __init__(self, step, graphs, W, dW, csum, t):
+        self.step = step
+        thalf = t + step.half_dt
+        self.W, self.csum = (capture.static_copy(x) for x in (W, csum))
+        self.Wh = self.W if step.strang is None else capture.static_copy(W)
+        self.it = capture.Iteration(
+            graphs, lambda Wh, d: step.iterate(Wh, d, thalf, step.mm),
+            _residual_norm, self.Wh, capture.static_copy(dW))
+
+        def head():
+            self.Wh.copy_(step.strang(self.W))
+
+        def warm():
+            self.it.dW.copy_(step.warm(self.Wh, self.it.dW, thalf))
+
+        def tail():
+            Wn, cn = step.tail(self.Wh, self.it.rest, self.csum)
+            self.W.copy_(Wn)
+            self.csum.copy_(cn)
+
+        pieces = [p for p, on in ((head, step.strang is not None),
+                                  (warm, step.warm_iters > 0),
+                                  (tail, True)) if on]
+        captured = graphs.capture(*pieces)
+        self.tail = captured.pop()
+        self.warm = captured.pop() if step.warm_iters else None
+        self.head = captured.pop() if step.strang is not None else None
+
+    def __call__(self, W, dW, csum, t, steps):
+        step = self.step
+        for buf, x in ((self.W, W), (self.it.dW, dW), (self.csum, csum)):
+            buf.copy_(x)
         counts = []
         for _ in range(steps):
-            W, dW, csum, t, iters = step(W, dW, csum, t)
-            counts.append(iters)
-        out = (W, dW, csum)
-        if tol is not None:
-            out = out + (torch.tensor(counts, dtype=torch.int32),)
-        if finish is not None:
-            out = out + (finish(W, t),)
+            if self.head is not None:
+                self.head.replay()
+            if self.warm is not None:
+                self.warm.replay()
+            counts.append(_converge(lambda: _read(self.it()), step.tol,
+                                    step.maxit, step.minit,
+                                    step.reduce_max)[0])
+            self.tail.replay()
+            t = t + step.dt
+        return (self.W.clone(), self.it.dW.clone(), self.csum.clone(), t,
+                counts)
+
+
+class _Runner:
+    """The runner of a stepper: ``fn(W, dW, csum[, t0]) -> (W, dW, csum[,
+    iterations][, diagnostics])``, ``t0`` only when ``timed``.  ``step``
+    is a :class:`_Step`; time ``t`` is a numpy scalar of the working
+    precision (``t0_type``), advanced by the step; under ``tol`` the
+    per-step counts come back as an int32 (steps,) CPU tensor;
+    ``finish(W, t)``, when given, appends its result, computed eagerly
+    after the steps.  ``batched`` requires a leading ensemble axis on a
+    state of ``core_ndim`` axes.  ``planes`` (a device) takes and gives
+    quflow_tpu's split planes for the first three inputs and outputs.
+
+    ``mode`` is :func:`_capture_mode`'s: :attr:`captured` says the whole
+    step is one graph, :attr:`captured_iteration` that the adaptive step
+    runs on graphs; both go false if the first call comes inside
+    ``config.eager()``.  One set of graphs is kept for each signature
+    (shape, dtype, device) of the state, in one private pool released with
+    the runner; a call copies its inputs into the graphs' static buffers
+    and returns fresh tensors."""
+
+    def __init__(self, step, steps, t0_type, timed, finish=None,
+                 batched=False, core_ndim=2, mode=None, device=None,
+                 planes=None):
+        self.step, self.steps = step, steps
+        self.t0_type, self.timed, self.finish = t0_type, timed, finish
+        self.batched, self.core_ndim = batched, core_ndim
+        self.captured = mode == "step"
+        self.captured_iteration = mode == "iteration"
+        self.planes = planes
+        self.graphs = capture.Graphs(device) if mode else None
+        self._programs = {}
+        self._called = False
+
+    def __call__(self, W, dW, csum, *t0):
+        if len(t0) > int(self.timed):
+            raise TypeError(f"this runner takes (W, dW, csum"
+                            f"{', t0' if self.timed else ''}); a hook that "
+                            "takes time makes it timed")
+        if not self._called:
+            self._called = True
+            if config.is_eager():
+                self.captured = self.captured_iteration = False
+        if self.planes is not None:
+            W, dW, csum = state_from_planes(W, dW, csum, device=self.planes)
+        with torch.no_grad():
+            out = self._run(W, dW, csum, *t0)
+        if self.planes is not None:
+            out = tuple(to_planes(a) for a in out[:3]) + tuple(out[3:])
         return out
 
-    if timed:
-        return run
-    return lambda W, dW, csum: run(W, dW, csum)
+    def _run(self, W, dW, csum, t0=0.0):
+        _checked_state(W, self.batched, self.core_ndim)
+        t = self.t0_type(t0)
+        if self.captured or self.captured_iteration:
+            # counts: None for a whole-step graph, which runs no tol
+            W, dW, csum, t, counts = self._program(W, dW, csum, t)(
+                W, dW, csum, t, self.steps)
+        else:
+            counts = []
+            for _ in range(self.steps):
+                W, dW, csum, t, iters = self.step(W, dW, csum, t)
+                counts.append(iters)
+        out = (W, dW, csum)
+        if self.step.tol is not None:
+            out = out + (torch.tensor(counts, dtype=torch.int32),)
+        if self.finish is not None:
+            out = out + (self.finish(W, t),)
+        return out
+
+    def _program(self, W, dW, csum, t):
+        key = tuple((tuple(x.shape), x.dtype, x.device) for x in (W, dW, csum))
+        if key not in self._programs:
+            make = _StepGraph if self.captured else _AdaptiveGraphs
+            self._programs[key] = make(self.step, self.graphs, W, dW, csum, t)
+        return self._programs[key]
 
 
 def _sharded_operator(N, dtype, mesh, device, kind="poisson", params=(),
@@ -654,6 +859,15 @@ def build_step_fn(
     precision names and the mixed-precision schedule of quflow_tpu (see
     the module's note); under a mesh whose 'tp' axis splits the rows
     they act on each rank's row-local GEMMs.
+
+    Capture (the counterpart of quflow_tpu's jit): on a CUDA device, with
+    no callable ``hamiltonian``, ``forcing`` or ``strang_splitting`` and
+    no mesh with 'tp' > 1, the runner replays CUDA graphs
+    (:func:`_capture_mode`): without ``tol`` one graph of the whole step
+    (``run.captured``), with ``tol`` graphs of its pieces and one host
+    read an iteration (``run.captured_iteration``).  Anything else, and a
+    runner built or first called inside ``config.eager()``, runs
+    eagerly.  A configuration that captures and then fails to raises.
     """
     layout = _resolve_layout(layout, mesh)
     mm, warm_iters, mm_warm = _schedule(precision, warm_precision,
@@ -707,37 +921,33 @@ def build_step_fn(
         Phalf = apply_ham(Whalf, t) * vareps
         return Phalf, rows.full(Phalf), Wf
 
-    def step(W, dW, csum, t):
-        if strang_half is not None:
-            W = strang_half(W)
-        thalf = t + half_dt
+    def iterate(W, dW, thalf, mm):
+        Whalf = W + dW
+        Phalf, Pf, Wf = midpoint(Whalf, thalf)
+        PW = mm(Phalf, Wf)
+        # under tp, W P stands in for (P W)^H: it is this rank's rows
+        PWc = PW - (mm(Whalf, Pf) if sharded else PW.mH)
+        dW = mm(PW, Pf) + PWc
+        FW = None
+        if forcing is not None:
+            # on the unscaled midpoint pair, weighted dt/2
+            args = (Pf / vareps, Wf)
+            FW = rows.mine(_like(forcing(*args, time=thalf) if force_timed
+                                 else forcing(*args), W)) * half
+            dW = dW + FW
+        return dW, PWc, FW
 
-        def iterate(W, dW, mm=mm):
-            Whalf = W + dW
-            Phalf, Pf, Wf = midpoint(Whalf, thalf)
-            PW = mm(Phalf, Wf)
-            # under tp, W P stands in for (P W)^H: it is this rank's rows
-            PWc = PW - (mm(Whalf, Pf) if sharded else PW.mH)
-            dW = mm(PW, Pf) + PWc
-            FW = None
-            if forcing is not None:
-                # on the unscaled midpoint pair, weighted dt/2
-                args = (Pf / vareps, Wf)
-                FW = rows.mine(_like(forcing(*args, time=thalf) if force_timed
-                                     else forcing(*args), W)) * half
-                dW = dW + FW
-            return dW, PWc, FW
-
-        dW, (PWc, FW), iters = _fixed_point(iterate, W, dW, maxit, tol_r,
-                                            minit, reduce_max,
-                                            (warm_iters, mm_warm))
+    def update(W, rest, csum):
+        PWc, FW = rest
         W, csum = _update(W, 2.0 * PWc, csum, compsum)
         if FW is not None:
             W = W + 2.0 * FW  # outside the Kahan pair, as quflow_tpu adds it
-        t = t + dt_r
-        if strang_half is not None:
-            W = strang_half(W)
-        return W, dW, csum, t, iters
+        return W, csum
+
+    step = _Step(strang_half, iterate, update, maxit=maxit, tol=tol_r,
+                 minit=minit, reduce_max=reduce_max,
+                 schedule=(mm, warm_iters, mm_warm), half_dt=half_dt,
+                 dt=dt_r)
 
     def diagnostics(W, t):
         """Energy -<W, P>/2 (P through the Hamiltonian in force) and
@@ -751,9 +961,12 @@ def build_step_fn(
         inner_WP, inner_WW = inner.real / N
         return torch.stack([-inner_WP / 2.0, inner_WW / 2.0], dim=-1)
 
-    run = _runner(step, steps, tol, rd.type, ham_timed or force_timed,
-                  diagnostics if with_diagnostics else None, batched)
-    return _planes_runner(run, device) if planes_io else run
+    mode = _capture_mode(device, mesh, tol, hamiltonian, forcing,
+                         strang_splitting)
+    return _Runner(step, steps, rd.type, ham_timed or force_timed,
+                   diagnostics if with_diagnostics else None, batched,
+                   mode=mode, device=device,
+                   planes=device if planes_io else None)
 
 
 def _mhd_lap_op(N, dtype, *, device):
@@ -819,7 +1032,9 @@ def build_mhd_step_fn(
     P (Theta B) for -((B Theta) P)^H.  That is 10 products an iteration
     for the single device's 6, and 4 row gathers: S, P, B and Theta B.
     Forcing and a callable Strang step see the whole state, as in
-    :func:`build_step_fn`.
+    :func:`build_step_fn`.  The runner captures by the rule of
+    :func:`build_step_fn` (callable ``forcing`` or ``strang_splitting``,
+    'tp' > 1, the CPU and ``config.eager()`` stay eager).
     """
     layout = _resolve_layout(layout, mesh)
     mm, warm_iters, mm_warm = _schedule(precision, warm_precision,
@@ -851,7 +1066,8 @@ def build_mhd_step_fn(
                                        kind=ham_kind, params=ham_params)
     strang_half = _strang_hook(strang_splitting, N, dt, dtype, half_dt,
                                device, solver, mesh if sharded else None)
-    reduce_max = _reduce_max(mesh, config.device(device))
+    dev = config.device(device)
+    reduce_max = _reduce_max(mesh, dev)
 
     def products(Phalf, Bhalf, Shalf, mm):
         """Of this rank's rows: the skew part of P S (S = (W, Theta)),
@@ -872,49 +1088,45 @@ def build_mhd_step_fn(
                 mm(PS, Pf[..., None, :, :]), BT - rows.mine(TBf),
                 mm(BT, Pf) + mm(Phalf, TBf), Pf, Sf)
 
-    def step(S, dS, csum, t):
-        if strang_half is not None:
-            S = strang_half(S)
-        thalf = t + half_dt
+    def iterate(S, dS, thalf, mm):
+        Shalf = S + dS
+        Thalf = Shalf[..., 1, :, :]
+        if sharded:
+            Phalf = poisson_sharded(Shalf[..., 0, :, :], opr) * vareps
+            Bhalf = laplace_sharded(Thalf, slap) * vareps
+        else:
+            Phalf = _poisson_core(Shalf[..., 0, :, :], w, binv, u,
+                                  refine=refine, op=op, solver=solver,
+                                  ham=(ham_kind, ham_params)) * vareps
+            Bhalf = _laplace_core(Thalf, lap) * vareps
+        PSc, PSP, BTc, BTPc, Pf, Sf = products(Phalf, Bhalf, Shalf, mm)
+        dS = PSP + PSc
+        dS[..., 0, :, :] += BTPc + BTc  # W only
+        FW = None
+        if forcing is not None:
+            args = (Pf / vareps, Sf)
+            FW = rows.mine(_like(forcing(*args, time=thalf) if force_timed
+                                 else forcing(*args), S)) * half
+            dS = dS + FW
+        return dS, PSc, BTc, FW
 
-        def iterate(S, dS, mm=mm):
-            Shalf = S + dS
-            Thalf = Shalf[..., 1, :, :]
-            if sharded:
-                Phalf = poisson_sharded(Shalf[..., 0, :, :], opr) * vareps
-                Bhalf = laplace_sharded(Thalf, slap) * vareps
-            else:
-                Phalf = _poisson_core(Shalf[..., 0, :, :], w, binv, u,
-                                      refine=refine, op=op, solver=solver,
-                                      ham=(ham_kind, ham_params)) * vareps
-                Bhalf = _laplace_core(Thalf, lap) * vareps
-            PSc, PSP, BTc, BTPc, Pf, Sf = products(Phalf, Bhalf, Shalf, mm)
-            dS = PSP + PSc
-            dS[..., 0, :, :] += BTPc + BTc  # W only
-            FW = None
-            if forcing is not None:
-                args = (Pf / vareps, Sf)
-                FW = rows.mine(_like(forcing(*args, time=thalf) if force_timed
-                                     else forcing(*args), S)) * half
-                dS = dS + FW
-            return dS, PSc, BTc, FW
-
-        dS, (PWc, BTc, FW), iters = _fixed_point(iterate, S, dS, maxit,
-                                                 tol_r, minit, reduce_max,
-                                                 (warm_iters, mm_warm))
+    def update(S, rest, csum):
+        PWc, BTc, FW = rest
         upd = 2.0 * PWc
         upd[..., 0, :, :] += 2.0 * BTc  # W gets 2(PWc + BTc)
         S, csum = _update(S, upd, csum, compsum)
         if FW is not None:
             S = S + 2.0 * FW
-        t = t + dt_r
-        if strang_half is not None:
-            S = strang_half(S)
-        return S, dS, csum, t, iters
+        return S, csum
 
-    run = _runner(step, steps, tol, rd.type, force_timed, batched=batched,
-                  core_ndim=3)
-    return _planes_runner(run, device) if planes_io else run
+    step = _Step(strang_half, iterate, update, maxit=maxit, tol=tol_r,
+                 minit=minit, reduce_max=reduce_max,
+                 schedule=(mm, warm_iters, mm_warm), half_dt=half_dt,
+                 dt=dt_r)
+    mode = _capture_mode(dev, mesh, tol, forcing, strang_splitting)
+    return _Runner(step, steps, rd.type, force_timed, batched=batched,
+                   core_ndim=3, mode=mode, device=dev,
+                   planes=dev if planes_io else None)
 
 
 class _ResidentIntegrator:
@@ -932,7 +1144,8 @@ class _ResidentIntegrator:
     on the constructor; ``time`` reaches a timed hook.  The column solve is
     chosen once, at construction (:func:`column_solver`).
     ``warm_precision='auto'`` resolves by quflow_tpu's rule for the
-    integrator (``_auto_warm``)."""
+    integrator (``_auto_warm``).  Its runners capture by the builders'
+    rule (:attr:`captured`)."""
 
     _build = None  # the step builder, set by each subclass
 
@@ -972,6 +1185,15 @@ class _ResidentIntegrator:
         self.warm = warm
         self._fns = {}
         self._state = None  # (dW, csum) complex tensors
+
+    @property
+    def captured(self):
+        """Whether the runners on this integrator's ``device`` replay the
+        whole step as one CUDA graph, by :func:`_capture_mode`'s rule (a
+        tensor on another device is stepped by that device's rule)."""
+        return _capture_mode(self.device, self.mesh, self.tol,
+                             self.hamiltonian, self.forcing,
+                             self.strang_splitting) == "step"
 
     def _fn(self, N, dt, steps, device):
         key = (N, float(dt), int(steps), device)
@@ -1183,6 +1405,9 @@ def build_dw_step_fn(
     * ``mesh``/``batched`` as in :func:`build_step_fn`; under a mesh N
       must divide by 'tp' (ValueError otherwise, as in quflow_tpu).
     * ``with_diagnostics`` appends [energy, enstrophy] of the final state.
+
+    The runner captures by the rule of :func:`build_step_fn`: its warm
+    complex64 product is a GEMM, not a hook.
     """
     warm = _dw_warm_iters(N, maxit, dw_iters, target_bits, mesh)
     return build_step_fn(
@@ -1227,6 +1452,7 @@ def build_dw_mhd_step_fn(
     ``hamiltonian`` is a named family (a callable raises
     NotImplementedError, as in quflow_tpu); forcing ``f(Pp, Sp[, time])``
     on full-state planes and a Strang step ``(h, Sp) -> Sp`` take planes.
+    The runner captures by the rule of :func:`build_step_fn`.
     """
     warm = _dw_warm_iters(N, maxit, dw_iters, target_bits, mesh)
     return build_mhd_step_fn(

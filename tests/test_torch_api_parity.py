@@ -62,11 +62,14 @@ def test_forbidden_imports_pattern():
 
 
 def test_port_never_imports_jax_or_quflow_tpu():
-    """Every module of quflow_tpu_torch/ and chip_smoke.py: no import of
-    JAX or of quflow_tpu, not even a module of it that does not import
-    JAX."""
+    """Every module of quflow_tpu_torch/, chip_smoke.py and the example
+    twins (examples/torch_*.py): no import of JAX or of quflow_tpu, not
+    even a module of it that does not import JAX."""
     files = sorted((ROOT / "quflow_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    twins = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(twins) == 3
+    files += twins
     assert len(files) > 40
     offenders = [f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
                  for path in files

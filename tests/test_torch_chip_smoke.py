@@ -550,3 +550,37 @@ def test_dw_phase_profiles_again_when_kernels_are_lost(cpu_rehearsal,
     monkeypatch.setattr(chip_smoke, "kernel_table", short)
     with pytest.raises(AssertionError, match="GEMM kernels a step"):
         chip_smoke.dw_steppers("cpu", N=128, steps=2, mhd_steps=2, chunk=2)
+
+
+def _counted_kernel_table(fn, steps):
+    """kernel_table on the CPU: the column solves of one call of ``fn``,
+    from the launch counters, as the profiler names kernels."""
+    before = {k: k.launches for k in chip_smoke.KERNELS}
+    fn()
+    return ({f"{k.__name__}_kernel": ((k.launches - before[k]) / steps, 0.01)
+             for k in chip_smoke.KERNELS}, 1.0)
+
+
+def test_replay_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
+    """Phase 21 at small N: every run in both modes, which are both eager
+    on the CPU (reported so), equal results and launches, the profile's
+    solve count held to the counters'."""
+    monkeypatch.setattr(chip_smoke, "kernel_table", _counted_kernel_table)
+    cases = chip_smoke.capture_cases("cpu", n_large=16, n_small=12, B=2,
+                                     steps=2)
+    assert len(cases) == 7
+    rows = chip_smoke.replay_vs_eager("cpu", cases)
+    assert set(rows) == set(cases)
+    for name, row in rows.items():
+        assert row["bit_equal"] and row["max_abs_diff"] == 0.0, name
+        assert row["launches_a_call"]["replay"] == \
+            row["launches_a_call"]["eager"] > 0
+        for mode in ("eager", "replay"):
+            assert row[mode]["captured"] is False
+            assert (row[mode]["solve_launches_a_step_profiled"]
+                    == row[mode]["solve_launches_a_step_counted"])
+        assert row["replay"]["graph_pool_bytes"] is None
+        assert len(row["steps_per_s"]["eager"]) == 2
+    assert rows["mhd_c64_N16_scan_warm"]["kernel"] == "shear_scan"
+    assert rows["isomp_c128_N16"]["iterations_equal"]
+    assert rows["adaptive_euler_c128_N16"]["iterations_equal"]
