@@ -4,15 +4,15 @@
     python3 chip_smoke.py
 
 Run from the repository root; it needs one CUDA device, nvcc, g++, and
-nothing of JAX.  Twenty-one phases, one line each (phases 14-19 one for
-each of their parts); any failure ends the run with a nonzero exit code
-and no result line.  The step runners replay CUDA graphs wherever their
-builders' rule captures (parallel/capture.py): phases 4, 5, 7-10, 13,
-14d, 14f, 15-17 and 20 run captured (14a-c and 14e take callable hooks
-and run eagerly); each comparison with a column solve's plain
-version (phases 4, 7, 15d) runs eagerly, inside ``config.eager()``, since
-a captured plain solve is thousands of graph nodes; phase 21 holds the
-replays to eager runs.
+nothing of JAX.  Twenty-two phases, one line each (phases 14-19 and 22
+one for each of their parts); any failure ends the run with a nonzero
+exit code and no result line.  The step runners replay CUDA graphs
+wherever their builders' rule captures (parallel/capture.py): phases
+4, 5, 7-10, 13-17, 20 and 22 run captured, callable hooks with their
+steps (14a-c, 14e); each comparison with a column solve's plain version
+(phases 4, 7, 10, 14a-b, 14e, 15d, 22a-c) runs eagerly, inside
+``config.eager()``, since a captured plain solve is thousands of graph
+nodes; phases 21 and 22 hold the replays to eager runs.
 
 1. device  - the card's name and power limit, as nvidia-smi reports them;
 2. build   - nvcc builds csrc/shear_thomas.cu, csrc/shear_scan.cu and
@@ -230,7 +230,32 @@ replays to eager runs.
     the graph pool's bytes; a replay's outputs not overwritten by the next
     call.
 
-Every path (phases 4, 5, 7-21) runs with every launch count set to 0 just
+22. hooked runs replayed against eager, as phase 21 reads them (in turns,
+    eager, replay, replay, eager), each callable hook captured with its
+    step and every replay bit-equal to its eager run; a call is two calls
+    of 20 steps, the second at t0 advanced by 20 steps where a hook takes
+    time (a time frozen into a graph shows as a difference):
+    a. forced-dissipative QG, complex64, N=1024, maxit 5, the warm
+       schedule: phase 14a's timed forcing cos(t) F0 (``torch.cos`` of
+       the 0-d time tensor) and viscdamp Strang step, ``shear_thomas``;
+    b. the same under QUFLOW_PALLAS_KERNEL=scan, ``shear_scan``;
+    c. phase 14e's MHD hooks (a constant forcing, the heat Strang step)
+       under the scan, complex64, N=1024;
+    d. the custom-Hamiltonian stepper, complex128, N=512: phase 14c's
+       callable ``solve_globalqg`` Hamiltonian and ``solve_viscdamp``
+       Strang step, the timed forcing, tol 1e-12 (the captured
+       iteration);
+    e. ``isomp``, complex128, N=512, with phase 14c's three callables
+       (its Strang step a graph of its own); and phase 14c's stepper held
+       to it within 1e-11 of max|W|, both replayed;
+    f. ``magmp``, complex128, N=512, with a constant forcing, tol 1e-12;
+    then 22a-c's kernels against their plain solves inside
+    ``config.eager()`` (10, 10 and 5 steps, <= 1e-5); and
+    g. a forcing that returns numpy raises TypeError at its runner's first
+       call and one that reads time on the host raises RuntimeError, each
+       naming itself and ``config.eager()``, inside which both run.
+
+Every path (phases 4, 5, 7-22) runs with every launch count set to 0 just
 before it and read just after; a replay adds the launches its graph
 recorded at capture (the warm-up's and the capture's own are taken
 back).  Then a JSON line of the kernels
@@ -266,6 +291,7 @@ from quflow_tpu_torch import (
     enstrophy,
     hbar,
     isomp,
+    magmp,
     random_shr,
     shr2mat,
     solve,
@@ -843,8 +869,9 @@ def reference_euler(device, N=1024, steps=100, steps_out=20,
     dt = 0.25 * hbar(N)
     Wt = torch.from_numpy(W0).to(device)
     Wk = isomp(Wt, dt, compare_steps)
-    Wp = isomp(Wt, dt, compare_steps, hamiltonian=functools.partial(
-        solve_poisson, skewh=True, solver=shear_thomas_reference))
+    with config.eager():  # the plain solve: thousands of nodes a graph
+        Wp = isomp(Wt, dt, compare_steps, hamiltonian=functools.partial(
+            solve_poisson, skewh=True, solver=shear_thomas_reference))
     step_rel = ((Wk - Wp).abs().max() / Wp.abs().max()).item()
     if not step_rel <= 1e-12:
         raise AssertionError(f"{compare_steps} steps kernel vs plain: "
@@ -1042,9 +1069,12 @@ def band_forcing(N, dtype, device, W0, scale=1e-2):
 
 
 def qg_forcing(F0):
-    """The timed forcing cos(t) F0 of phase 14."""
+    """The timed forcing cos(t) F0 of phases 14 and 22.  On the card time
+    comes as a 0-d tensor there and the forcing is captured with its step:
+    torch.cos of it, no host read.  On the CPU it comes as a numpy scalar
+    or a float, taken in F0's real precision."""
     def forcing(P, W, time=0.0):
-        return math.cos(time) * F0
+        return torch.cos(torch.as_tensor(time, dtype=F0.real.dtype)) * F0
     return forcing
 
 
@@ -1075,6 +1105,7 @@ def hooked_qg(device, kernel=shear_thomas, plain=shear_thomas_reference,
 
     runner(1)(Wt, z, z, 0.0)  # first call: host factors, cuBLAS set-up
     fn = runner(steps_out, with_diagnostics=True)
+    fn(Wt, z, z, 0.0)  # and its capture
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1097,7 +1128,8 @@ def hooked_qg(device, kernel=shear_thomas, plain=shear_thomas_reference,
 
     # the same steps through the kernel and through its plain version
     Wk = runner(compare_steps, solver=kernel)(Wt, z, z, 0.0)[0]
-    Wp = runner(compare_steps, solver=plain)(Wt, z, z, 0.0)[0]
+    with config.eager():  # the plain solve: thousands of nodes a graph
+        Wp = runner(compare_steps, solver=plain)(Wt, z, z, 0.0)[0]
     step_rel = ratio(Wk, Wp)
     if not step_rel <= 1e-5:
         raise AssertionError(f"{compare_steps} steps kernel vs plain: "
@@ -1132,11 +1164,7 @@ def hooked_vs_reference(device, N=512, steps=20, maxit=5):
         raise AssertionError(f"stepper launches {stepper_counts}")
     reset_counts()
     Wr = isomp(Wt, dt, steps, time=0.0, tol=1e-300, minit=maxit, maxit=maxit,
-               compsum=True, forcing=forcing,
-               hamiltonian=functools.partial(solve_globalqg, gamma=QG_GAMMA,
-                                             skewh=True),
-               strang_splitting=functools.partial(
-                   solve_viscdamp, skewh=True, **VISCDAMP[1]))
+               compsum=True, forcing=forcing, **custom_qg_hooks())
     isomp_counts = read_counts()
     diff = ((Ws - Wr).abs().max() / Wr.abs().max()).item()
     if not diff <= 1e-11:
@@ -1215,6 +1243,7 @@ def hooked_mhd(device, N=1024, steps=20, maxit=5, compare_steps=5):
 
         runner(1)(St, z, z)
         fn = runner(steps)
+        fn(St, z, z)  # its capture
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -1228,7 +1257,8 @@ def hooked_mhd(device, N=1024, steps=20, maxit=5, compare_steps=5):
     if S.shape != (2, N, N) or not finite(S):
         raise AssertionError(f"bad state {S.shape}")
     Sk = runner(compare_steps, shear_scan)(St, z, z)[0]
-    Sp = runner(compare_steps, shear_scan_reference)(St, z, z)[0]
+    with config.eager():
+        Sp = runner(compare_steps, shear_scan_reference)(St, z, z)[0]
     step_rel = ratio(Sk, Sp)
     if not step_rel <= 1e-5:
         raise AssertionError(f"{compare_steps} steps kernel vs plain: "
@@ -2576,7 +2606,7 @@ def padded_table(call, steps, device, pad=32):
     return {k: v for k, v in table.items() if "spin_kernel" not in k}, wall_ms
 
 
-def replay_vs_eager(device, cases=None):
+def replay_vs_eager(device, cases=None, strict=False, top=0):
     """Phase 21: each run of :func:`capture_cases` replayed (CUDA graphs)
     against the same run eager (built or called inside ``config.eager()``),
     in turns in one process (eager, replay, replay, eager) after a first
@@ -2588,7 +2618,9 @@ def replay_vs_eager(device, cases=None):
     the counters' is taken again, up to three times)
     and the idle share (1 - device ms / the turns' median host ms a step);
     the graph pool's bytes; a replay's outputs not overwritten by the next
-    call."""
+    call.  With ``strict`` a replay that is not bit-equal fails the run;
+    without, the kernels that differ are named.  With ``top`` each mode
+    lists its ``top`` kernels by time a step."""
     cases = capture_cases(device) if cases is None else cases
     rows = {}
     for name, (make, steps, kernel) in cases.items():
@@ -2655,12 +2687,17 @@ def replay_vs_eager(device, cases=None):
                 kernels_a_step=sum(c for c, _ in table.values()),
                 solve_launches_a_step_profiled=solves,
                 solve_launches_a_step_counted=expected)
+            if top:
+                row[mode]["top_kernels"] = top_kernels(table, top)
             if round(solves, 6) != round(expected, 6):
                 raise AssertionError(
                     f"{name} {mode}: the profile shows {solves} "
                     f"{kernel.__name__} a step, the counters {expected}")
         row["replay"]["graph_pool_bytes"] = graph_pool_bytes(
             runs["replay"][0])
+        if strict and not row["bit_equal"]:
+            raise AssertionError(f"{name}: the replay differs from the eager "
+                                 f"run by {diff:.3e}")
         if not row["bit_equal"]:
             # cuBLAS may pick other kernels under capture: name them; the
             # earlier phases hold the captured runs to the drift gates
@@ -2688,6 +2725,224 @@ def replay_vs_eager(device, cases=None):
                 raise AssertionError(f"{name}: a replay's output was "
                                      "overwritten by the next call")
         rows[name] = row
+    return rows
+
+
+def hooked_builders(device, n_large=1024, n_small=512):
+    """Phase 22's stepper configurations: name -> (build, state, timed,
+    QUFLOW_PALLAS_KERNEL or None), ``build(steps, solver=None)`` the
+    runner, each callable hook made once here; and the c128 forcing and
+    callables that ``isomp`` shares with them."""
+    def qg_state(N, dtype):
+        flow = GlobalQGFlow(N, dtype, gamma=QG_GAMMA)
+        W0 = flow.random_initial(lmax=10, seed=42)
+        forcing = qg_forcing(band_forcing(N, dtype, device, W0))
+        return flow, torch.from_numpy(W0).to(device), forcing
+
+    flow, W64, force64 = qg_state(n_large, np.complex64)
+    dt64 = 0.25 * hbar(n_large)
+
+    def qg(steps, solver=None):
+        return flow.stepper(dt64, steps, maxit=5, forcing=force64,
+                            strang_splitting=VISCDAMP, warm_precision="high",
+                            device=device, solver=solver)
+
+    S0 = MHDFlow(n_large, np.complex64).random_initial(lmax=10, seed=42)
+    F0 = band_forcing(n_large, np.complex64, device, S0[0])
+    F = torch.stack([F0, 0.1 * F0])
+
+    def mhd(steps, solver=None):
+        return build_mhd_step_fn(
+            n_large, dt64, steps=steps, maxit=5, dtype=np.complex64,
+            forcing=lambda P, S: F, strang_splitting=("heat", {"nu": 1e-4}),
+            device=device, solver=solver)
+
+    _, W128, force128 = qg_state(n_small, np.complex128)
+    hooks = custom_qg_hooks()
+
+    def custom(steps, solver=None):
+        return build_step_fn(n_small, 0.25 * hbar(n_small), steps=steps,
+                             maxit=20, dtype=np.complex128, compsum=True,
+                             tol=1e-12, forcing=force128, device=device,
+                             solver=solver, **hooks)
+
+    return {
+        f"qg_c64_N{n_large}_warm": (qg, W64, True, None),
+        f"qg_c64_N{n_large}_warm_scan": (qg, W64, True, "scan"),
+        f"mhd_c64_N{n_large}_scan": (
+            mhd, torch.from_numpy(S0).to(device), False, "scan"),
+        f"custom_qg_c128_N{n_small}_tol": (custom, W128, True, None),
+    }, force128, hooks
+
+
+def custom_qg_hooks():
+    """Phase 14c's callables: the QG Hamiltonian and the viscdamp Strang
+    step as functions of the state."""
+    return dict(hamiltonian=functools.partial(solve_globalqg, gamma=QG_GAMMA,
+                                              skewh=True),
+                strang_splitting=functools.partial(solve_viscdamp, skewh=True,
+                                                   **VISCDAMP[1]))
+
+
+def hooked_cases(device, n_large=1024, n_small=512, steps=20):
+    """Phase 22's runs, as :func:`capture_cases` gives them, each callable
+    hook captured with its step: 22a-d the steppers of
+    :func:`hooked_builders`, 22e ``isomp`` with phase 14c's callables and
+    timed forcing, 22f ``magmp`` with a constant forcing.  A call of a run
+    is two calls of ``steps`` steps, the second from the first's state
+    and, for a timed run, at t0 advanced by those steps (a time baked into
+    a graph would replay the first call's times); its steps are the two
+    calls'.  The hooks are made once, so that ``isomp``/``magmp`` find at
+    each call the loops captured at the first."""
+    builders, force128, hooks = hooked_builders(device, n_large, n_small)
+
+    def stepper_run(build, S0, timed, variable):
+        dt = 0.25 * hbar(S0.shape[-1])
+        z = torch.zeros_like(S0)
+
+        def make(eager):
+            with config.eager() if eager else contextlib.nullcontext(), \
+                    kernel_variable(variable) if variable \
+                    else contextlib.nullcontext():
+                fn = build(steps)
+
+            def call():
+                st = fn(S0, z, z, *((0.0,) if timed else ()))
+                return fn(*st[:3], *((steps * dt,) if timed else ()))
+            return fn, call
+        return make
+
+    def loop_run(fn, S0, **kw):
+        dt = 0.25 * hbar(S0.shape[-1])
+
+        def make(eager):
+            def call():
+                with config.eager() if eager else contextlib.nullcontext():
+                    S = fn(S0, dt, steps=steps, time=0.0, **kw)
+                    stats = {}
+                    return fn(S, dt, steps=steps, time=steps * dt,
+                              stats=stats, **kw), stats
+            return None, call
+        return make
+
+    cases = {name: (stepper_run(*spec), 2 * steps,
+                    shear_scan if spec[3] == "scan" else shear_thomas)
+             for name, spec in builders.items()}
+    W128 = builders[f"custom_qg_c128_N{n_small}_tol"][1]
+    S1 = MHDFlow(n_small, np.complex128).random_initial(lmax=10, seed=42)
+    F1 = band_forcing(n_small, np.complex128, device, S1[0])
+    F1 = torch.stack([F1, 0.1 * F1])
+    cases[f"isomp_c128_N{n_small}"] = (loop_run(
+        isomp, W128, tol=1e-300, minit=5, maxit=5, compsum=True,
+        forcing=force128, **hooks), 2 * steps, shear_thomas)
+    cases[f"magmp_c128_N{n_small}"] = (loop_run(
+        magmp, torch.from_numpy(S1).to(device), tol=1e-12, maxit=20,
+        forcing=lambda P, S: F1), 2 * steps, shear_thomas)
+    return cases
+
+
+def hooked_vs_plain(device, n_large=1024, compare_steps=(10, 10, 5)):
+    """Phase 22a-c's kernels inside their replayed hooked steps against
+    their plain versions, which run inside ``config.eager()`` (a captured
+    plain solve is thousands of graph nodes): ``compare_steps`` steps of
+    each of the three complex64 configurations from its state; relative
+    to the largest entry, <= 1e-5."""
+    builders, _, _ = hooked_builders(device, n_large=n_large)
+    rows = {}
+    for (name, (build, S0, timed, variable)), n in zip(
+            list(builders.items())[:3], compare_steps):
+        kernel, plain = ((shear_scan, shear_scan_reference)
+                         if variable == "scan"
+                         else (shear_thomas, shear_thomas_reference))
+        z = torch.zeros_like(S0)
+        t0 = (0.0,) if timed else ()
+        fn = build(n, kernel)
+        Sk = fn(S0, z, z, *t0)[0]
+        with config.eager():
+            Sp = build(n, plain)(S0, z, z, *t0)[0]
+        rel = ratio(Sk, Sp)
+        if not rel <= 1e-5:
+            raise AssertionError(f"{name}: {n} steps kernel vs plain: "
+                                 f"relative difference {rel:.3e} > 1e-5")
+        rows[name] = dict(kernel=kernel.__name__, steps=n,
+                          captured=fn.captured, kernel_vs_plain=rel)
+    return rows
+
+
+def hooked_stepper_vs_isomp(device, N=512, steps=20, maxit=5):
+    """Phase 22e's second check: phase 14c's stepper (the named QG
+    Hamiltonian and viscdamp step, ``maxit`` iterations a step through
+    tol=1e-300) against ``isomp`` with the callables, both replayed,
+    within 1e-11 of max|W|."""
+    flow = GlobalQGFlow(N, np.complex128, gamma=QG_GAMMA)
+    W0 = flow.random_initial(lmax=10, seed=42)
+    forcing = qg_forcing(band_forcing(N, np.complex128, device, W0))
+    dt = 0.25 * hbar(N)
+    Wt = torch.from_numpy(W0).to(device)
+    z = torch.zeros_like(Wt)
+    fn = flow.stepper(dt, steps, maxit=maxit, minit=maxit, tol=1e-300,
+                      forcing=forcing, strang_splitting=VISCDAMP,
+                      device=device)
+    Ws = fn(Wt, z, z, 0.0)[0]
+    Wr = isomp(Wt, dt, steps, time=0.0, tol=1e-300, minit=maxit, maxit=maxit,
+               compsum=True, forcing=forcing, **custom_qg_hooks())
+    diff = ratio(Ws, Wr)
+    if not diff <= 1e-11:
+        raise AssertionError(f"stepper vs isomp: {diff:.3e} > 1e-11 of "
+                             "max|W|")
+    return dict(N=N, steps=steps, maxit=maxit, stepper_vs_isomp=diff,
+                stepper_captured_iteration=fn.captured_iteration)
+
+
+def numpy_forcing(P, W):
+    """A forcing that a capture cannot hold: its result is numpy."""
+    return np.zeros(tuple(W.shape))
+
+
+def host_read_forcing(P, W, time=0.0):
+    """A forcing that a capture cannot hold: it reads time on the host."""
+    return 1e-3 * math.cos(time) * W
+
+
+def hook_raises(device, N=512, steps=2):
+    """Phase 22g: hooks that a capture cannot hold.  On a card a forcing
+    that returns numpy raises TypeError at its runner's first call, and
+    one that reads time on the host (``math.cos`` of the 0-d tensor)
+    raises RuntimeError, each naming the hook and ``config.eager()``;
+    inside ``config.eager()`` both run.  Off a card nothing is captured
+    and both run."""
+    W = torch.from_numpy(EulerFlow(N, np.complex128).random_initial(
+        lmax=10, seed=42)).to(device)
+    z = torch.zeros_like(W)
+    card = torch.device(device).type == "cuda"
+    rows = {}
+    for forcing, error, t0 in ((numpy_forcing, TypeError, ()),
+                               (host_read_forcing, RuntimeError, (0.0,))):
+        def build():
+            return build_step_fn(N, 0.25 * hbar(N), steps=steps,
+                                 dtype=np.complex128, forcing=forcing,
+                                 device=device)
+
+        message = None
+        if card:
+            try:
+                build()(W, z, z, *t0)
+            except error as e:
+                message = str(e)
+            if (message is None or "config.eager()" not in message
+                    or forcing.__name__ not in message):
+                raise AssertionError(
+                    f"{forcing.__name__}: the first call raised {message!r}, "
+                    f"not {error.__name__} naming the hook and "
+                    "config.eager()")
+        with config.eager():
+            out = build()(W, z, z, *t0)[0]
+        if not finite(out):
+            raise AssertionError(f"{forcing.__name__}: non-finite eager run")
+        rows[forcing.__name__] = dict(
+            error=error.__name__ if card else None,
+            message=None if message is None else message[:160],
+            eager_ran=True)
     return rows
 
 
@@ -2853,10 +3108,27 @@ def main():
     print("phase 21 CUDA-graph replay vs eager: " + json.dumps(replays),
           flush=True)
 
+    hooked = replay_vs_eager(device, hooked_cases(device), strict=True,
+                             top=6)
+    print("phase 22a-f hooked runs, replay vs eager: " + json.dumps(hooked),
+          flush=True)
+    hooked_plain = hooked_vs_plain(device)
+    print("phase 22a-c hooked kernels vs plain: " + json.dumps(hooked_plain),
+          flush=True)
+    hooked_isomp = hooked_stepper_vs_isomp(device)
+    print("phase 22e hooked stepper vs isomp c128 N=512: "
+          + json.dumps(hooked_isomp), flush=True)
+    raises = hook_raises(device)
+    print("phase 22g hooks a capture cannot hold: " + json.dumps(raises),
+          flush=True)
+
     def replayed(kernel):
-        """Phase 21's replayed paths of ``kernel``: launches of a call."""
-        return {f"replay_{name}": row["launches_a_call"]["replay"]
-                for name, row in replays.items() if row["kernel"] == kernel}
+        """Phase 21's and 22's replayed paths of ``kernel``: launches of a
+        call."""
+        return {f"{prefix}_{name}": row["launches_a_call"]["replay"]
+                for prefix, rows in (("replay", replays),
+                                     ("hooked_replay", hooked))
+                for name, row in rows.items() if row["kernel"] == kernel}
 
     def main_row(rows):
         return next(r for r in rows if r["dtype"] == "complex64"

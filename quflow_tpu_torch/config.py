@@ -127,7 +127,9 @@ def eager():
     ``jax.disable_jit()`` makes quflow_tpu's run: no CUDA graph is captured
     or replayed (parallel/capture.py).  The choice sticks to a runner after
     its first call.  It is for holding replays to eager runs (tests, the
-    smoke), not a per-call switch."""
+    smoke), and for running a hook that a capture cannot hold (one that
+    returns numpy, or reads or copies host memory), not a per-call
+    switch."""
     global _eager_depth
     _eager_depth += 1
     try:

@@ -10,13 +10,14 @@ Python loop.  The fixed-point loop keeps quflow_tpu's exit rule,
 
 with rn the inf-norm of the change of dW, read on the host once an
 iteration (one ``.item()``, the loop's only host sync), where quflow_tpu
-exits a device ``lax.while_loop``.  On a CUDA device, with no
-``hamiltonian`` and no ``forcing``, the iteration is one CUDA graph
-(parallel/capture.py) replayed from that loop, kept between calls of the
-same configuration (the last few); otherwise, and inside
-``config.eager()``, every kernel is issued from Python.  Either way the
-counts and results are the same.  The update is the last iteration's
-2 (PW - (PW)^H), Kahan-compensated with ``compsum``.
+exits a device ``lax.while_loop``.  On a CUDA device the iteration, its
+hooks with it, is one CUDA graph (parallel/capture.py) replayed from that
+loop, and a callable Strang step is a graph of its own, replayed before
+and after the loop; they are kept between calls of the same configuration
+(the last few), as quflow_tpu keeps one jitted program for each set of
+hooks.  Inside ``config.eager()`` every kernel is issued from Python.
+Either way the counts and results are the same.  The update is the last
+iteration's 2 (PW - (PW)^H), Kahan-compensated with ``compsum``.
 parallel.stepper.IsompTorch is the other integrator: a fixed iteration
 count with no sync, and other results.
 
@@ -24,10 +25,14 @@ A tensor state is stepped on its own device and a tensor comes back; a
 numpy state goes to ``config.device(device)`` (the card by default; pass
 ``device="cpu"`` without one) and is overwritten with the result, which
 is returned.  The hooks ``hamiltonian``, ``forcing`` and
-``strang_splitting`` receive tensors on the state's device and may return
-numpy or tensors; ``time`` reaches them as a float.  ``vareps``, ``tol``
-and ``dt`` are rounded to the state's real dtype, as quflow_tpu rounds
-them, so complex64 stays complex64.
+``strang_splitting`` receive tensors on the state's device.  On the CPU
+they may return numpy or tensors and ``time`` reaches them as a float; on
+a CUDA device, where they are captured, they return tensors there, read
+and copy nothing on the host, and ``time`` reaches them as a 0-d tensor
+of the working precision on the card (parallel/capture.py; a hook that
+breaks this raises, and ``config.eager()`` runs it eagerly).  ``vareps``,
+``tol`` and ``dt`` are rounded to the state's real dtype, as quflow_tpu
+rounds them, so complex64 stays complex64.
 """
 
 from __future__ import annotations
@@ -127,18 +132,25 @@ def _norm_inf(A):
     return A.abs().sum(-1).max()
 
 
-def _like(x, W):
-    """A hook's result (numpy or tensor) as a tensor of W's dtype on W's
-    device."""
-    return torch.as_tensor(x, dtype=W.dtype, device=W.device)
+def _like(x, W, kind="hook", fn=None):
+    """A hook's result as a tensor of W's dtype on W's device, held to the
+    capture's rule while a loop warms up or is captured
+    (parallel.capture.like)."""
+    from ..parallel import capture
+
+    return capture.like(x, W, kind, fn)
 
 
 def _probe_autonomous(fn, args, time):
-    """Mirror the reference's TypeError probing (isospectral.py:404-423)."""
+    """Mirror the reference's TypeError probing (isospectral.py:404-423),
+    with ``time`` as the hook would receive it on the state's device
+    (parallel.capture.device_time)."""
+    from ..parallel import capture
+
     if time is None:
         return True
     try:
-        fn(*args, time=time)
+        fn(*args, time=capture.device_time(float(time), args[0]))
     except TypeError:
         return True
     return False
@@ -215,18 +227,27 @@ def _converge(iteration, tol, maxit, minit, reduce_max=None):
 
 class _Loop:
     """The fixed-point loop of every step of a run, eager:
-    ``iteration(W, dW) -> (dW_new, *rest)`` from the warm start :attr:`dW`,
-    which the loop keeps between steps.  A call returns (the last
-    iteration's rest, iterations, whether the cap ended the loop)."""
+    ``iteration(W, dW, time) -> (dW_new, *rest)`` from the warm start
+    :attr:`dW`, which the loop keeps between steps, at the midpoint time
+    ``time`` of a call (a float, or None where no hook reads it) as
+    parallel.capture.device_time gives it.  A call returns (the last
+    iteration's
+    rest, iterations, whether the cap ended the loop).  :meth:`strang`
+    is the run's Strang half-step ``strang(S) -> S``."""
 
-    def __init__(self, iteration, dW):
-        self.iteration, self.dW = iteration, dW
+    def __init__(self, iteration, W, strang=None):
+        self.iteration, self.dW = iteration, torch.zeros_like(W)
+        self.strang = strang
 
-    def __call__(self, W, tol, maxit, minit):
+    def __call__(self, W, tol, maxit, minit, time=None):
+        from ..parallel import capture
+
         rest = []
+        if time is not None:
+            time = capture.device_time(time, W)
 
         def once():
-            dW_new, *rest[:] = self.iteration(W, self.dW)
+            dW_new, *rest[:] = self.iteration(W, self.dW, time)
             rn = _read(_residual_norm(dW_new, self.dW))
             self.dW = dW_new
             return rn
@@ -239,22 +260,38 @@ class _Loop:
 
 class _CapturedLoop:
     """:class:`_Loop` on one captured iteration (parallel.capture.Iteration
-    over static W and dW): a step copies its W in and replays the graph
+    over static W and dW, and a static 0-d midpoint time that a step fills
+    before its replays): a step copies its W in and replays the graph
     until the exit rule, one host read of the residual an iteration.  The
-    rest it returns are the graph's static buffers."""
+    rest it returns are the graph's static buffers.  A Strang half-step
+    is a graph of its own over a static state; it returns a fresh
+    tensor."""
 
-    def __init__(self, iteration, W):
+    def __init__(self, iteration, W, strang=None):
         from ..parallel import capture
 
         self.W, dW = capture.static_copy(W), torch.zeros_like(W)
+        self.time = torch.zeros((), dtype=W.real.dtype, device=W.device)
         self.graphs = capture.Graphs(W.device)
-        self.it = capture.Iteration(self.graphs, iteration, _residual_norm,
-                                    self.W, dW)
+        self.it = capture.Iteration(
+            self.graphs, lambda Wh, d: iteration(Wh, d, self.time),
+            _residual_norm, self.W, dW)
+        if strang is not None:
+            self.S = capture.static_copy(W)
+            (self._strang,) = self.graphs.capture(
+                lambda: self.S.copy_(strang(self.S)))
 
-    def __call__(self, W, tol, maxit, minit):
+    def __call__(self, W, tol, maxit, minit, time=None):
         self.W.copy_(W)
+        if time is not None:
+            self.time.fill_(time)
         return (self.it.rest,
                 *_converge(lambda: _read(self.it()), tol, maxit, minit))
+
+    def strang(self, S):
+        self.S.copy_(S)
+        self._strang.replay()
+        return self.S.clone()
 
     def reset(self):
         self.it.dW.zero_()
@@ -268,18 +305,19 @@ _LOOPS_KEPT = 4
 
 
 @contextlib.contextmanager
-def _fixed_point_loop(iteration, W, key):
-    """The fixed-point loop of a run from a zero warm start: eager
-    (:class:`_Loop`) when ``key`` is None, else the :class:`_CapturedLoop`
-    of ``key``, captured at the first run of that configuration (``key``
-    names all that its graph holds: the state's shape, dtype and device,
-    the scalars and the column solve) and kept for the next."""
+def _fixed_point_loop(iteration, W, key, strang=None):
+    """The fixed-point loop of a run from a zero warm start, with its
+    Strang half-step ``strang`` (or None): eager (:class:`_Loop`) when
+    ``key`` is None, else the :class:`_CapturedLoop` of ``key``, captured
+    at the first run of that configuration (``key`` names all that its
+    graphs hold: the state's shape, dtype and device, the scalars, the
+    hooks and the column solve) and kept for the next."""
     if key is None:
-        yield _Loop(iteration, torch.zeros_like(W))
+        yield _Loop(iteration, W, strang)
         return
     loop = _LOOPS.pop(key, None)  # a nested run of one key gets its own
     if loop is None:
-        loop = _CapturedLoop(iteration, W)
+        loop = _CapturedLoop(iteration, W, strang)
     loop.reset()
     try:
         yield loop
@@ -331,17 +369,25 @@ def isomp_fixedpoint(
     The callback gets numpy for a numpy state, tensors for a tensor (never
     a buffer that a later step overwrites).
 
-    On a CUDA device with no ``hamiltonian`` and no ``forcing`` (outside
-    ``config.eager()``), each step's fixed-point iteration is one CUDA
-    graph (parallel/capture.py), captured at the call and replayed until
-    the exit rule, which reads the residual on the host once an
-    iteration as the eager loop does; a Strang splitting runs eagerly
-    between the replays.  Iteration counts and results are the eager
-    loop's.
+    On a CUDA device (outside ``config.eager()``), each step's
+    fixed-point iteration is one CUDA graph (parallel/capture.py), its
+    ``hamiltonian`` and ``forcing`` in it, captured at the first call of a
+    configuration and replayed until the exit rule, which reads the
+    residual on the host once an iteration as the eager loop does; a
+    callable ``strang_splitting`` is a graph of its own, replayed before
+    and after, with the concrete h = dt/2 as quflow_tpu passes it.  The
+    hooks must then be capturable, as quflow_tpu requires them
+    "jax-traceable" (tensors in, a tensor on the state's device out, no
+    host read or copy; ``time`` a 0-d tensor on the card); their Python
+    runs only when a configuration is first captured.  The graphs are
+    kept for the next call with the same hooks (the last few).
+    Iteration counts and results are the eager loop's.
     """
+    from ..parallel import capture
+
     _check_iterations(minit, maxit)
     Wt = config.to_tensor(W, device)
-    captured = hamiltonian is None and forcing is None
+    hooks = (hamiltonian, forcing, strang_splitting)
     if hamiltonian is None:
         hamiltonian = partial(solve_poisson, skewh=skewh)
 
@@ -368,37 +414,48 @@ def isomp_fixedpoint(
     dt_half = dt_r / r(2)
     t = r(0.0 if time is None else time)
 
-    def ham(Whalf):
-        if timed and not autonomous:
-            return _like(hamiltonian(Whalf, time=float(t + dt_half)), Whalf)
-        return _like(hamiltonian(Whalf), Whalf)
+    ham_timed = timed and not autonomous
+    force_timed = timed and not autonomous_force
 
-    force = None
-    if forcing is not None:
-        def force(P, Whalf):
-            if timed and not autonomous_force:
-                return _like(forcing(P, Whalf, time=float(t + dt_half)),
-                             Whalf)
-            return _like(forcing(P, Whalf), Whalf)
+    def iteration(Wh, dW, time):
+        def ham(Whalf):
+            kw = {"time": time} if ham_timed else {}
+            return capture.hook("hamiltonian", hamiltonian, Whalf, Whalf,
+                                **kw)
+
+        force = None
+        if forcing is not None:
+            def force(P, Whalf):
+                kw = {"time": time} if force_timed else {}
+                return capture.hook("forcing", forcing, Whalf, P, Whalf,
+                                    **kw)
+
+        return _iteration(Wh, dW, ham, force, skewh, vareps, float(dt_half))
+
+    strang = None
+    if strang_splitting is not None:
+        def strang(S):
+            return capture.hook("strang_splitting", strang_splitting, S,
+                                float(dt) / 2, S)
 
     def host(A):
         return config.like_input(A, W)
 
-    def iteration(Wh, dW):
-        return _iteration(Wh, dW, ham, force, skewh, vareps, float(dt_half))
-
-    key = (_capture_key("isomp", Wt, skewh, vareps, float(dt_half))
-           if captured else None)
-    with _fixed_point_loop(iteration, Wt, key) as loop:
+    key = _capture_key("isomp", Wt, skewh, vareps, float(dt_half), *hooks,
+                       ham_timed, force_timed,
+                       None if strang is None else float(dt))
+    with _fixed_point_loop(iteration, Wt, key, strang) as loop:
         csum = torch.zeros_like(Wt) if compsum else None
         total_iters = total_maxit = 0
         for _ in range(steps):
             W_prev = Wt
-            if strang_splitting is not None:
-                Wt = _like(strang_splitting(float(dt) / 2, Wt), Wt)
+            if strang is not None:
+                Wt = loop.strang(Wt)
             if reinitialize:
                 loop.reset()
-            (PWc, FW), i, hit = loop(Wt, tol_r, maxit, minit)
+            (PWc, FW), i, hit = loop(Wt, tol_r, maxit, minit,
+                                     float(t + dt_half) if ham_timed
+                                     or force_timed else None)
             upd = 2.0 * PWc
             if compsum:
                 # Kahan compensated summation W += upd
@@ -412,8 +469,8 @@ def isomp_fixedpoint(
                 Wt = Wt + 2.0 * FW
             if timed:
                 t = t + dt_r
-            if strang_splitting is not None:
-                Wt = _like(strang_splitting(float(dt) / 2, Wt), Wt)
+            if strang is not None:
+                Wt = loop.strang(Wt)
             if callback is not None:
                 callback(host(W_prev), host(upd))
             total_iters += i

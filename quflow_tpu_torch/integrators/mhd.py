@@ -5,10 +5,11 @@ quflow/integrators/mhd.py: ``solve_mhd`` :10-18, ``magmp_fixedpoint``
 :235-456): two-component state (2, N, N) with state[0] = W (vorticity) and
 state[1] = Theta (magnetic flux function), evolving W' = [P, W] +
 [B, Theta], Theta' = [P, Theta] with P = Delta^-1 W and B = Delta Theta.
-Run eagerly like integrators/isospectral.py, with the same loop contract:
-quflow_tpu's exit rule, one host sync an iteration, the devices and hooks
-of isomp.  Each iteration solves W once (one column-kernel launch); the
-Laplacian of Theta is elementwise.
+Run like integrators/isospectral.py, with the same loop contract:
+quflow_tpu's exit rule, one host sync an iteration, the iteration and its
+hooks one CUDA graph on a card, the devices and hooks of isomp.  Each
+iteration solves W once (one column-kernel launch); the Laplacian of
+Theta is elementwise.
 """
 
 from __future__ import annotations
@@ -85,13 +86,15 @@ def magmp_fixedpoint(
     the cap) a step, and 'tol' when it is 'auto'; ``callback(W_prev,
     W_new - W_prev)`` runs each step, with numpy for a numpy state.
 
-    On a CUDA device with the default ``hamiltonian`` (:func:`solve_mhd`)
-    and no ``forcing`` (outside ``config.eager()``), each step's
-    fixed-point iteration is one CUDA graph, replayed until the exit rule
-    as in ``isomp_fixedpoint``."""
+    On a CUDA device (outside ``config.eager()``), each step's fixed-point
+    iteration is one CUDA graph, ``hamiltonian`` and ``forcing`` in it,
+    replayed until the exit rule and kept for the next call with the same
+    hooks, as in ``isomp_fixedpoint``, whose rule for capturable hooks
+    holds here."""
+    from ..parallel import capture
+
     _check_iterations(minit, maxit)
     Wt = config.to_tensor(W, device)
-    captured = hamiltonian is solve_mhd and forcing is None
     N = Wt.shape[-1]
     hb = hbar(N)
     rd = config.numpy_dtype(Wt.real.dtype)
@@ -113,31 +116,35 @@ def magmp_fixedpoint(
     dt_half = dt_r / r(2)
     t = r(0.0 if time is None else time)
 
-    def ham(Whalf):
-        if timed and not autonomous:
-            out = hamiltonian(Whalf, time=float(t + dt_half))
-        else:
-            out = hamiltonian(Whalf)
-        return tuple(_like(a, Whalf) for a in out)
+    ham_timed = timed and not autonomous
+    force_timed = timed and not autonomous_force
 
-    force = None
-    if forcing is not None:
-        def force(P, Whalf):
-            if timed and not autonomous_force:
-                return _like(forcing(P, Whalf, time=float(t + dt_half)),
-                             Whalf)
-            return _like(forcing(P, Whalf), Whalf)
+    def iteration(Wh, dW, time):
+        def ham(Whalf):
+            kw = {"time": time} if ham_timed else {}
+            out = capture.call("hamiltonian", hamiltonian, Whalf, **kw)
+            return tuple(_like(a, Whalf, "hamiltonian", hamiltonian)
+                         for a in out)
 
-    def iteration(Wh, dW):
+        force = None
+        if forcing is not None:
+            def force(P, Whalf):
+                kw = {"time": time} if force_timed else {}
+                return capture.hook("forcing", forcing, Whalf, P, Whalf,
+                                    **kw)
+
         return _iteration(Wh, dW, ham, force, vareps, float(dt_half))
 
-    key = _capture_key("magmp", Wt, vareps) if captured else None
+    key = _capture_key("magmp", Wt, vareps, float(dt_half), hamiltonian,
+                       forcing, ham_timed, force_timed)
     with _fixed_point_loop(iteration, Wt, key) as loop:
         total_iters = total_maxit = 0
         for _ in range(steps):
             if reinitialize:
                 loop.reset()
-            (PWc, BTc, FW), i, hit = loop(Wt, tol_r, maxit, minit)
+            (PWc, BTc, FW), i, hit = loop(Wt, tol_r, maxit, minit,
+                                          float(t + dt_half) if ham_timed
+                                          or force_timed else None)
             W_new = Wt + 2.0 * PWc
             W_new[0] += 2.0 * BTc
             if forcing is not None:

@@ -31,6 +31,16 @@ place where graphs are captured, replayed and counted.
 * :class:`Iteration` is one fixed-point iteration as a graph, replayed from
   a host loop that keeps quflow_tpu's exit rule and reads the residual once
   an iteration.
+* A callable hook (Hamiltonian, forcing, Strang step) is captured with the
+  piece that calls it, as quflow_tpu traces a "jax-traceable" hook into its
+  program.  So it must be capturable: it takes tensors and returns a tensor
+  on the state's device, reads nothing back to the host (no ``.item()``,
+  ``float`` or ``math`` of a tensor, no numpy) and copies nothing from the
+  host; a timed hook gets ``time`` as a 0-d tensor on the card.  Its
+  Python runs only at the warm-up and at the capture, as a JAX hook runs
+  only when it is traced.  While a runner warms up or is captured
+  (:func:`capturing`), :func:`call` and :func:`like` hold a hook to that
+  and raise, naming it and ``config.eager()``, the way out.
 
 Which runners capture is decided by their builders from the configuration
 alone (parallel/stepper.py, integrators/isospectral.py, integrators/mhd.py);
@@ -48,7 +58,8 @@ from ..ops.cuda_scan_solve import shear_scan
 from ..ops.cuda_solve import shear_thomas
 from ..ops.shear_solve import device_cache
 
-__all__ = ["available", "static_copy", "Graph", "Graphs", "Iteration",
+__all__ = ["available", "static_copy", "capturing", "call", "like", "hook",
+           "device_time", "HookError", "Graph", "Graphs", "Iteration",
            "KERNELS"]
 
 #: the kernel wrappers whose ``launches`` a replay advances
@@ -59,6 +70,81 @@ def available(device):
     """Whether work on ``device`` may be captured: a CUDA device, and no
     ``config.eager()`` block open."""
     return torch.device(device).type == "cuda" and not config.is_eager()
+
+
+#: the :meth:`Graphs.capture` calls under way (warm-ups and captures)
+_depth = 0
+
+
+def capturing():
+    """Whether a runner's pieces are being warmed up or captured now: a hook
+    called now must be capturable."""
+    return _depth > 0
+
+
+class HookError(RuntimeError):
+    """A hook that did what a CUDA graph cannot hold."""
+
+
+def _hint(kind, fn, what):
+    name = getattr(fn, "__qualname__", None) or repr(fn)
+    return (f"the {kind} hook {name} {what}; a hook of a runner on a CUDA "
+            "device is captured in its graph, so it takes tensors, returns a "
+            "tensor on the state's device and reads and copies nothing on "
+            "the host (time comes as a 0-d tensor on the card). Build or "
+            "first call the runner inside config.eager() to run it eagerly")
+
+
+def _stream_capturing():
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def call(kind, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, a call of the ``kind`` hook ``fn``.  Inside
+    a capture, a RuntimeError it raises (a host read or a host copy, which
+    a capture refuses) becomes a :class:`HookError` that names it."""
+    try:
+        return fn(*args, **kwargs)
+    except HookError:
+        raise
+    except RuntimeError as e:
+        if not (_depth and _stream_capturing()):
+            raise
+        first = (str(e).strip().splitlines() or [""])[0]
+        raise HookError(_hint(kind, fn, f"failed inside a CUDA graph capture "
+                              f"({first})")) from e
+
+
+def like(x, W, kind="hook", fn=None):
+    """A hook's result ``x`` as a tensor of ``W``'s dtype on ``W``'s
+    device.  Outside a warm-up or capture (:func:`capturing`), numpy and
+    tensors elsewhere are copied there; inside one, only a tensor already
+    on ``W``'s device is taken (its dtype cast), and anything else raises
+    TypeError naming the hook."""
+    if _depth and not (isinstance(x, torch.Tensor) and x.device == W.device):
+        where = (f"a tensor on {x.device}" if isinstance(x, torch.Tensor)
+                 else type(x).__name__)
+        raise TypeError(_hint(kind, fn, f"returned {where}, not a tensor on "
+                              f"{W.device}"))
+    return torch.as_tensor(x, dtype=W.dtype, device=W.device)
+
+
+def hook(kind, fn, W, *args, **kwargs):
+    """The ``kind`` hook ``fn`` called on ``args`` (:func:`call`), its
+    result as :func:`like` gives it for the state ``W``."""
+    return like(call(kind, fn, *args, **kwargs), W, kind, fn)
+
+
+def device_time(t, W):
+    """Time ``t`` (a float or a numpy scalar) as a timed hook of a run on
+    ``W`` receives it: on a CUDA device a 0-d tensor of W's real dtype
+    there (a fill, no host copy), whose sums with a step's scalars round
+    as numpy's do, in eager runs and replays alike; elsewhere ``t``
+    itself."""
+    if W.device.type != "cuda":
+        return t
+    return torch.full((), float(t), dtype=W.real.dtype, device=W.device)
 
 
 def static_copy(x):
@@ -94,7 +180,10 @@ class Graphs:
 
     def capture(self, *pieces):
         """Run each of ``pieces`` (callables of no argument) once eagerly,
-        then capture each into a :class:`Graph`; returns them in order."""
+        then capture each into a :class:`Graph`; returns them in order.
+        A piece that fails inside its capture raises its own error, not
+        the capture's end that follows it."""
+        global _depth
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
@@ -102,6 +191,7 @@ class Graphs:
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         graphs = []
+        _depth += 1
         try:
             with torch.no_grad(), torch.cuda.device(self.device), \
                     device_cache.hold(self.held):
@@ -111,17 +201,32 @@ class Graphs:
                 for piece in pieces:
                     graph = torch.cuda.CUDAGraph()
                     start = [k.launches for k in KERNELS]
-                    with torch.cuda.graph(graph, pool=self.pool,
-                                          stream=self.stream):
-                        piece()
+                    self._capture(graph, piece, current)
                     graphs.append(Graph(graph, [
                         (k, k.launches - s) for k, s in zip(KERNELS, start)
                         if k.launches != s]))
         finally:
+            _depth -= 1
             for k, n in zip(KERNELS, saved):
                 k.launches = n
         current.wait_stream(self.stream)
         return graphs
+
+    def _capture(self, graph, piece, current):
+        failed = []
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                try:
+                    piece()
+                except Exception as e:
+                    failed.append(e)
+                    raise
+        except Exception:
+            # the graph's end, raising, skips its restore of the stream
+            torch.cuda.set_stream(current)
+            if failed:
+                raise failed[0]
+            raise
 
     def pool_bytes(self):
         """Bytes the card holds in this runner's pool, summed over the

@@ -27,16 +27,18 @@ an iteration (:func:`_read`), as ``isomp`` does.
 Compiled runners.  Where quflow_tpu jits a ``lax.scan`` over the steps,
 a runner here replays CUDA graphs (parallel/capture.py), by a rule that
 reads the configuration alone (:func:`_capture_mode`, visible as
-``run.captured`` and ``run.captured_iteration``): on a CUDA device, with
-no callable hook and no 'tp' > 1 mesh, the whole step is one graph
-replayed ``steps`` times a call; under ``tol`` the Strang halves, the warm
-prefix, one iteration and the update are graphs, and the host replays the
-iteration until the adaptive rule exits.  Callable hooks, 'tp' > 1, the
-CPU and runners built or first called inside ``config.eager()`` run
-eagerly, every kernel issued from Python.  A captured call copies its
-state into the graphs' static buffers and returns fresh tensors; the
-launch counters of the kernels advance once a replay by what the graph
-launches.
+``run.captured`` and ``run.captured_iteration``): on a CUDA device with
+no 'tp' > 1 mesh, the whole step is one graph replayed ``steps`` times a
+call; under ``tol`` the Strang halves, the warm prefix, one iteration and
+the update are graphs, and the host replays the iteration until the
+adaptive rule exits.  Callable hooks are captured with the step, as
+quflow_tpu traces them into its jit, so they must be capturable
+(parallel/capture.py); a timed runner's time lives on the card, loaded
+once a call and advanced by the graph.  'tp' > 1, the CPU and runners
+built or first called inside ``config.eager()`` run eagerly, every kernel
+issued from Python.  A captured call copies its state into the graphs'
+static buffers and returns fresh tensors; the launch counters of the
+kernels advance once a replay by what the graph launches.
 
 The column solve is a CUDA kernel on the card, chosen by
 ops.shear_solve.column_solver when a step is built: ``shear_thomas`` (the
@@ -401,10 +403,10 @@ def _step_setup(N, dt, maxit, dtype, refine, tol, minit):
     return refine, r(dt / (2.0 * hbar(N))), r(dt / 2.0), r(dt)
 
 
-def _like(x, W):
-    """A hook's result (numpy or tensor) as a tensor of W's dtype on W's
-    device."""
-    return torch.as_tensor(x, dtype=W.dtype, device=W.device)
+#: a hook's result as a tensor of W's dtype on W's device: numpy or a
+#: tensor elsewhere is copied there, except while a runner warms up or is
+#: captured, when only a tensor on W's device is taken
+_like = capture.like
 
 
 def _residual_norm(dW_new, dW):
@@ -497,8 +499,8 @@ def _strang_hook(strang_splitting, N, dt, dtype, half_dt, device, solver,
         return None
     rows = _Rows(mesh, N)
     if callable(strang_splitting):
-        return lambda S: rows.mine(_like(strang_splitting(half_dt,
-                                                          rows.full(S)), S))
+        return lambda S: rows.mine(capture.hook(
+            "strang_splitting", strang_splitting, S, half_dt, rows.full(S)))
     kind, params, theta_rhs = _resolve_strang_named(strang_splitting, dt)
     lap = cW = cL = None
     if theta_rhs is not None:
@@ -525,27 +527,27 @@ def _strang_hook(strang_splitting, N, dt, dtype, half_dt, device, solver,
     return strang_half
 
 
-def _capture_mode(device, mesh, tol, *hooks):
+def _capture_mode(device, mesh, tol):
     """How the runner of a step builder runs on ``device``, by a rule that
     reads the configuration and nothing else:
 
     * 'step' - the whole step is one CUDA graph (parallel/capture.py),
-      replayed ``steps`` times a call: a CUDA device, no ``tol``, no
-      callable hook (Hamiltonian, forcing, Strang step), and no mesh or
-      one whose 'tp' axis is 1 (over 'dp' alone a fixed ``maxit`` runs no
-      collective);
+      replayed ``steps`` times a call: a CUDA device, no ``tol``, and no
+      mesh or one whose 'tp' axis is 1 (over 'dp' alone a fixed ``maxit``
+      runs no collective);
     * 'iteration' - the same with ``tol``: the Strang half-steps, the warm
       prefix, one full-precision iteration and the update are graphs, and
       the host replays the iteration until the adaptive rule exits;
     * None - eager, every kernel issued from Python: the CPU, a 'tp' > 1
-      mesh (its row gathers go through gloo's host copies), any callable
-      hook (its numpy result reaches the card by a host copy), and any
-      runner built or first called inside ``config.eager()``.
+      mesh (its row gathers go through gloo's host copies), and any runner
+      built or first called inside ``config.eager()``.
 
-    Named Hamiltonians and Strang steps, the warm schedule, '_karatsuba',
-    ``batched`` and the column solver do not enter the rule."""
-    if (not capture.available(device) or (mesh is not None and mesh.tp > 1)
-            or any(callable(h) for h in hooks)):
+    Hooks, named or callable, the warm schedule, '_karatsuba', ``batched``
+    and the column solver do not enter the rule: a callable hook is
+    captured with its step, as quflow_tpu traces it into its jit, and must
+    be capturable (parallel/capture.py); one that is not raises at the
+    first call, and ``config.eager()`` runs it eagerly."""
+    if not capture.available(device) or (mesh is not None and mesh.tp > 1):
         return None
     return "step" if tol is None else "iteration"
 
@@ -594,19 +596,30 @@ class _Step:
         return W, dW, csum, t + self.dt, iters
 
 
+def _static_time(t):
+    """A timed runner's time on the card (a 0-d tensor) as a static buffer
+    that its graphs read and advance; None for a host scalar (an untimed
+    runner's time, which no hook reads)."""
+    return capture.static_copy(t) if isinstance(t, torch.Tensor) else None
+
+
 class _StepGraph:
     """The whole step as one graph over static W, dW and csum (mode
     'step'), the counterpart of ``lax.scan(step, ..., length=steps)``:
     a call loads its state, replays the graph ``steps`` times and returns
-    fresh tensors."""
+    fresh tensors.  A timed runner's time is a static 0-d tensor too: a
+    call loads t0, and the graph forms the midpoint time and advances it
+    on the card, by the eager step's arithmetic."""
 
     def __init__(self, step, graphs, W, dW, csum, t):
         self.step = step
         self.state = [capture.static_copy(x) for x in (W, dW, csum)]
+        self.t = _static_time(t)
+        bufs = self.state if self.t is None else self.state + [self.t]
 
         def piece():
-            out = step(*self.state, t)[:3]
-            for buf, x in zip(self.state, out):
+            out = step(*self.state, t if self.t is None else self.t)
+            for buf, x in zip(bufs, out):
                 buf.copy_(x)
 
         (self.graph,) = graphs.capture(piece)
@@ -614,9 +627,14 @@ class _StepGraph:
     def __call__(self, W, dW, csum, t, steps):
         for buf, x in zip(self.state, (W, dW, csum)):
             buf.copy_(x)
+        if self.t is not None:
+            self.t.copy_(t)
         for _ in range(steps):
             self.graph.replay()
-            t = t + self.step.dt
+            if self.t is None:
+                t = t + self.step.dt
+        if self.t is not None:
+            t = self.t.clone()
         return (*(buf.clone() for buf in self.state), t, None)
 
 
@@ -626,11 +644,16 @@ class _AdaptiveGraphs:
     (parallel.capture.Iteration, its residual into a 0-d tensor) and the
     update with the second half-step.  The host replays the iteration until
     the adaptive rule exits, one host read of the residual an iteration
-    (and under a mesh its max over the ranks), as the eager loop does."""
+    (and under a mesh its max over the ranks), as the eager loop does.  A
+    timed runner's time and midpoint time are static 0-d tensors: the head
+    forms the midpoint time, the tail advances time."""
 
     def __init__(self, step, graphs, W, dW, csum, t):
         self.step = step
+        self.t = _static_time(t)
         thalf = t + step.half_dt
+        if self.t is not None:
+            thalf = capture.static_copy(thalf)
         self.W, self.csum = (capture.static_copy(x) for x in (W, csum))
         self.Wh = self.W if step.strang is None else capture.static_copy(W)
         self.it = capture.Iteration(
@@ -638,7 +661,10 @@ class _AdaptiveGraphs:
             _residual_norm, self.Wh, capture.static_copy(dW))
 
         def head():
-            self.Wh.copy_(step.strang(self.W))
+            if step.strang is not None:
+                self.Wh.copy_(step.strang(self.W))
+            if self.t is not None:
+                thalf.copy_(self.t + step.half_dt)
 
         def warm():
             self.it.dW.copy_(step.warm(self.Wh, self.it.dW, thalf))
@@ -647,19 +673,24 @@ class _AdaptiveGraphs:
             Wn, cn = step.tail(self.Wh, self.it.rest, self.csum)
             self.W.copy_(Wn)
             self.csum.copy_(cn)
+            if self.t is not None:
+                self.t.copy_(self.t + step.dt)
 
-        pieces = [p for p, on in ((head, step.strang is not None),
+        has_head = step.strang is not None or self.t is not None
+        pieces = [p for p, on in ((head, has_head),
                                   (warm, step.warm_iters > 0),
                                   (tail, True)) if on]
         captured = graphs.capture(*pieces)
         self.tail = captured.pop()
         self.warm = captured.pop() if step.warm_iters else None
-        self.head = captured.pop() if step.strang is not None else None
+        self.head = captured.pop() if has_head else None
 
     def __call__(self, W, dW, csum, t, steps):
         step = self.step
         for buf, x in ((self.W, W), (self.it.dW, dW), (self.csum, csum)):
             buf.copy_(x)
+        if self.t is not None:
+            self.t.copy_(t)
         counts = []
         for _ in range(steps):
             if self.head is not None:
@@ -670,7 +701,10 @@ class _AdaptiveGraphs:
                                     step.maxit, step.minit,
                                     step.reduce_max)[0])
             self.tail.replay()
-            t = t + step.dt
+            if self.t is None:
+                t = t + step.dt
+        if self.t is not None:
+            t = self.t.clone()
         return (self.W.clone(), self.it.dW.clone(), self.csum.clone(), t,
                 counts)
 
@@ -679,7 +713,9 @@ class _Runner:
     """The runner of a stepper: ``fn(W, dW, csum[, t0]) -> (W, dW, csum[,
     iterations][, diagnostics])``, ``t0`` only when ``timed``.  ``step``
     is a :class:`_Step`; time ``t`` is a numpy scalar of the working
-    precision (``t0_type``), advanced by the step; under ``tol`` the
+    precision (``t0_type``), advanced by the step, and for a timed runner
+    on a CUDA state a 0-d tensor of that precision on the state's device,
+    eager or replayed (parallel.capture.device_time); under ``tol`` the
     per-step counts come back as an int32 (steps,) CPU tensor;
     ``finish(W, t)``, when given, appends its result, computed eagerly
     after the steps.  ``batched`` requires a leading ensemble axis on a
@@ -727,6 +763,8 @@ class _Runner:
     def _run(self, W, dW, csum, t0=0.0):
         _checked_state(W, self.batched, self.core_ndim)
         t = self.t0_type(t0)
+        if self.timed:
+            t = capture.device_time(t, W)
         if self.captured or self.captured_iteration:
             # counts: None for a whole-step graph, which runs no tol
             W, dW, csum, t, counts = self._program(W, dW, csum, t)(
@@ -845,7 +883,8 @@ def build_step_fn(
       applied for dt/2 before and after each step.
     * When a hook takes ``time`` the runner is ``fn(W, dW, csum, t0)``;
       time advances by dt a step in the working precision and reaches the
-      hooks as a numpy scalar of that precision.
+      hooks as a 0-d tensor of that precision on the state's CUDA device
+      (eager or replayed), or as a numpy scalar of it on the CPU.
     * ``with_diagnostics`` appends a real (..., 2) tensor of [energy,
       enstrophy] of the final state, the energy through the Hamiltonian in
       force.
@@ -860,14 +899,19 @@ def build_step_fn(
     the module's note); under a mesh whose 'tp' axis splits the rows
     they act on each rank's row-local GEMMs.
 
-    Capture (the counterpart of quflow_tpu's jit): on a CUDA device, with
-    no callable ``hamiltonian``, ``forcing`` or ``strang_splitting`` and
-    no mesh with 'tp' > 1, the runner replays CUDA graphs
+    Capture (the counterpart of quflow_tpu's jit): on a CUDA device and
+    with no mesh with 'tp' > 1, the runner replays CUDA graphs
     (:func:`_capture_mode`): without ``tol`` one graph of the whole step
     (``run.captured``), with ``tol`` graphs of its pieces and one host
-    read an iteration (``run.captured_iteration``).  Anything else, and a
+    read an iteration (``run.captured_iteration``).  A tp > 1 mesh, and a
     runner built or first called inside ``config.eager()``, runs
-    eagerly.  A configuration that captures and then fails to raises.
+    eagerly.  Callable hooks are captured with the step, as quflow_tpu
+    requires them "jax-traceable": tensors in, a tensor on the state's
+    device out, no host read and no host copy (parallel/capture.py);
+    their Python runs only at the warm-up and the capture of the first
+    call.  A configuration that captures and then fails to raises: a hook
+    that breaks the capture raises at the first call, naming itself and
+    ``config.eager()``, which runs it eagerly.
     """
     layout = _resolve_layout(layout, mesh)
     mm, warm_iters, mm_warm = _schedule(precision, warm_precision,
@@ -897,8 +941,9 @@ def build_step_fn(
     reduce_max = _reduce_max(mesh, device)
 
     def call_ham(W, t):
-        return _like(ham_callable(W, time=t) if ham_timed
-                     else ham_callable(W), W)
+        if ham_timed:
+            return capture.hook("hamiltonian", ham_callable, W, W, time=t)
+        return capture.hook("hamiltonian", ham_callable, W, W)
 
     def apply_ham(W, t):
         """P of the state W (this rank's rows under tp)."""
@@ -932,8 +977,9 @@ def build_step_fn(
         if forcing is not None:
             # on the unscaled midpoint pair, weighted dt/2
             args = (Pf / vareps, Wf)
-            FW = rows.mine(_like(forcing(*args, time=thalf) if force_timed
-                                 else forcing(*args), W)) * half
+            kw = {"time": thalf} if force_timed else {}
+            FW = rows.mine(capture.hook("forcing", forcing, Wf, *args,
+                                        **kw)) * half
             dW = dW + FW
         return dW, PWc, FW
 
@@ -961,8 +1007,7 @@ def build_step_fn(
         inner_WP, inner_WW = inner.real / N
         return torch.stack([-inner_WP / 2.0, inner_WW / 2.0], dim=-1)
 
-    mode = _capture_mode(device, mesh, tol, hamiltonian, forcing,
-                         strang_splitting)
+    mode = _capture_mode(device, mesh, tol)
     return _Runner(step, steps, rd.type, ham_timed or force_timed,
                    diagnostics if with_diagnostics else None, batched,
                    mode=mode, device=device,
@@ -1033,8 +1078,8 @@ def build_mhd_step_fn(
     for the single device's 6, and 4 row gathers: S, P, B and Theta B.
     Forcing and a callable Strang step see the whole state, as in
     :func:`build_step_fn`.  The runner captures by the rule of
-    :func:`build_step_fn` (callable ``forcing`` or ``strang_splitting``,
-    'tp' > 1, the CPU and ``config.eager()`` stay eager).
+    :func:`build_step_fn`, its hooks with it ('tp' > 1, the CPU and
+    ``config.eager()`` stay eager).
     """
     layout = _resolve_layout(layout, mesh)
     mm, warm_iters, mm_warm = _schedule(precision, warm_precision,
@@ -1105,8 +1150,9 @@ def build_mhd_step_fn(
         FW = None
         if forcing is not None:
             args = (Pf / vareps, Sf)
-            FW = rows.mine(_like(forcing(*args, time=thalf) if force_timed
-                                 else forcing(*args), S)) * half
+            kw = {"time": thalf} if force_timed else {}
+            FW = rows.mine(capture.hook("forcing", forcing, Sf, *args,
+                                        **kw)) * half
             dS = dS + FW
         return dS, PSc, BTc, FW
 
@@ -1123,7 +1169,7 @@ def build_mhd_step_fn(
                  minit=minit, reduce_max=reduce_max,
                  schedule=(mm, warm_iters, mm_warm), half_dt=half_dt,
                  dt=dt_r)
-    mode = _capture_mode(dev, mesh, tol, forcing, strang_splitting)
+    mode = _capture_mode(dev, mesh, tol)
     return _Runner(step, steps, rd.type, force_timed, batched=batched,
                    core_ndim=3, mode=mode, device=dev,
                    planes=dev if planes_io else None)
@@ -1191,9 +1237,7 @@ class _ResidentIntegrator:
         """Whether the runners on this integrator's ``device`` replay the
         whole step as one CUDA graph, by :func:`_capture_mode`'s rule (a
         tensor on another device is stepped by that device's rule)."""
-        return _capture_mode(self.device, self.mesh, self.tol,
-                             self.hamiltonian, self.forcing,
-                             self.strang_splitting) == "step"
+        return _capture_mode(self.device, self.mesh, self.tol) == "step"
 
     def _fn(self, N, dt, steps, device):
         key = (N, float(dt), int(steps), device)
@@ -1327,16 +1371,17 @@ def _complex64_product(a, b):
                         b.to(torch.complex64)).to(a.dtype)
 
 
-def _on_planes(hook, strang=False):
+def _on_planes(hook, kind, strang=False):
     """A hook of the double-word steppers, which takes and gives split
     float64 planes (2, ..., N, N), as a hook of the complex steppers; a
     Strang step's first argument, h, passes through.  A hook that takes
-    ``time`` still does."""
+    ``time`` still does.  Its planes are held to the capture's rule as a
+    complex hook's result is (:func:`_like`)."""
     if not callable(hook):
         return hook
 
     def complex_of(Pp, like):
-        Pp = torch.as_tensor(Pp, dtype=torch.float64, device=like.device)
+        Pp = _like(Pp, like.real, kind, hook)
         return torch.complex(Pp[0], Pp[1])
 
     if strang:
@@ -1415,9 +1460,10 @@ def build_dw_step_fn(
         compsum=compsum, mesh=mesh, batched=batched, precision="highest",
         planes_io=True, refine=0, with_diagnostics=with_diagnostics,
         tol=tol, minit=minit, warm_precision=_complex64_product,
-        warm_iters=warm, hamiltonian=_on_planes(hamiltonian),
-        forcing=_on_planes(forcing),
-        strang_splitting=_on_planes(strang_splitting, strang=True),
+        warm_iters=warm, hamiltonian=_on_planes(hamiltonian, "hamiltonian"),
+        forcing=_on_planes(forcing, "forcing"),
+        strang_splitting=_on_planes(strang_splitting, "strang_splitting",
+                                    strang=True),
         device=device, solver=solver)
 
 
@@ -1460,6 +1506,7 @@ def build_dw_mhd_step_fn(
         precision="highest", planes_io=True, compsum=compsum, refine=0,
         mesh=mesh, batched=batched, tol=tol, minit=minit,
         warm_precision=_complex64_product, warm_iters=warm,
-        hamiltonian=hamiltonian, forcing=_on_planes(forcing),
-        strang_splitting=_on_planes(strang_splitting, strang=True),
+        hamiltonian=hamiltonian, forcing=_on_planes(forcing, "forcing"),
+        strang_splitting=_on_planes(strang_splitting, "strang_splitting",
+                                    strang=True),
         device=device, solver=solver)

@@ -2,7 +2,8 @@
 counterpart of jax.jit) and the repairs that came before it.
 
 On the CPU: which configurations capture (``run.captured`` for the whole
-step, ``run.captured_iteration`` under ``tol``), ``config.eager()``, and
+step, ``run.captured_iteration`` under ``tol``; callable hooks capture with
+their step), ``config.eager()``, and
 that a configuration the rule captures raises where it cannot be
 captured; the neighbour exchange posted as one batch of point-to-point
 operations; integer and bool Poisson inputs solved in float64, as
@@ -82,11 +83,11 @@ RULE = {
                         (False, True)),
     "tol_dp_mesh": ({"tol": 1e-8, "mesh": _mesh(2, 1)}, (False, True)),
     "tp_mesh": ({"mesh": _mesh(1, 2)}, (False, False)),
-    "callable_hamiltonian": ({"hamiltonian": lambda W: W}, (False, False)),
-    "callable_forcing": ({"forcing": _forcing}, (False, False)),
-    "callable_strang": ({"strang_splitting": _strang}, (False, False)),
+    "callable_hamiltonian": ({"hamiltonian": lambda W: W}, (True, False)),
+    "callable_forcing": ({"forcing": _forcing}, (True, False)),
+    "callable_strang": ({"strang_splitting": _strang}, (True, False)),
     "tol_callable_forcing": ({"tol": 1e-8, "forcing": _forcing},
-                             (False, False)),
+                             (False, True)),
 }
 
 
@@ -113,9 +114,9 @@ def test_capture_rule_of_build_mhd_step_fn(cuda_rule, name):
 @pytest.mark.parametrize("build,kw,expected", [
     (tst.build_dw_step_fn, {}, (True, False)),
     (tst.build_dw_step_fn, {"tol": 1e-12}, (False, True)),
-    (tst.build_dw_step_fn, {"forcing": _forcing}, (False, False)),
+    (tst.build_dw_step_fn, {"forcing": _forcing}, (True, False)),
     (tst.build_dw_mhd_step_fn, {}, (True, False)),
-    (tst.build_dw_mhd_step_fn, {"strang_splitting": _strang}, (False, False)),
+    (tst.build_dw_mhd_step_fn, {"strang_splitting": _strang}, (True, False)),
 ])
 def test_capture_rule_of_dw_builders(cuda_rule, build, kw, expected):
     assert _modes(build(N, DT, steps=2, device="cpu", **kw)) == expected
@@ -125,7 +126,7 @@ def test_capture_rule_of_dw_builders(cuda_rule, build, kw, expected):
     (tst.IsompTorch, {}, True),
     (tst.IsompTorch, {"hamiltonian": ("helmholtz", 0.5)}, True),
     (tst.IsompTorch, {"tol": 1e-8}, False),
-    (tst.IsompTorch, {"forcing": _forcing}, False),
+    (tst.IsompTorch, {"forcing": _forcing}, True),
     (tst.MagmpTorch, {}, True),
     (tst.MagmpTorch, {"mesh": _mesh(1, 2)}, False),
 ])

@@ -584,3 +584,97 @@ def test_replay_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
     assert rows["mhd_c64_N16_scan_warm"]["kernel"] == "shear_scan"
     assert rows["isomp_c128_N16"]["iterations_equal"]
     assert rows["adaptive_euler_c128_N16"]["iterations_equal"]
+
+
+def test_qg_forcing_takes_a_0d_tensor():
+    """Phases 14 and 22's forcing cos(t) F0 takes time as the card gives
+    it, a 0-d tensor of the working precision, and as the CPU gives it, a
+    numpy scalar or a float; the result is F0's dtype."""
+    for rdtype, cdtype in ((torch.float32, torch.complex64),
+                           (torch.float64, torch.complex128)):
+        F0 = torch.arange(6.0).reshape(2, 3).to(cdtype) * (1 + 2j)
+        forcing = chip_smoke.qg_forcing(F0)
+        t = torch.tensor(0.7, dtype=rdtype)
+        out = forcing(None, None, time=t)
+        assert out.dtype == cdtype
+        assert torch.equal(out, torch.cos(t) * F0)
+        numpy_time = np.dtype(str(rdtype).split(".")[1]).type(0.7)
+        assert torch.equal(forcing(None, None, time=numpy_time), out)
+
+
+def test_phase_list_names_22():
+    doc = chip_smoke.__doc__
+    assert "Twenty-two phases" in doc and "\n22. hooked runs" in doc
+    assert "phases 4, 5, 7-22" in doc
+    for part in "abcdefg":
+        assert f"\n    {part}. " in doc.split("\n22. ")[1]
+
+
+def test_hooked_cases_capture_under_the_card_rule(monkeypatch):
+    """Phase 22's runs build on the CPU with the rule read as on a card:
+    every stepper captures (22d its iteration) and its config.eager()
+    twin does not; isomp and magmp key their loops by their hooks."""
+    from quflow_tpu_torch.integrators import isospectral
+    from quflow_tpu_torch.parallel import capture
+
+    monkeypatch.setattr(capture, "available",
+                        lambda device: not config.is_eager())
+    monkeypatch.setattr(config, "device",
+                        lambda dev=None: torch.device("cpu" if dev is None
+                                                      else dev))
+    cases = chip_smoke.hooked_cases("cpu", n_large=16, n_small=14, steps=2)
+    assert len(cases) == 6
+    modes = {}
+    for name, (make, steps, kernel) in cases.items():
+        assert steps == 4
+        fn, _ = make(False)
+        eager, _ = make(True)
+        if fn is None:
+            continue
+        modes[name] = (fn.captured, fn.captured_iteration)
+        assert not (eager.captured or eager.captured_iteration)
+        assert fn.timed == ("qg" in name)
+    assert modes == {"qg_c64_N16_warm": (True, False),
+                     "qg_c64_N16_warm_scan": (True, False),
+                     "mhd_c64_N16_scan": (True, False),
+                     "custom_qg_c128_N14_tol": (False, True)}
+    W = torch.zeros(14, 14, dtype=torch.complex128)
+    hooks = chip_smoke.custom_qg_hooks()
+    assert isospectral._capture_key("isomp", W, *hooks.values()) is not None
+
+
+def test_hooked_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
+    """Phase 22 at small N: every run in both modes (both eager on the
+    CPU, reported so) equal, with equal launches, two calls of two steps
+    a run; 22a-c's kernels against their plain solves; 22e's stepper
+    against isomp; 22g's hooks run on the CPU, where nothing captures."""
+    monkeypatch.setattr(chip_smoke, "kernel_table", _counted_kernel_table)
+    cases = chip_smoke.hooked_cases("cpu", n_large=16, n_small=14, steps=2)
+    rows = chip_smoke.replay_vs_eager("cpu", cases, strict=True)
+    assert set(rows) == set(cases)
+    for name, row in rows.items():
+        assert row["bit_equal"] and row["steps"] == 4, name
+        assert row["launches_a_call"]["replay"] == \
+            row["launches_a_call"]["eager"] > 0
+        for mode in ("eager", "replay"):
+            assert row[mode]["captured"] is False
+    # maxit + 2 a step: the fixed point and the two Strang half-steps
+    for name in ("qg_c64_N16_warm", "qg_c64_N16_warm_scan",
+                 "mhd_c64_N16_scan"):
+        assert rows[name]["launches_a_call"]["replay"] == 4 * 7, name
+    assert rows["qg_c64_N16_warm_scan"]["kernel"] == "shear_scan"
+    assert rows["custom_qg_c128_N14_tol"]["iterations_equal"]
+    assert rows["isomp_c128_N14"]["launches_a_call"]["replay"] == 4 * 7
+    assert rows["magmp_c128_N14"]["iterations_equal"]
+    assert "QUFLOW_PALLAS_KERNEL" not in chip_smoke.os.environ
+    plain = chip_smoke.hooked_vs_plain("cpu", n_large=16,
+                                       compare_steps=(2, 2, 2))
+    assert [r["kernel"] for r in plain.values()] == [
+        "shear_thomas", "shear_scan", "shear_scan"]
+    assert all(r["kernel_vs_plain"] == 0.0 for r in plain.values())
+    svi = chip_smoke.hooked_stepper_vs_isomp("cpu", N=14, steps=3)
+    assert svi["stepper_vs_isomp"] <= 1e-11
+    raises = chip_smoke.hook_raises("cpu", N=14)
+    assert set(raises) == {"numpy_forcing", "host_read_forcing"}
+    assert all(r["eager_ran"] and r["error"] is None
+               for r in raises.values())
