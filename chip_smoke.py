@@ -4,20 +4,21 @@
     python3 chip_smoke.py
 
 Run from the repository root; it needs one CUDA device, nvcc, g++, and
-nothing of JAX.  Twenty-two phases, one line each (phases 14-19 and 22
-one for each of their parts); any failure ends the run with a nonzero
-exit code and no result line.  The step runners replay CUDA graphs
+nothing of JAX.  Twenty-three phases, one line each (phases 14-19, 22
+and 23 one for each of their parts); any failure ends the run with a
+nonzero exit code and no result line.  The step runners replay CUDA graphs
 wherever their builders' rule captures (parallel/capture.py): phases
-4, 5, 7-10, 13-17, 20 and 22 run captured, callable hooks with their
+4, 5, 7-10, 13-17, 20, 22 and 23c-f run captured, callable hooks with their
 steps (14a-c, 14e); each comparison with a column solve's plain version
 (phases 4, 7, 10, 14a-b, 14e, 15d, 22a-c) runs eagerly, inside
 ``config.eager()``, since a captured plain solve is thousands of graph
 nodes; phases 21 and 22 hold the replays to eager runs.
 
 1. device  - the card's name and power limit, as nvidia-smi reports them;
-2. build   - nvcc builds csrc/shear_thomas.cu, csrc/shear_scan.cu and
-             csrc/shear_block.cu for sm_90a, one compiler each, started
-             together (seconds, ptxas register counts);
+2. build   - nvcc builds csrc/shear_thomas.cu, csrc/shear_scan.cu,
+             csrc/shear_block.cu and csrc/row_thomas.cu for sm_90a, one
+             compiler each, started together (seconds, ptxas register
+             counts);
 3. kernel  - ``shear_thomas`` against its plain PyTorch version on the card
              at N in {512, 1024, 2048, 4096} (the two main-path shapes and
              larger ones), batch in {1, 4, 8}, complex64 and complex128:
@@ -255,7 +256,42 @@ nodes; phases 21 and 22 hold the replays to eager runs.
        call and one that reads time on the host raises RuntimeError, each
        naming itself and ``config.eager()``, inside which both run.
 
-Every path (phases 4, 5, 7-22) runs with every launch count set to 0 just
+23. the row-packed and interleaved layouts, the planes stepper and the
+    wrapped relayout (stepsize 0.25 hbar, ``random_initial(lmax=10,
+    seed=42)``):
+    a. ``row_thomas`` against its plain version at N in {512, 1024, 2048,
+       4096} and ragged N in {1, 7, 100, 257, 1000}, R in {N, N//2+1}, B
+       in {1, 4}, both dtypes; the real-lane entries of ``shear_thomas``
+       and ``shear_scan`` on float planes (L = N+1) and on the interleaved
+       view (L = 2(N+1)), there also against the complex entry on the
+       same bytes: bit-equal;
+    b. their times by CUDA-graph replay at Euler N=1024 c64 (``row_thomas``
+       at R = 1024 and 513, the real lanes on planes, B = 2, and on the
+       interleaved view), each beside its bound ((16 B + 12) R N bytes;
+       (8 B + 12) N L in float32) and share, the plain version's ms and
+       the launch's geometry;
+    c. the Euler stepper in each layout ('wrapped', 'rolls', 'pallas',
+       'scatter', 'shear_pallas_il' and its scan twin, and 'shear' under
+       QUFLOW_SHEAR_INTERLEAVE=1), complex64 N=1024 100 steps (enstrophy
+       drift <= 1e-4, within 1e-5 of the 'shear' run) and complex128
+       N=512 200 steps (drift <= 1e-10, within 1e-11): maxit launches a
+       step of the layout's kernel and none of another; 'pallas' at
+       N=4096 warns and runs 5 steps on the shear path;
+    d. MHD on 'rolls' and 'pallas', complex128 N=512 50 steps within
+       1e-11 of the 'shear' run, complex64 N=1024 20 steps (drift gates);
+    e. ``build_planes_step_fn`` at N=1024, 100 steps, warm and pure
+       (enstrophy gate, 5 real-lane launches a step, the pure run within
+       1e-5 of the complex 'highest_karatsuba' builder), and N=4096, 5
+       steps;
+    f. 'pallas', 'shear_pallas_il' and the planes stepper replayed against
+       eager, as phase 21 reads them, bit-equal;
+    g. 'shard' (N=512, c64 and c128) and 'scatter' (N=511) Euler on a
+       tp = 2 gloo mesh of two processes sharing the card, 10 steps,
+       within phase 19b's gate against one rank; ``row_thomas`` once an
+       iteration, and on 'shard' one ``all_to_all`` and one ``shift`` a
+       pack and an unpack.
+
+Every path (phases 4, 5, 7-23) runs with every launch count set to 0 just
 before it and read just after; a replay adds the launches its graph
 recorded at capture (the warm-up's and the capture's own are taken
 back).  Then a JSON line of the kernels
@@ -302,6 +338,7 @@ from quflow_tpu_torch.models import EulerFlow, GlobalQGFlow, MHDFlow
 from quflow_tpu_torch.ops import (
     cuda_block_solve,
     cuda_build,
+    cuda_row_solve,
     cuda_scan_solve,
     cuda_solve,
 )
@@ -321,6 +358,7 @@ from quflow_tpu_torch.ops.laplacian import (
     solve_viscdamp,
 )
 from quflow_tpu_torch.ops.tridiag import refine_m0, shear_operator
+from quflow_tpu_torch.ops.cuda_row_solve import row_thomas, row_thomas_reference
 from quflow_tpu_torch.ops.cuda_scan_solve import (
     shear_scan,
     shear_scan_reference,
@@ -354,8 +392,10 @@ PEAK_OPS_PER_S = {torch.complex64: 67e12, torch.complex128: 34e12}
 
 
 def reset_counts():
-    for k in (*KERNELS, shear_block):
+    for k in (*KERNELS, shear_block, row_thomas):
         k.launches = 0
+    for k in KERNELS:
+        k.real_launches = 0
 
 
 def read_counts():
@@ -2641,7 +2681,7 @@ def replay_vs_eager(device, cases=None, strict=False, top=0):
             torch.cuda.synchronize()
             turns.setdefault(mode, []).append(
                 steps / (time.perf_counter() - t0))
-            n = read_counts()[kernel.__name__]
+            n = all_counts()[kernel.__name__]
             if launches.setdefault(mode, n) != n:
                 raise AssertionError(f"{name} {mode}: launches {n} and "
                                      f"{launches[mode]} in two calls")
@@ -2667,12 +2707,13 @@ def replay_vs_eager(device, cases=None, strict=False, top=0):
             row["iterations_equal"] = (outs["replay"][-1]["iterations"]
                                        == outs["eager"][-1]["iterations"])
         names = {}
+        profile_name = getattr(kernel, "profile_name", kernel.__name__)
         for mode, (runner, call) in runs.items():
             expected = launches[mode] / steps
             for _ in range(3):
                 table, _ = padded_table(call, steps, device)
                 solves = sum(c for k, (c, _) in table.items()
-                             if kernel.__name__ in k)
+                             if profile_name in k)
                 if solves >= expected:
                     break
             device_ms = sum(ms for _, ms in table.values())
@@ -2946,11 +2987,639 @@ def hook_raises(device, N=512, steps=2):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the row-packed and interleaved layouts, the planes stepper and
+# the wrapped relayout, on row_thomas and the column solves' real lanes
+# ---------------------------------------------------------------------------
+
+class RealLanes:
+    """The real-lane entry of a column solve as phases 21-23 read it: its
+    launches are ``<kernel>_real`` in :func:`read_layout_counts`, its
+    kernels carry the column solve's name in a profile."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.__name__ = kernel.__name__ + "_real"
+        self.profile_name = kernel.__name__
+
+
+SHEAR_THOMAS_REAL = RealLanes(shear_thomas)
+SHEAR_SCAN_REAL = RealLanes(shear_scan)
+
+
+def read_layout_counts():
+    """The launches of phase 23's kernels: ``row_thomas`` and the column
+    solves' real-lane entries (read beside :func:`read_counts`)."""
+    return {"row_thomas": row_thomas.launches,
+            "shear_thomas_real": shear_thomas.real_launches,
+            "shear_scan_real": shear_scan.real_launches}
+
+
+def all_counts():
+    return {**read_counts(), **read_layout_counts()}
+
+
+def row_bound(R, N, B, dtype):
+    """The least time (ms) of a row solve of B complex (R, N) arrays and
+    what bounds it: (16 B + 12) R N bytes in complex64 (twice in
+    complex128) over 3.35 TB/s, or 10 real operations an element over the
+    peak outside the tensor cores."""
+    real = 4 if dtype == torch.complex64 else 8
+    t_bytes = (4 * real * B + 3 * real) * R * N / HBM_BYTES_PER_S
+    t_ops = 10 * B * R * N / PEAK_OPS_PER_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def lane_bound(N, L, B, dtype):
+    """The same for B real (N, L) arrays of ``dtype`` (float32, float64)
+    through a real-lane entry: (8 B + 12) N L bytes in float32, 5 real
+    operations an element."""
+    real = 4 if dtype == torch.float32 else 8
+    peak = PEAK_OPS_PER_S[torch.complex64 if real == 4 else torch.complex128]
+    t_bytes = (2 * real * B + 3 * real) * N * L / HBM_BYTES_PER_S
+    t_ops = 5 * B * N * L / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def _exact(kernel, plain, w, binv, u, d, what):
+    x = kernel(w, binv, u, d)
+    err = (x - plain(w, binv, u, d)).abs().max().item()
+    if err != 0.0:
+        raise AssertionError(f"{what}: max abs error {err:.3e}, not "
+                             "bit-equal")
+    return x, err
+
+
+def layout_kernels(device, Ns=(512, 1024, 2048, 4096), Bs=(1, 4),
+                   ragged=(1, 7, 100, 257, 1000), lane_Ns=(512, 1024, 4096)):
+    """Phase 23a: ``row_thomas`` against its plain version at R = N and
+    N//2+1, every N of ``Ns`` and ``ragged``, B in ``Bs``, both dtypes; the
+    real-lane entries of ``shear_thomas`` and ``shear_scan`` against
+    theirs on float planes (L = N+1, B = 2) and on the interleaved view
+    (L = 2(N+1), factor columns duplicated), and there against the complex
+    entry on the same bytes: every comparison bit-equal."""
+    rows = []
+    for dtype in (torch.complex64, torch.complex128):
+        for N in (*Ns, *ragged):
+            for layout in ("wrapped", "rolls"):
+                w, binv, u = _real_factors(N, dtype, device=device,
+                                           layout=layout)
+                for B in Bs:
+                    g = torch.Generator(device=device).manual_seed(7 * N + B)
+                    d = torch.randn(B, w.shape[0], N, dtype=dtype,
+                                    device=device, generator=g)
+                    _, err = _exact(row_thomas, row_thomas_reference, w,
+                                    binv, u, d, f"row_thomas {dtype} N={N} "
+                                    f"R={w.shape[0]} B={B}")
+                    rows.append(dict(kernel="row_thomas", dtype=str(dtype)[6:],
+                                     N=N, R=w.shape[0], B=B,
+                                     max_abs_err=err))
+        for kernel, plain in ((shear_thomas, shear_thomas_reference),
+                              (shear_scan, shear_scan_reference)):
+            for N in lane_Ns:
+                w, binv, u = _real_factors(N, dtype, device=device)
+                g = torch.Generator(device=device).manual_seed(N)
+                d = torch.randn(1, N, N + 1, dtype=dtype, device=device,
+                                generator=g)
+                planes = torch.view_as_real(d)[0].movedim(-1, 0).contiguous()
+                _, e1 = _exact(kernel, plain, w, binv, u, planes,
+                               f"{kernel.__name__} real planes {dtype} N={N}")
+                il = tuple(f.repeat_interleave(2, dim=-1)
+                           for f in (w, binv, u))
+                di = torch.view_as_real(d).reshape(1, N, 2 * (N + 1))
+                xi, e2 = _exact(kernel, plain, *il, di,
+                                f"{kernel.__name__} interleaved {dtype} N={N}")
+                xc = torch.view_as_real(kernel(w, binv, u, d)).reshape(
+                    1, N, -1)
+                e3 = (xi - xc).abs().max().item()
+                if e3 != 0.0:
+                    raise AssertionError(
+                        f"{kernel.__name__} {dtype} N={N}: the real lanes of "
+                        f"the interleaved view differ from the complex entry "
+                        f"by {e3:.3e}")
+                rows.append(dict(kernel=kernel.__name__ + "_real",
+                                 dtype=str(dtype)[6:], N=N,
+                                 max_abs_err=max(e1, e2),
+                                 interleaved_vs_complex=e3))
+    return rows
+
+
+def layout_kernel_times(device, N=1024, reps=20, plain_reps=1):
+    """Phase 23b: at Euler N=1024 complex64, by CUDA-graph replay, each new
+    entry beside its bound and share, the plain version's ms (CUDA events)
+    and the launch's geometry: ``row_thomas`` at B=1 for R = N ('wrapped',
+    'pallas') and R = 513 ('rolls', 'scatter'); the real-lane
+    ``shear_thomas`` and ``shear_scan`` on planes (B = 2, L = N+1) and on
+    the interleaved view (B = 1, L = 2(N+1))."""
+    dtype = torch.complex64
+    out = []
+    for layout in ("wrapped", "rolls"):
+        w, binv, u = _real_factors(N, dtype, device=device, layout=layout)
+        R = w.shape[0]
+        g = torch.Generator(device=device).manual_seed(R)
+        d = torch.randn(1, R, N, dtype=dtype, device=device, generator=g)
+        ms = graph_ms(lambda: row_thomas(w, binv, u, d), reps)
+        bound, by = row_bound(R, N, 1, dtype)
+        row = dict(kernel="row_thomas", R=R, N=N, B=1, ms=ms,
+                   plain_ms=cuda_ms(lambda: row_thomas_reference(
+                       w, binv, u, d), plain_reps),
+                   bound_ms=bound, bound_by=by, share=bound / ms)
+        if torch.device(device).type == "cuda":
+            row["geometry"] = cuda_row_solve.geometry(1, R, N, dtype)
+        out.append(row)
+    w, binv, u = _real_factors(N, dtype, device=device)
+    il = tuple(f.repeat_interleave(2, dim=-1) for f in (w, binv, u))
+    g = torch.Generator(device=device).manual_seed(N)
+    planes = torch.randn(2, N, N + 1, device=device, generator=g)
+    inter = torch.randn(1, N, 2 * (N + 1), device=device, generator=g)
+    for kernel, plain in ((shear_thomas, shear_thomas_reference),
+                          (shear_scan, shear_scan_reference)):
+        for view, fac, d in (("planes", (w, binv, u), planes),
+                             ("interleaved", il, inter)):
+            B, L = d.shape[0], d.shape[-1]
+            ms = graph_ms(lambda: kernel(*fac, d), reps)
+            bound, by = lane_bound(N, L, B, torch.float32)
+            row = dict(kernel=kernel.__name__ + "_real", view=view, N=N,
+                       L=L, B=B, ms=ms,
+                       plain_ms=cuda_ms(lambda: plain(*fac, d), plain_reps),
+                       bound_ms=bound, bound_by=by, share=bound / ms)
+            if (kernel is shear_scan
+                    and torch.device(device).type == "cuda"):
+                row["geometry"] = cuda_scan_solve.geometry(
+                    B, N, torch.float32, M=L)
+            out.append(row)
+    return out
+
+
+def _layout_counts_ok(name, counts, layout, n):
+    """Raises unless ``counts`` (all_counts) are ``n`` launches of the
+    layout's kernel and none of another: ``row_thomas`` on the row
+    layouts, the real-lane ``shear_thomas`` on the interleaved ones (a
+    counter's name, such as 'shear_scan_real', names it)."""
+    key = ("row_thomas" if layout in stepper._ROW_LAYOUTS
+           else layout if layout in counts else "shear_thomas_real")
+    expected = dict.fromkeys(counts, 0)
+    expected[key] = n
+    if counts != expected:
+        raise AssertionError(f"{name}: launches {counts}, expected {n} of "
+                             f"{key} only")
+
+
+#: phase 23c's layouts: name -> (layout, QUFLOW_SHEAR_INTERLEAVE,
+#: QUFLOW_PALLAS_KERNEL, the counter of its solve)
+STEP_LAYOUTS = {
+    "wrapped": ("wrapped", None, None, "row_thomas"),
+    "rolls": ("rolls", None, None, "row_thomas"),
+    "pallas": ("pallas", None, None, "row_thomas"),
+    "scatter": ("scatter", None, None, "row_thomas"),
+    "shear_pallas_il": ("shear_pallas_il", None, None, "shear_thomas_real"),
+    "shear_interleave": ("shear", "1", None, "shear_thomas_real"),
+    "shear_pallas_il_scan": ("shear_pallas_il", None, "scan",
+                             "shear_scan_real"),
+}
+
+
+@contextlib.contextmanager
+def interleave_variable(value):
+    """QUFLOW_SHEAR_INTERLEAVE set to ``value`` (None: unset) inside the
+    block only."""
+    old = os.environ.pop("QUFLOW_SHEAR_INTERLEAVE", None)
+    if value is not None:
+        os.environ["QUFLOW_SHEAR_INTERLEAVE"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("QUFLOW_SHEAR_INTERLEAVE", None)
+        if old is not None:
+            os.environ["QUFLOW_SHEAR_INTERLEAVE"] = old
+
+
+def layout_steppers(device, runs=((np.complex64, 1024, 100),
+                                  (np.complex128, 512, 200)),
+                    maxit=5, redirect_N=4096, redirect_steps=5,
+                    layouts=tuple(STEP_LAYOUTS)):
+    """Phase 23c: the Euler stepper in each layout of ``layouts``, each in
+    its own turn, from the README state: complex64 at N=1024 (100 steps,
+    phase 4's enstrophy gate, within 1e-5 of max|W| of the 'shear' run
+    with the same refine) and complex128 at N=512 (200 steps, Casimir
+    drift <= 1e-10, within 1e-11); launches counted (``maxit`` a step of
+    ``row_thomas`` on the row layouts, of the real-lane ``shear_thomas``
+    on the interleaved ones, and none of another kernel); steps/s of a
+    second, replayed call.  Then 'pallas' at N=4096 warns, runs
+    ``redirect_steps`` steps on the shear path and launches no
+    ``row_thomas``."""
+    import warnings
+
+    out = {}
+    for dtype, N, steps in runs:
+        name = np.dtype(dtype).name
+        W0 = torch.from_numpy(EulerFlow(N, dtype).random_initial(
+            lmax=10, seed=42)).to(device)
+        z = torch.zeros_like(W0)
+        c0 = casimirs(W0)
+        dt = 0.25 * hbar(N)
+        refs = {}
+
+        def shear_run(refine):
+            if refine not in refs:
+                refs[refine] = build_step_fn(
+                    N, dt, steps=steps, maxit=maxit, dtype=dtype,
+                    refine=refine, device=device)(W0, z, z)[0]
+            return refs[refine]
+
+        rows = {}
+        for label in layouts:
+            layout, var, kvar, key = STEP_LAYOUTS[label]
+            with interleave_variable(var), (kernel_variable(kvar) if kvar
+                                            else contextlib.nullcontext()):
+                fn = build_step_fn(N, dt, steps=steps, maxit=maxit,
+                                   dtype=dtype, layout=layout, device=device)
+            refine = stepper._step_setup(N, dt, maxit, dtype, None, None, 1,
+                                         stepper._resolve_layout(
+                                             N, None, layout))[0]
+            reset_counts()
+            W = fn(W0, z, z)[0]
+            torch.cuda.synchronize()
+            counts = all_counts()
+            _layout_counts_ok(f"{label} {name}", counts, key, steps * maxit)
+            if not finite(W):
+                raise AssertionError(f"{label} {name}: non-finite state")
+            drift = np.abs(casimirs(W) - c0) / np.abs(c0)
+            vs_shear = ratio(W, shear_run(refine))
+            if dtype == np.complex64:
+                ok = drift[0] <= 1e-4 and vs_shear <= 1e-5
+            else:
+                ok = (drift <= 1e-10).all() and vs_shear <= 1e-11
+            if not ok:
+                raise AssertionError(f"{label} {name}: Casimir drift {drift}, "
+                                     f"against 'shear' {vs_shear:.3e}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(W0, z, z)
+            torch.cuda.synchronize()
+            rows[label] = dict(captured=fn.captured, refine=refine,
+                               launches=counts, tr_W2_drift=float(drift[0]),
+                               tr_W3_drift=float(drift[1]), vs_shear=vs_shear,
+                               steps_per_s=steps / (time.perf_counter() - t0))
+        out[f"{name}_N{N}"] = dict(steps=steps, maxit=maxit, layouts=rows)
+    if redirect_N is None:  # the CPU's rehearsal
+        return out
+    W0 = torch.from_numpy(EulerFlow(redirect_N, np.complex64).random_initial(
+        lmax=10, seed=42)).to(device)
+    z = torch.zeros_like(W0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fn = build_step_fn(redirect_N, 0.25 * hbar(redirect_N),
+                           steps=redirect_steps, maxit=maxit, layout="pallas",
+                           device=device)
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, UserWarning)
+              and "shear_pallas" in str(w.message)]
+    reset_counts()
+    W = fn(W0, z, z)[0]
+    counts = all_counts()
+    if not warned or counts["row_thomas"] or counts["shear_thomas"] != \
+            redirect_steps * maxit or not finite(W):
+        raise AssertionError(f"'pallas' at N={redirect_N}: warned {warned}, "
+                             f"launches {counts}")
+    out[f"pallas_N{redirect_N}_redirect"] = dict(
+        warning=warned[0][:120], steps=redirect_steps, launches=counts)
+    return out
+
+
+def layout_mhd(device, N128=512, steps128=50, N64=1024, steps64=20, maxit=5,
+               layouts=("rolls", "pallas")):
+    """Phase 23d: the MHD stepper on 'rolls' and 'pallas': complex128 at
+    N=512, 50 steps, within 1e-11 of max|S| of the 'shear' run (quflow_tpu's
+    gate, tests/test_shear_layout.py:160) and Theta's Casimirs <= 1e-10;
+    complex64 at N=1024, 20 steps, the drift gates alone (Theta's spectrum
+    and tr(Theta^2) <= 1e-4: complex64 MHD grows rounding differences);
+    ``maxit`` ``row_thomas`` launches a step."""
+    out = {}
+    for dtype, N, steps in ((np.complex128, N128, steps128),
+                            (np.complex64, N64, steps64)):
+        name = np.dtype(dtype).name
+        S0 = MHDFlow(N, dtype).random_initial(lmax=10, seed=42)
+        St = torch.from_numpy(S0).to(device)
+        z = torch.zeros_like(St)
+        lam0 = theta_spectrum(S0, device)
+        c0 = casimirs(St[1])
+        dt = 0.25 * hbar(N)
+        ref = None
+        if dtype == np.complex128:
+            ref = build_mhd_step_fn(N, dt, steps=steps, maxit=maxit,
+                                    dtype=dtype, device=device)(St, z, z)[0]
+        rows = {}
+        for layout in layouts:
+            fn = build_mhd_step_fn(N, dt, steps=steps, maxit=maxit,
+                                   dtype=dtype, layout=layout, device=device)
+            reset_counts()
+            S = fn(St, z, z)[0]
+            torch.cuda.synchronize()
+            counts = all_counts()
+            _layout_counts_ok(f"MHD {layout} {name}", counts, layout,
+                              steps * maxit)
+            if not finite(S):
+                raise AssertionError(f"MHD {layout} {name}: non-finite")
+            drift = np.abs(casimirs(S[1]) - c0) / np.abs(c0)
+            lam = theta_spectrum(S.cpu().numpy(), device)
+            spec = ((lam - lam0).abs().max() / lam0.abs().max()).item()
+            row = dict(launches=counts, tr_Theta2_drift=float(drift[0]),
+                       tr_Theta3_drift=float(drift[1]),
+                       theta_spectrum_drift=spec)
+            if ref is not None:
+                row["vs_shear"] = ratio(S, ref)
+                ok = (drift <= 1e-10).all() and row["vs_shear"] <= 1e-11
+            else:
+                ok = spec <= 1e-4 and drift[0] <= 1e-4
+            if not ok:
+                raise AssertionError(f"MHD {layout} {name}: {row}")
+            rows[layout] = row
+        out[f"{name}_N{N}"] = dict(steps=steps, maxit=maxit, layouts=rows)
+    return out
+
+
+def planes_stepper(device, N=1024, steps=100, maxit=5, large_N=4096,
+                   large_steps=5):
+    """Phase 23e: ``build_planes_step_fn`` on float32 planes of the README
+    state at N=1024, 100 steps, with the warm schedule ('high_karatsuba')
+    and without: the enstrophy gate (tr(W^2) drift <= 1e-4), ``maxit``
+    real-lane ``shear_thomas`` launches a step (both planes in one), and
+    the pure run within 1e-5 of max|W| of the complex builder at
+    precision='highest_karatsuba'; then N=4096, 5 steps: launches and the
+    gate."""
+    out = {}
+    for n, st in ((N, steps), (large_N, large_steps)):
+        W0 = torch.from_numpy(EulerFlow(n, np.complex64).random_initial(
+            lmax=10, seed=42)).to(device)
+        Wp = torch.stack([W0.real, W0.imag]).contiguous()
+        zp = torch.zeros_like(Wp)
+        c0 = casimirs(W0)
+        dt = 0.25 * hbar(n)
+        rows = {}
+        for label, kw in (("pure", {}), ("warm", dict(
+                warm_precision="high_karatsuba"))):
+            if n == large_N and label == "warm":
+                continue
+            fn = stepper.build_planes_step_fn(n, dt, steps=st, maxit=maxit,
+                                              device=device, **kw)
+            reset_counts()
+            Pp = fn(Wp, zp, zp)[0]
+            torch.cuda.synchronize()
+            counts = all_counts()
+            _layout_counts_ok(f"planes {label} N={n}", counts,
+                              "shear_pallas_il", st * maxit)
+            W = torch.complex(Pp[0], Pp[1])
+            if not finite(W):
+                raise AssertionError(f"planes {label} N={n}: non-finite")
+            drift = np.abs(casimirs(W) - c0) / np.abs(c0)
+            if not drift[0] <= 1e-4:
+                raise AssertionError(f"planes {label} N={n}: tr(W^2) drift "
+                                     f"{drift[0]:.3e} > 1e-4")
+            rows[label] = dict(captured=fn.captured, launches=counts,
+                               tr_W2_drift=float(drift[0]),
+                               tr_W3_drift=float(drift[1]))
+            if label == "pure":
+                Wc = build_step_fn(n, dt, steps=st, maxit=maxit,
+                                   precision="highest_karatsuba",
+                                   device=device)(W0, torch.zeros_like(W0),
+                                                  torch.zeros_like(W0))[0]
+                rows[label]["vs_complex_builder"] = ratio(W, Wc)
+                if not rows[label]["vs_complex_builder"] <= 1e-5:
+                    raise AssertionError(f"planes N={n}: {rows[label]}")
+        out[f"N{n}"] = dict(steps=st, maxit=maxit, **rows)
+    return out
+
+
+def layout_capture_cases(device, N=1024, steps=20):
+    """Phase 23f's runs for :func:`replay_vs_eager`: 'pallas' (a row
+    layout, ``row_thomas``), 'shear_pallas_il' (the real lanes) and the
+    planes stepper, Euler complex64 at N from the README state."""
+    W0 = torch.from_numpy(EulerFlow(N, np.complex64).random_initial(
+        lmax=10, seed=42)).to(device)
+    Wp = torch.stack([W0.real, W0.imag]).contiguous()
+    dt = 0.25 * hbar(N)
+
+    def run(build, S0, **kw):
+        z = torch.zeros_like(S0)
+
+        def make(eager, steps=steps):
+            with config.eager() if eager else contextlib.nullcontext():
+                fn = build(N, dt, steps=steps, device=device, **kw)
+            return fn, lambda: fn(S0, z, z)
+        return make
+
+    return {
+        f"pallas_c64_N{N}": (run(build_step_fn, W0, layout="pallas"), steps,
+                             row_thomas),
+        f"shear_pallas_il_c64_N{N}": (run(build_step_fn, W0,
+                                          layout="shear_pallas_il"), steps,
+                                      SHEAR_THOMAS_REAL),
+        f"planes_N{N}": (run(stepper.build_planes_step_fn, Wp), steps,
+                         SHEAR_THOMAS_REAL),
+    }
+
+
+def layout_rank(rank, tmp, cases, steps, maxit, device):
+    """A rank of phase 23g, in a process of its own (``chip_smoke.py
+    --layout-rank ...``): a two-rank gloo group (its rendezvous a file in
+    ``tmp``), then for each ``layout:N:dtype`` of ``cases`` the Euler
+    stepper on the tp = 2 mesh, ``steps`` steps of this rank's rows of the
+    state in ``tmp``: the launches, the mesh's ``all_to_all``, ``shift``
+    and ``gather_rows`` calls, the seconds and (rank 0) the gathered state,
+    into ``<case>_rank<rank>.npz``.  On the CPU (the rehearsal) the plain
+    row solve is counted as the kernel's launches."""
+    import torch.distributed as dist
+
+    from quflow_tpu_torch.parallel.distributed import initialize
+    from quflow_tpu_torch.parallel.mesh import (
+        gather_state,
+        make_mesh,
+        shard_state,
+    )
+
+    device = torch.device(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    if device.type == "cpu":
+        def counted(*args):
+            row_thomas.launches += 1
+            return row_thomas_reference(*args)
+
+        stepper.row_thomas = counted
+    initialize(init_method=f"file://{os.path.join(tmp, 'init')}",
+               world_size=2, rank=rank, backend="gloo")
+    try:
+        mesh = make_mesh(dp=1)
+        calls = {}
+        for op in ("all_to_all", "shift", "gather_rows"):
+            def counted_op(*args, _op=op, _fn=getattr(mesh, op), **kw):
+                calls[_op] = calls.get(_op, 0) + 1
+                return _fn(*args, **kw)
+            setattr(mesh, op, counted_op)
+        for case in cases.split(","):
+            layout, N, dtype = case.split(":")
+            N = int(N)
+            W0 = np.load(os.path.join(tmp, f"W0_{N}_{dtype}.npy"))
+            piece = torch.from_numpy(shard_state(W0, mesh)).to(device)
+            z = torch.zeros_like(piece)
+            fn = build_step_fn(N, 0.25 * hbar(N), steps=steps, maxit=maxit,
+                               dtype=dtype, mesh=mesh, layout=layout,
+                               device=device)
+            calls.clear()
+            reset_counts()
+            sync()
+            t0 = time.perf_counter()
+            out = fn(piece, z, z)[0]
+            sync()
+            sec = time.perf_counter() - t0
+            launches, seen = all_counts(), dict(calls)
+            full = gather_state(out, mesh).cpu().numpy()
+            np.savez(os.path.join(tmp, f"{case.replace(':', '_')}_rank{rank}"
+                                  ".npz"),
+                     state=full if rank == 0 else np.zeros(0),
+                     launches=json.dumps(launches), calls=json.dumps(seen),
+                     seconds=sec)
+        dist.barrier()  # neither rank tears down while the other works
+    finally:
+        dist.destroy_process_group()
+
+
+#: phase 23g's runs: (the mesh layout, its one-rank twin, N, dtype)
+TP_LAYOUT_CASES = (("shard", "wrapped", 512, "complex64"),
+                   ("shard", "wrapped", 512, "complex128"),
+                   ("scatter", "scatter", 511, "complex64"))
+
+
+def layouts_tp(device, cases=TP_LAYOUT_CASES, steps=10, maxit=5,
+               timeout=300):
+    """Phase 23g: 'shard' (the wrapped relayout, N=512) and 'scatter' (the
+    gathered skewh rows, N=511) on a tp = 2 gloo mesh of two processes
+    sharing the card (as 19b), Euler from the README state, ``steps``
+    steps, against one rank: within phase 19b's gate (TP_TOL, or TP_SPREAD
+    times the spread of the one-rank twin layout and 'shear' with the same
+    refine, the larger).  Each rank launches ``row_thomas`` once an
+    iteration and, on 'shard', one ``all_to_all`` and one ``shift`` a pack
+    and an unpack (two of each an iteration); every rank gathers rows
+    twice an iteration for the products, 'scatter' once more for its
+    solve."""
+    iters = steps * maxit
+    out = dict(steps=steps, maxit=maxit, backend="gloo")
+    spec = ",".join(f"{layout}:{N}:{dtype}" for layout, _, N, dtype in cases)
+    with tempfile.TemporaryDirectory() as tmp:
+        ones = {}
+        for layout, twin, N, dtype in cases:
+            W0 = EulerFlow(N, np.dtype(dtype)).random_initial(lmax=10,
+                                                              seed=42)
+            np.save(os.path.join(tmp, f"W0_{N}_{dtype}.npy"), W0)
+            Wt = torch.from_numpy(W0).to(device)
+            z = torch.zeros_like(Wt)
+            dt = 0.25 * hbar(N)
+            run = {lay: build_step_fn(N, dt, steps=steps, maxit=maxit,
+                                      dtype=dtype, layout=lay, refine=0,
+                                      device=device)(Wt, z, z)[0]
+                   for lay in (twin, "shear")}
+            ones[(layout, N, dtype)] = (run[twin], ratio(run["shear"],
+                                                         run[twin]))
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--layout-rank",
+             str(r), tmp, spec, str(steps), str(maxit), str(device)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError("phase 23g failed:\n" + "\n".join(
+                log[-3000:] for log in logs))
+        for layout, twin, N, dtype in cases:
+            tag = f"{layout}_{N}_{dtype}"
+            ranks = [dict(np.load(os.path.join(tmp, f"{tag}_rank{r}.npz")))
+                     for r in range(2)]
+            launches = [json.loads(str(r["launches"])) for r in ranks]
+            calls = [json.loads(str(r["calls"])) for r in ranks]
+            relayout = 2 * iters if layout == "shard" else 0
+            want_calls = {"gather_rows": (2 if layout == "shard" else 3)
+                          * iters}
+            if relayout:
+                want_calls.update(all_to_all=relayout, shift=relayout)
+            for r in range(2):
+                _layout_counts_ok(f"23g {tag} rank {r}", launches[r], layout,
+                                  iters)
+                if calls[r] != want_calls:
+                    raise AssertionError(f"23g {tag} rank {r}: mesh calls "
+                                         f"{calls[r]}, expected {want_calls}")
+            state = torch.from_numpy(ranks[0]["state"]).to(device)
+            one, spread = ones[(layout, N, dtype)]
+            dev = ratio(state, one)
+            tol = max(TP_TOL[dtype], TP_SPREAD * spread)
+            if not (finite(state) and dev <= tol):
+                raise AssertionError(f"23g {tag}: against one rank {dev:.3e} "
+                                     f"> {tol:.3e}")
+            out[tag] = dict(vs_one_rank=dev, one_rank_vs_shear=spread,
+                            tolerance=tol, launches_by_rank=launches,
+                            mesh_calls_by_rank=calls,
+                            tp_steps_per_s=steps / max(float(r["seconds"])
+                                                       for r in ranks))
+    return out
+
+
+def layout_paths(key, ls, lm, pl, lr, ltp):
+    """Phase 23's launches of the counter ``key`` on each path that made
+    some: the layouts of 23c and 23d, the planes stepper (23e), the replays
+    (23f) and the tp ranks (23g)."""
+    paths = {}
+    for prefix, runs in (("euler", ls), ("mhd", lm)):
+        for run, row in runs.items():
+            for label, r in row.get("layouts", {}).items():
+                paths[f"{prefix}_{run}_{label}"] = r["launches"][key]
+            if "launches" in row:  # the N=4096 redirect
+                paths[f"{prefix}_{run}"] = row["launches"][key]
+    for run, row in pl.items():
+        for label in ("pure", "warm"):
+            if label in row:
+                paths[f"planes_{run}_{label}"] = row[label]["launches"][key]
+    for name, row in lr.items():
+        if row["kernel"] == key:
+            paths[f"replay_{name}"] = row["launches_a_call"]["replay"]
+    for tag, row in ltp.items():
+        if isinstance(row, dict) and "launches_by_rank" in row:
+            for r, n in enumerate(row["launches_by_rank"]):
+                paths[f"tp_{tag}_rank{r}"] = n[key]
+    return {k: v for k, v in paths.items() if v}
+
+
+def layout_timing(lt, key):
+    """The kernel line's times of ``key`` from phase 23b: its first row
+    (``row_thomas`` at R = N, a real lane on planes), every row beside."""
+    rows = [r for r in lt if r["kernel"] == key]
+    return {**{k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "share")},
+            "by_shape": [{k: r[k] for k in ("R", "view", "L", "B", "ms",
+                                            "bound_ms", "share") if k in r}
+                         for r in rows]}
+
+
 def main():
     if sys.argv[1:2] == ["--tp-rank"]:  # a rank of phase 19b
         rank, backend, tmp, N, steps, maxit, device, dtype = sys.argv[2:10]
         tp_rank(int(rank), backend, tmp, int(N), int(steps), int(maxit),
                 device, dtype)
+        return
+    if sys.argv[1:2] == ["--layout-rank"]:  # a rank of phase 23g
+        rank, tmp, cases, steps, maxit, device = sys.argv[2:8]
+        layout_rank(int(rank), tmp, cases, int(steps), int(maxit), device)
         return
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; "
@@ -2969,7 +3638,8 @@ def main():
 
     t0 = time.perf_counter()
     libs = cuda_build.build_all([cuda_solve.LIBRARY, cuda_scan_solve.LIBRARY,
-                                 cuda_block_solve.LIBRARY])
+                                 cuda_block_solve.LIBRARY,
+                                 cuda_row_solve.LIBRARY])
     report = " ;; ".join(
         f"{lib.name}: {ptxas_summary(lib.with_suffix('.log').read_text())}"
         for lib in libs)
@@ -3122,6 +3792,26 @@ def main():
     print("phase 22g hooks a capture cannot hold: " + json.dumps(raises),
           flush=True)
 
+    lk = layout_kernels(device)
+    print("phase 23a row_thomas and real lanes vs plain: " + json.dumps(lk),
+          flush=True)
+    lt = layout_kernel_times(device)
+    print("phase 23b row_thomas and real lanes, times: " + json.dumps(lt),
+          flush=True)
+    ls = layout_steppers(device)
+    print("phase 23c Euler in each layout: " + json.dumps(ls), flush=True)
+    lm = layout_mhd(device)
+    print("phase 23d MHD on 'rolls' and 'pallas': " + json.dumps(lm),
+          flush=True)
+    pl = planes_stepper(device)
+    print("phase 23e build_planes_step_fn: " + json.dumps(pl), flush=True)
+    lr = replay_vs_eager(device, layout_capture_cases(device), strict=True)
+    print("phase 23f layout runs, replay vs eager: " + json.dumps(lr),
+          flush=True)
+    ltp = layouts_tp(device)
+    print("phase 23g 'shard' and 'scatter' at tp = 2: " + json.dumps(ltp),
+          flush=True)
+
     def replayed(kernel):
         """Phase 21's and 22's replayed paths of ``kernel``: launches of a
         call."""
@@ -3212,6 +3902,44 @@ def main():
         **{k: block_times[0][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "share",
                      "phase_ms")},
+        "library_ms": None,
+    }, {
+        "name": "row_thomas",
+        "route": "cuda",
+        "source": "quflow_tpu_torch/csrc/row_thomas.cu",
+        "replaces": "quflow_tpu/ops/pallas_solve.py:68",
+        "launches": ls["complex64_N1024"]["layouts"]["pallas"]["launches"][
+            "row_thomas"],
+        "launches_by_path": layout_paths("row_thomas", ls, lm, pl, lr, ltp),
+        "max_abs_err": max(r["max_abs_err"] for r in lk
+                           if r["kernel"] == "row_thomas"),
+        **layout_timing(lt, "row_thomas"),
+        "library_ms": None,
+    }, {
+        "name": "shear_thomas_real",
+        "route": "cuda",
+        "source": "quflow_tpu_torch/csrc/shear_thomas.cu",
+        "replaces": "quflow_tpu/ops/pallas_solve.py:219 (a real rhs)",
+        "launches": ls["complex64_N1024"]["layouts"]["shear_pallas_il"][
+            "launches"]["shear_thomas_real"],
+        "launches_by_path": layout_paths("shear_thomas_real", ls, lm, pl, lr,
+                                         ltp),
+        "max_abs_err": max(r["max_abs_err"] for r in lk
+                           if r["kernel"] == "shear_thomas_real"),
+        **layout_timing(lt, "shear_thomas_real"),
+        "library_ms": None,
+    }, {
+        "name": "shear_scan_real",
+        "route": "cuda",
+        "source": "quflow_tpu_torch/csrc/shear_scan.cu",
+        "replaces": "quflow_tpu/ops/pallas_scan_solve.py:162 (a real rhs)",
+        "launches": ls["complex64_N1024"]["layouts"]["shear_pallas_il_scan"][
+            "launches"]["shear_scan_real"],
+        "launches_by_path": layout_paths("shear_scan_real", ls, lm, pl, lr,
+                                         ltp),
+        "max_abs_err": max(r["max_abs_err"] for r in lk
+                           if r["kernel"] == "shear_scan_real"),
+        **layout_timing(lt, "shear_scan_real"),
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -124,6 +124,14 @@
 // plain PyTorch version (ops/cuda_scan_solve.shear_scan_reference), so the
 // two agree bit for bit.
 //
+// The real-lane entry (shear_scan_real_f32/_f64) solves a real d (B, N, L)
+// with real (N, L) factors, each lane its own chain: quflow_tpu's real
+// channels under QUFLOW_PALLAS_KERNEL=scan (float planes, L = N+1, and the
+// re/im-interleaved shear view, L = 2(N+1)).  It is the same kernel on a
+// value of one real (One<T> below) in place of a complex pair, with the
+// same chunk rule (L rows from N alone), so on the interleaved view it
+// rounds as the complex entry does on the same bytes.
+//
 // The launchers allocate nothing and launch on the caller's stream; they
 // return the launch's error so that a refused launch is reported.  Needs
 // sm_90: clusters and distributed shared memory.
@@ -154,6 +162,8 @@ constexpr int MAX_DEVICES = 64;
 template <typename T> struct Pair;
 template <> struct Pair<float> { using type = float2; };
 template <> struct Pair<double> { using type = double2; };
+// a lane of the real-lane entry
+template <typename T> struct One { T x; };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
@@ -185,6 +195,20 @@ __device__ __forceinline__ V compose(V v, T a, V carry) {
   r.x = add(v.x, mul(a, carry.x));
   r.y = add(v.y, mul(a, carry.y));
   return r;
+}
+
+// the same three steps on one real lane
+template <typename T>
+__device__ __forceinline__ One<T> fwd_step(One<T> d, T w, One<T> y) {
+  return {sub(d.x, mul(w, y.x))};
+}
+template <typename T>
+__device__ __forceinline__ One<T> bwd_step(One<T> y, T binv, T u, One<T> x) {
+  return {sub(mul(y.x, binv), mul(u, x.x))};
+}
+template <typename T>
+__device__ __forceinline__ One<T> compose(One<T> v, T a, One<T> carry) {
+  return {add(v.x, mul(a, carry.x))};
 }
 
 // The cluster's barrier, whole and in its two halves.  Every thread of
@@ -273,7 +297,7 @@ template <typename T, typename V>
 __device__ __forceinline__ void compose_chain(V* sv, const T* sa, int TC,
                                               int c, int first, int step,
                                               int count) {
-  V carry = {T(0), T(0)};
+  V carry{};
   V* pv = sv + first * TC + c;
   const T* pa = sa + first * TC + c;
   const int hop = step * TC;
@@ -308,14 +332,12 @@ __device__ __forceinline__ void compose_chain(V* sv, const T* sa, int TC,
 // values of the forward and of the backward sweep V[K TC] each, the panels
 // of w, binv, u T[KB (L|1) TC] each, the summary coefficients of the two
 // sweeps T[K TC] each.
-template <typename T>
+template <typename T, typename V>
 __global__ void __launch_bounds__(MAX_THREADS)
 shear_scan_kernel(const T* __restrict__ w, const T* __restrict__ binv,
-                  const T* __restrict__ u,
-                  const typename Pair<T>::type* __restrict__ d,
-                  typename Pair<T>::type* __restrict__ out, int B, int BG,
-                  int N, int M, int L, int K) {
-  using V = typename Pair<T>::type;
+                  const T* __restrict__ u, const V* __restrict__ d,
+                  V* __restrict__ out, int B, int BG, int N, int M, int L,
+                  int K) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int CL = cluster.num_blocks();
@@ -349,7 +371,7 @@ shear_scan_kernel(const T* __restrict__ w, const T* __restrict__ binv,
   const int slot = k * TC + c;
   const size_t g0 = static_cast<size_t>(k) * L * s + j;
   const int Ls = (L + STAGES * R - 1) / (STAGES * R) * R;  // rows a stage
-  const V zero = {T(0), T(0)};
+  const V zero{};
 
   cluster_arrive();  // this block runs: its shared memory may be written
 
@@ -446,14 +468,13 @@ struct Plan {
   size_t smem;
 };
 
-template <typename T>
+template <typename T, typename V>
 size_t smem_bytes(int L, int K, int KB, int TC) {
-  using V = typename Pair<T>::type;
   return static_cast<size_t>(KB) * (L | 1) * TC * (sizeof(V) + 3 * sizeof(T)) +
          2 * static_cast<size_t>(K) * TC * (sizeof(V) + sizeof(T));
 }
 
-template <typename T>
+template <typename T, typename V>
 void cluster_config(const Plan& p, unsigned blocks, cudaStream_t stream,
                     cudaLaunchAttribute& attr, cudaLaunchConfig_t& cfg) {
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -471,9 +492,8 @@ void cluster_config(const Plan& p, unsigned blocks, cudaStream_t stream,
 
 // The launch geometry (see the header), made once per device, instance
 // and (N, M, L, B) and checked to be schedulable.
-template <typename T>
+template <typename T, typename V>
 cudaError_t make_plan(int N, int M, int L, int B, int sms, Plan& p) {
-  using V = typename Pair<T>::type;
   const int K = (N + L - 1) / L;
   if (K > MAX_CHUNKS) return cudaErrorInvalidValue;
   int CL, TC;
@@ -485,7 +505,7 @@ cudaError_t make_plan(int N, int M, int L, int B, int sms, Plan& p) {
     TC = row_bytes / static_cast<int>(sizeof(V));
     for (;;) {
       if (KB() <= MAX_KB && TC * KB() <= MAX_THREADS &&
-          smem_bytes<T>(L, K, KB(), TC) <= SMEM_LIMIT)
+          smem_bytes<T, V>(L, K, KB(), TC) <= SMEM_LIMIT)
         return true;
       if (CL < MAX_CLUSTER) CL *= 2;
       else if (TC > 1) TC /= 2;
@@ -498,11 +518,12 @@ cudaError_t make_plan(int N, int M, int L, int B, int sms, Plan& p) {
     p.TC = TC;
     p.CL = CL;
     p.KB = KB();
-    p.smem = smem_bytes<T>(L, K, p.KB, TC);
+    p.smem = smem_bytes<T, V>(L, K, p.KB, TC);
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg;
-    cluster_config<T>(p, CL, nullptr, attr, cfg);
-    return cudaOccupancyMaxActiveClusters(&count, shear_scan_kernel<T>, &cfg);
+    cluster_config<T, V>(p, CL, nullptr, attr, cfg);
+    return cudaOccupancyMaxActiveClusters(&count, shear_scan_kernel<T, V>,
+                                          &cfg);
   };
   // as many clusters share a tile's batch entries as it takes to fill the
   // card; where the tiles alone fill it, one cluster solves all B entries
@@ -570,12 +591,12 @@ cudaError_t make_plan(int N, int M, int L, int B, int sms, Plan& p) {
 // Once per device and instance (before any graph capture that holds a
 // launch): above 48 KB a block's dynamic shared memory must be allowed.
 // Gives the device's SM count.
-template <typename T>
+template <typename T, typename V>
 cudaError_t prepare(int device, int& sms) {
   static int count[MAX_DEVICES] = {};
   if (!count[device]) {
     cudaError_t err = cudaFuncSetAttribute(
-        shear_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        shear_scan_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(SMEM_LIMIT));
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&count[device],
@@ -586,11 +607,10 @@ cudaError_t prepare(int device, int& sms) {
   return cudaSuccess;
 }
 
-template <typename T>
+template <typename T, typename V>
 cudaError_t launch(const void* w, const void* binv, const void* u,
                    const void* d, void* out, int B, int N, int M, int L,
                    int device, void* stream) {
-  using V = typename Pair<T>::type;
   static Plan plans[MAX_DEVICES];
   if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
@@ -600,12 +620,12 @@ cudaError_t launch(const void* w, const void* binv, const void* u,
   {
     std::lock_guard<std::mutex> lock(guard);
     int sms = 0;
-    err = prepare<T>(device, sms);
+    err = prepare<T, V>(device, sms);
     if (err != cudaSuccess) return err;
     Plan& cached = plans[device];
     if (cached.N != N || cached.M != M || cached.L != L || cached.B != B) {
       cached.N = 0;
-      err = make_plan<T>(N, M, L, B, sms, cached);
+      err = make_plan<T, V>(N, M, L, B, sms, cached);
       if (err != cudaSuccess) return err;
     }
     p = cached;
@@ -615,10 +635,10 @@ cudaError_t launch(const void* w, const void* binv, const void* u,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  cluster_config<T>(p, static_cast<unsigned>(blocks),
-                    static_cast<cudaStream_t>(stream), attr, cfg);
+  cluster_config<T, V>(p, static_cast<unsigned>(blocks),
+                       static_cast<cudaStream_t>(stream), attr, cfg);
   return cudaLaunchKernelEx(
-      &cfg, shear_scan_kernel<T>, static_cast<const T*>(w),
+      &cfg, shear_scan_kernel<T, V>, static_cast<const T*>(w),
       static_cast<const T*>(binv), static_cast<const T*>(u),
       static_cast<const V*>(d), static_cast<V*>(out), B, p.BG, N, M, L,
       (N + L - 1) / L);
@@ -628,7 +648,7 @@ cudaError_t launch(const void* w, const void* binv, const void* u,
 // blocks of a cluster, chunks of a block, bytes of dynamic shared memory a
 // block, clusters the card runs at once, clusters that share a tile's
 // batch entries.
-template <typename T>
+template <typename T, typename V>
 cudaError_t geometry(int B, int N, int M, int L, int device, int* out) {
   if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
@@ -636,10 +656,10 @@ cudaError_t geometry(int B, int N, int M, int L, int device, int* out) {
   if (B < 1 || N < 1 || M < 1 || L < 1) return cudaErrorInvalidValue;
   std::lock_guard<std::mutex> lock(guard);
   int sms = 0;
-  err = prepare<T>(device, sms);
+  err = prepare<T, V>(device, sms);
   if (err != cudaSuccess) return err;
   Plan p;
-  err = make_plan<T>(N, M, L, B, sms, p);
+  err = make_plan<T, V>(N, M, L, B, sms, p);
   if (err != cudaSuccess) return err;
   out[0] = p.TC;
   out[1] = p.CL;
@@ -648,8 +668,9 @@ cudaError_t geometry(int B, int N, int M, int L, int device, int* out) {
   out[5] = p.BG;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  cluster_config<T>(p, p.CL, nullptr, attr, cfg);
-  return cudaOccupancyMaxActiveClusters(&out[4], shear_scan_kernel<T>, &cfg);
+  cluster_config<T, V>(p, p.CL, nullptr, attr, cfg);
+  return cudaOccupancyMaxActiveClusters(&out[4], shear_scan_kernel<T, V>,
+                                        &cfg);
 }
 
 }  // namespace
@@ -661,24 +682,55 @@ extern "C" cudaError_t shear_scan_f32(const void* w, const void* binv,
                                       const void* u, const void* d, void* out,
                                       int B, int N, int M, int L, int device,
                                       void* stream) {
-  return launch<float>(w, binv, u, d, out, B, N, M, L, device, stream);
+  return launch<float, float2>(w, binv, u, d, out, B, N, M, L, device,
+                               stream);
 }
 
 extern "C" cudaError_t shear_scan_f64(const void* w, const void* binv,
                                       const void* u, const void* d, void* out,
                                       int B, int N, int M, int L, int device,
                                       void* stream) {
-  return launch<double>(w, binv, u, d, out, B, N, M, L, device, stream);
+  return launch<double, double2>(w, binv, u, d, out, B, N, M, L, device,
+                                 stream);
+}
+
+// The real-lane entry: w, binv, u: (N, M) real; d, out: (B, N, M) real.
+extern "C" cudaError_t shear_scan_real_f32(const void* w, const void* binv,
+                                           const void* u, const void* d,
+                                           void* out, int B, int N, int M,
+                                           int L, int device, void* stream) {
+  return launch<float, One<float>>(w, binv, u, d, out, B, N, M, L, device,
+                                   stream);
+}
+
+extern "C" cudaError_t shear_scan_real_f64(const void* w, const void* binv,
+                                           const void* u, const void* d,
+                                           void* out, int B, int N, int M,
+                                           int L, int device, void* stream) {
+  return launch<double, One<double>>(w, binv, u, d, out, B, N, M, L, device,
+                                     stream);
 }
 
 extern "C" cudaError_t shear_scan_geometry_f32(int B, int N, int M, int L,
                                                int device, int* out) {
-  return geometry<float>(B, N, M, L, device, out);
+  return geometry<float, float2>(B, N, M, L, device, out);
 }
 
 extern "C" cudaError_t shear_scan_geometry_f64(int B, int N, int M, int L,
                                                int device, int* out) {
-  return geometry<double>(B, N, M, L, device, out);
+  return geometry<double, double2>(B, N, M, L, device, out);
+}
+
+extern "C" cudaError_t shear_scan_real_geometry_f32(int B, int N, int M,
+                                                    int L, int device,
+                                                    int* out) {
+  return geometry<float, One<float>>(B, N, M, L, device, out);
+}
+
+extern "C" cudaError_t shear_scan_real_geometry_f64(int B, int N, int M,
+                                                    int L, int device,
+                                                    int* out) {
+  return geometry<double, One<double>>(B, N, M, L, device, out);
 }
 
 extern "C" const char* shear_scan_error(int err) {

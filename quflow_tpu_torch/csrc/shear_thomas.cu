@@ -15,6 +15,15 @@
 // Re and im are independent chains that share the real factors.  y is
 // stored into the output between the two passes.
 //
+// The real-lane entry (shear_thomas_real_f32/_f64) solves a real d
+// (B, N, L) with real (N, L) factors: each lane its own chain with its own
+// factor column.  It serves quflow_tpu's real channels: float planes
+// (L = N+1) and the re/im-interleaved shear view (L = 2(N+1), factor
+// columns duplicated), where K1 and K2 run on a real rhs.  On the
+// interleaved view it computes the chains of the complex entry on the same
+// bytes, step for step, so the two agree bit for bit.  It is the same
+// kernel with one chain a factor column instead of two (CH below).
+//
 // What bounds it.  Two things, and which one depends on N * B.
 //   Bytes: d, w, binv, u read and x written once is 28 B a complex64
 //   element (the bound); this kernel moves 44 B, since y goes through
@@ -73,6 +82,11 @@ template <typename T> struct Pair;
 template <> struct Pair<float> { using type = float2; };
 template <> struct Pair<double> { using type = double2; };
 
+// what a producer copies for one factor column: the complex value (CH = 2)
+// or the real one (CH = 1)
+template <typename T, int CH> struct Elem { using type = typename Pair<T>::type; };
+template <typename T> struct Elem<T, 1> { using type = T; };
+
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
@@ -103,13 +117,16 @@ __device__ __forceinline__ T bwd_step(T y, T binv, T u, T x) {
 // branch-free step; rows of a last short stage past its end, and columns
 // of a ragged tile past M, are computed on what the slot holds and not
 // stored, and their threads still take part in every barrier.
-template <typename T, int TC, int PW>
-__global__ void __launch_bounds__(2 * TC + 32 * PW)
+// CH is the chains of a factor column: 2 (re, im) for a complex d, 1 for
+// the real-lane entry, whose slot holds (R, TC) real values and whose
+// thread t runs lane j0 + t.
+template <typename T, int TC, int PW, int CH>
+__global__ void __launch_bounds__(CH * TC + 32 * PW)
 shear_thomas_kernel(const T* __restrict__ w, const T* __restrict__ binv,
                     const T* __restrict__ u, const T* __restrict__ d,
                     T* __restrict__ out, int N, int M, int R) {
-  using V = typename Pair<T>::type;
-  constexpr int LANES = 2 * TC;    // computing threads: (column, re/im)
+  using V = typename Elem<T, CH>::type;
+  constexpr int LANES = CH * TC;   // computing threads: (column, channel)
   constexpr int H = 32 * PW / TC;  // rows a producer pass copies at once
   static_assert(32 * PW % TC == 0 && H > 0, "producers must cover the tile");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -136,7 +153,7 @@ shear_thomas_kernel(const T* __restrict__ w, const T* __restrict__ binv,
       const V* g = reinterpret_cast<const V*>(src)
                    + static_cast<ptrdiff_t>(b) * N * M + gi;
       for (int r = h; r < n; r += H, g += step, gi += step) {
-        __pipeline_memcpy_async(slot + r * LANES + 2 * col, g, sizeof(V));
+        __pipeline_memcpy_async(slot + r * LANES + CH * col, g, sizeof(V));
         T* f = slot + data_len + r * TC + col;
         if (down) {
           if (s == 0 && r == 0) *f = T(0);  // w_0
@@ -151,11 +168,11 @@ shear_thomas_kernel(const T* __restrict__ w, const T* __restrict__ binv,
     __pipeline_commit();  // one group a stage, empty past the end
   };
 
-  // a computing thread: the chain of column j0 + cc, re/im tid % 2
-  const int cc = tid / 2;
+  // a computing thread: the chain of column j0 + cc, channel tid % CH
+  const int cc = tid / CH;
   const bool chain = !producer && j0 + cc < M;
-  const ptrdiff_t rs = 2 * static_cast<ptrdiff_t>(M);  // row stride, in T
-  T* const o = out + static_cast<ptrdiff_t>(b) * N * rs + 2 * j0 + tid;
+  const ptrdiff_t rs = CH * static_cast<ptrdiff_t>(M);  // row stride, in T
+  T* const o = out + static_cast<ptrdiff_t>(b) * N * rs + CH * j0 + tid;
 
   // forward sweep: y into the output
   for (int s = 0; s < STAGES - 1; ++s) issue(s, d, w, nullptr, true);
@@ -241,7 +258,7 @@ shear_thomas_kernel(const T* __restrict__ w, const T* __restrict__ binv,
   }
 }
 
-template <typename T, int TC, int PW>
+template <typename T, int TC, int PW, int CH>
 cudaError_t launch_tiles(const T* w, const T* binv, const T* u, const T* d,
                          T* out, int B, int N, int M, int device,
                          cudaStream_t stream) {
@@ -250,24 +267,26 @@ cudaError_t launch_tiles(const T* w, const T* binv, const T* u, const T* d,
   // device and instance (before any graph capture that holds a launch)
   if (!smem_allowed[device]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        shear_thomas_kernel<T, TC, PW>,
+        shear_thomas_kernel<T, TC, PW, CH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(SMEM_TARGET));
     if (err != cudaSuccess) return err;
     smem_allowed[device] = true;
   }
   // rows of a slot: the ring fills SMEM_TARGET, at most MAX_R rows
-  const size_t row_bytes = 4 * static_cast<size_t>(TC) * sizeof(T);
+  const size_t row_bytes = (CH + 2) * static_cast<size_t>(TC) * sizeof(T);
   int R = static_cast<int>(SMEM_TARGET / (STAGES * row_bytes)) / U * U;
   R = R < U ? U : (R > MAX_R ? MAX_R : R);
   const dim3 grid(B, (M + TC - 1) / TC);
-  shear_thomas_kernel<T, TC, PW>
-      <<<grid, 2 * TC + 32 * PW, STAGES * R * row_bytes, stream>>>(
+  shear_thomas_kernel<T, TC, PW, CH>
+      <<<grid, CH * TC + 32 * PW, STAGES * R * row_bytes, stream>>>(
           w, binv, u, d, out, N, M, R);
   return cudaGetLastError();
 }
 
-template <typename T>
+// CH = 2: complex d, tiles of 16 and 64 columns; CH = 1: real lanes, tiles
+// of 32 and 128 lanes (the same computing threads a block).
+template <typename T, int CH>
 cudaError_t launch(const void* w, const void* binv, const void* u,
                    const void* d, void* out, int B, int N, int M, int device,
                    void* stream) {
@@ -288,10 +307,13 @@ cudaError_t launch(const void* w, const void* binv, const void* u,
   T* o = static_cast<T*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // narrow tiles while one wave of them covers the grid, wide ones beyond
-  const long long narrow = static_cast<long long>((M + 15) / 16) * B;
+  constexpr int NARROW = 32 / CH, WIDE = 128 / CH;
+  const long long narrow =
+      static_cast<long long>((M + NARROW - 1) / NARROW) * B;
   if (narrow <= static_cast<long long>(BLOCKS_PER_SM) * sms[device])
-    return launch_tiles<T, 16, 1>(w_, b_, u_, d_, o, B, N, M, device, st);
-  return launch_tiles<T, 64, 4>(w_, b_, u_, d_, o, B, N, M, device, st);
+    return launch_tiles<T, NARROW, 1, CH>(w_, b_, u_, d_, o, B, N, M, device,
+                                          st);
+  return launch_tiles<T, WIDE, 4, CH>(w_, b_, u_, d_, o, B, N, M, device, st);
 }
 
 }  // namespace
@@ -302,14 +324,29 @@ extern "C" cudaError_t shear_thomas_f32(const void* w, const void* binv,
                                         const void* u, const void* d, void* out,
                                         int B, int N, int M, int device,
                                         void* stream) {
-  return launch<float>(w, binv, u, d, out, B, N, M, device, stream);
+  return launch<float, 2>(w, binv, u, d, out, B, N, M, device, stream);
 }
 
 extern "C" cudaError_t shear_thomas_f64(const void* w, const void* binv,
                                         const void* u, const void* d, void* out,
                                         int B, int N, int M, int device,
                                         void* stream) {
-  return launch<double>(w, binv, u, d, out, B, N, M, device, stream);
+  return launch<double, 2>(w, binv, u, d, out, B, N, M, device, stream);
+}
+
+// The real-lane entry: w, binv, u: (N, L) real; d, out: (B, N, L) real.
+extern "C" cudaError_t shear_thomas_real_f32(const void* w, const void* binv,
+                                             const void* u, const void* d,
+                                             void* out, int B, int N, int L,
+                                             int device, void* stream) {
+  return launch<float, 1>(w, binv, u, d, out, B, N, L, device, stream);
+}
+
+extern "C" cudaError_t shear_thomas_real_f64(const void* w, const void* binv,
+                                             const void* u, const void* d,
+                                             void* out, int B, int N, int L,
+                                             int device, void* stream) {
+  return launch<double, 1>(w, binv, u, d, out, B, N, L, device, stream);
 }
 
 extern "C" const char* shear_thomas_error(int err) {

@@ -3,8 +3,9 @@ chunks: CUDA kernel and plain version.
 
 Counterpart of quflow_tpu/ops/pallas_scan_solve.py (the TPU's
 blocked-affine-scan solve).  ``shear_scan`` solves the same systems as
-``ops.cuda_solve.shear_thomas``, with the same contract (complex rhs
-(..., N, M), real (N, M) factors):
+``ops.cuda_solve.shear_thomas``, with the same contract (complex or real
+rhs (..., N, M), real (N, M) factors; a real rhs goes to the kernel's
+real-lane entry, each lane its own system):
 
     forward :  y_i = d_i - w_i y_{i-1}
     backward:  x_i = y_i binv_i - u_i x_{i+1}
@@ -70,7 +71,9 @@ def shear_scan_reference(w, binv, u, d):
     N, M = d.shape[-2:]
     L = chunk_rows(N)
     K = -(-N // L)
-    dk = _rows(torch.view_as_real(d), K, L, 0.0)  # (..., K, L, M, 2)
+    cplx = d.is_complex()
+    dr = torch.view_as_real(d) if cplx else d[..., None]
+    dk = _rows(dr, K, L, 0.0)  # (..., K, L, M, c)
     wk, bk, uk = (_rows(f[:, :, None], K, L, fill)  # (K, L, M, 1)
                   for f, fill in ((w, -1.0), (binv, 0.0), (u, -1.0)))
 
@@ -113,41 +116,49 @@ def shear_scan_reference(w, binv, u, d):
     v, a = sweep(up, bwd, uk, zero)
     x = torch.empty_like(dk)
     sweep(up, bwd, uk, compose(v, a, range(K - 1, -1, -1)), out=x)
-    x = x.reshape(*x.shape[:-4], K * L, M, 2)[..., :N, :, :]
-    return torch.view_as_complex(x.contiguous())
+    x = x.reshape(*x.shape[:-4], K * L, M, x.shape[-1])[..., :N, :, :]
+    return torch.view_as_complex(x.contiguous()) if cplx else x[..., 0]
 
 
 def shear_scan(w, binv, u, d):
-    """Solve the shear-layout column systems of ``d`` (complex, (..., N, M)
-    with M = N+1) with the prefactorized (N, M) real factors, chunk by
-    chunk (:func:`chunk_rows` rows each).
+    """Solve the shear-layout column systems of ``d`` ((..., N, M):
+    complex with M = N+1, or real lanes) with the prefactorized (N, M)
+    real factors, chunk by chunk (:func:`chunk_rows` rows each).
 
     CPU tensors go to :func:`shear_scan_reference`.  CUDA tensors go to
-    the kernel; ``shear_scan.launches`` counts its launches."""
+    the kernel; ``shear_scan.launches`` counts the launches of its complex
+    entry, ``shear_scan.real_launches`` those of its real-lane entry."""
     check_solve_args("shear_scan", w, binv, u, d)
     if d.device.type == "cpu":
         return shear_scan_reference(w, binv, u, d)
     out = launch_solve("shear_scan", LIBRARY, w, binv, u, d,
                        chunk_rows(d.shape[-2]))
-    shear_scan.launches += 1
+    if d.is_complex():
+        shear_scan.launches += 1
+    else:
+        shear_scan.real_launches += 1
     return out
 
 
 shear_scan.launches = 0
+shear_scan.real_launches = 0
 
 
-def geometry(B, N, dtype, device=0):
-    """What the kernel launches for a batch of B complex ``dtype`` (N, N+1)
-    arrays on CUDA device ``device``: the columns of a tile, the blocks of
+def geometry(B, N, dtype, device=0, M=None):
+    """What the kernel launches for a batch of B ``dtype`` (N, M) arrays
+    (M = N+1 by default; a real ``dtype`` is the real-lane entry's) on CUDA
+    device ``device``: the columns of a tile, the blocks of
     a cluster, the chunks of a block, the bytes of shared memory a block,
     the clusters the card runs at once, and the clusters that share a
     tile's batch entries (each solves B / that many, one after the other,
     with the factors read once)."""
     lib = LIBRARY.load()
-    fn = (lib.shear_scan_geometry_f32 if dtype == torch.complex64
-          else lib.shear_scan_geometry_f64)
+    entry = "" if dtype.is_complex else "real_"
+    single = dtype in (torch.complex64, torch.float32)
+    fn = getattr(lib, f"shear_scan_{entry}geometry_"
+                      f"{'f32' if single else 'f64'}")
     out = (ctypes.c_int * 6)()
-    err = fn(B, N, N + 1, chunk_rows(N), device, out)
+    err = fn(B, N, N + 1 if M is None else M, chunk_rows(N), device, out)
     if err != 0:
         raise RuntimeError(f"shear_scan geometry: cudaError_t {err} "
                            f"({lib.shear_scan_error(err).decode()})")
@@ -156,9 +167,12 @@ def geometry(B, N, dtype, device=0):
 
 
 def _bind(lib):
-    for fn in (lib.shear_scan_f32, lib.shear_scan_f64):
+    for fn in (lib.shear_scan_f32, lib.shear_scan_f64,
+               lib.shear_scan_real_f32, lib.shear_scan_real_f64):
         launcher_argtypes(fn, 5, 5)
-    for fn in (lib.shear_scan_geometry_f32, lib.shear_scan_geometry_f64):
+    for fn in (lib.shear_scan_geometry_f32, lib.shear_scan_geometry_f64,
+               lib.shear_scan_real_geometry_f32,
+               lib.shear_scan_real_geometry_f64):
         fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     bind_error_string(lib.shear_scan_error)

@@ -7,6 +7,13 @@ shear-packed complex array (ops/diagpack.mat2shear), for a batch of arrays:
     forward :  y_0 = d_0,  y_i = d_i - w_i y_{i-1}
     backward:  x_{N-1} = y_{N-1} binv_{N-1},  x_i = y_i binv_i - u_i x_{i+1}
 
+A real ``d`` (..., N, L) with real (N, L) factors goes to the kernel's
+real-lane entry, each lane its own system: the float planes and the
+re/im-interleaved shear view (ops/diagpack.mat2shear_interleaved, L =
+2(N+1), factor columns duplicated) on which quflow_tpu runs its kernels
+with a real rhs.  On the interleaved view it is bit-equal to the complex
+solve of the same bytes.
+
 On a CUDA tensor it launches the kernel of csrc/shear_thomas.cu (built at
 first use with nvcc into ``quflow_tpu_torch/_build``, bound with ctypes);
 on a CPU tensor it runs :func:`shear_thomas_reference`, the plain PyTorch
@@ -27,9 +34,10 @@ __all__ = ["shear_thomas", "shear_thomas_reference", "check_solve_args",
 def shear_thomas_reference(w, binv, u, d):
     """Plain PyTorch version of the kernel: a loop over the N rows,
     vectorized over batch, columns and re/im.  ``w``/``binv``/``u`` are
-    (N, M) real, ``d`` is complex (..., N, M); returns complex x like d.
+    (N, M) real, ``d`` is complex or real (..., N, M); returns x like d.
     One rounding per multiply and per subtract, in the kernel's order."""
-    dr = torch.view_as_real(d)  # (..., N, M, 2)
+    cplx = d.is_complex()
+    dr = torch.view_as_real(d) if cplx else d[..., None]  # (..., N, M, c)
     N = dr.shape[-3]
     w, binv, u = w[..., None], binv[..., None], u[..., None]
     y = torch.empty_like(dr)
@@ -40,15 +48,17 @@ def shear_thomas_reference(w, binv, u, d):
     x[..., N - 1, :, :] = y[..., N - 1, :, :] * binv[N - 1]
     for i in range(N - 2, -1, -1):
         x[..., i, :, :] = y[..., i, :, :] * binv[i] - u[i] * x[..., i + 1, :, :]
-    return torch.view_as_complex(x)
+    return torch.view_as_complex(x) if cplx else x[..., 0]
 
 
 def check_solve_args(name, w, binv, u, d):
-    """The column solves' contract: complex rhs ``d`` (..., N, M) and real
-    (N, M) factors of its real dtype on its device."""
-    if not d.is_complex():
-        raise TypeError(f"{name} takes a complex rhs, got {d.dtype}")
-    rd = d.real.dtype
+    """The column solves' contract: a complex or real (float32, float64)
+    rhs ``d`` (..., N, M) and real (N, M) factors of its real dtype on its
+    device."""
+    if not (d.is_complex() or d.dtype in (torch.float32, torch.float64)):
+        raise TypeError(f"{name} takes a complex or floating rhs, got "
+                        f"{d.dtype}")
+    rd = d.real.dtype if d.is_complex() else d.dtype
     N, M = d.shape[-2:]
     for fname, f in (("w", w), ("binv", binv), ("u", u)):
         if f.dtype != rd or f.shape != (N, M) or f.device != d.device:
@@ -58,8 +68,9 @@ def check_solve_args(name, w, binv, u, d):
 
 
 def launch_solve(name, library, w, binv, u, d, *extra):
-    """Launch ``<name>_f32``/``<name>_f64`` of ``library`` on the CUDA
-    tensors: ``fn(w, binv, u, d, out, B, N, M, *extra, device, stream)``.
+    """Launch ``<name>_f32``/``<name>_f64`` of ``library`` (for a real
+    ``d``, ``<name>_real_f32``/``_f64``) on the CUDA tensors:
+    ``fn(w, binv, u, d, out, B, N, M, *extra, device, stream)``.
     Checks what the kernel takes, allocates the output, raises on a
     refused launch; returns the output (the kernel runs on the current
     stream)."""
@@ -73,8 +84,9 @@ def launch_solve(name, library, w, binv, u, d, *extra):
     if not 1 <= B <= 65535:
         raise ValueError(f"{name}: batch {B} outside the grid's 1..65535")
     lib = library.load()
-    fn = getattr(lib, f"{name}_f32" if d.dtype == torch.complex64
-                 else f"{name}_f64")
+    entry = name if d.is_complex() else name + "_real"
+    single = d.dtype in (torch.complex64, torch.float32)
+    fn = getattr(lib, f"{entry}_f32" if single else f"{entry}_f64")
     out = torch.empty_like(d)
     stream = torch.cuda.current_stream(d.device).cuda_stream
     err = fn(w.data_ptr(), binv.data_ptr(), u.data_ptr(), d.data_ptr(),
@@ -86,24 +98,32 @@ def launch_solve(name, library, w, binv, u, d, *extra):
 
 
 def shear_thomas(w, binv, u, d):
-    """Solve the shear-layout column systems of ``d`` (complex, (..., N, M)
-    with M = N+1) with the prefactorized (N, M) real factors.
+    """Solve the shear-layout column systems of ``d`` ((..., N, M):
+    complex with M = N+1, or real lanes) with the prefactorized (N, M) real
+    factors.
 
     CPU tensors go to :func:`shear_thomas_reference`.  CUDA tensors go to
-    the kernel; ``shear_thomas.launches`` counts its launches."""
+    the kernel; ``shear_thomas.launches`` counts the launches of its
+    complex entry, ``shear_thomas.real_launches`` those of its real-lane
+    entry."""
     check_solve_args("shear_thomas", w, binv, u, d)
     if d.device.type == "cpu":
         return shear_thomas_reference(w, binv, u, d)
     out = launch_solve("shear_thomas", LIBRARY, w, binv, u, d)
-    shear_thomas.launches += 1
+    if d.is_complex():
+        shear_thomas.launches += 1
+    else:
+        shear_thomas.real_launches += 1
     return out
 
 
 shear_thomas.launches = 0
+shear_thomas.real_launches = 0
 
 
 def _bind(lib):
-    for fn in (lib.shear_thomas_f32, lib.shear_thomas_f64):
+    for fn in (lib.shear_thomas_f32, lib.shear_thomas_f64,
+               lib.shear_thomas_real_f32, lib.shear_thomas_real_f64):
         launcher_argtypes(fn, 5, 4)
     bind_error_string(lib.shear_thomas_error)
 

@@ -1,8 +1,10 @@
 """The column solve of the shear layout as its callers reach it: which
 kernel runs (:func:`column_solver`), the host-prefactorized operator of
-each solve family (:func:`_shear_factors_cached`), and the copies of its
-factors on a device (:func:`device_factors`), kept in :data:`device_cache`,
-which ops/laplacian.py and ops/tridiag.py share for their device operators.
+each solve family (:func:`_shear_factors_cached`; in the row layouts
+:func:`row_factors`), and the copies of its factors on a device
+(:func:`device_factors`, :func:`device_row_factors`), kept in
+:data:`device_cache`, which ops/laplacian.py, ops/tridiag.py and
+ops/diagpack.py share for their device operators and index maps.
 
 The Poisson family's backend (ops/laplacian.py) and the production
 steppers (parallel/stepper.py) both solve through here, so the kernel
@@ -22,10 +24,12 @@ import torch
 from .. import config
 from .cuda_scan_solve import shear_scan
 from .cuda_solve import shear_thomas
-from .tridiag import TridiagFactors, shear_operator
+from .geometry import hbar
+from .tridiag import TridiagFactors, packed_laplacian, shear_operator
 
-__all__ = ["column_solver", "device_factors", "device_cache", "real_dtype",
-           "to_device", "DEVICE_CACHE_BYTES"]
+__all__ = ["column_solver", "device_factors", "device_row_factors",
+           "row_factors", "device_cache", "real_dtype", "to_device",
+           "DEVICE_CACHE_BYTES"]
 
 #: bytes of device operators that :data:`device_cache` keeps, on all
 #: devices together.  One complex128 factor set at N=8192 is
@@ -173,4 +177,82 @@ def device_factors(N, kind, params, rdtype, device):
         return tuple(to_device(a, rdtype, device) for a in (w, binv, u))
 
     return device_cache.get(("factors", N, kind, tuple(params),
+                             np.dtype(rdtype), torch.device(device)), build)
+
+
+@lru_cache(maxsize=256)
+def row_factors(N, skewh, kind="poisson", params=()):
+    """The prefactorized operator of a solve family in a row layout:
+    ``TridiagFactors`` of the (R, 2, N) packed operator, R = N//2+1
+    (``skewh``) or N (the wrapped layouts).  A numpy copy of
+    quflow_tpu/ops/laplacian.py:58-90 (``_factors``)."""
+    from .diagpack import num_rows, pack_indices
+
+    R = num_rows(N, skewh)
+    lap = packed_laplacian(N, nrows=R, bc=(kind == "poisson"))
+    if kind == "poisson":
+        op = lap
+    elif kind == "heat":
+        (h_nu,) = params
+        op = -h_nu * lap
+        op[:, 0, :] += 1.0
+    elif kind == "helmholtz":
+        (alpha,) = params
+        op = -alpha * lap
+        op[:, 0, :] += 1.0
+    elif kind == "viscdamp":
+        h, nu, alpha, theta = params
+        op = -(h * nu * theta) * lap
+        op[:, 0, :] += 1.0 + h * alpha * theta
+    elif kind == "globalqg":
+        (gamma,) = params
+        op = lap.copy()
+        s = (N - 1) / 2
+        z = hbar(N) * np.arange(-s, s + 1)
+        rows, cols = pack_indices(N, skewh)
+        op[:, 0, :] -= (gamma / 2.0) * (z[rows] ** 2 + z[cols] ** 2)
+    else:
+        raise ValueError(f"unknown solve family {kind!r}")
+    return TridiagFactors(op)
+
+
+def row_factors_host(N, rdtype, pad_rows=0, with_op=False, wrapped=False,
+                     kind="poisson", params=()):
+    """``(w, binv, u, op)`` of :func:`row_factors` for the stepper's row
+    layouts: the factors cast to ``rdtype`` (numpy), the (R, 2, N)
+    refinement operator float64 (None without ``with_op``), and
+    ``pad_rows`` pad rows that solve the identity (w = u = 0, binv = 1;
+    op main 1), as quflow_tpu/parallel/stepper.py:384-405 fills them."""
+    rd = np.dtype(rdtype)
+    fac = row_factors(N, not wrapped, kind, tuple(params))
+    w, binv, u = fac.w.astype(rd), fac.binv.astype(rd), fac.u.astype(rd)
+    op = fac.op.astype(np.float64) if with_op else None
+    if pad_rows:
+        Npts = w.shape[-1]
+        w = np.vstack([w, np.zeros((pad_rows, Npts), rd)])
+        binv = np.vstack([binv, np.ones((pad_rows, Npts), rd)])
+        u = np.vstack([u, np.zeros((pad_rows, Npts), rd)])
+        if op is not None:
+            pad_op = np.zeros((pad_rows, 2, Npts), np.float64)
+            pad_op[:, 0, :] = 1.0
+            op = np.concatenate([op, pad_op], axis=0)
+    return w, binv, u, op
+
+
+def device_row_factors(N, kind, params, rdtype, device, wrapped, pad_rows=0,
+                       with_op=False):
+    """:func:`row_factors_host` on ``device``: ``(w, binv, u)`` in
+    ``rdtype``, and with ``with_op`` the float64 operator, kept in
+    :data:`device_cache` under the layout (wrapped or not) and the pad
+    rows."""
+    def build():
+        w, binv, u, op = row_factors_host(N, rdtype, pad_rows, with_op,
+                                          wrapped, kind, params)
+        out = tuple(to_device(a, rdtype, device) for a in (w, binv, u))
+        if with_op:
+            out += (torch.from_numpy(op).to(device),)
+        return out
+
+    return device_cache.get(("row_factors", N, kind, tuple(params),
+                             bool(wrapped), int(pad_rows), bool(with_op),
                              np.dtype(rdtype), torch.device(device)), build)

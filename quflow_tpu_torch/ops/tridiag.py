@@ -1,25 +1,25 @@
-"""Batched tridiagonal operators of the shear layout, and their solve.
+"""Batched tridiagonal operators of the shear and row layouts, and their
+solve.
 
-Counterpart of quflow_tpu/ops/tridiag.py for the shear layout.  The host
-builders (``packed_laplacian``, ``shear_laplacian``, ``_shear_slots``,
+Counterpart of quflow_tpu/ops/tridiag.py.  The host builders
+(``packed_laplacian``, ``shear_laplacian``, ``_shear_slots``,
 ``shear_operator``, ``TridiagFactors``, ``_m0_semisep``) are numpy copies of
-quflow_tpu/ops/tridiag.py:47-223, 319-348 and give bit-equal arrays;
-``packed_laplacian`` and ``dot_packed`` serve the row-packed format of the
-reference's public API (ops/diagpack.mat2diagh), in which nothing is
-solved.  The
+quflow_tpu/ops/tridiag.py:47-223, 319-348 and give bit-equal arrays.  The
 operator is prefactorized on the host (LU of a fixed tridiagonal matrix),
-after which the solve is two first-order recurrences along each column of
-the (N, N+1) shear view,
+after which the solve is two first-order recurrences along each system,
 
     forward :  y_i = d_i - w_i y_{i-1}
     backward:  x_i = y_i binv_i - u_i x_{i+1},
 
-which the CUDA kernels run: ``shear_thomas`` (ops/cuda_solve.py) with one
-thread per column, ``shear_scan`` (ops/cuda_scan_solve.py) with one thread
-per column and chunk of rows.  ``solve_factored``, ``m0_correction``,
-``refine_m0`` and ``dot_cols`` are the torch versions of
-quflow_tpu/ops/tridiag.py:238-297, 351-416, 437-445 (shear branch, systems
-along axis -2 only).
+which the CUDA kernels run: down the columns of the (N, N+1) shear view
+``shear_thomas`` (ops/cuda_solve.py, one thread per column) or
+``shear_scan`` (ops/cuda_scan_solve.py, one thread per column and chunk of
+rows), each with a real-lane entry for a real rhs (the interleaved shear
+view, float planes); along the rows of the row-packed layouts
+(ops/diagpack.py) ``row_thomas`` (ops/cuda_row_solve.py).
+``solve_factored``, ``m0_correction``, ``refine_m0``,
+``refine_m0_interleaved``, ``dot_packed`` and ``dot_cols`` are the torch
+versions of quflow_tpu/ops/tridiag.py:238-297, 351-445.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .cuda_row_solve import row_thomas
 from .cuda_solve import shear_thomas
 
 __all__ = [
@@ -39,6 +40,7 @@ __all__ = [
     "solve_factored",
     "m0_correction",
     "refine_m0",
+    "refine_m0_interleaved",
     "dot_cols",
     "TridiagFactors",
 ]
@@ -225,39 +227,52 @@ class TridiagFactors:
         self.op = op.astype(dt)
 
 
-def solve_factored(fac, rhs, refine=0, op=None, base=None):
-    """Solve op @ x = rhs for complex shear-packed rhs (..., N, N+1): the
-    systems run along axis -2, ``fac.w``/``fac.binv``/``fac.u`` are the
-    (N, N+1) column-transposed factors and ``op`` the channel-first
-    (2, N, N+1) float64 operator.
+def solve_factored(fac, rhs, refine=0, op=None, base=None, axis=-2):
+    """Solve op @ x = rhs for a packed rhs, complex or real.
+
+    ``axis`` is the direction of the systems: -2 (the default here) for the
+    shear layouts (..., N, M), the systems down the columns, with
+    ``fac.w``/``fac.binv``/``fac.u`` the (N, M) column-transposed factors
+    and ``op`` the channel-first (2, N, M) float64 operator; -1 for the
+    row layouts (..., R, N), the systems along the rows, with (R, N)
+    factors and the (R, 2, N) float64 operator.
 
     ``refine`` > 0 applies that many steps of mixed-precision iterative
     refinement x += solve(rhs - op @ x), with the residual evaluated in the
-    dtype of ``op`` (float64) and downcast for the correction solve.
+    dtype of ``op`` (float64; a complex rhs channel by channel) and
+    downcast for the correction solve: :func:`dot_cols` on columns,
+    :func:`dot_packed` on rows.
 
-    ``base`` is the column solve ``(w, binv, u, d) -> x``.  The default,
-    :func:`ops.cuda_solve.shear_thomas`, launches the CUDA kernel on a CUDA
-    tensor and runs its plain version on a CPU tensor; pass
-    ``ops.cuda_solve.shear_thomas_reference`` to run the plain version on
-    any device.
+    ``base`` is the solve ``(w, binv, u, d) -> x``.  The defaults launch a
+    CUDA kernel on a CUDA tensor and run its plain version on a CPU
+    tensor: :func:`ops.cuda_solve.shear_thomas` on columns (its real-lane
+    entry for a real rhs), :func:`ops.cuda_row_solve.row_thomas` on rows.
     """
-    base = shear_thomas if base is None else base
+    if base is None:
+        base = shear_thomas if axis == -2 else row_thomas
     # match factor precision to the rhs working precision (a complex64 state
     # solves in float32; the host factors are float64)
-    rd, dev = rhs.real.dtype, rhs.device
+    rd, dev = rhs.real.dtype if rhs.is_complex() else rhs.dtype, rhs.device
     w = torch.as_tensor(fac.w, dtype=rd, device=dev)
     binv = torch.as_tensor(fac.binv, dtype=rd, device=dev)
     u = torch.as_tensor(fac.u, dtype=rd, device=dev)
 
     x = base(w, binv, u, rhs)
     if refine:
+        dot = dot_cols if axis == -2 else dot_packed
         opd = torch.as_tensor(op, device=dev)
         hd = opd.dtype
-        rhs_re, rhs_im = rhs.real.to(hd), rhs.imag.to(hd)
-        for _ in range(refine):
-            rr = (rhs_re - dot_cols(opd, x.real.to(hd))).to(rd)
-            ri = (rhs_im - dot_cols(opd, x.imag.to(hd))).to(rd)
-            x = x + base(w, binv, u, torch.complex(rr, ri))
+        if rhs.is_complex():
+            rhs_re, rhs_im = rhs.real.to(hd), rhs.imag.to(hd)
+            for _ in range(refine):
+                rr = (rhs_re - dot(opd, x.real.to(hd))).to(rd)
+                ri = (rhs_im - dot(opd, x.imag.to(hd))).to(rd)
+                x = x + base(w, binv, u, torch.complex(rr, ri))
+        else:
+            rhs_hi = rhs.to(hd)
+            for _ in range(refine):
+                r = rhs_hi - dot(opd, x.to(hd))
+                x = x + base(w, binv, u, r.to(rd))
     return x
 
 
@@ -308,11 +323,12 @@ def _m0_semisep_tensors(N, ham, dtype, device):
 
 def m0_correction(x0, d0, main, off, ham=("poisson", ())):
     """Semiseparable float64-residual correction for the m=0 system alone:
-    ``x0``/``d0`` are the complex (..., N) solution/rhs of the main-diagonal
-    system, ``main``/``off`` its float64 coefficients.  Returns the additive
-    correction T^-1 (d0 - T x0) through the cached semiseparable inverse
-    factors (two cumsums; see :func:`_m0_semisep`)."""
-    ld = x0.real.dtype
+    ``x0``/``d0`` are the (..., N) solution/rhs of the main-diagonal system
+    (complex, or one real channel), ``main``/``off`` its float64
+    coefficients.  Returns the additive correction T^-1 (d0 - T x0)
+    through the cached semiseparable inverse factors (two cumsums; see
+    :func:`_m0_semisep`)."""
+    ld = x0.real.dtype if x0.is_complex() else x0.dtype
     hd = main.dtype
     uu, vv = _m0_semisep_tensors(x0.shape[-1], ham, ld, x0.device)
 
@@ -328,19 +344,40 @@ def m0_correction(x0, d0, main, off, ham=("poisson", ())):
         c2 = torch.cumsum(vv * r, dim=-1)
         return vv * c1 + uu * (c2[..., -1:] - c2)
 
+    if not x0.is_complex():
+        return channel(x0, d0)
     return torch.complex(channel(x0.real, d0.real), channel(x0.imag, d0.imag))
 
 
-def refine_m0(x, d, op, ham=("poisson", ())):
-    """One float64-residual refinement of the m=0 (main-diagonal) system,
-    column 0 of the shear view; ``op`` is the channel-first (2, N, N+1)
-    float64 operator.  The float32 solve error concentrates in this
-    ill-conditioned system; refining it alone costs O(N).  Adds the
-    correction to ``x`` in place (``x`` is a solve output no one else
-    holds) and returns it."""
+def refine_m0(x, d, op, axis=-2, ham=("poisson", ())):
+    """One float64-residual refinement of the m=0 (main-diagonal) system.
+    ``axis`` = -2: the shear layout, system 0 is column 0 and ``op`` the
+    channel-first (2, N, N+1) operator; -1: the row layouts, system 0 is
+    row 0 and ``op`` the (R, 2, N) operator.  The float32 solve error
+    concentrates in this ill-conditioned system; refining it alone costs
+    O(N).  Adds the correction to ``x`` in place (``x`` is a solve output
+    no one else holds) and returns it."""
+    if axis == -1:
+        x[..., 0, :] += m0_correction(x[..., 0, :], d[..., 0, :], op[0, 0, :],
+                                      op[0, 1, :], ham=ham)
+        return x
     corr = m0_correction(x[..., :, 0], d[..., :, 0], op[0, :, 0], op[1, :, 0],
                          ham=ham)
     x[..., :, 0] += corr
+    return x
+
+
+def refine_m0_interleaved(x, d, op):
+    """The m=0 refinement of the interleaved shear layout (lanes 0 and 1
+    are re and im of the main-diagonal system; see
+    diagpack.mat2shear_interleaved), lane by lane, with the Poisson
+    family's semiseparable inverse, as quflow_tpu/ops/tridiag.py:419-434
+    has it; ``op`` is the channel-first (2, N, N+1) float64 operator.  In
+    place on ``x``; returns it."""
+    main, off = op[0, :, 0], op[1, :, 0]
+    corr = torch.stack([m0_correction(x[..., :, c], d[..., :, c], main, off)
+                        for c in (0, 1)], dim=-1)
+    x[..., :, 0:2] += corr
     return x
 
 

@@ -4,6 +4,7 @@ from .stepper import (
     build_poisson_fn,
     build_dw_step_fn,
     build_dw_mhd_step_fn,
+    build_planes_step_fn,
     column_solver,
     IsompTorch,
     MagmpTorch,
@@ -13,4 +14,4 @@ from .stepper import (
     from_planes,
 )
 from .mesh import Mesh, make_mesh, row_blocks, shard_state, gather_state
-from . import distributed
+from . import distributed, shard_pack

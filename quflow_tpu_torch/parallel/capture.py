@@ -23,8 +23,10 @@ place where graphs are captured, replayed and counted.
   of one runner share its pool and replay in any order.  The warm-up steps
   the static tensors, so a caller loads them after a capture and before
   each run: the caller's own trajectory is never stepped twice.
-* The kernels' launch counters (``shear_thomas.launches``, ...) advance in
-  Python, where a wrapper launches, and a replay launches without Python.
+* The kernels' launch counters (``shear_thomas.launches``,
+  ``shear_thomas.real_launches``, ``row_thomas.launches``, ...: the
+  :data:`COUNTERS`) advance in Python, where a wrapper launches, and a
+  replay launches without Python.
   A graph records the counters' advance while it is captured,
   :meth:`Graph.replay` adds it once a replay, and the warm-up's and the
   capture's own advances are taken back.
@@ -54,16 +56,25 @@ import torch
 
 from .. import config
 from ..ops.cuda_block_solve import shear_block
+from ..ops.cuda_row_solve import row_thomas
 from ..ops.cuda_scan_solve import shear_scan
 from ..ops.cuda_solve import shear_thomas
 from ..ops.shear_solve import device_cache
 
 __all__ = ["available", "static_copy", "capturing", "call", "like", "hook",
            "device_time", "HookError", "Graph", "Graphs", "Iteration",
-           "KERNELS"]
+           "KERNELS", "COUNTERS"]
 
 #: the kernel wrappers whose ``launches`` a replay advances
-KERNELS = (shear_thomas, shear_scan, shear_block)
+KERNELS = (shear_thomas, shear_scan, shear_block, row_thomas)
+#: every launch counter a replay advances, (wrapper, attribute): the
+#: kernels' ``launches`` and the column solves' real-lane entries'
+COUNTERS = tuple((k, "launches") for k in KERNELS) + (
+    (shear_thomas, "real_launches"), (shear_scan, "real_launches"))
+
+
+def _counts():
+    return [getattr(k, a) for k, a in COUNTERS]
 
 
 def available(device):
@@ -157,14 +168,17 @@ class Graph:
     """One captured piece.  ``advance`` pairs each kernel wrapper with the
     launches the piece makes."""
 
-    def __init__(self, graph, advance):
+    def __init__(self, graph, advance, real=()):
         self.graph = graph
-        self.advance = advance
+        self.advance = advance  # (wrapper, its launches) pairs
+        self.real = real  # (wrapper, its real-lane launches) pairs
 
     def replay(self):
         self.graph.replay()
         for kernel, n in self.advance:
             kernel.launches += n
+        for kernel, n in self.real:
+            kernel.real_launches += n
 
 
 class Graphs:
@@ -187,7 +201,7 @@ class Graphs:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
-        saved = [k.launches for k in KERNELS]
+        saved = _counts()
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         graphs = []
@@ -200,15 +214,18 @@ class Graphs:
                         piece()
                 for piece in pieces:
                     graph = torch.cuda.CUDAGraph()
-                    start = [k.launches for k in KERNELS]
+                    start = _counts()
                     self._capture(graph, piece, current)
-                    graphs.append(Graph(graph, [
-                        (k, k.launches - s) for k, s in zip(KERNELS, start)
-                        if k.launches != s]))
+                    moved = [(k, a, n - s) for (k, a), s, n in
+                             zip(COUNTERS, start, _counts()) if n != s]
+                    graphs.append(Graph(
+                        graph, [(k, n) for k, a, n in moved
+                                if a == "launches"],
+                        [(k, n) for k, a, n in moved if a != "launches"]))
         finally:
             _depth -= 1
-            for k, n in zip(KERNELS, saved):
-                k.launches = n
+            for (k, a), n in zip(COUNTERS, saved):
+                setattr(k, a, n)
         current.wait_stream(self.stream)
         return graphs
 

@@ -150,25 +150,36 @@ class Mesh:
         full = torch.cat([g[t, :b - a] for t, (a, b) in enumerate(blocks)])
         return full.movedim(0, axis)
 
-    def shift(self, send_prev, send_next, recv_prev, recv_next):
+    def shift(self, send_prev, send_next, recv_prev, recv_next,
+              cyclic=False):
         """One neighbour exchange along the row blocks: ``send_prev`` goes to
         the block before (None on the first), ``send_next`` to the block
         after (None on the last); returns ``(from_prev, from_next)``, empty
         tensors shaped like ``recv_prev``/``recv_next`` (None where there
-        is no neighbour) filled from them.  The sends and receives are
+        is no neighbour) filled from them.  With ``cyclic`` the first and
+        last blocks are neighbours too (quflow_tpu's cyclic ``ppermute``).
+        The sends and receives are
         posted together, as ``P2POp``s of one ``batch_isend_irecv``: NCCL
         needs concurrent point-to-point operations between peers grouped
         (two ranks that both send first may otherwise deadlock), and gloo
         takes the batch too."""
         dist = self._dist()
         t = self.tp_index
+
+        def peer_of(p):
+            if cyclic:
+                return p % self.tp
+            return p if 0 <= p < self.tp else None
+
         ops, got = [], []
-        for buf, peer in ((send_prev, t - 1), (send_next, t + 1)):
-            if buf is not None and 0 <= peer < self.tp:
+        for buf, peer in ((send_prev, peer_of(t - 1)),
+                          (send_next, peer_of(t + 1))):
+            if buf is not None and peer is not None:
                 ops.append(dist.P2POp(dist.isend, self._wire(buf),
                                       self._tp_peer(peer)))
-        for buf, peer in ((recv_prev, t - 1), (recv_next, t + 1)):
-            if buf is not None and 0 <= peer < self.tp:
+        for buf, peer in ((recv_prev, peer_of(t - 1)),
+                          (recv_next, peer_of(t + 1))):
+            if buf is not None and peer is not None:
                 r = self._wire(buf)
                 ops.append(dist.P2POp(dist.irecv, r, self._tp_peer(peer)))
                 got.append((r, buf))
@@ -178,6 +189,17 @@ class Mesh:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
         return tuple(None if g is None else self._unwire(*g) for g in got)
+
+    def all_to_all(self, x):
+        """The all-to-all of this replica's row blocks: ``x`` (tp, ...) holds
+        in ``x[k]`` what goes to block k; returns (tp, ...) with in ``[k]``
+        what block k sent here (one ``all_to_all_single``)."""
+        if self.tp == 1:
+            return x
+        r = self._wire(x)
+        out = torch.empty_like(r)
+        self._dist().all_to_all_single(out, r, group=self.tp_group)
+        return self._unwire(out, x)
 
 
 def make_mesh(dp=1, group=None):

@@ -1,18 +1,16 @@
-"""Production isospectral- and magnetic-midpoint steppers on one CUDA
-device.
+"""Production isospectral- and magnetic-midpoint steppers on CUDA devices.
 
-Counterpart of the shear, single-device subset of
-quflow_tpu/parallel/stepper.py: ``_real_factors``, the shear branches of
-``_poisson_core`` and ``_laplace_core`` (the latter shared with
-ops/laplacian.py), ``build_poisson_fn``, ``build_step_fn`` and
-``build_mhd_step_fn`` with their hooks, and the drop-in integrators
-``IsompTorch`` and ``MagmpTorch`` (the counterparts of ``IsompTPU`` and
-``MagmpTPU``).
+Counterpart of quflow_tpu/parallel/stepper.py: ``_real_factors``,
+``_poisson_core`` and ``_laplace_core`` in every solve layout,
+``build_poisson_fn``, ``build_step_fn``, ``build_mhd_step_fn`` and
+``build_planes_step_fn`` with their hooks, the double-word steppers, and
+the drop-in integrators ``IsompTorch`` and ``MagmpTorch`` (the
+counterparts of ``IsompTPU`` and ``MagmpTPU``).
 
 Each Euler step runs ``maxit`` fixed-point iterations (or, with ``tol``,
-until the residual converges or stalls); each iteration is one
-shear-layout solve of the Hamiltonian family (pack, trace projection, the
-column solve, the m=0 correction for complex64, trace projection, unpack),
+until the residual converges or stalls); each iteration is one solve of
+the Hamiltonian family in the step's layout (pack, trace projection, the
+solve, the m=0 correction for complex64, trace projection, unpack),
 two complex GEMMs, A - A^H, and, after the last iteration, the
 Kahan-compensated update.  An MHD iteration adds the Laplacian of Theta and
 four more GEMMs.  The hooks of quflow_tpu come over: named Hamiltonian
@@ -40,12 +38,25 @@ issued from Python.  A captured call copies its state into the graphs'
 static buffers and returns fresh tensors; the launch counters of the
 kernels advance once a replay by what the graph launches.
 
-The column solve is a CUDA kernel on the card, chosen by
-ops.shear_solve.column_solver when a step is built: ``shear_thomas`` (the
-serial recurrence, one thread per column) or ``shear_scan`` (the same
-recurrence in chunks, one thread per column and chunk).  The host factors
-come from the cache of ops.shear_solve, which the Poisson family of
-ops/laplacian.py shares.
+Layouts (``layout=``, resolved by :func:`_resolve_layout` as quflow_tpu
+resolves them).  The default, 'shear', solves down the N+1 columns of the
+shear view with a CUDA kernel chosen by ops.shear_solve.column_solver when
+a step is built: ``shear_thomas`` (the serial recurrence, one thread per
+column) or ``shear_scan`` (the same recurrence in chunks, one thread per
+column and chunk).  'shear_pallas_il', or 'shear' with
+``QUFLOW_SHEAR_INTERLEAVE`` set, solves the re/im-interleaved real view
+with the same kernel's real-lane entry, bit-equal.  The row layouts
+'wrapped', 'pallas' (all N wrapped rows), 'rolls' and 'scatter' (the
+N//2+1 skew-Hermitian rows) solve along packed rows with ``row_thomas``
+(ops/cuda_row_solve.py), one launch a solve; under a mesh that splits the
+rows they resolve to 'shard' (the wrapped relayout of
+parallel/shard_pack.py, one neighbour exchange and one all-to-all a
+relayout) or, where 'tp' does not divide N, 'scatter' (the rows gathered,
+each rank solving its share of the padded skewh rows).  The host factors
+come from the caches of ops.shear_solve, which the Poisson family of
+ops/laplacian.py shares.  :func:`build_planes_step_fn` steps float32
+planes with no complex tensor, its solve one real-lane launch of both
+planes.
 
 Ensembles and meshes.  A state may carry leading axes; ``batched=True``
 says, as in quflow_tpu, that the first is an ensemble axis (and requires
@@ -86,10 +97,6 @@ The double-word steppers (:func:`build_dw_step_fn`,
 in and out and an f64-accurate finish, on these builders in complex128:
 the H100 multiplies complex128 natively, so the Ozaki split of
 ops/dwgemm.py is a ZGEMM here.
-
-The layouts that quflow_tpu keeps only to reproduce measured regressions
-('shard', 'wrapped', 'rolls', 'pallas', 'shear_pallas_il') raise
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -100,18 +107,42 @@ import torch
 from .. import config
 from ..integrators.isospectral import _converge
 from . import capture
-from ..ops.diagpack import mat2shear, shear2mat, subtract_col0_mean
+from ..ops.cuda_row_solve import row_thomas
+from ..ops.diagpack import (
+    diagh2mat,
+    diagh2mat_rolls,
+    mat2diagh,
+    mat2diagh_rolls,
+    mat2shear,
+    mat2shear_interleaved,
+    mat2wrapped,
+    num_rows,
+    shear2mat,
+    shear2mat_interleaved,
+    subtract_col0_mean,
+    subtract_col01_mean,
+    subtract_row0_mean,
+    wrapped2mat,
+)
 from ..ops.dwgemm import split_params
 from ..ops.geometry import hbar
 from ..ops.shear_solve import (
     _shear_factors_cached,
     column_solver,
+    device_row_factors,
     real_dtype,
     to_device,
 )
 from ..ops.laplacian import _lap_cols, _laplace_core
-from ..ops.tridiag import refine_m0, solve_factored
+from ..ops.tridiag import (
+    dot_packed,
+    packed_laplacian,
+    refine_m0,
+    refine_m0_interleaved,
+    solve_factored,
+)
 from .mesh import Mesh
+from .shard_pack import pack_wrapped_sharded, unpack_wrapped_sharded
 from .shard_shear import (
     ShardedLaplacian,
     ShardedShearOperator,
@@ -125,6 +156,7 @@ __all__ = [
     "build_dw_step_fn",
     "build_dw_mhd_step_fn",
     "build_poisson_fn",
+    "build_planes_step_fn",
     "column_solver",
     "IsompTorch",
     "MagmpTorch",
@@ -189,35 +221,79 @@ def _resolve_strang_named(strang_splitting, dt):
         "'viscdamp', or pass a callable (h, W) -> W")
 
 
-def _resolve_layout(layout, mesh):
-    """The solve layout: 'shear', or 'shear_shard' under a mesh whose 'tp'
-    axis splits the rows.  Every shear layout is the shear path here
-    ('shear_pallas' is the one the JAX package picks on the TPU at
-    N >= 4096): on the card each shear solve is a kernel anyway."""
+#: the layouts whose systems run down the columns of the shear view, and
+#: those whose systems run along packed rows (ops/diagpack.py)
+_SHEAR_LAYOUTS = ("shear", "shear_pallas", "shear_pallas_il", "shear_shard")
+_ROW_LAYOUTS = ("wrapped", "rolls", "pallas", "shard", "scatter")
+
+
+def _check_layout(layout, mesh):
+    """The checks of a layout name that need no N: a known name, a
+    parallel.mesh.Mesh, and the mesh that 'shear_shard' and 'shard'
+    relayout over."""
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh={mesh!r}: pass a quflow_tpu_torch.parallel."
                         "mesh.Mesh (parallel.mesh.make_mesh)")
-    if layout in ("auto", "shear", "shear_pallas", "shear_shard", None):
-        if mesh is not None and mesh.tp > 1:
+    if layout not in (None, "auto") + _SHEAR_LAYOUTS + _ROW_LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}")
+    if layout in ("shear_shard", "shard") and mesh is None:
+        raise ValueError(f"layout={layout!r} shards the rows over a mesh: "
+                         "pass mesh=")
+
+
+def _resolve_layout(N, mesh, layout):
+    """The solve layout, by quflow_tpu's rules
+    (quflow_tpu/parallel/stepper.py:95-159) where they are not the TPU's:
+
+    * the shear layouts ('auto', 'shear', 'shear_pallas', 'shear_pallas_il',
+      'shear_shard') resolve to 'shear', or under a mesh whose 'tp' axis
+      splits the rows to 'shear_shard' (uneven row blocks where tp does not
+      divide N); 'shear_pallas_il', the shear solve on the re/im-interleaved
+      real view, stays itself off such a mesh.  'shear_pallas' is the
+      layout the JAX package picks on the TPU at N >= 4096; here every
+      shear solve is a kernel anyway;
+    * under a mesh the row layouts resolve to 'shard' (the wrapped relayout
+      of parallel/shard_pack.py) when 'tp' divides N, else 'scatter' (the
+      rows gathered, the skewh pack's rows split);
+    * 'pallas' at N >= 4096 warns and runs the shear path, as quflow_tpu
+      redirects it to 'shear_pallas';
+    * 'wrapped', 'rolls', 'pallas' and 'scatter' are themselves on one
+      device; 'shard' needs a mesh."""
+    _check_layout(layout, mesh)
+    tp = 1 if mesh is None else mesh.tp
+    if layout in (None, "auto") + _SHEAR_LAYOUTS:
+        if tp > 1:
             return "shear_shard"
-        if layout == "shear_shard" and mesh is None:
-            raise ValueError("layout='shear_shard' shards the rows over a "
-                             "mesh: pass mesh=")
+        return "shear_pallas_il" if layout == "shear_pallas_il" else "shear"
+    if mesh is not None:
+        return "shard" if N % tp == 0 else "scatter"
+    if layout == "pallas" and N >= 4096:
+        import warnings
+
+        warnings.warn(
+            f"layout='pallas' at N={N} >= 4096: quflow_tpu's monolithic "
+            "kernel does not tile there on the TPU and it redirects to "
+            "'shear_pallas'; running the shear layout", stacklevel=3)
         return "shear"
-    if layout == "shard":
-        raise NotImplementedError(
-            "layout='shard' does not come over to quflow_tpu_torch: its "
-            "wrapped relayout is parallel/shard_pack.py's, which follows "
-            "'wrapped'; under a mesh the rows are split on the shear layout "
-            "(layout='shear_shard')")
-    if layout in ("shear_pallas_il", "wrapped", "rolls", "pallas"):
-        raise NotImplementedError(
-            f"layout={layout!r} does not come over to quflow_tpu_torch: "
-            "every solve runs on the shear layout, which holds every "
-            "diagonal of a matrix; quflow_tpu keeps its interleaved and "
-            "row-packed layouts only to reproduce measured regressions (see "
-            "ROADMAP.md, 'Some code does not come over')")
-    raise ValueError(f"unknown layout {layout!r}")
+    return layout
+
+
+def _mesh_pad_rows(N, mesh, layout):
+    """Pad rows of the 'scatter' layout under a mesh: the skewh pack's
+    N//2+1 rows padded to a multiple of 'tp', so that each rank solves an
+    equal share (quflow_tpu/parallel/stepper.py:162-172)."""
+    if mesh is None or layout != "scatter":
+        return 0
+    return (-num_rows(N, True)) % mesh.tp
+
+
+def _layout_solver(layout, solver):
+    """The solve of ``layout``: ``solver`` when given, else on the row
+    layouts ops.cuda_row_solve.row_thomas, on the shear layouts the column
+    solve of :func:`column_solver`."""
+    if layout in _ROW_LAYOUTS:
+        return row_thomas if solver is None else solver
+    return column_solver(solver)
 
 
 def _checked_state(W, batched, core_ndim):
@@ -318,12 +394,21 @@ def factors_from_numpy(w, binv, u, op, *, device, dtype):
 
 
 def _real_factors(N, dtype, *, device, with_op=False, kind="poisson",
-                  params=()):
-    """The shear operator of a solve family (``kind``/``params`` as in
-    ops/tridiag.shear_operator; Poisson by default) for state ``dtype`` on
-    ``device``: ``(w, binv, u)`` or, with ``with_op``, ``(w, binv, u, op)``.
-    A build function calls this once and keeps the tensors: its steps upload
-    nothing."""
+                  params=(), layout="shear", pad_rows=0):
+    """The operator of a solve family (``kind``/``params`` as in
+    ops/tridiag.shear_operator; Poisson by default) in ``layout`` for state
+    ``dtype`` on ``device``: ``(w, binv, u)`` or, with ``with_op``,
+    ``(w, binv, u, op)`` - the shear operator for the shear layouts, the
+    row operator of the wrapped ('wrapped', 'pallas', 'shard') or skewh
+    ('rolls', 'scatter'; ``pad_rows`` identity rows) pack for the row
+    layouts, kept in ops.shear_solve.device_cache.  A build function calls
+    this once and keeps the tensors: its steps upload nothing."""
+    if layout in _ROW_LAYOUTS:
+        out = device_row_factors(
+            N, kind, tuple(params), real_dtype(dtype), config.device(device),
+            wrapped=layout in ("wrapped", "pallas", "shard"),
+            pad_rows=pad_rows, with_op=with_op)
+        return out
     w, binv, u, op = _shear_factors_cached(N, kind, tuple(params))
     out = factors_from_numpy(w, binv, u, op if with_op else None,
                              device=device, dtype=dtype)
@@ -363,31 +448,192 @@ def from_planes(Wri):
 
 
 def _poisson_core(W, w, binv, u, refine=0, op=None, solver=None,
-                  ham=("poisson", ())):
-    """Shear-layout solve W -> P of the family whose factors are
-    ``w``/``binv``/``u`` (``ham`` = its (kind, params); Poisson by default).
+                  ham=("poisson", ()), layout="shear", mesh=None,
+                  pad_rows=0, interleaved=None):
+    """The solve W -> P of the family whose factors in ``layout`` are
+    ``w``/``binv``/``u`` (``ham`` = its (kind, params); Poisson by
+    default), quflow_tpu's ``_poisson_core`` (stepper.py:175-342):
 
-    ``refine``: 'm0' (the complex64 default of the stepper) applies one
-    float64-residual correction to the ill-conditioned m=0 system only,
-    through the family's semiseparable inverse; an int applies that many
-    full-array refinement steps.  Both need the float64 operator ``op``.
-    ``solver`` is the column solve (default: the ``shear_thomas`` kernel
-    wrapper)."""
+    * 'shear' (and 'shear_pallas'): the shear pack, trace projection of
+      column 0, the column solve, the m=0 correction, trace projection,
+      unpack.  With ``QUFLOW_SHEAR_INTERLEAVE`` set (not '0'), and always
+      on 'shear_pallas_il', a complex W solves on the re/im-interleaved
+      real view instead (diagpack.mat2shear_interleaved, factor columns
+      duplicated: the real-lane entry of the column solve), bit-equal;
+      ``interleaved``, when given, is the duplicated ``(w, binv, u)`` made
+      beforehand;
+    * 'wrapped', 'pallas', 'rolls', 'scatter' on one device: the row pack
+      (wrapped, or the N//2+1 rolls or skewh rows with ``pad_rows``), trace
+      projection of row 0, the row solve (``row_thomas``), the m=0
+      correction on row 0, trace projection, unpack;
+    * 'shard' under ``mesh`` (this rank's rows of W and of the wrapped
+      factors' rows): the wrapped relayout of parallel/shard_pack.py, the
+      solve of this rank's packed rows, row 0's corrections on the rank
+      that holds it, the relayout back;
+    * 'scatter' under ``mesh`` with 'tp' > 1: the rows gathered, the
+      padded skewh pack, this rank's share of its rows solved (the factors
+      hold every row), the shares gathered, unpacked, and this rank's rows
+      kept.
+
+    ``refine``: 'm0' applies one float64-residual correction to the
+    ill-conditioned m=0 system only, through the family's semiseparable
+    inverse; an int applies that many full-array refinement steps.  Both
+    need the float64 operator ``op`` of the layout.  ``solver`` is the
+    layout's solve (:func:`_layout_solver`)."""
     m0_only = refine == "m0"
     if m0_only and op is None:
         raise ValueError("refine='m0' requires the float64 operator (op=...)")
-    d = mat2shear(W, tracefree=True)
-    x = solve_factored(_Fac(w, binv, u), d, refine=0 if m0_only else refine,
-                       op=op, base=solver)
-    if m0_only:
-        x = refine_m0(x, d, op, ham=ham)
-    return shear2mat(subtract_col0_mean(x))
+    refine_full = 0 if m0_only else refine
+    if layout in ("shear", "shear_pallas", "shear_pallas_il"):
+        import os
+
+        solver = column_solver(solver)
+        if W.is_complex() and (
+                layout == "shear_pallas_il"
+                or os.environ.get("QUFLOW_SHEAR_INTERLEAVE", "0") != "0"):
+            il = interleaved or tuple(f.repeat_interleave(2, dim=-1)
+                                      for f in (w, binv, u))
+            op2 = (op.repeat_interleave(2, dim=-1)
+                   if op is not None and refine_full else None)
+            d = mat2shear_interleaved(W, tracefree=True)
+            x = solve_factored(_Fac(*il), d, refine=refine_full, op=op2,
+                               base=solver, axis=-2)
+            if m0_only:
+                x = refine_m0_interleaved(x, d, op)
+            return shear2mat_interleaved(subtract_col01_mean(x))
+        d = mat2shear(W, tracefree=True)
+        x = solve_factored(_Fac(w, binv, u), d, refine=refine_full, op=op,
+                           base=solver)
+        if m0_only:
+            x = refine_m0(x, d, op, ham=ham)
+        return shear2mat(subtract_col0_mean(x))
+    if layout not in _ROW_LAYOUTS:
+        raise ValueError(f"_poisson_core: no solve of layout {layout!r} "
+                         "here ('shear_shard': parallel/shard_shear.py)")
+    solver = _layout_solver(layout, solver)
+    N = W.shape[-1]
+    split = mesh is not None and mesh.tp > 1
+    first = not split or mesh.tp_index == 0  # holds packed row 0
+    if split and layout == "scatter":
+        d = mat2diagh(mesh.gather_rows(W, N), skewh=True, tracefree=True,
+                      pad_rows=pad_rows)
+        k = d.shape[-2] // mesh.tp
+        a = mesh.tp_index * k
+        d = d[..., a:a + k, :].contiguous()
+    elif layout == "shard" and mesh is not None:
+        d = pack_wrapped_sharded(W, mesh)
+        a, k = mesh.tp_index * d.shape[-2], d.shape[-2]
+        if first:
+            subtract_row0_mean(d)
+    else:
+        if layout in ("wrapped", "pallas", "shard"):
+            d = mat2wrapped(W, tracefree=True)
+        elif layout == "rolls":
+            d = mat2diagh_rolls(W, tracefree=True, pad_rows=pad_rows)
+        else:
+            d = mat2diagh(W, skewh=True, tracefree=True, pad_rows=pad_rows)
+        a, k = 0, d.shape[-2]
+    fac = _Fac(*(f[a:a + k] for f in (w, binv, u)))
+    opk = None if op is None else op[a:a + k]
+    x = solve_factored(fac, d, refine=refine_full, op=opk, base=solver,
+                       axis=-1)
+    if first:
+        if m0_only:
+            x = refine_m0(x, d, opk, axis=-1, ham=ham)
+        subtract_row0_mean(x)
+    if layout == "shard" and mesh is not None:
+        return unpack_wrapped_sharded(x, mesh)
+    if split:  # 'scatter'
+        x = torch.cat(list(mesh.tp_gather(x)), dim=-2)
+        ra, rb = mesh.rows(N)
+        return diagh2mat(x, skewh=True)[..., ra:rb, :]
+    if layout in ("wrapped", "pallas"):
+        return wrapped2mat(x)
+    if layout == "rolls":
+        return diagh2mat_rolls(x)
+    return diagh2mat(x, skewh=True)
 
 
-def _step_setup(N, dt, maxit, dtype, refine, tol, minit):
+class _Operator:
+    """A solve family prefactorized in a resolved ``layout`` on ``device``:
+    ``op(W)`` is W -> P with ``refine`` ('m0', an int, or 0), through
+    :func:`_poisson_core` (or, on 'shear_shard', parallel/shard_shear.py).
+    The factors are made once here: on the interleaved shear view their
+    duplicated columns too (whether it runs is read here, once, from
+    ``QUFLOW_SHEAR_INTERLEAVE``, as quflow_tpu reads it when it traces);
+    under a mesh the whole row operator, of which each solve takes this
+    rank's rows."""
+
+    def __init__(self, N, dtype, device, layout, *, mesh=None,
+                 kind="poisson", params=(), refine=0, solver=None,
+                 pad_rows=0):
+        import os
+
+        self.layout, self.refine = layout, refine
+        self.ham = (kind, tuple(params))
+        self.mesh, self.pad_rows = mesh, pad_rows
+        self.solver = _layout_solver(layout, solver)
+        if layout == "shear_shard":
+            self.sharded = _sharded_operator(N, dtype, mesh, device,
+                                             kind=kind, params=params,
+                                             with_op=refine == "m0")
+            return
+        with_op = refine != 0
+        fac = _real_factors(N, dtype, device=device, with_op=with_op,
+                            kind=kind, params=params, layout=layout,
+                            pad_rows=pad_rows)
+        self.w, self.binv, self.u = fac[:3]
+        self.op = fac[3] if with_op else None
+        self.interleaved = None
+        if layout == "shear_pallas_il" or (
+                layout == "shear"
+                and os.environ.get("QUFLOW_SHEAR_INTERLEAVE", "0") != "0"):
+            self.layout = "shear_pallas_il"
+            self.interleaved = tuple(f.repeat_interleave(2, dim=-1)
+                                     for f in (self.w, self.binv, self.u))
+
+    def __call__(self, W):
+        if self.layout == "shear_shard":
+            return poisson_sharded(W, self.sharded)
+        return _poisson_core(W, self.w, self.binv, self.u, refine=self.refine,
+                             op=self.op, solver=self.solver, ham=self.ham,
+                             layout=self.layout, mesh=self.mesh,
+                             pad_rows=self.pad_rows,
+                             interleaved=self.interleaved)
+
+
+def _laplace_layout(P, lap, layout, mesh=None):
+    """The bc=False quantized Laplacian of P in ``layout`` with ``lap``
+    from :func:`_mhd_lap_op` (quflow_tpu/parallel/stepper.py:1642-1666):
+    the shear view's dot_cols on the shear layouts, the packed rows'
+    dot_packed on the row layouts; on 'shear_shard' ``lap`` is a
+    ShardedLaplacian (a halo row a side), on 'shard' this rank's wrapped
+    rows through the relayout, on 'scatter' under a 'tp' > 1 mesh the
+    gathered rows."""
+    if layout in ("shear", "shear_pallas", "shear_pallas_il"):
+        return _laplace_core(P, lap)
+    if layout == "shear_shard":
+        return laplace_sharded(P, lap)
+    N = P.shape[-1]
+    if mesh is not None and mesh.tp > 1:
+        if layout == "shard":
+            a, b = mesh.rows(N)
+            return unpack_wrapped_sharded(
+                dot_packed(lap[a:b], pack_wrapped_sharded(P, mesh)), mesh)
+        d = mat2diagh(mesh.gather_rows(P, N), skewh=True, tracefree=False)
+        ra, rb = mesh.rows(N)
+        return diagh2mat(dot_packed(lap[:d.shape[-2]], d),
+                         skewh=True)[..., ra:rb, :]
+    if layout in ("wrapped", "pallas", "shard"):
+        return wrapped2mat(dot_packed(lap, mat2wrapped(P, tracefree=False)))
+    d = mat2diagh(P, skewh=True, tracefree=False)
+    return diagh2mat(dot_packed(lap[:d.shape[-2]], d), skewh=True)
+
+
+def _step_setup(N, dt, maxit, dtype, refine, tol, minit, layout="shear"):
     """Checks and scalars shared by the step builders: ``refine`` resolved
-    ('m0' for complex64, 0 for complex128, as the JAX steppers resolve it
-    on the shear layout) and the step's numpy scalars in the working
+    as the JAX steppers resolve it ('m0' for complex64 except on 'shard'
+    and 'scatter', else 0) and the step's numpy scalars in the working
     precision, as the JAX steppers round them: vareps = dt / (2 hbar),
     dt/2 and dt."""
     rdtype = real_dtype(dtype)
@@ -398,7 +644,8 @@ def _step_setup(N, dt, maxit, dtype, refine, tol, minit):
         raise ValueError(f"minit={minit}: with tol, a step needs at least "
                          "one fixed-point iteration")
     if refine is None:
-        refine = "m0" if rdtype == np.float32 else 0
+        refine = ("m0" if rdtype == np.float32
+                  and layout not in ("shard", "scatter") else 0)
     r = rdtype.type
     return refine, r(dt / (2.0 * hbar(N))), r(dt / 2.0), r(dt)
 
@@ -484,17 +731,18 @@ class _Rows:
 
 
 def _strang_hook(strang_splitting, N, dt, dtype, half_dt, device, solver,
-                 mesh=None):
+                 mesh=None, layout="shear", pad_rows=0):
     """The Strang half-step ``S -> S`` of a stepper, or None.  A callable
     gets ``(dt/2, S)`` with dt/2 in the working precision.  A named
-    dissipation is prefactorized here at h = dt/2 and solved on the shear
-    layout with refine=0 and the trace handling of every solve; theta != 1
-    first forms cW S + cL Delta S with the bare shear Laplacian.  A stacked
-    state (..., 2, N, N) is solved in one launch: the column solves of its
-    components are independent, so this is bit-equal to one solve each.
-    With ``mesh`` (rows split over 'tp'), a callable sees the whole state
-    (one gather) and the named step solves on the sharded shear layout,
-    its Laplacian with a halo row (parallel/shard_shear.py)."""
+    dissipation is prefactorized here at h = dt/2 and solved on the
+    stepper's ``layout`` with refine=0 and the trace handling of every
+    solve; theta != 1 first forms cW S + cL Delta S with the bare
+    Laplacian of the layout.  A stacked state (..., 2, N, N) is solved in
+    one launch: the solves of its components are independent, so this is
+    bit-equal to one solve each.  With ``mesh`` (rows split over 'tp'), a
+    callable sees the whole state (one gather) and the named step solves
+    on the layout's sharded form, its Laplacian too ('shear_shard': a halo
+    row)."""
     if strang_splitting is None:
         return None
     rows = _Rows(mesh, N)
@@ -506,23 +754,17 @@ def _strang_hook(strang_splitting, N, dt, dtype, half_dt, device, solver,
     if theta_rhs is not None:
         rd = real_dtype(dtype)
         cW, cL = (float(rd.type(c)) for c in theta_rhs)
-        lap = _mhd_lap_op(N, dtype, device=device)
-    if rows.sharded:
-        opr = _sharded_operator(N, dtype, mesh, device, kind=kind,
-                                params=params)
-        lap = None if lap is None else ShardedLaplacian(lap, mesh)
-
-        def strang_sharded(S):
-            rhs = S if lap is None else cW * S + cL * laplace_sharded(S, lap)
-            return poisson_sharded(rhs, opr)
-
-        return strang_sharded
-    sw, sbinv, su = _real_factors(N, dtype, device=device, kind=kind,
-                                  params=params)
+        lap = _mhd_lap_op(N, dtype, device=device, layout=layout,
+                          pad_rows=pad_rows)
+        if layout == "shear_shard":
+            lap = ShardedLaplacian(lap, mesh)
+    solve = _Operator(N, dtype, device, layout, mesh=mesh, kind=kind,
+                      params=params, solver=solver, pad_rows=pad_rows)
 
     def strang_half(S):
-        rhs = S if lap is None else cW * S + cL * _laplace_core(S, lap)
-        return _poisson_core(rhs, sw, sbinv, su, refine=0, solver=solver)
+        rhs = (S if lap is None
+               else cW * S + cL * _laplace_layout(S, lap, layout, mesh))
+        return solve(rhs)
 
     return strang_half
 
@@ -804,23 +1046,17 @@ def build_poisson_fn(N, dtype=np.complex64, mesh=None, batched=False,
                      planes_io=False, layout="auto", *, device=None,
                      solver=None):
     """Batched Poisson solve W -> P on ``device`` for complex ``dtype``
-    state (..., N, N), through the column solve of :func:`column_solver`.
-    With ``planes_io`` it takes and returns quflow_tpu's split planes
+    state (..., N, N) in ``layout`` (resolved as :func:`_resolve_layout`
+    says; the shear layouts through the column solve of
+    :func:`column_solver`, the row layouts through ``row_thomas``).  With
+    ``planes_io`` it takes and returns quflow_tpu's split planes
     (2, ..., N, N).  ``batched`` requires a leading ensemble axis; under
     ``mesh`` each rank solves its piece of the state (the rows of its
-    block when 'tp' > 1, through parallel/shard_shear.py)."""
-    layout = _resolve_layout(layout, mesh)
-    solver = column_solver(solver)
-    if layout == "shear_shard":
-        opr = _sharded_operator(N, dtype, mesh, device)
-
-        def solve(W):
-            return poisson_sharded(W, opr)
-    else:
-        w, binv, u = _real_factors(N, dtype, device=device)
-
-        def solve(W):
-            return _poisson_core(W, w, binv, u, solver=solver)
+    block when 'tp' > 1: parallel/shard_shear.py on 'shear_shard',
+    parallel/shard_pack.py on 'shard', gathered rows on 'scatter')."""
+    layout = _resolve_layout(N, mesh, layout)
+    solve = _Operator(N, dtype, device, layout, mesh=mesh, solver=solver,
+                      pad_rows=_mesh_pad_rows(N, mesh, layout))
 
     def poisson(W):
         return solve(_checked_state(W, batched, 2))
@@ -913,31 +1149,29 @@ def build_step_fn(
     that breaks the capture raises at the first call, naming itself and
     ``config.eager()``, which runs it eagerly.
     """
-    layout = _resolve_layout(layout, mesh)
+    layout = _resolve_layout(N, mesh, layout)
+    pad = _mesh_pad_rows(N, mesh, layout)
     mm, warm_iters, mm_warm = _schedule(precision, warm_precision,
                                         warm_iters, maxit, dtype)
     device = config.device(device)  # no card and no device=: raises
     refine, vareps_r, half_dt, dt_r = _step_setup(N, dt, maxit, dtype, refine,
-                                                  tol, minit)
+                                                  tol, minit, layout)
     rd = real_dtype(dtype)
     tol_r = None if tol is None else float(rd.type(tol))
     vareps, half = float(vareps_r), float(half_dt)
-    solver = column_solver(solver)
     ham_kind, ham_params, ham_callable, ham_timed = _resolve_ham(hamiltonian)
     force_timed = forcing is not None and _has_time_param(forcing)
-    sharded = layout == "shear_shard"
-    rows = _Rows(mesh if sharded else None, N)
-    if sharded:
-        if refine not in (0, "m0"):
-            raise ValueError("under a mesh with 'tp' > 1 refine is 0 or 'm0'")
-        if ham_callable is None:
-            opr = _sharded_operator(N, dtype, mesh, device, kind=ham_kind,
-                                    params=ham_params, with_op=refine == "m0")
-    elif ham_callable is None:
-        w, binv, u, op = _real_factors(N, dtype, device=device, with_op=True,
-                                       kind=ham_kind, params=ham_params)
+    rows = _Rows(mesh, N)
+    sharded = rows.sharded
+    if layout == "shear_shard" and refine not in (0, "m0"):
+        raise ValueError("layout='shear_shard' supports refine=0 or 'm0' "
+                         "only")
+    if ham_callable is None:
+        ham_op = _Operator(N, dtype, device, layout, mesh=mesh,
+                           kind=ham_kind, params=ham_params, refine=refine,
+                           solver=solver, pad_rows=pad)
     strang_half = _strang_hook(strang_splitting, N, dt, dtype, half_dt,
-                               device, solver, mesh if sharded else None)
+                               device, solver, mesh, layout, pad)
     reduce_max = _reduce_max(mesh, device)
 
     def call_ham(W, t):
@@ -949,10 +1183,7 @@ def build_step_fn(
         """P of the state W (this rank's rows under tp)."""
         if ham_callable is not None:
             return rows.mine(call_ham(rows.full(W), t))
-        if sharded:
-            return poisson_sharded(W, opr)
-        return _poisson_core(W, w, binv, u, refine=refine, op=op,
-                             solver=solver, ham=(ham_kind, ham_params))
+        return ham_op(W)
 
     def midpoint(Whalf, t):
         """(P, the full P, the full W) of the midpoint, P scaled by vareps.
@@ -1014,11 +1245,151 @@ def build_step_fn(
                    planes=device if planes_io else None)
 
 
-def _mhd_lap_op(N, dtype, *, device):
-    """The bc=False shear Laplacian, channel-first (2, N, N+1), in the real
-    working dtype of ``dtype`` on ``device`` (ops/laplacian._lap_cols, the
-    operator ``laplace`` applies)."""
-    return _lap_cols(N, real_dtype(dtype), config.device(device))
+def _planes_product(spec):
+    """The complex product of float planes (2, ..., N, N) of precision name
+    ``spec`` (quflow_tpu/parallel/stepper.py:1536-1556): three real GEMMs
+    with '_karatsuba', four without; 'high' and 'default' on TF32 tensor
+    cores (``config.tf32_matmul``)."""
+    name = str(spec)
+    base = name[:-len("_karatsuba")] if name.endswith("_karatsuba") else name
+    if base not in _TF32:
+        raise ValueError(
+            f"precision={spec!r}: use 'highest', 'high' or 'default', "
+            "optionally with '_karatsuba'")
+    kara = base != name
+
+    def mm(Ap, Bp):
+        ar, ai, br, bi = Ap[0], Ap[1], Bp[0], Bp[1]
+        if kara:
+            t1 = torch.matmul(ar, br)
+            t2 = torch.matmul(ai, bi)
+            t3 = torch.matmul(ar + ai, br + bi)
+            return torch.stack([t1 - t2, t3 - t1 - t2])
+        return torch.stack([torch.matmul(ar, br) - torch.matmul(ai, bi),
+                            torch.matmul(ar, bi) + torch.matmul(ai, br)])
+
+    if not _TF32[base]:
+        return mm
+
+    def mm_tf32(Ap, Bp):
+        with config.tf32_matmul():
+            return mm(Ap, Bp)
+
+    return mm_tf32
+
+
+def build_planes_step_fn(
+    N,
+    dt,
+    steps=1,
+    maxit=5,
+    precision="highest_karatsuba",
+    compsum=True,
+    refine=None,
+    layout="auto",
+    with_diagnostics=False,
+    warm_precision=None,
+    warm_iters=None,
+    *,
+    device=None,
+    solver=None,
+):
+    """The planes-native float32 stepper, the counterpart of quflow_tpu's
+    ``build_planes_step_fn`` (same parameters in the same order): the
+    state is split-real (2, N, N) float32 planes in and out and no complex
+    tensor exists anywhere in the step.
+
+    Returns ``fn(Wp, dWp, cp) -> (Wp, dWp, cp[, diagnostics])``.  Each
+    iteration's solve is the shear pack of both planes, (2, N, N+1) float32,
+    solved in one launch of the column solve's real-lane entry (B = 2), the
+    m=0 correction of each plane (``refine='m0'``, the default) or
+    ``refine`` full refinement steps, the trace projection and the unpack;
+    the products are real GEMMs (``torch.matmul``), three a complex product
+    with '_karatsuba' (the default 'highest_karatsuba'), four without, on
+    TF32 for 'high' and 'default'.  ``warm_precision``/``warm_iters``: the
+    mixed-precision schedule of :func:`build_step_fn`.  ``with_diagnostics``
+    appends [energy, enstrophy] = [-<W, P>/2, <W, W>/2] over N of the
+    final state.
+
+    Shear layouts only ('auto', 'shear', 'shear_pallas'); any other raises
+    ValueError, as in quflow_tpu.  ``solver`` is the column solve (default
+    :func:`column_solver`).  On a card the runner captures its step in a
+    CUDA graph as :func:`build_step_fn` does; ``config.eager()`` gives the
+    eager twin.
+    """
+    layout = _resolve_layout(N, None, layout)
+    if layout != "shear":
+        raise ValueError("build_planes_step_fn supports shear layouts only")
+    if refine is None:
+        refine = "m0"
+    m0_only = refine == "m0"
+    refine_full = 0 if m0_only else refine
+    if maxit < 1:
+        raise ValueError(f"maxit={maxit}: a step needs at least one "
+                         "fixed-point iteration")
+    device = config.device(device)
+    solver = column_solver(solver)
+    w, binv, u, op = _real_factors(N, np.complex64, device=device,
+                                   with_op=True)
+    vareps = float(np.float32(dt / (2.0 * hbar(N))))
+    mm = _planes_product(precision)
+    if warm_precision is not None and warm_iters is None:
+        warm_iters = max(maxit - 2, 0)
+    warm_iters = 0 if warm_precision is None else min(int(warm_iters), maxit)
+    mm_warm = _planes_product(warm_precision) if warm_iters else None
+
+    def poisson_planes(Wp):
+        d = mat2shear(Wp, tracefree=True)  # (2, N, N+1) float32
+        x = solve_factored(_Fac(w, binv, u), d, refine=refine_full, op=op,
+                           base=solver)
+        if m0_only:
+            x = refine_m0(x, d, op)
+        return shear2mat(subtract_col0_mean(x))
+
+    def iterate(Wp, dWp, t, mmfn):
+        Whp = Wp + dWp
+        Php = poisson_planes(Whp) * vareps
+        PWp = mmfn(Php, Whp)
+        PWc = PWp - torch.stack([PWp[0].mT, -PWp[1].mT])
+        return mmfn(PWp, Php) + PWc, PWc
+
+    def update(Wp, rest, cp):
+        return _update(Wp, 2.0 * rest[0], cp, compsum)
+
+    def diagnostics(Wp, t):
+        Pp = poisson_planes(Wp)
+        inner_WP = torch.sum(Wp[0] * Pp[0] + Wp[1] * Pp[1]) / N
+        inner_WW = torch.sum(Wp[0] ** 2 + Wp[1] ** 2) / N
+        return torch.stack([-inner_WP / 2.0, inner_WW / 2.0])
+
+    f32 = np.float32
+    step = _Step(None, iterate, update, maxit=maxit, tol=None, minit=1,
+                 reduce_max=None, schedule=(mm, warm_iters, mm_warm),
+                 half_dt=f32(dt / 2.0), dt=f32(dt))
+    return _Runner(step, steps, f32, False,
+                   diagnostics if with_diagnostics else None, core_ndim=3,
+                   mode=_capture_mode(device, None, None), device=device)
+
+
+def _mhd_lap_op(N, dtype, *, device, layout="shear", pad_rows=0):
+    """The bc=False Laplacian in the real working dtype of ``dtype`` on
+    ``device``, as :func:`_laplace_layout` takes it for ``layout``
+    (quflow_tpu/parallel/stepper.py:1669-1684): on the shear layouts the
+    channel-first (2, N, N+1) operator (ops/laplacian._lap_cols, the
+    operator ``laplace`` applies), on the wrapped layouts the (N, 2, N)
+    packed one, on the skewh ones (N//2+1 + ``pad_rows``, 2, N)."""
+    rd = real_dtype(dtype)
+    dev = config.device(device)
+    if layout not in _ROW_LAYOUTS:
+        return _lap_cols(N, rd, dev)
+    wrapped = layout in ("wrapped", "pallas", "shard")
+    op = packed_laplacian(N, nrows=N if wrapped else num_rows(N, True),
+                          bc=False).astype(rd)
+    if pad_rows and not wrapped:
+        pad = np.zeros((pad_rows, 2, N), rd)
+        pad[:, 0, :] = 1.0
+        op = np.concatenate([op, pad], axis=0)
+    return torch.from_numpy(op).to(dev)
 
 
 def build_mhd_step_fn(
@@ -1081,7 +1452,8 @@ def build_mhd_step_fn(
     :func:`build_step_fn`, its hooks with it ('tp' > 1, the CPU and
     ``config.eager()`` stay eager).
     """
-    layout = _resolve_layout(layout, mesh)
+    layout = _resolve_layout(N, mesh, layout)
+    pad = _mesh_pad_rows(N, mesh, layout)
     mm, warm_iters, mm_warm = _schedule(precision, warm_precision,
                                         warm_iters, maxit, dtype)
     ham_kind, ham_params, ham_callable, _ = _resolve_ham(hamiltonian)
@@ -1091,26 +1463,24 @@ def build_mhd_step_fn(
             "MHD Hamiltonian returns a (P, B) pair); use integrators.magmp "
             "for arbitrary callables")
     refine, vareps_r, half_dt, dt_r = _step_setup(N, dt, maxit, dtype, refine,
-                                                  tol, minit)
+                                                  tol, minit, layout)
     rd = real_dtype(dtype)
     tol_r = None if tol is None else float(rd.type(tol))
     vareps, half = float(vareps_r), float(half_dt)
-    solver = column_solver(solver)
     force_timed = forcing is not None and _has_time_param(forcing)
-    sharded = layout == "shear_shard"
-    rows = _Rows(mesh if sharded else None, N)
-    lap = _mhd_lap_op(N, dtype, device=device)
-    if sharded:
-        if refine not in (0, "m0"):
-            raise ValueError("under a mesh with 'tp' > 1 refine is 0 or 'm0'")
-        opr = _sharded_operator(N, dtype, mesh, device, kind=ham_kind,
-                                params=ham_params, with_op=refine == "m0")
-        slap = ShardedLaplacian(lap, mesh)
-    else:
-        w, binv, u, op = _real_factors(N, dtype, device=device, with_op=True,
-                                       kind=ham_kind, params=ham_params)
+    rows = _Rows(mesh, N)
+    sharded = rows.sharded
+    if layout == "shear_shard" and refine not in (0, "m0"):
+        raise ValueError("layout='shear_shard' supports refine=0 or 'm0' "
+                         "only")
+    lap = _mhd_lap_op(N, dtype, device=device, layout=layout, pad_rows=pad)
+    if layout == "shear_shard":
+        lap = ShardedLaplacian(lap, mesh)
+    ham_op = _Operator(N, dtype, device, layout, mesh=mesh, kind=ham_kind,
+                       params=ham_params, refine=refine, solver=solver,
+                       pad_rows=pad)
     strang_half = _strang_hook(strang_splitting, N, dt, dtype, half_dt,
-                               device, solver, mesh if sharded else None)
+                               device, solver, mesh, layout, pad)
     dev = config.device(device)
     reduce_max = _reduce_max(mesh, dev)
 
@@ -1136,14 +1506,8 @@ def build_mhd_step_fn(
     def iterate(S, dS, thalf, mm):
         Shalf = S + dS
         Thalf = Shalf[..., 1, :, :]
-        if sharded:
-            Phalf = poisson_sharded(Shalf[..., 0, :, :], opr) * vareps
-            Bhalf = laplace_sharded(Thalf, slap) * vareps
-        else:
-            Phalf = _poisson_core(Shalf[..., 0, :, :], w, binv, u,
-                                  refine=refine, op=op, solver=solver,
-                                  ham=(ham_kind, ham_params)) * vareps
-            Bhalf = _laplace_core(Thalf, lap) * vareps
+        Phalf = ham_op(Shalf[..., 0, :, :]) * vareps
+        Bhalf = _laplace_layout(Thalf, lap, layout, mesh) * vareps
         PSc, PSP, BTc, BTPc, Pf, Sf = products(Phalf, Bhalf, Shalf, mm)
         dS = PSP + PSc
         dS[..., 0, :, :] += BTPc + BTc  # W only
@@ -1201,7 +1565,11 @@ class _ResidentIntegrator:
                  warm_iters=None, hamiltonian="poisson", forcing=None,
                  strang_splitting=None, layout="auto", *, device=None,
                  solver=None):
-        self.layout = _resolve_layout(layout, mesh)
+        # the shear layouts resolve without N; the row layouts' resolution
+        # needs it, and the builder makes it
+        self.layout = (layout if layout in _ROW_LAYOUTS
+                       else _resolve_layout(None, mesh, layout))
+        _check_layout(layout, mesh)
         self.mesh = mesh
         self.batched = batched
         self.dtype = config.numpy_dtype(dtype)
@@ -1223,7 +1591,8 @@ class _ResidentIntegrator:
         self._timed = ((forcing is not None and _has_time_param(forcing))
                        or _resolve_ham(hamiltonian)[3])
         self.device = config.device(device)
-        self.solver = column_solver(solver)
+        self.solver = solver if layout in _ROW_LAYOUTS else column_solver(
+            solver)
         # warm=True threads the fixed point and the Kahan compensation
         # between calls - fastest.  warm=False makes each call a pure
         # function of (W, dt, steps), which keeps checkpoint/restart

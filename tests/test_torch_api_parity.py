@@ -90,6 +90,21 @@ def test_alias_modules(module):
         assert ours.DiagTriDiagOp is qt.parallel.stepper.build_poisson_fn
 
 
+@pytest.mark.parametrize("module", ["parallel.stepper", "ops.diagpack",
+                                    "parallel.shard_pack"])
+def test_module_all_parity(module):
+    """The ``__all__`` of the stepper, the packs and the wrapped relayout:
+    every name of quflow_tpu's is in the port's (IsompTPU and MagmpTPU as
+    IsompTorch and MagmpTorch) and resolves."""
+    ours = importlib.import_module(f"quflow_tpu_torch.{module}")
+    theirs = importlib.import_module(f"quflow_tpu.{module}")
+    renamed = {"IsompTPU": "IsompTorch", "MagmpTPU": "MagmpTorch"}
+    for name in theirs.__all__:
+        name = renamed.get(name, name)
+        assert name in ours.__all__, f"{module}.{name}"
+        assert hasattr(ours, name), f"{module}.{name}"
+
+
 def test_backend_module_paths():
     from quflow_tpu_torch.laplacian import cpu, direct, gpu, sparse, tridiagonal
 

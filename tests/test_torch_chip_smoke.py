@@ -3,6 +3,7 @@ without a card it refuses to run and prints no result; its phases run at
 small sizes through the plain solves, so that an API change breaks here
 and not first on the card."""
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -16,6 +17,10 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from quflow_tpu_torch import config  # noqa: E402
 from quflow_tpu_torch.ops import shear_solve  # noqa: E402
+from quflow_tpu_torch.ops.cuda_row_solve import (  # noqa: E402
+    row_thomas,
+    row_thomas_reference,
+)
 from quflow_tpu_torch.ops.cuda_scan_solve import (  # noqa: E402
     shear_scan,
     shear_scan_reference,
@@ -57,13 +62,23 @@ def cpu_rehearsal(monkeypatch):
     """The smoke's phases on the CPU: no CUDA events, graphs or
     synchronize, the default device is the CPU, and the column-solve
     selector hands out each kernel's plain version, counted as if it were
-    that kernel's launches (1 ms a kernel call)."""
+    that kernel's launches (a real rhs as its real-lane entry's), and the
+    row layouts' solve ``row_thomas``'s (1 ms a kernel call)."""
 
     def counted(kernel, plain):
         def solve(w, binv, u, d):
-            kernel.launches += 1
+            if d.is_complex():
+                kernel.launches += 1
+            else:
+                kernel.real_launches += 1
             return plain(w, binv, u, d)
         return solve
+
+    def counted_rows(w, binv, u, d):
+        row_thomas.launches += 1
+        return row_thomas_reference(w, binv, u, d)
+
+    monkeypatch.setattr(stepper, "row_thomas", counted_rows)
 
     stand_in = {shear_thomas: counted(shear_thomas, shear_thomas_reference),
                 shear_scan: counted(shear_scan, shear_scan_reference)}
@@ -604,10 +619,17 @@ def test_qg_forcing_takes_a_0d_tensor():
 
 def test_phase_list_names_22():
     doc = chip_smoke.__doc__
-    assert "Twenty-two phases" in doc and "\n22. hooked runs" in doc
-    assert "phases 4, 5, 7-22" in doc
+    assert "\n22. hooked runs" in doc
     for part in "abcdefg":
-        assert f"\n    {part}. " in doc.split("\n22. ")[1]
+        assert f"\n    {part}. " in doc.split("\n22. ")[1].split("\n23. ")[0]
+
+
+def test_phase_list_names_23():
+    doc = chip_smoke.__doc__
+    assert "Twenty-three phases" in doc and "\n23. the row-packed" in doc
+    assert "phases 4, 5, 7-23" in doc
+    for part in "abcdefg":
+        assert f"\n    {part}. " in doc.split("\n23. ")[1]
 
 
 def test_hooked_cases_capture_under_the_card_rule(monkeypatch):
@@ -678,3 +700,104 @@ def test_hooked_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
     assert set(raises) == {"numpy_forcing", "host_read_forcing"}
     assert all(r["eager_ran"] and r["error"] is None
                for r in raises.values())
+
+
+def _layout_kernel_table(fn, steps):
+    """kernel_table on the CPU for phase 23's runs: the kernels that one
+    call of ``fn`` counted, by the names a profile gives them."""
+    before = chip_smoke.all_counts()
+    fn()
+    after = chip_smoke.all_counts()
+    moved = {k: (after[k] - before[k]) / steps for k in after}
+    return ({"row_thomas_kernel<float, 4>": (moved["row_thomas"], 0.01),
+             "shear_thomas_kernel<float, 32, 1, 1>": (
+                 moved["shear_thomas"] + moved["shear_thomas_real"], 0.01),
+             "shear_scan_kernel<float, One<float>>": (
+                 moved["shear_scan"] + moved["shear_scan_real"], 0.01)},
+            1.0)
+
+
+def test_layout_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
+    """Phase 23 at small N on the CPU: the kernels against their plain
+    versions (23a), the times' fields and bounds (23b), every layout's
+    stepper with its launches and gates (23c), MHD (23d), the planes
+    stepper (23e), the replays (23f, both modes eager here) and the tp = 2
+    'shard' and 'scatter' ranks (23g, this script with --layout-rank)."""
+    lk = chip_smoke.layout_kernels("cpu", Ns=(8,), Bs=(1, 2),
+                                   ragged=(1, 7), lane_Ns=(8, 9))
+    assert {r["kernel"] for r in lk} == {"row_thomas", "shear_thomas_real",
+                                         "shear_scan_real"}
+    assert len(lk) == 2 * (3 * 2 * 2 + 2 * 2)
+    assert all(r["max_abs_err"] == 0.0 for r in lk)
+    lt = chip_smoke.layout_kernel_times("cpu", N=16)
+    assert [(r["kernel"], r.get("R"), r.get("view")) for r in lt] == [
+        ("row_thomas", 16, None), ("row_thomas", 9, None),
+        ("shear_thomas_real", None, "planes"),
+        ("shear_thomas_real", None, "interleaved"),
+        ("shear_scan_real", None, "planes"),
+        ("shear_scan_real", None, "interleaved")]
+    assert lt[0]["bound_ms"] == pytest.approx(28 * 16 * 16 / 3.35e9)
+    assert lt[2]["bound_ms"] == pytest.approx((8 * 2 + 12) * 16 * 17 / 3.35e9)
+    assert lt[3]["bound_ms"] == pytest.approx(20 * 16 * 34 / 3.35e9)
+    assert all(r["share"] == r["bound_ms"] for r in lt)
+    ls = chip_smoke.layout_steppers(
+        "cpu", runs=((np.complex64, 16, 4), (np.complex128, 32, 4)),
+        redirect_N=None)
+    for run in ("complex64_N16", "complex128_N32"):
+        rows = ls[run]["layouts"]
+        assert set(rows) == set(chip_smoke.STEP_LAYOUTS)
+        for label, row in rows.items():
+            key = chip_smoke.STEP_LAYOUTS[label][3]
+            assert row["launches"][key] == 4 * 5, (run, label)
+            assert sum(row["launches"].values()) == 4 * 5
+    assert ls["complex64_N16"]["layouts"]["scatter"]["refine"] == 0
+    assert ls["complex64_N16"]["layouts"]["pallas"]["refine"] == "m0"
+    lm = chip_smoke.layout_mhd("cpu", N128=128, steps128=2, N64=24,
+                               steps64=2)
+    for run in lm.values():
+        for row in run["layouts"].values():
+            assert row["launches"]["row_thomas"] == 2 * 5
+    assert lm["complex128_N128"]["layouts"]["rolls"]["vs_shear"] <= 1e-11
+    pl = chip_smoke.planes_stepper("cpu", N=24, steps=3, large_N=16,
+                                   large_steps=2)
+    assert pl["N24"]["warm"]["launches"]["shear_thomas_real"] == 3 * 5
+    assert pl["N16"]["pure"]["vs_complex_builder"] <= 1e-5
+    monkeypatch.setattr(chip_smoke, "kernel_table", _layout_kernel_table)
+    lr = chip_smoke.replay_vs_eager(
+        "cpu", chip_smoke.layout_capture_cases("cpu", N=16, steps=2),
+        strict=True)
+    assert [r["kernel"] for r in lr.values()] == [
+        "row_thomas", "shear_thomas_real", "shear_thomas_real"]
+    for row in lr.values():
+        assert row["bit_equal"]
+        assert row["launches_a_call"]["replay"] == 2 * 5
+    ltp = chip_smoke.layouts_tp(
+        "cpu", cases=(("shard", "wrapped", 16, "complex64"),
+                      ("shard", "wrapped", 16, "complex128"),
+                      ("scatter", "scatter", 13, "complex64")),
+        steps=2, timeout=120)
+    assert ltp["shard_16_complex128"]["mesh_calls_by_rank"] == [
+        {"all_to_all": 20, "shift": 20, "gather_rows": 20}] * 2
+    assert ltp["scatter_13_complex64"]["mesh_calls_by_rank"] == [
+        {"gather_rows": 30}] * 2
+    assert ltp["shard_16_complex128"]["vs_one_rank"] <= 1e-12
+    for phase in (lk, lt, ls, lm, pl, lr, ltp):  # each phase prints JSON
+        json.dumps(phase)
+    paths = chip_smoke.layout_paths("row_thomas", ls, lm, pl, lr, ltp)
+    assert paths["euler_complex64_N16_pallas"] == 20
+    assert paths["tp_scatter_13_complex64_rank1"] == 10
+    assert chip_smoke.layout_paths("shear_scan_real", ls, lm, pl, lr, ltp) == {
+        "euler_complex64_N16_shear_pallas_il_scan": 20,
+        "euler_complex128_N32_shear_pallas_il_scan": 20}
+
+
+def test_layout_launch_count_short_fails_the_run():
+    """Phase 23's launch gate: a path short of its kernel's launches, or
+    one that launched another kernel, fails the run."""
+    counts = dict(shear_thomas=0, shear_scan=0, row_thomas=20,
+                  shear_thomas_real=0, shear_scan_real=0)
+    chip_smoke._layout_counts_ok("ok", counts, "wrapped", 20)
+    with pytest.raises(AssertionError, match="expected 25 of row_thomas"):
+        chip_smoke._layout_counts_ok("short", counts, "pallas", 25)
+    with pytest.raises(AssertionError, match="shear_thomas_real only"):
+        chip_smoke._layout_counts_ok("other", counts, "shear_pallas_il", 20)

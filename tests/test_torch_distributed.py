@@ -32,6 +32,8 @@ import pytest
 
 N_DP, B_DP, N_MHD = 16, 4, 12
 N_TP2, N_TP4 = 16, 13
+#: the wrapped relayout's sizes (tests/test_parallel.py:130-165)
+N_PACK = (32, 48)
 STEPS, MAXIT = 3, 5
 TOL = 1e-10
 #: the warm schedule on a dp and a tp mesh (complex64; on the CPU every
@@ -68,6 +70,8 @@ def make_inputs():
         "W_dptp": _skewh(rng, 2, N_TP4, N_TP4),
         "S_tp2": _mhd_state(rng, N_TP2),
         "S_tp4": _mhd_state(rng, N_TP4),
+        **{f"W_pack{N}": _skewh(rng, N, N) for N in N_PACK},
+        "W_pack_dp": _skewh(rng, 4, 32, 32),
     }
 
 
@@ -174,7 +178,7 @@ def _run_case(out, name, W, mesh, batched, dtype=np.complex128, mhd=False,
     piece = torch.from_numpy(shard_state(W, mesh, batched).astype(dtype))
     if poisson:
         fn = tst.build_poisson_fn(W.shape[-1], dtype=dtype, mesh=mesh,
-                                  batched=batched, device="cpu")
+                                  batched=batched, device="cpu", **kw)
         out[name] = gather_state(fn(piece), mesh, batched).numpy()
         return
     build = tst.build_mhd_step_fn if mhd else tst.build_step_fn
@@ -190,6 +194,35 @@ def _run_case(out, name, W, mesh, batched, dtype=np.complex128, mhd=False,
         out[name + "_iters"] = res[3].numpy()
     if kw.get("with_diagnostics"):
         out[name + "_diag"] = res[-1].numpy()
+
+
+def _pack_case(out, name, W, mesh, batched=False):
+    """The wrapped relayout of parallel/shard_pack.py on this rank's rows:
+    the pack gathered (against mat2wrapped in the parent), the unpack
+    equal to the rows it started from, and the all_to_all and shift calls
+    of one pack and one unpack."""
+    import torch
+    from quflow_tpu_torch.parallel import shard_pack
+    from quflow_tpu_torch.parallel.mesh import gather_state, shard_state
+
+    piece = torch.from_numpy(shard_state(W, mesh, batched))
+    calls = {"all_to_all": 0, "shift": 0}
+    for op in calls:
+        def counted(*args, _op=op, _fn=getattr(mesh, op), **kw):
+            calls[_op] += 1
+            return _fn(*args, **kw)
+        setattr(mesh, op, counted)
+    try:
+        V = shard_pack.pack_wrapped_sharded(piece, mesh, batched=batched)
+        packed = dict(calls)
+        back = shard_pack.unpack_wrapped_sharded(V, mesh, batched=batched)
+    finally:
+        for op in calls:
+            delattr(mesh, op)
+    out[name] = gather_state(V, mesh, batched).numpy()
+    out[name + "_back"] = np.array(torch.equal(back, piece))
+    out[name + "_calls"] = np.array([packed["all_to_all"], packed["shift"],
+                                     calls["all_to_all"], calls["shift"]])
 
 
 def _integrator_case(out, name, S, mesh):
@@ -293,14 +326,37 @@ def worker(world, init, rank, inputs, outdir):
             _run_case(out, name, inp[state], tp, False, t0=t0,
                       mhd=state.startswith("S"), **kw)
         _dw_case(out, "tp2_dw", inp["W_tp2"], tp, forcing=force_planes_port)
+        for N in N_PACK:
+            _pack_case(out, f"pack2_N{N}", inp[f"W_pack{N}"], tp)
+        # the row layouts under the mesh: 'shard' (tp divides N = 16),
+        # 'scatter' (N = 13)
+        for layout in ("wrapped", "scatter"):
+            W, S = ((inp["W_tp2"], inp["S_tp2"]) if layout == "wrapped"
+                    else (inp["W_tp4"], inp["S_tp4"]))
+            tag = "shard" if layout == "wrapped" else "scatter"
+            _run_case(out, f"{tag}2_poisson", W, tp, False, poisson=True,
+                      layout=layout)
+            _run_case(out, f"{tag}2", W, tp, False, layout=layout)
+            _run_case(out, f"{tag}2_c64", W, tp, False, dtype=np.complex64,
+                      layout=layout)
+            _run_case(out, f"{tag}2_mhd", S, tp, False, mhd=True,
+                      layout=layout)
     else:
         tp = make_mesh(dp=1)  # tp = 4 over N = 13: rows 4, 3, 3, 3
         _run_case(out, "tp4", inp["W_tp4"], tp, False, with_diagnostics=True)
         _run_case(out, "tp4_c64", inp["W_tp4"], tp, False, dtype=np.complex64)
         _run_case(out, "tp4_poisson", inp["W_tp4"], tp, False, poisson=True)
         _run_case(out, "tp4_mhd", inp["S_tp4"], tp, False, mhd=True)
+        for N in N_PACK:
+            _pack_case(out, f"pack4_N{N}", inp[f"W_pack{N}"], tp)
+        _run_case(out, "scatter4_poisson", inp["W_tp4"], tp, False,
+                  poisson=True, layout="rolls")
+        _run_case(out, "scatter4", inp["W_tp4"], tp, False, layout="pallas")
+        _run_case(out, "scatter4_mhd", inp["S_tp4"], tp, False, mhd=True,
+                  layout="scatter")
         both = make_mesh(dp=2)  # dp = 2, tp = 2 over N = 13: rows 7, 6
         _run_case(out, "dptp", inp["W_dptp"], both, True, tol=TOL, maxit=10)
+        _pack_case(out, "pack_dp", inp["W_pack_dp"], both, batched=True)
     np.savez(os.path.join(outdir, f"rank_{rank}.npz"), **out)
     import torch.distributed as dist
 
@@ -535,6 +591,62 @@ def test_tp_gathers_and_sweeps(two, four, case):
             assert got == COUNTS[case]
 
 
+@pytest.mark.parametrize("case", [f"pack{tp}_N{N}" for tp in (2, 4)
+                                  for N in N_PACK] + ["pack_dp"])
+def test_shard_pack_matches_wrapped(two, four, case):
+    """The wrapped relayout of parallel/shard_pack.py over tp = 2 and 4
+    (N = 32, 48) and dp = 2 x tp = 2 with a batch (the twin of
+    tests/test_parallel.py::test_shard_pack_matches_wrapped): bit-equal to
+    quflow_tpu's single-device mat2wrapped, the unpack giving back the rows
+    it started from, with one all_to_all and one shift a pack and an
+    unpack."""
+    import jax.numpy as jnp
+    from quflow_tpu.ops.diagpack import mat2wrapped
+
+    inp = make_inputs()
+    W = inp["W_pack_dp"] if case == "pack_dp" else inp[
+        "W_pack" + case.split("_N")[1]]
+    ref = np.asarray(mat2wrapped(jnp.asarray(W), tracefree=False))
+    out = four if case.startswith("pack4") or case == "pack_dp" else two
+    for rank in out:
+        np.testing.assert_array_equal(rank[case], ref)
+        assert rank[case + "_back"]
+        assert tuple(rank[case + "_calls"]) == (1, 1, 2, 2)
+
+
+#: the row layouts under a mesh: case -> (state, options of quflow_tpu's
+#: single-device reference, the ranks' output)
+ROW_CASES = {
+    **{f"{tag}2{sfx}": (st, kw, 2)
+       for tag, W, S in (("shard", "W_tp2", "S_tp2"),
+                         ("scatter", "W_tp4", "S_tp4"))
+       for sfx, st, kw in (("_poisson", W, dict(poisson=True)), ("", W, {}),
+                           ("_c64", W, dict(dtype=np.complex64)),
+                           ("_mhd", S, dict(mhd=True)))},
+    "scatter4_poisson": ("W_tp4", dict(poisson=True), 4),
+    "scatter4": ("W_tp4", {}, 4),
+    "scatter4_mhd": ("S_tp4", dict(mhd=True), 4),
+}
+
+
+@pytest.mark.parametrize("case", list(ROW_CASES))
+def test_row_layouts_under_mesh_match_quflow_tpu(two, four, case):
+    """'shard' (the wrapped relayout, tp = 2 over N = 16) and 'scatter'
+    (the gathered skewh rows: tp = 2 and 4 over N = 13) Poisson, Euler
+    (complex128 and complex64, whose refine is 0 on these layouts, as in
+    quflow_tpu) and MHD against quflow_tpu's single-device result."""
+    state, kw, world = ROW_CASES[case]
+    W = make_inputs()[state]
+    dtype = kw.get("dtype", np.complex128)
+    if kw.get("poisson"):
+        ref = [_jax_poisson(W)]
+    else:
+        ref = _jax_step(W, dtype=dtype, mhd=kw.get("mhd", False),
+                        refine=0 if dtype == np.complex64 else None)
+    for rank in (two if world == 2 else four):
+        _close(rank[case], ref[0], dtype)
+
+
 def test_tp2_dw_matches_quflow_tpu(two):
     """build_dw_step_fn with forcing on float64 planes under tp = 2
     against quflow_tpu's single-device double-word step (the pure dw
@@ -604,10 +716,13 @@ def test_checkpoint_interchanges_with_quflow_tpu(tmp_path, monkeypatch,
 
 
 def test_tp_refusals():
-    """Under a tp mesh every option builds (MHD, every hook); what still
-    raises: the layouts that do not come over, 'shear_shard' without a
-    mesh, a callable MHD Hamiltonian (as in quflow_tpu), and a double-word
-    stepper over an N that tp does not divide (as in quflow_tpu)."""
+    """Under a tp mesh every option builds (MHD, every hook, every layout,
+    resolved as quflow_tpu resolves it: the row layouts to 'shard' where
+    tp divides N, else 'scatter'; the shear ones, 'shear_pallas_il' too, to
+    'shear_shard'); what still raises: 'shear_shard' and 'shard' without
+    a mesh, a callable MHD Hamiltonian (as in quflow_tpu), and a
+    double-word stepper over an N that tp does not divide (as in
+    quflow_tpu)."""
     from quflow_tpu_torch.parallel import stepper as tst
     from quflow_tpu_torch.parallel.mesh import Mesh
 
@@ -619,16 +734,24 @@ def test_tp_refusals():
     tst.build_mhd_step_fn(8, 0.1, mesh=rows, device="cpu",
                           strang_splitting=("viscdamp", {"theta": 0.5}))
     tst.MagmpTorch(mesh=rows, device="cpu", forcing=lambda P, S: S)
-    for layout in ("shard", "wrapped", "rolls", "pallas", "shear_pallas_il"):
-        for build in (tst.build_step_fn, tst.build_mhd_step_fn):
-            with pytest.raises(NotImplementedError, match="does not come over"):
-                build(8, 0.1, mesh=rows, layout=layout, device="cpu")
-        with pytest.raises(NotImplementedError, match="does not come over"):
-            tst.build_poisson_fn(8, mesh=rows, layout=layout, device="cpu")
-        with pytest.raises(NotImplementedError, match="does not come over"):
-            tst.MagmpTorch(mesh=rows, layout=layout, device="cpu")
-    with pytest.raises(ValueError, match="mesh"):
-        tst.build_poisson_fn(8, layout="shear_shard", device="cpu")
+    for layout in ("shard", "wrapped", "rolls", "pallas", "scatter",
+                   "shear_pallas_il"):
+        row = layout != "shear_pallas_il"
+        for N in (8, 9):
+            assert tst._resolve_layout(N, rows, layout) == (
+                ("shard" if N % 2 == 0 else "scatter") if row
+                else "shear_shard")
+            for build in (tst.build_step_fn, tst.build_mhd_step_fn):
+                build(N, 0.1, mesh=rows, layout=layout, device="cpu")
+            tst.build_poisson_fn(N, mesh=rows, layout=layout, device="cpu")
+        tst.MagmpTorch(mesh=rows, layout=layout, device="cpu")
+    # a 'tp' = 1 mesh keeps the single-device shear layout
+    one = Mesh(dp=2, tp=1, rank=0, ranks=[0, 1])
+    assert tst._resolve_layout(8, one, "shear_pallas_il") == "shear_pallas_il"
+    assert tst._resolve_layout(8, one, "auto") == "shear"
+    for layout in ("shear_shard", "shard"):
+        with pytest.raises(ValueError, match="mesh"):
+            tst.build_poisson_fn(8, layout=layout, device="cpu")
     with pytest.raises(NotImplementedError, match="named"):
         tst.build_mhd_step_fn(8, 0.1, mesh=rows, device="cpu",
                               hamiltonian=lambda W: W)

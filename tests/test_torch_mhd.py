@@ -206,8 +206,9 @@ def test_magmp_torch_matches_magmp_tpu_warm_chunks():
                               **kw).warm_precision == jst.MagmpTPU(
             warm_precision="auto", **kw).warm_precision
     # an ensemble runs; a mesh whose 'tp' axis splits the rows builds (its
-    # runs: tests/test_torch_distributed.py); the layouts that do not come
-    # over raise
+    # runs: tests/test_torch_distributed.py); the row layouts build as
+    # quflow_tpu resolves them ('wrapped' on one device, 'shard' under a
+    # mesh whose 'tp' divides N), and 'shard' without a mesh raises
     Sb2 = tst.MagmpTorch(maxit=6, dtype=np.complex128, device="cpu",
                          batched=True)(np.stack([S0, S0[::-1]]), dt, steps=2)
     np.testing.assert_array_equal(Sb2[0], tst.MagmpTorch(
@@ -215,12 +216,15 @@ def test_magmp_torch_matches_magmp_tpu_warm_chunks():
     rows = Mesh(dp=1, tp=2, rank=0, ranks=[0, 1])
     tst.build_mhd_step_fn(8, 0.1, device="cpu", mesh=rows)
     assert tst.MagmpTorch(device="cpu", mesh=rows).layout == "shear_shard"
-    for kw, item in (({"layout": "shard"}, "does not come over"),
-                     ({"layout": "wrapped"}, "does not come over")):
-        with pytest.raises(NotImplementedError, match=item):
-            tst.build_mhd_step_fn(8, 0.1, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            tst.MagmpTorch(device="cpu", **kw)
+    for layout in ("wrapped", "rolls", "pallas", "scatter"):
+        tst.build_mhd_step_fn(8, 0.1, device="cpu", layout=layout)
+        assert tst.MagmpTorch(device="cpu", layout=layout).layout == layout
+        assert tst._resolve_layout(8, rows, layout) == "shard"
+        tst.build_mhd_step_fn(8, 0.1, device="cpu", mesh=rows, layout=layout)
+    with pytest.raises(ValueError, match="mesh"):
+        tst.build_mhd_step_fn(8, 0.1, device="cpu", layout="shard")
+    with pytest.raises(ValueError, match="mesh"):
+        tst.MagmpTorch(device="cpu", layout="shard")
     # the warm schedule's options and every precision name build; an
     # unknown name raises at construction (JAX's MHD stepper raises a
     # KeyError when it builds its program)

@@ -131,8 +131,15 @@ def test_wrapper_takes_plain_version_on_cpu():
         shear_scan(w, binv, u, d).numpy(),
         shear_scan_reference(w, binv, u, d).numpy())
     assert shear_scan.launches == before
+    # a real rhs is the real-lane entry's: the real part of the complex
+    # solve, lane for lane
+    dr = d.real.contiguous()
+    np.testing.assert_array_equal(shear_scan(w, binv, u, dr).numpy(),
+                                  shear_scan_reference(w, binv, u, d)
+                                  .real.numpy())
+    assert shear_scan.real_launches == 0
     with pytest.raises(TypeError, match="complex"):
-        shear_scan(w, binv, u, d.real.contiguous())
+        shear_scan(w, binv, u, dr.to(torch.int64))
     with pytest.raises(ValueError, match="shear_scan: binv"):
         shear_scan(w, binv.float(), u, d)
     meta = [t.to("meta") for t in (w, binv, u, d)]
@@ -205,8 +212,8 @@ def test_builders_solve_through_the_selected_kernel(monkeypatch):
 
 def test_shear_layouts():
     """'shear_pallas' (the JAX package's TPU layout at N >= 4096) is the
-    shear path here; the interleaved 'shear_pallas_il' does not come
-    over."""
+    shear path here; the interleaved 'shear_pallas_il' builds everywhere
+    and its Poisson solve is the shear one, bit for bit."""
     N = 8
     W = torch.from_numpy(_skewh(N))
     ref = tst.build_poisson_fn(N, np.complex128, device="cpu")(W)
@@ -217,14 +224,14 @@ def test_shear_layouts():
     tst.build_mhd_step_fn(N, 0.1, device="cpu", layout="shear_pallas")
     tst.IsompTorch(device="cpu", layout="shear_pallas")
     tst.MagmpTorch(device="cpu", layout="shear_pallas")
-    for build in (lambda: tst.build_poisson_fn(N, layout="shear_pallas_il"),
-                  lambda: tst.build_step_fn(N, 0.1, layout="shear_pallas_il"),
-                  lambda: tst.build_mhd_step_fn(N, 0.1,
-                                                layout="shear_pallas_il"),
-                  lambda: tst.IsompTorch(layout="shear_pallas_il"),
-                  lambda: tst.MagmpTorch(layout="shear_pallas_il")):
-        with pytest.raises(NotImplementedError, match="does not come over"):
-            build()
+    il = tst.build_poisson_fn(N, np.complex128, device="cpu",
+                              layout="shear_pallas_il")(W)
+    torch.testing.assert_close(il, ref, rtol=0, atol=0)
+    tst.build_step_fn(N, 0.1, device="cpu", layout="shear_pallas_il")
+    tst.build_mhd_step_fn(N, 0.1, device="cpu", layout="shear_pallas_il")
+    assert tst.IsompTorch(device="cpu",
+                          layout="shear_pallas_il").layout == "shear_pallas_il"
+    tst.MagmpTorch(device="cpu", layout="shear_pallas_il")
 
 
 def test_build_all_starts_one_compiler_per_source(monkeypatch, tmp_path):

@@ -129,8 +129,15 @@ def test_wrapper_takes_plain_version_on_cpu():
     np.testing.assert_array_equal(shear_thomas(w, binv, u, d).numpy(),
                                   shear_thomas_reference(w, binv, u, d).numpy())
     assert shear_thomas.launches == before
+    # a real rhs is the real-lane entry's: each lane its own system, here
+    # the real part of the complex solve
+    dr = d.real.contiguous()
+    np.testing.assert_array_equal(shear_thomas(w, binv, u, dr).numpy(),
+                                  shear_thomas_reference(w, binv, u, d)
+                                  .real.numpy())
+    assert shear_thomas.real_launches == 0
     with pytest.raises(TypeError, match="complex"):
-        shear_thomas(w, binv, u, d.real.contiguous())
+        shear_thomas(w, binv, u, dr.to(torch.int64))
     with pytest.raises(ValueError, match="binv"):
         shear_thomas(w, binv.float(), u, d)
     with pytest.raises(ValueError, match="u must be"):

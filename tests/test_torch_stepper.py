@@ -127,12 +127,16 @@ def test_unported_options_raise(monkeypatch):
             *(torch.zeros(8, 8, dtype=torch.complex64),) * 3)
     with pytest.raises(TypeError, match="Mesh"):
         tst.build_step_fn(8, 0.1, device="cpu", mesh=object())
-    for kw, item in (({"layout": "shard"}, "does not come over"),
-                     ({"layout": "wrapped"}, "does not come over")):
-        with pytest.raises(NotImplementedError, match=item):
-            tst.build_step_fn(8, 0.1, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            tst.IsompTorch(device="cpu", **kw)
+    # the row layouts build ('shard' relayouts over a mesh and raises
+    # without one); their runs: tests/test_torch_layouts.py
+    tst.build_step_fn(8, 0.1, device="cpu", layout="wrapped")
+    tst.IsompTorch(device="cpu", layout="wrapped")
+    with pytest.raises(ValueError, match="mesh"):
+        tst.build_step_fn(8, 0.1, device="cpu", layout="shard")
+    with pytest.raises(ValueError, match="mesh"):
+        tst.IsompTorch(device="cpu", layout="shard")
+    with pytest.raises(ValueError, match="unknown layout"):
+        tst.build_step_fn(8, 0.1, device="cpu", layout="diagonal")
     # the warm schedule's options build (their runs: the twins below); a
     # precision name quflow_tpu does not know raises at construction
     for kw in ({"warm_precision": "high"}, {"warm_iters": 2},
