@@ -260,16 +260,21 @@ nodes; phases 21 and 22 hold the replays to eager runs.
     wrapped relayout (stepsize 0.25 hbar, ``random_initial(lmax=10,
     seed=42)``):
     a. ``row_thomas`` against its plain version at N in {512, 1024, 2048,
-       4096} and ragged N in {1, 7, 100, 257, 1000}, R in {N, N//2+1}, B
-       in {1, 4}, both dtypes; the real-lane entries of ``shear_thomas``
-       and ``shear_scan`` on float planes (L = N+1) and on the interleaved
-       view (L = 2(N+1)), there also against the complex entry on the
-       same bytes: bit-equal;
-    b. their times by CUDA-graph replay at Euler N=1024 c64 (``row_thomas``
-       at R = 1024 and 513, the real lanes on planes, B = 2, and on the
-       interleaved view), each beside its bound ((16 B + 12) R N bytes;
-       (8 B + 12) N L in float32) and share, the plain version's ms and
-       the launch's geometry;
+       4096} and ragged N in {1, 6, 7, 100, 257, 514, 1000}, R in {N,
+       N//2+1}, B in {1, 4} (and 16 up to N = 1024), both dtypes; at N in
+       {6, 7, 257, 514, 1000} on a d one complex value into its buffer
+       and on its aligned twin, with y resident and with the launch plan
+       forced to send y through the output; on rows too long for shared
+       memory (c64 N=32768, c128 N=16384); one launch a solve; the
+       real-lane entries of ``shear_thomas`` and ``shear_scan`` on float
+       planes (L = N+1) and on the interleaved view (L = 2(N+1)), there
+       also against the complex entry on the same bytes: bit-equal;
+    b. their times by CUDA-graph replay: ``row_thomas`` at Euler N=1024
+       c64 for R = 1024 and 513, at B = 4, at c128 N=512 and at N=4096,
+       each with its launch plan; the real lanes at N=1024 on planes,
+       B = 2, and on the interleaved view; each beside its bound ((16 B +
+       12) R N bytes; (8 B + 12) N L in float32) and share, the plain
+       version's ms and the launch's geometry;
     c. the Euler stepper in each layout ('wrapped', 'rolls', 'pallas',
        'scatter', 'shear_pallas_il' and its scan twin, and 'shear' under
        QUFLOW_SHEAR_INTERLEAVE=1), complex64 N=1024 100 steps (enstrophy
@@ -3052,30 +3057,98 @@ def _exact(kernel, plain, w, binv, u, d, what):
     return x, err
 
 
+@contextlib.contextmanager
+def row_plan_through_out():
+    """``row_thomas`` with its launch plan forced to send y through the
+    output (the mode of rows too long for shared memory)."""
+    plan = cuda_row_solve.plan
+    cuda_row_solve.plan = lambda *a, **k: plan(*a, through_out=True)
+    try:
+        yield
+    finally:
+        cuda_row_solve.plan = plan
+
+
+def _row_resident(device, B, R, N, dtype):
+    """Whether ``row_thomas`` keeps y resident at this shape (None on the
+    CPU, which runs the plain version)."""
+    if torch.device(device).type != "cuda":
+        return None
+    index = torch.device(device).index or 0
+    return cuda_row_solve.plan(B, R, N, dtype,
+                               cuda_row_solve._sms(index)).resident
+
+
+def _bounded_row_factors(R, N, dtype, device, seed):
+    """Random (R, N) factors of a diagonally dominant row system (|w|, |u|
+    < 0.4, binv in (0.2, 0.6)), for rows longer than any pack's."""
+    rng = np.random.RandomState(seed)
+    real = torch.float32 if dtype == torch.complex64 else torch.float64
+    return tuple(torch.from_numpy(a).to(device, real) for a in (
+        rng.uniform(-0.4, 0.4, (R, N)), rng.uniform(0.2, 0.6, (R, N)),
+        rng.uniform(-0.4, 0.4, (R, N))))
+
+
 def layout_kernels(device, Ns=(512, 1024, 2048, 4096), Bs=(1, 4),
-                   ragged=(1, 7, 100, 257, 1000), lane_Ns=(512, 1024, 4096)):
+                   ragged=(1, 6, 7, 100, 257, 514, 1000), large_B=16,
+                   offset_Ns=(6, 7, 257, 514, 1000),
+                   long_rows=((torch.complex64, 32768),
+                              (torch.complex128, 16384)),
+                   lane_Ns=(512, 1024, 4096)):
     """Phase 23a: ``row_thomas`` against its plain version at R = N and
-    N//2+1, every N of ``Ns`` and ``ragged``, B in ``Bs``, both dtypes; the
-    real-lane entries of ``shear_thomas`` and ``shear_scan`` against
-    theirs on float planes (L = N+1, B = 2) and on the interleaved view
-    (L = 2(N+1), factor columns duplicated), and there against the complex
-    entry on the same bytes: every comparison bit-equal."""
+    N//2+1, every N of ``Ns`` and ``ragged``, B in ``Bs`` (and ``large_B``
+    up to N = 1024), both dtypes; at ``offset_Ns`` on a d whose storage
+    starts one complex value into its buffer and on its aligned twin
+    (B = 3), each with y resident and with the plan forced to send y
+    through the output; rows too long for shared memory (``long_rows``,
+    R = 3, B = 2, bounded random factors); the real-lane entries of
+    ``shear_thomas`` and ``shear_scan`` against theirs on float planes
+    (L = N+1, B = 2) and on the interleaved view (L = 2(N+1), factor
+    columns duplicated), and there against the complex entry on the same
+    bytes: every comparison bit-equal, one ``row_thomas`` launch a
+    solve."""
     rows = []
+
+    def exact(w, binv, u, d, **row):
+        n = row_thomas.launches
+        _, err = _exact(row_thomas, row_thomas_reference, w, binv, u, d,
+                        f"row_thomas {row}")
+        # a CPU tensor runs the plain version, which launches nothing
+        if d.is_cuda and row_thomas.launches != n + 1:
+            raise AssertionError(f"row_thomas {row}: "
+                                 f"{row_thomas.launches - n} launches")
+        rows.append(dict(kernel="row_thomas", **row, max_abs_err=err))
+
     for dtype in (torch.complex64, torch.complex128):
+        name = str(dtype)[6:]
         for N in (*Ns, *ragged):
             for layout in ("wrapped", "rolls"):
                 w, binv, u = _real_factors(N, dtype, device=device,
                                            layout=layout)
-                for B in Bs:
+                R = w.shape[0]
+                for B in (*Bs, *((large_B,) if N <= 1024 else ())):
                     g = torch.Generator(device=device).manual_seed(7 * N + B)
-                    d = torch.randn(B, w.shape[0], N, dtype=dtype,
-                                    device=device, generator=g)
-                    _, err = _exact(row_thomas, row_thomas_reference, w,
-                                    binv, u, d, f"row_thomas {dtype} N={N} "
-                                    f"R={w.shape[0]} B={B}")
-                    rows.append(dict(kernel="row_thomas", dtype=str(dtype)[6:],
-                                     N=N, R=w.shape[0], B=B,
-                                     max_abs_err=err))
+                    d = torch.randn(B, R, N, dtype=dtype, device=device,
+                                    generator=g)
+                    exact(w, binv, u, d, dtype=name, N=N, R=R, B=B)
+                if N not in offset_Ns:
+                    continue
+                g = torch.Generator(device=device).manual_seed(N)
+                buf = torch.randn(3 * R * N + 1, dtype=dtype, device=device,
+                                  generator=g)
+                for mode in ("resident", "through_out"):
+                    with (row_plan_through_out() if mode == "through_out"
+                          else contextlib.nullcontext()):
+                        for offset, d in ((1, buf[1:]), (0, buf[:-1])):
+                            exact(w, binv, u, d.view(3, R, N), dtype=name,
+                                  N=N, R=R, B=3, offset=offset, mode=mode)
+    for dtype, N in long_rows:
+        w, binv, u = _bounded_row_factors(3, N, dtype, device, N)
+        g = torch.Generator(device=device).manual_seed(N)
+        d = torch.randn(2, 3, N, dtype=dtype, device=device, generator=g)
+        exact(w, binv, u, d, dtype=str(dtype)[6:], N=N, R=3, B=2,
+              resident=_row_resident(device, 2, 3, N, dtype))
+    for dtype in (torch.complex64, torch.complex128):
         for kernel, plain in ((shear_thomas, shear_thomas_reference),
                               (shear_scan, shear_scan_reference)):
             for N in lane_Ns:
@@ -3106,29 +3179,45 @@ def layout_kernels(device, Ns=(512, 1024, 2048, 4096), Bs=(1, 4),
     return rows
 
 
-def layout_kernel_times(device, N=1024, reps=20, plain_reps=1):
-    """Phase 23b: at Euler N=1024 complex64, by CUDA-graph replay, each new
-    entry beside its bound and share, the plain version's ms (CUDA events)
-    and the launch's geometry: ``row_thomas`` at B=1 for R = N ('wrapped',
-    'pallas') and R = 513 ('rolls', 'scatter'); the real-lane
-    ``shear_thomas`` and ``shear_scan`` on planes (B = 2, L = N+1) and on
-    the interleaved view (B = 1, L = 2(N+1))."""
-    dtype = torch.complex64
+#: phase 23b's ``row_thomas`` shapes: (layout, N, B, dtype); R = N on
+#: 'wrapped', N//2+1 on 'rolls'
+ROW_TIMES = (("wrapped", 1024, 1, torch.complex64),
+             ("rolls", 1024, 1, torch.complex64),
+             ("wrapped", 1024, 4, torch.complex64),
+             ("wrapped", 512, 1, torch.complex128),
+             ("wrapped", 4096, 1, torch.complex64))
+
+
+def layout_kernel_times(device, N=1024, reps=20, plain_reps=1,
+                        row_times=ROW_TIMES):
+    """Phase 23b: by CUDA-graph replay, each new entry beside its bound and
+    share, the plain version's ms (CUDA events) and, on a card, the launch
+    plan and the library's report of it (geometry): ``row_thomas`` at
+    ``row_times`` (Euler N=1024 complex64 B=1 for R = N ('wrapped',
+    'pallas') and R = 513 ('rolls', 'scatter'), then B = 4, complex128
+    N=512, and N=4096, where bytes bound it); the real-lane
+    ``shear_thomas`` and ``shear_scan`` at N on float32 planes (B = 2,
+    L = N+1) and on the interleaved view (B = 1, L = 2(N+1))."""
     out = []
-    for layout in ("wrapped", "rolls"):
-        w, binv, u = _real_factors(N, dtype, device=device, layout=layout)
+    for layout, n, B, dtype in row_times:
+        w, binv, u = _real_factors(n, dtype, device=device, layout=layout)
         R = w.shape[0]
         g = torch.Generator(device=device).manual_seed(R)
-        d = torch.randn(1, R, N, dtype=dtype, device=device, generator=g)
+        d = torch.randn(B, R, n, dtype=dtype, device=device, generator=g)
         ms = graph_ms(lambda: row_thomas(w, binv, u, d), reps)
-        bound, by = row_bound(R, N, 1, dtype)
-        row = dict(kernel="row_thomas", R=R, N=N, B=1, ms=ms,
+        bound, by = row_bound(R, n, B, dtype)
+        row = dict(kernel="row_thomas", layout=layout, dtype=str(dtype)[6:],
+                   R=R, N=n, B=B, ms=ms,
                    plain_ms=cuda_ms(lambda: row_thomas_reference(
                        w, binv, u, d), plain_reps),
                    bound_ms=bound, bound_by=by, share=bound / ms)
         if torch.device(device).type == "cuda":
-            row["geometry"] = cuda_row_solve.geometry(1, R, N, dtype)
+            index = torch.device(device).index or 0
+            row["plan"] = cuda_row_solve.plan(
+                B, R, n, dtype, cuda_row_solve._sms(index))._asdict()
+            row["geometry"] = cuda_row_solve.geometry(B, R, n, dtype, index)
         out.append(row)
+    dtype = torch.complex64
     w, binv, u = _real_factors(N, dtype, device=device)
     il = tuple(f.repeat_interleave(2, dim=-1) for f in (w, binv, u))
     g = torch.Generator(device=device).manual_seed(N)
@@ -3606,8 +3695,9 @@ def layout_timing(lt, key):
     rows = [r for r in lt if r["kernel"] == key]
     return {**{k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "share")},
-            "by_shape": [{k: r[k] for k in ("R", "view", "L", "B", "ms",
-                                            "bound_ms", "share") if k in r}
+            "by_shape": [{k: r[k] for k in ("dtype", "R", "N", "view", "L",
+                                            "B", "ms", "bound_ms", "share")
+                          if k in r}
                          for r in rows]}
 
 

@@ -723,23 +723,44 @@ def test_layout_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
     stepper with its launches and gates (23c), MHD (23d), the planes
     stepper (23e), the replays (23f, both modes eager here) and the tp = 2
     'shard' and 'scatter' ranks (23g, this script with --layout-rank)."""
-    lk = chip_smoke.layout_kernels("cpu", Ns=(8,), Bs=(1, 2),
-                                   ragged=(1, 7), lane_Ns=(8, 9))
+    lk = chip_smoke.layout_kernels(
+        "cpu", Ns=(8,), Bs=(1, 2), ragged=(1, 6, 7), large_B=3,
+        offset_Ns=(6, 7), long_rows=((torch.complex64, 40),
+                                     (torch.complex128, 24)),
+        lane_Ns=(8, 9))
     assert {r["kernel"] for r in lk} == {"row_thomas", "shear_thomas_real",
                                          "shear_scan_real"}
-    assert len(lk) == 2 * (3 * 2 * 2 + 2 * 2)
+    # per dtype: 4 N x 2 layouts x 3 B, at 2 N x 2 layouts the offset and
+    # aligned d in both modes, 2 lane kernels x 2 N; and 2 long rows
+    assert len(lk) == 2 * (4 * 2 * 3 + 2 * 2 * 4 + 2 * 2) + 2
     assert all(r["max_abs_err"] == 0.0 for r in lk)
-    lt = chip_smoke.layout_kernel_times("cpu", N=16)
-    assert [(r["kernel"], r.get("R"), r.get("view")) for r in lt] == [
-        ("row_thomas", 16, None), ("row_thomas", 9, None),
-        ("shear_thomas_real", None, "planes"),
-        ("shear_thomas_real", None, "interleaved"),
-        ("shear_scan_real", None, "planes"),
-        ("shear_scan_real", None, "interleaved")]
+    modes = {(r["N"], r["offset"], r["mode"]) for r in lk if "mode" in r}
+    assert modes == {(n, o, m) for n in (6, 7) for o in (0, 1)
+                     for m in ("resident", "through_out")}
+    assert [(r["N"], r["R"], r["B"], r["resident"]) for r in lk
+            if "resident" in r] == [(40, 3, 2, None), (24, 3, 2, None)]
+    lt = chip_smoke.layout_kernel_times(
+        "cpu", N=16, row_times=(("wrapped", 16, 1, torch.complex64),
+                                ("rolls", 16, 1, torch.complex64),
+                                ("wrapped", 16, 4, torch.complex64),
+                                ("wrapped", 8, 1, torch.complex128),
+                                ("wrapped", 32, 1, torch.complex64)))
+    assert [(r["kernel"], r.get("R"), r.get("B"), r.get("view"))
+            for r in lt] == [
+        ("row_thomas", 16, 1, None), ("row_thomas", 9, 1, None),
+        ("row_thomas", 16, 4, None), ("row_thomas", 8, 1, None),
+        ("row_thomas", 32, 1, None),
+        ("shear_thomas_real", None, 2, "planes"),
+        ("shear_thomas_real", None, 1, "interleaved"),
+        ("shear_scan_real", None, 2, "planes"),
+        ("shear_scan_real", None, 1, "interleaved")]
     assert lt[0]["bound_ms"] == pytest.approx(28 * 16 * 16 / 3.35e9)
-    assert lt[2]["bound_ms"] == pytest.approx((8 * 2 + 12) * 16 * 17 / 3.35e9)
-    assert lt[3]["bound_ms"] == pytest.approx(20 * 16 * 34 / 3.35e9)
+    assert lt[2]["bound_ms"] == pytest.approx(76 * 16 * 16 / 3.35e9)
+    assert lt[3]["bound_ms"] == pytest.approx(56 * 8 * 8 / 3.35e9)
+    assert lt[5]["bound_ms"] == pytest.approx((8 * 2 + 12) * 16 * 17 / 3.35e9)
+    assert lt[6]["bound_ms"] == pytest.approx(20 * 16 * 34 / 3.35e9)
     assert all(r["share"] == r["bound_ms"] for r in lt)
+    assert all("plan" not in r for r in lt)  # a plan only on a card
     ls = chip_smoke.layout_steppers(
         "cpu", runs=((np.complex64, 16, 4), (np.complex128, 32, 4)),
         redirect_N=None)

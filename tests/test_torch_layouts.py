@@ -31,6 +31,7 @@ from quflow_tpu.ops.pallas_solve import pallas_base_cols, solve_factored_pallas
 from quflow_tpu.parallel import stepper as jst
 
 from quflow_tpu_torch import config
+from quflow_tpu_torch.ops import cuda_row_solve as crs
 from quflow_tpu_torch.ops import diagpack as tdp
 from quflow_tpu_torch.ops import tridiag as ttri
 from quflow_tpu_torch.ops.cuda_row_solve import row_thomas, row_thomas_reference
@@ -151,6 +152,55 @@ def test_row_reference_matches_pallas_k2(N, R):
     # a real rhs: each row its own system; the wrapper takes it on the CPU
     xr = row_thomas(tw, tb, tu, torch.from_numpy(d[1]))
     np.testing.assert_allclose(xr.numpy(), xj[1], atol=1e-11)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("N", [1, 2, 7, 100, 257, 511, 514, 1000, 1024, 4096,
+                               8192, 16384, 32768])
+def test_row_plan(N, dtype, sms):
+    """``row_thomas``'s launch plan over batches B in {1, 4, 16, 65535}, the
+    packs' row counts R in {N, N//2+1}, with and without y sent through
+    the output: a block's shared bytes within the card's 232 448
+    and equal to the kernel's layout, blocks that cover every row of every
+    batch entry once, a grid within its limits (x < 2^31, y <= 65535),
+    chunks of whole 16-byte lines, y resident exactly where one row fits."""
+    real = 4 if dtype == torch.complex64 else 8
+    row_fits = crs.shared_bytes(1, min(64, -(-N // 4) * 4), True, N,
+                                dtype) <= 232448
+    # a row fits where its values do, with room left for a small ring
+    assert row_fits == (2 * real * N + 4352 <= 232448)
+    for B in (1, 4, 16, 65535):
+        for R in sorted({N, N // 2 + 1}):
+            for through_out in (False, True):
+                p = crs.plan(B, R, N, dtype, sms, through_out)
+                assert p.shared_bytes == crs.shared_bytes(
+                    p.rows, p.chunk, p.resident, N, dtype) <= 232448
+                assert 1 <= p.rows <= min(16, R)
+                assert p.chunk % 4 == 0 and 4 <= p.chunk <= 256
+                gx = -(-R // p.rows)
+                assert p.blocks == gx * B and gx < 2 ** 31 and B <= 65535
+                starts = range(0, gx * p.rows, p.rows)
+                assert all(s < R for s in starts)  # no empty block
+                assert [r for s in starts for r in range(s, min(s + p.rows, R))
+                        ] == list(range(R))
+                assert p.resident == (row_fits and not through_out)
+                if p.resident:
+                    assert p.shared_bytes >= p.rows * 2 * real * N
+
+
+def test_row_plan_fills_the_card():
+    """At Euler N=1024 complex64 on 132 SMs, both packs' row solves run a
+    wave of 4-row blocks with y resident; a batch of 4 runs 16-row blocks."""
+    for R, blocks in ((1024, 256), (513, 129)):
+        assert crs.plan(1, R, 1024, torch.complex64, 132) == crs.Plan(
+            rows=4, chunk=256, resident=True,
+            shared_bytes=crs.shared_bytes(4, 256, True, 1024,
+                                          torch.complex64),
+            blocks=blocks)
+    p = crs.plan(4, 1024, 1024, torch.complex64, 132)
+    assert (p.rows, p.resident, p.blocks) == (16, True, 256)
+    assert not crs.plan(1, 3, 32768, torch.complex64, 132).resident
 
 
 @pytest.mark.parametrize("kernel", ["thomas", "scan"])
@@ -433,22 +483,87 @@ def test_mesh_resolutions():
 
 # --- on the card ---------------------------------------------------------------
 
+def _row_kernel_exact(w, binv, u, d):
+    before = row_thomas.launches
+    x = row_thomas(w, binv, u, d)
+    assert row_thomas.launches == before + 1
+    assert torch.equal(x, row_thomas_reference(w, binv, u, d))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("N", [1, 7, 100, 257, 1000])
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("N", [1, 6, 7, 100, 257, 514, 1000])
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
 def test_row_kernel_matches_reference_on_card(cuda, dtype, N, B):
     """``row_thomas`` against its plain version at R = N and N//2+1 (ragged
-    segments, one-row tiles, a batch): bit-equal, one launch a solve."""
+    chunks, rows and factor rows off the 16-byte lines at odd N and
+    N = 2 mod 4, one-row blocks, batches): bit-equal, one launch a
+    solve."""
     for layout in ("wrapped", "rolls"):
         w, binv, u = tst._real_factors(N, dtype, device=cuda, layout=layout)
         g = torch.Generator(device=cuda).manual_seed(N)
         d = torch.randn(B, w.shape[0], N, dtype=dtype, device=cuda,
                         generator=g)
-        before = row_thomas.launches
-        x = row_thomas(w, binv, u, d)
-        assert row_thomas.launches == before + 1
-        assert torch.equal(x, row_thomas_reference(w, binv, u, d))
+        _row_kernel_exact(w, binv, u, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["resident", "through_out"])
+@pytest.mark.parametrize("N", [6, 7, 257, 514, 1000])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_row_kernel_offsets_and_modes_on_card(cuda, monkeypatch, dtype, N,
+                                              mode):
+    """``row_thomas`` on a d whose storage starts one complex value into
+    its buffer (in complex64 a base off the 16-byte lines, so x leaves one
+    value aside of y) and on a contiguous one, with y resident and with the
+    plan forced to send y through the output: bit-equal, one launch a
+    solve."""
+    if mode == "through_out":
+        plan = crs.plan
+        monkeypatch.setattr(crs, "plan",
+                            lambda *a, **k: plan(*a, through_out=True))
+    for layout in ("wrapped", "rolls"):
+        w, binv, u = tst._real_factors(N, dtype, device=cuda, layout=layout)
+        R = w.shape[0]
+        g = torch.Generator(device=cuda).manual_seed(N)
+        buf = torch.randn(3 * R * N + 1, dtype=dtype, device=cuda,
+                          generator=g)
+        shifted = buf[1:].view(3, R, N)
+        assert shifted.is_contiguous()
+        _row_kernel_exact(w, binv, u, shifted)
+        _row_kernel_exact(w, binv, u, buf[:-1].view(3, R, N))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_row_kernel_long_rows_on_card(cuda, dtype):
+    """Rows too long for shared memory (32768 complex64, 16384 complex128
+    values): the plan's own rule sends y through the output; bit-equal to
+    the plain version on bounded factors."""
+    N = 32768 if dtype == torch.complex64 else 16384
+    assert not crs.plan(2, 3, N, dtype, crs._sms(cuda.index or 0)).resident
+    rd = torch.float32 if dtype == torch.complex64 else torch.float64
+    rng = np.random.RandomState(N)
+    w, binv, u = (torch.from_numpy(a).to(cuda, rd) for a in (
+        rng.uniform(-0.4, 0.4, (3, N)), rng.uniform(0.2, 0.6, (3, N)),
+        rng.uniform(-0.4, 0.4, (3, N))))
+    d = torch.from_numpy(rng.randn(2, 3, N) + 1j * rng.randn(2, 3, N)).to(
+        cuda, dtype)
+    _row_kernel_exact(w, binv, u, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,N", [(1, 1024, 1024), (1, 513, 1024),
+                                   (4, 1024, 1024), (1, 3, 32768)])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_row_geometry_reports_the_plan_on_card(cuda, dtype, B, R, N):
+    """The built library's own layout of a plan: the same rows, chunk,
+    residence, shared bytes and blocks as ``plan``."""
+    index = cuda.index or 0
+    p = crs.plan(B, R, N, dtype, crs._sms(index))
+    geo = crs.geometry(B, R, N, dtype, index)
+    assert geo == {**p._asdict(), "resident": int(p.resident),
+                   "sms": crs._sms(index)}
 
 
 @pytest.mark.cuda
