@@ -4,21 +4,25 @@
     python3 chip_smoke.py
 
 Run from the repository root; it needs one CUDA device, nvcc, g++, and
-nothing of JAX.  Twenty-three phases, one line each (phases 14-19, 22
-and 23 one for each of their parts); any failure ends the run with a
+nothing of JAX.  Twenty-four phases, one line each (phases 14-19 and
+22-24 one for each of their parts); any failure ends the run with a
 nonzero exit code and no result line.  The step runners replay CUDA graphs
 wherever their builders' rule captures (parallel/capture.py): phases
 4, 5, 7-10, 13-17, 20, 22 and 23c-f run captured, callable hooks with their
-steps (14a-c, 14e); each comparison with a column solve's plain version
-(phases 4, 7, 10, 14a-b, 14e, 15d, 22a-c) runs eagerly, inside
-``config.eager()``, since a captured plain solve is thousands of graph
-nodes; phases 21 and 22 hold the replays to eager runs.
+steps (14a-c, 14e); the adaptive runs (``isomp``, ``magmp`` and the
+builders under ``tol`` off a mesh: phases 10, 11, 13, 14c-d, 17e, 21, 22d-f
+and 24) run one launch a step, the fixed point a WHILE node on the card
+that ``loop_decide`` ends, and read their counts once a call; each
+comparison with a column solve's plain version (phases 4, 7, 10, 14a-b,
+14e, 15d, 22a-c) runs eagerly, inside ``config.eager()``, since a captured
+plain solve is thousands of graph nodes; phases 21, 22 and 24 hold the
+replays to eager runs.
 
 1. device  - the card's name and power limit, as nvidia-smi reports them;
 2. build   - nvcc builds csrc/shear_thomas.cu, csrc/shear_scan.cu,
-             csrc/shear_block.cu and csrc/row_thomas.cu for sm_90a, one
-             compiler each, started together (seconds, ptxas register
-             counts);
+             csrc/shear_block.cu, csrc/row_thomas.cu and csrc/graph_loop.cu
+             for sm_90a, one compiler each, started together (seconds,
+             ptxas register counts);
 3. kernel  - ``shear_thomas`` against its plain PyTorch version on the card
              at N in {512, 1024, 2048, 4096} (the two main-path shapes and
              larger ones), batch in {1, 4, 8}, complex64 and complex128:
@@ -63,7 +67,8 @@ nodes; phases 21 and 22 hold the replays to eager runs.
              tol 'auto', maxit 10, on the card), energy/enstrophy logged:
              ``shear_thomas`` launched once per fixed-point iteration (the
              stats' average times the steps) plus once per energy log, one
-             host sync per iteration; the Casimir drift under tol 'auto'
+             host sync a call (the device loop's sums; an iteration in the
+             CPU's host loop); the Casimir drift under tol 'auto'
              reported, and the gate: the same run at tol=1e-12, compsum,
              maxit=20 drifts tr(W^2), tr(W^3) <= 1e-10; 10 steps through
              the kernel equal to 10 through the plain column solve to
@@ -103,10 +108,10 @@ nodes; phases 21 and 22 hold the replays to eager runs.
     c. the same configuration in complex128 at N=512 as a stepper with
        tol=1e-300, minit=maxit=5 and as ``isomp`` with the callable
        Hamiltonian, forcing and Strang splitting, 20 steps each: within
-       1e-11 of max|W|; the stepper's host syncs, one an iteration;
+       1e-11 of max|W|; the stepper's host syncs, one a call (its counts);
     d. adaptive tol, Euler complex128, N=1024 - ``build_step_fn(tol=1e-12,
        minit=1, maxit=20, compsum=True)``, 100 steps in calls of 20: one
-       launch and one host sync an iteration, the trajectory within 1e-11
+       launch an iteration and one host sync a call, the trajectory within 1e-11
        relative of phase 10's gate run (``isomp``, the same tol), mean
        iterations a step within 0.1 of its, tr(W^2), tr(W^3) drift
        <= 1e-10;
@@ -296,10 +301,33 @@ nodes; phases 21 and 22 hold the replays to eager runs.
        iteration, and on 'shard' one ``all_to_all`` and one ``shift`` a
        pack and an unpack.
 
-Every path (phases 4, 5, 7-23) runs with every launch count set to 0 just
+24. the adaptive fixed point on the card (the device loop):
+    a. ``loop_decide`` against its plain version on crafted residual
+       sequences (the exit by tol and at rn == tol, the stall and rn ==
+       rn_old, NaN, minit, the cap, a float32 edge), float32 and float64,
+       two steps each: the state's words equal after every decision; its
+       ms a launch (CUDA-graph replay), the plain version's, its bound
+       (72 bytes), and the WHILE node's ms a pass with an empty body;
+    b. each run through the device loop against its ``config.eager()``
+       twin (the host loop), in turns (eager, loop, loop, eager): the
+       README quickstart ``solve(W0, stepsize=0.25, ...)`` with the default
+       ``isomp`` at N=256 and N=1024 in complex128 (100 steps, outputs
+       every 20), ``magmp`` c128 N=512, ``build_step_fn`` c128 N=1024
+       under tol 1e-12, MHD c64 N=1024 under tol 1e-6, and phase 22d's
+       custom-Hamiltonian stepper: bit-equal, the same iterations;
+       steps/s, host and device ms a step and the idle share (the loop's
+       device ms by CUDA events around the call, since the profiler need
+       not show every pass of a WHILE body; beside it the idle share from
+       the profile's kernel time, exact where it showed every pass),
+       iterations a step, host reads a call (<= 2), launches of the solve
+       and of ``loop_decide`` by counter and by profile.
+
+Every path (phases 4, 5, 7-24) runs with every launch count set to 0 just
 before it and read just after; a replay adds the launches its graph
 recorded at capture (the warm-up's and the capture's own are taken
-back).  Then a JSON line of the kernels
+back), a device loop the launches of its pieces once a step and of its
+iteration, and ``loop_decide``'s, once an iteration, from the counts it
+reads once a call.  Then a JSON line of the kernels
 (name, source, the TPU kernel it replaces, launches on each path, error,
 times and bound at the main path's shape; ``library_ms`` null, since no
 PyTorch call solves banded or tridiagonal systems) and, last, the result
@@ -343,6 +371,7 @@ from quflow_tpu_torch.models import EulerFlow, GlobalQGFlow, MHDFlow
 from quflow_tpu_torch.ops import (
     cuda_block_solve,
     cuda_build,
+    cuda_graph_loop,
     cuda_row_solve,
     cuda_scan_solve,
     cuda_solve,
@@ -363,6 +392,10 @@ from quflow_tpu_torch.ops.laplacian import (
     solve_viscdamp,
 )
 from quflow_tpu_torch.ops.tridiag import refine_m0, shear_operator
+from quflow_tpu_torch.ops.cuda_graph_loop import (
+    loop_decide,
+    loop_decide_reference,
+)
 from quflow_tpu_torch.ops.cuda_row_solve import row_thomas, row_thomas_reference
 from quflow_tpu_torch.ops.cuda_scan_solve import (
     shear_scan,
@@ -397,7 +430,7 @@ PEAK_OPS_PER_S = {torch.complex64: 67e12, torch.complex128: 34e12}
 
 
 def reset_counts():
-    for k in (*KERNELS, shear_block, row_thomas):
+    for k in (*KERNELS, shear_block, row_thomas, loop_decide):
         k.launches = 0
     for k in KERNELS:
         k.real_launches = 0
@@ -405,6 +438,13 @@ def reset_counts():
 
 def read_counts():
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def on_card(device):
+    """Whether runs on ``device`` go through the compiled runners: the
+    adaptive loops then read their counts once a call (the device loop),
+    where the CPU's host loop reads the residual once an iteration."""
+    return torch.device(device).type == "cuda"
 
 
 def ptxas_summary(log):
@@ -880,9 +920,11 @@ def reference_euler(device, N=1024, steps=100, steps_out=20,
         raise AssertionError(f"launches {counts}, expected {expected} of "
                              f"shear_thomas: {iterations} fixed-point "
                              f"iterations and {len(log.rows)} energy logs")
-    if syncs.calls != iterations:
+    # on the card the device loop reads each call's sums once
+    reads = len(log.chunks) if on_card(device) else iterations
+    if syncs.calls != reads:
         raise AssertionError(f"{syncs.calls} host syncs for {iterations} "
-                             "iterations")
+                             f"iterations in {len(log.chunks)} calls")
     if W.shape != (N, N) or W.dtype != np.complex128 or not np.isfinite(W).all():
         raise AssertionError(f"bad state: {W.shape} {W.dtype}")
     auto_drift = np.abs(casimirs(torch.from_numpy(W).to(device)) - c0
@@ -1202,7 +1244,8 @@ def hooked_vs_reference(device, N=512, steps=20, maxit=5):
     with SyncTimer(stepper) as syncs:
         Ws, _, _, iters = fn(Wt, z, z, 0.0)
     stepper_counts = read_counts()
-    if (iters != maxit).any() or syncs.calls != steps * maxit:
+    reads = 1 if on_card(device) else steps * maxit  # the counts, once
+    if (iters != maxit).any() or syncs.calls != reads:
         raise AssertionError(f"iterations {iters.tolist()}, {syncs.calls} "
                              "host syncs")
     if stepper_counts["shear_thomas"] != steps * (maxit + 2):
@@ -1246,9 +1289,10 @@ def adaptive_euler(device, gate, steps_out=20, tol=1e-12, maxit=20):
     iterations = int(torch.cat(series).sum())
     if counts != {"shear_thomas": iterations, "shear_scan": 0}:
         raise AssertionError(f"launches {counts} for {iterations} iterations")
-    if syncs.calls != iterations:
+    reads = len(series) if on_card(device) else iterations
+    if syncs.calls != reads:
         raise AssertionError(f"{syncs.calls} host syncs for {iterations} "
-                             "iterations")
+                             f"iterations in {len(series)} calls")
     W = st[0]
     rel = ratio(W, torch.from_numpy(gate["W"]).to(device))
     if not rel <= 1e-11:
@@ -2636,6 +2680,73 @@ def graph_pool_bytes(runner):
     return None if graphs is None else graphs.pool_bytes()
 
 
+def loop_of(runner):
+    """The parallel.capture.Loop a replayed run went through, or None: a
+    runner's adaptive program, or for isomp and magmp (no runner) the
+    captured loop last used."""
+    if runner is not None:
+        return next((p.loop for p in runner._programs.values()
+                     if hasattr(p, "loop")), None)
+    if isospectral._LOOPS:
+        return next(reversed(isospectral._LOOPS.values())).loop
+    return None
+
+
+def profiled_a_step(loop, kernel):
+    """The fewest launches of ``kernel`` a step that torch.profiler shows
+    of a composite step: each piece's once, the WHILE body's too.  CUPTI
+    reports at least one pass of a conditional body a graph launch, but
+    not always every pass (on an H100 with CUDA 12.8: one a launch for
+    ``isomp`` at N=256, every pass at N=1024), so a profile of a device
+    loop lies between this and the counters, which hold every pass."""
+    return sum(n for g in loop.pieces.values() for k, n in g.advance
+               if k is kernel)
+
+
+def profile_holds(seen, counted, loop):
+    """Whether a profile's ``seen`` launches a step agree with the
+    counters' ``counted``: equal, or for a device loop (``loop``) between
+    one WHILE pass a launch and the counters."""
+    if loop is None:
+        return round(seen, 6) == round(counted, 6)
+    return round(profiled_a_step(*loop), 6) <= round(seen, 6) <= round(
+        counted, 6)
+
+
+def loop_idle(kernel_ms, host_ms, solves, counted):
+    """A device loop's second idle share, from the profile's kernel time a
+    step: exact where the profile showed every pass of the WHILE body
+    (``solves`` equal to the counters'), else an upper bound.  The first,
+    1 - the call's CUDA-event span / host ms, is a lower bound: the span
+    also covers host work inside the call before the first launch."""
+    return dict(kernel_ms_a_step=kernel_ms,
+                idle_share_by_profile=1.0 - kernel_ms / host_ms,
+                profile_saw_every_pass=round(solves, 6) == round(counted, 6))
+
+
+def timed_turn(call, device):
+    """One turn of a run: ``call()``'s output, its host seconds (clock
+    around work that ends in a synchronize) and, on a card, the seconds
+    the card's timeline spans from just before the call to its end (CUDA
+    events), else None.  A device loop queues its steps back to back, so
+    the span is the card's time on them, node gaps included; the profiler
+    does not see every pass of a WHILE body."""
+    events = None
+    if on_card(device):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if events:
+        events[0].record()
+    out = call()
+    if events:
+        events[1].record()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    span = events[0].elapsed_time(events[1]) / 1e3 if events else None
+    return out, sec, span
+
+
 def padded_table(call, steps, device, pad=32):
     """kernel_table of ``call`` after ``pad`` spin kernels
     (``torch.cuda._sleep``) on a card: the profiler can lose a window's
@@ -2677,15 +2788,13 @@ def replay_vs_eager(device, cases=None, strict=False, top=0):
             call()  # builds, uploads, and the replay's capture
             torch.cuda.synchronize()
             first_s[mode] = time.perf_counter() - t0
+        spans = {}
         for mode in ("eager", "replay", "replay", "eager"):
             call = runs[mode][1]
-            torch.cuda.synchronize()
             reset_counts()
-            t0 = time.perf_counter()
-            out = call()
-            torch.cuda.synchronize()
-            turns.setdefault(mode, []).append(
-                steps / (time.perf_counter() - t0))
+            out, sec, span = timed_turn(call, device)
+            turns.setdefault(mode, []).append(steps / sec)
+            spans.setdefault(mode, []).append(span)
             n = all_counts()[kernel.__name__]
             if launches.setdefault(mode, n) != n:
                 raise AssertionError(f"{name} {mode}: launches {n} and "
@@ -2715,14 +2824,20 @@ def replay_vs_eager(device, cases=None, strict=False, top=0):
         profile_name = getattr(kernel, "profile_name", kernel.__name__)
         for mode, (runner, call) in runs.items():
             expected = launches[mode] / steps
+            loop = (loop_of(runner) if mode == "replay" and on_card(device)
+                    else None)
+            fewest = expected if loop is None else profiled_a_step(loop,
+                                                                   kernel)
             for _ in range(3):
                 table, _ = padded_table(call, steps, device)
                 solves = sum(c for k, (c, _) in table.items()
                              if profile_name in k)
-                if solves >= expected:
+                if solves >= fewest:
                     break
-            device_ms = sum(ms for _, ms in table.values())
+            kernel_ms = device_ms = sum(ms for _, ms in table.values())
             host_ms = 1e3 / float(np.median(turns[mode]))
+            if loop is not None:  # the turns' span: the profile misses passes
+                device_ms = 1e3 * float(np.median(spans[mode])) / steps
             names[mode] = set(table)
             captured = (runner.captured or runner.captured_iteration
                         if runner is not None else mode == "replay"
@@ -2733,12 +2848,20 @@ def replay_vs_eager(device, cases=None, strict=False, top=0):
                 kernels_a_step=sum(c for c, _ in table.values()),
                 solve_launches_a_step_profiled=solves,
                 solve_launches_a_step_counted=expected)
+            if loop is not None:
+                row[mode].update(device_loop=True, device_ms_by="events",
+                                 solve_launches_a_step_fewest_shown=fewest,
+                                 **loop_idle(kernel_ms, host_ms, solves,
+                                             expected))
             if top:
                 row[mode]["top_kernels"] = top_kernels(table, top)
-            if round(solves, 6) != round(expected, 6):
+            if not profile_holds(solves, expected,
+                                 None if loop is None else (loop, kernel)):
                 raise AssertionError(
                     f"{name} {mode}: the profile shows {solves} "
-                    f"{kernel.__name__} a step, the counters {expected}")
+                    f"{kernel.__name__} a step, the counters {expected}"
+                    + ("" if loop is None else
+                       f" (one WHILE pass a launch: {fewest})"))
         row["replay"]["graph_pool_bytes"] = graph_pool_bytes(
             runs["replay"][0])
         if strict and not row["bit_equal"]:
@@ -3664,6 +3787,335 @@ def layouts_tp(device, cases=TP_LAYOUT_CASES, steps=10, maxit=5,
     return out
 
 
+#: phase 24a's residual sequences: name -> (residuals, tol, maxit, minit),
+#: the edges of the exit rule (tests/test_torch_graph_loop.py's RULES)
+LOOP_SEQUENCES = {
+    "tol": ([1e-3, 1e-6, 1e-9, 1e-12], 1e-8, 10, 1),
+    "rn_equal_tol": ([1e-3, 1e-8, 1e-9], 1e-8, 10, 1),
+    "stall": ([1e-3, 1e-4, 2e-4, 1e-5], 1e-12, 10, 1),
+    "rn_equal_rn_old": ([1e-3, 1e-4, 1e-4, 1e-5], 1e-12, 10, 1),
+    "nan": ([float("nan")] * 6, 1e-8, 6, 1),
+    "minit": ([1e-20, 1e-30, 1e-40, 1e-50], 1e-8, 10, 3),
+    "maxit_cap": ([1.0 / (k + 1) for k in range(8)], 0.0, 5, 1),
+    "float_edge": ([1e-3, 1e-6, 1.0000001e-8, 9.9e-9], 1e-8, 10, 1),
+}
+#: bytes a decision moves that continues: rn (8), five words read (i,
+#: rn_old, tol, maxit, minit) and three written (i, rn_old, the decision)
+LOOP_DECIDE_BYTES = 8 + 8 * 8
+
+
+def loop_decide_vs_plain(device, reps=200, passes=64):
+    """Phase 24a: ``loop_decide`` against its plain version on the card,
+    each of :data:`LOOP_SEQUENCES` in float32 and float64 over two steps:
+    the state's words after every decision, equal (max abs difference of
+    the words 0).  Its time a launch by CUDA-graph replay, the plain
+    version's by CUDA events (a host read a decision), the bound (its
+    bytes over 3.35 TB/s), and the WHILE node's cost a pass: a composite
+    whose body is an empty graph, run to ``passes`` passes and to one
+    (a NaN residual never settles), by CUDA events."""
+    rows, worst = [], 0
+    for dtype in (torch.float32, torch.float64):
+        rnp = np.float32 if dtype == torch.float32 else np.float64
+        for name, (seq, tol, maxit, minit) in LOOP_SEQUENCES.items():
+            tol_r = float(rnp(tol))
+            sk = cuda_graph_loop.start_(cuda_graph_loop.new_state(device, 2),
+                                        tol_r, maxit, minit)
+            sr = cuda_graph_loop.start_(cuda_graph_loop.new_state("cpu", 2),
+                                        tol_r, maxit, minit)
+            decisions = 0
+            for _ in range(2):
+                for x in seq:
+                    go = loop_decide(torch.tensor(x, dtype=dtype,
+                                                  device=device), sk)
+                    loop_decide_reference(torch.tensor(x, dtype=dtype), sr)
+                    decisions += 1
+                    diff = (sk.cpu() - sr).abs().max().item()
+                    worst = max(worst, diff)
+                    if diff:
+                        raise AssertionError(
+                            f"loop_decide {name} {dtype}: words "
+                            f"{sk.cpu().tolist()} against the plain "
+                            f"{sr.tolist()}")
+                    if not bool(go):
+                        break
+            words = sr.tolist()
+            rows.append(dict(sequence=name, dtype=str(dtype).split(".")[1],
+                             decisions=decisions,
+                             counts=words[cuda_graph_loop.HEADER:],
+                             capped=words[cuda_graph_loop.CAPPED]))
+    rn = torch.tensor(float("nan"), dtype=torch.float64, device=device)
+    state = cuda_graph_loop.start_(cuda_graph_loop.new_state(device), 0.0,
+                                   1 << 30, 1)
+    ms = graph_ms(lambda: loop_decide(rn, state), reps)
+    plain_state = cuda_graph_loop.start_(cuda_graph_loop.new_state(device),
+                                         0.0, 1 << 30, 1)
+    plain_ms = cuda_ms(lambda: loop_decide_reference(rn, plain_state), 20)
+    return dict(sequences=rows, max_abs_err=float(worst), ms=ms,
+                plain_ms=plain_ms,
+                bound_ms=LOOP_DECIDE_BYTES / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", library_ms=None,
+                **while_pass_ms(device, passes))
+
+
+def while_pass_ms(device, passes, reps=20):
+    """The card's ms a pass of a WHILE node whose body is an empty graph
+    and ``loop_decide`` (``passes`` passes against one, a NaN residual),
+    and the ms of a launch of one pass, by CUDA events."""
+    if not on_card(device):
+        return dict(while_pass_ms=None, one_pass_launch_ms=None)
+    rn = torch.tensor(float("nan"), dtype=torch.float64, device=device)
+    sink = torch.zeros(1, device=device)
+    pool = torch.cuda.graph_pool_handle()
+    graphs = []
+    for piece in (lambda: None, lambda: sink.add_(1)):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, pool=pool):
+            piece()
+        graphs.append(graph)
+    state = cuda_graph_loop.new_state(device)
+    loop = cuda_graph_loop.Composite(None, None,
+                                     *(g.raw_cuda_graph() for g in graphs),
+                                     rn, state)
+    times = {}
+    for n in (1, passes):
+        cuda_graph_loop.start_(state, 0.0, n, 1)
+        loop.launch(reps)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        cuda_graph_loop.start_(state, 0.0, n, 1)
+        start.record()
+        loop.launch(reps)
+        end.record()
+        end.synchronize()
+        times[n] = start.elapsed_time(end) / reps
+        if state[cuda_graph_loop.ITERATIONS].item() != n * reps:
+            raise AssertionError(f"the empty WHILE ran "
+                                 f"{state.tolist()[:5]} for {n} passes")
+    loop.close()
+    return dict(while_pass_ms=(times[passes] - times[1]) / (passes - 1),
+                one_pass_launch_ms=times[1])
+
+
+def loop_cases(device, n_small=256, n_large=1024, n_mhd=512, steps=100,
+               steps_out=20, call_steps=20):
+    """Phase 24b's runs: name -> (make, steps a call, the column solve,
+    integrator calls a call).  ``make(eager)`` gives ``(runner or None,
+    call)``; ``call()`` runs from a fixed initial state and returns (the
+    final state, the iterations of each step or the mean a step)."""
+    def quickstart(N):
+        W0 = EulerFlow(N, np.complex128).random_initial(lmax=10, seed=42)
+
+        def make(eager):
+            def call():
+                chunks = []
+
+                def cb(W, delta_time=0.0, delta_steps=0, **stats):
+                    if delta_steps:
+                        chunks.append(delta_steps * stats["iterations"])
+
+                with config.eager() if eager else contextlib.nullcontext():
+                    # the README's call: no integrator, no device
+                    W = solve(W0.copy(), stepsize=0.25, steps=steps,
+                              steps_out=steps_out, callback=cb,
+                              progress_bar=False)
+                return torch.from_numpy(np.asarray(W)), sum(chunks) / steps
+            return None, call
+        return make
+
+    def reference(fn, S0, **kw):
+        dt = 0.25 * hbar(S0.shape[-1])
+
+        def make(eager):
+            def call():
+                stats = {}
+                with config.eager() if eager else contextlib.nullcontext():
+                    S = fn(S0, dt, steps=call_steps, stats=stats, **kw)
+                return S, stats["iterations"]
+            return None, call
+        return make
+
+    def stepper(build, S0, t0=(), **kw):
+        N = S0.shape[-1]
+        z = torch.zeros_like(S0)
+
+        def make(eager):
+            with config.eager() if eager else contextlib.nullcontext():
+                fn = build(N, 0.25 * hbar(N), steps=call_steps,
+                           device=device, **kw)
+
+            def call():
+                out = fn(S0, z, z, *t0)
+                return out[0], out[3]
+            return fn, call
+        return make
+
+    def card(x):
+        return torch.from_numpy(x).to(device)
+
+    builders, _, _ = hooked_builders(device, n_large, n_mhd)
+    custom, W_custom, _, _ = builders[f"custom_qg_c128_N{n_mhd}_tol"]
+
+    def custom_make(eager):
+        z = torch.zeros_like(W_custom)
+        with config.eager() if eager else contextlib.nullcontext():
+            fn = custom(call_steps)
+
+        def call():
+            out = fn(W_custom, z, z, 0.0)
+            return out[0], out[3]
+        return fn, call
+
+    calls = steps // steps_out
+    return {
+        f"quickstart_isomp_c128_N{n_small}": (
+            quickstart(n_small), steps, shear_thomas, calls),
+        f"quickstart_isomp_c128_N{n_large}": (
+            quickstart(n_large), steps, shear_thomas, calls),
+        f"magmp_c128_N{n_mhd}": (reference(
+            magmp, card(MHDFlow(n_mhd, np.complex128).random_initial(
+                lmax=10, seed=42))), call_steps, shear_thomas, 1),
+        f"euler_c128_N{n_large}_tol": (stepper(
+            build_step_fn, card(EulerFlow(n_large, np.complex128)
+                                .random_initial(lmax=10, seed=42)),
+            dtype=np.complex128, compsum=True, tol=1e-12, maxit=20),
+            call_steps, shear_thomas, 1),
+        f"mhd_c64_N{n_large}_tol": (stepper(
+            build_mhd_step_fn, card(MHDFlow(n_large, np.complex64)
+                                    .random_initial(lmax=10, seed=42)),
+            dtype=np.complex64, tol=1e-6, maxit=10),
+            call_steps, shear_thomas, 1),
+        f"custom_qg_c128_N{n_mhd}_tol": (custom_make, call_steps,
+                                         shear_thomas, 1),
+    }
+
+
+def device_loop(device, cases=None):
+    """Phase 24b: each run of :func:`loop_cases` through the device loop
+    (one launch a step, the exit on the card) against its
+    ``config.eager()`` twin (the host loop, a read an iteration), in turns
+    in one process (eager, loop, loop, eager) after a first call of each:
+    bit-equal states and equal iterations; steps/s of each turn; host ms a
+    step (the turns' median); the card's ms a step, eager from a profile
+    (the kernels' own time), the loop by CUDA events around a call (the
+    profile need not show every pass of a WHILE body), and the idle share,
+    for the loop also from the profile (:func:`loop_idle`); host reads
+    (``Tensor.item``/``tolist``) an integrator call, at most 2 in the loop
+    (its counts or stats, and the 'auto' tolerance); launches of the
+    column solve and of ``loop_decide`` by counter and by profile (eager:
+    equal; the loop: between every piece and one WHILE pass a launch, and
+    the counters)."""
+    cases = loop_cases(device) if cases is None else cases
+    rows = {}
+    for name, (make, steps, kernel, calls) in cases.items():
+        runs = {mode: make(mode == "eager") for mode in ("eager", "loop")}
+        first_s, outs, turns, launches, reads = {}, {}, {}, {}, {}
+        for mode, (_, call) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()  # builds, uploads, and the loop's capture
+            torch.cuda.synchronize()
+            first_s[mode] = time.perf_counter() - t0
+        spans = {}
+        for mode in ("eager", "loop", "loop", "eager"):
+            call = runs[mode][1]
+            reset_counts()
+            with HostCopies() as copies:
+                out, sec, span = timed_turn(call, device)
+            turns.setdefault(mode, []).append(steps / sec)
+            spans.setdefault(mode, []).append(span)
+            n = dict(solve=all_counts()[kernel.__name__],
+                     loop_decide=loop_decide.launches)
+            if launches.setdefault(mode, n) != n:
+                raise AssertionError(f"{name} {mode}: launches {n} and "
+                                     f"{launches[mode]} in two calls")
+            read = (copies.calls["item"] + copies.calls["tolist"]) / calls
+            reads[mode] = max(reads.get(mode, 0), read)
+            outs.setdefault(mode, out)
+        state = {m: o[0] for m, o in outs.items()}
+        iters = {m: o[1] for m, o in outs.items()}
+        per_step = {m: (float(i.float().mean()) if isinstance(i, torch.Tensor)
+                        else float(i)) for m, i in iters.items()}
+        bit_equal = torch.equal(state["loop"], state["eager"])
+        iterations_equal = (torch.equal(iters["loop"], iters["eager"])
+                            if isinstance(iters["loop"], torch.Tensor)
+                            else iters["loop"] == iters["eager"])
+        if not (bit_equal and iterations_equal):
+            diff = (state["loop"] - state["eager"]).abs().max().item()
+            raise AssertionError(f"{name}: the device loop differs from the "
+                                 f"host loop by {diff:.3e}, iterations "
+                                 f"{per_step}")
+        if not finite(state["loop"]):
+            raise AssertionError(f"{name}: non-finite state")
+        if launches["loop"]["solve"] != launches["eager"]["solve"]:
+            raise AssertionError(f"{name}: launches {launches}")
+        total = round(per_step["loop"] * steps)
+        row = dict(kernel=kernel.__name__, steps=steps, integrator_calls=calls,
+                   bit_equal=True, iterations_equal=True,
+                   iterations_a_step=per_step["loop"],
+                   launches_a_call=launches, first_call_s=first_s,
+                   steps_per_s=turns, host_reads_a_call=reads)
+        loop = None
+        if on_card(device):
+            loop = loop_of(runs["loop"][0])
+            if loop is None:
+                raise AssertionError(f"{name}: the loop run went through no "
+                                     "device loop")
+            if launches["loop"]["loop_decide"] != total:
+                raise AssertionError(f"{name}: loop_decide launched "
+                                     f"{launches['loop']['loop_decide']} "
+                                     f"times for {total} iterations")
+            if reads["loop"] > 2:
+                raise AssertionError(f"{name}: {reads['loop']} host reads a "
+                                     "call in the device loop")
+        profile_name = getattr(kernel, "profile_name", kernel.__name__)
+        for mode, (runner, call) in runs.items():
+            counted = launches[mode]["solve"] / steps
+            held = (loop, kernel) if mode == "loop" and loop else None
+            fewest = counted if held is None else profiled_a_step(*held)
+            for _ in range(3):
+                table, _ = padded_table(call, steps, device)
+                solves = sum(c for k, (c, _) in table.items()
+                             if profile_name in k)
+                if solves >= fewest:
+                    break
+            decides = sum(c for k, (c, _) in table.items()
+                          if "loop_decide" in k)
+            host_ms = 1e3 / float(np.median(turns[mode]))
+            kernel_ms = sum(ms for _, ms in table.values())
+            if held is not None:  # the turns' span: the profile misses passes
+                device_ms, by = 1e3 * float(np.median(spans[mode])) / steps, \
+                    "events"
+            else:
+                device_ms, by = kernel_ms, "profile"
+            row[mode] = dict(
+                host_ms_a_step=host_ms, device_ms_a_step=device_ms,
+                device_ms_by=by, idle_share=1.0 - device_ms / host_ms,
+                solve_launches_a_step_counted=counted,
+                solve_launches_a_step_profiled=solves,
+                loop_decide_a_step_profiled=decides)
+            if held is not None:
+                row[mode].update(solve_launches_a_step_fewest_shown=fewest,
+                                 **loop_idle(kernel_ms, host_ms, solves,
+                                             counted))
+            if not profile_holds(solves, counted, held):
+                raise AssertionError(
+                    f"{name} {mode}: the profile shows {solves} "
+                    f"{kernel.__name__} a step, the counters {counted}"
+                    + ("" if held is None else f", one WHILE pass a launch "
+                       f"{fewest}"))
+            if held is not None and not (
+                    1 <= round(decides, 6) <= round(per_step["loop"], 6)):
+                raise AssertionError(
+                    f"{name}: the profile shows {decides} loop_decide a "
+                    f"step, between 1 and {per_step['loop']} expected")
+        row["speedup"] = (float(np.median(turns["loop"]))
+                          / float(np.median(turns["eager"])))
+        rows[name] = row
+    return rows
+
+
+
 def layout_paths(key, ls, lm, pl, lr, ltp):
     """Phase 23's launches of the counter ``key`` on each path that made
     some: the layouts of 23c and 23d, the planes stepper (23e), the replays
@@ -3729,7 +4181,8 @@ def main():
     t0 = time.perf_counter()
     libs = cuda_build.build_all([cuda_solve.LIBRARY, cuda_scan_solve.LIBRARY,
                                  cuda_block_solve.LIBRARY,
-                                 cuda_row_solve.LIBRARY])
+                                 cuda_row_solve.LIBRARY,
+                                 cuda_graph_loop.LIBRARY])
     report = " ;; ".join(
         f"{lib.name}: {ptxas_summary(lib.with_suffix('.log').read_text())}"
         for lib in libs)
@@ -3902,13 +4355,22 @@ def main():
     print("phase 23g 'shard' and 'scatter' at tp = 2: " + json.dumps(ltp),
           flush=True)
 
+    ld = loop_decide_vs_plain(device)
+    print("phase 24a loop_decide vs plain: " + json.dumps(ld), flush=True)
+    dl = device_loop(device)
+    print("phase 24b device loop vs host loop: " + json.dumps(dl),
+          flush=True)
+
     def replayed(kernel):
-        """Phase 21's and 22's replayed paths of ``kernel``: launches of a
-        call."""
-        return {f"{prefix}_{name}": row["launches_a_call"]["replay"]
-                for prefix, rows in (("replay", replays),
-                                     ("hooked_replay", hooked))
-                for name, row in rows.items() if row["kernel"] == kernel}
+        """Phase 21's, 22's and 24's replayed paths of ``kernel``: launches
+        of a call."""
+        paths = {f"{prefix}_{name}": row["launches_a_call"]["replay"]
+                 for prefix, rows in (("replay", replays),
+                                      ("hooked_replay", hooked))
+                 for name, row in rows.items() if row["kernel"] == kernel}
+        paths.update({f"device_loop_{name}": row["launches_a_call"]["loop"][
+            "solve"] for name, row in dl.items() if row["kernel"] == kernel})
+        return paths
 
     def main_row(rows):
         return next(r for r in rows if r["dtype"] == "complex64"
@@ -4031,6 +4493,20 @@ def main():
                            if r["kernel"] == "shear_scan_real"),
         **layout_timing(lt, "shear_scan_real"),
         "library_ms": None,
+    }, {
+        "name": "loop_decide",
+        "route": "cuda",
+        "source": "quflow_tpu_torch/csrc/graph_loop.cu",
+        "replaces": "quflow_tpu/integrators/isospectral.py:187 (the cond of "
+                    "XLA's lax.while_loop, not Pallas; also mhd.py:87, "
+                    "parallel/stepper.py:806, 1435, 1922, 2232)",
+        "launches": dl["quickstart_isomp_c128_N256"]["launches_a_call"][
+            "loop"]["loop_decide"],
+        "launches_by_path": {
+            f"device_loop_{name}": row["launches_a_call"]["loop"][
+                "loop_decide"] for name, row in dl.items()},
+        **{k: ld[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "while_pass_ms")},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

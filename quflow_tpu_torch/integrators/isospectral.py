@@ -3,21 +3,25 @@
 Counterpart of quflow_tpu/integrators/isospectral.py (reference
 quflow/integrators/isospectral.py: ``isomp_fixedpoint`` :338-613,
 ``isomp_quasinewton`` :155-255, ``isomp_simple`` :258-335,
-``estimate_stepsize`` :121-148), on torch tensors.  The step loop is a
-Python loop.  The fixed-point loop keeps quflow_tpu's exit rule,
+``estimate_stepsize`` :121-148), on torch tensors.  The fixed-point loop
+keeps quflow_tpu's exit rule,
 
     stop when i >= minit and (rn <= tol or rn >= rn_old), or at i = maxit,
 
-with rn the inf-norm of the change of dW, read on the host once an
-iteration (one ``.item()``, the loop's only host sync), where quflow_tpu
-exits a device ``lax.while_loop``.  On a CUDA device the iteration, its
-hooks with it, is one CUDA graph (parallel/capture.py) replayed from that
-loop, and a callable Strang step is a graph of its own, replayed before
-and after the loop; they are kept between calls of the same configuration
-(the last few), as quflow_tpu keeps one jitted program for each set of
-hooks.  Inside ``config.eager()`` every kernel is issued from Python.
-Either way the counts and results are the same.  The update is the last
-iteration's 2 (PW - (PW)^H), Kahan-compensated with ``compsum``.
+with rn the inf-norm of the change of dW.  On a CUDA device each step is
+one launch of a CUDA graph (parallel/capture.Loop), the counterpart of
+quflow_tpu's jitted scan with a device ``lax.while_loop`` inside: the
+Strang half-step, ``reinitialize``'s reset and the midpoint time, then a
+WHILE node running the iteration (its hooks with it) until the kernel
+``loop_decide`` (ops/cuda_graph_loop.py) exits by the rule on the card,
+then the update, forcing, time and the second half-step.  A call launches
+its steps and reads its iteration sums once; the graphs are kept between
+calls of the same configuration (the last few), as quflow_tpu keeps one
+jitted program for each set of hooks.  Inside ``config.eager()`` and on
+the CPU the loop runs on the host, every kernel issued from Python and
+the residual read once an iteration (one ``.item()``).  Either way the
+counts and results are the same.  The update is the last iteration's
+2 (PW - (PW)^H), Kahan-compensated with ``compsum``.
 parallel.stepper.IsompTorch is the other integrator: a fixed iteration
 count with no sync, and other results.
 
@@ -202,10 +206,11 @@ def _residual_norm(dW_new, dW):
     return _norm_inf(dW - dW_new)
 
 
-def _read(rn):
-    """The residual ``rn`` (a 0-d tensor) as a Python float: the host sync
-    of an iteration."""
-    return rn.item()
+def _read(x):
+    """The tensor ``x`` on the host (``tolist``: a 0-d residual as a Python
+    float): the host sync of a run, once an iteration in the host loop,
+    once a call (the stats) in the device loop."""
+    return x.tolist()
 
 
 def _converge(iteration, tol, maxit, minit, reduce_max=None):
@@ -259,72 +264,107 @@ class _Loop:
 
 
 class _CapturedLoop:
-    """:class:`_Loop` on one captured iteration (parallel.capture.Iteration
-    over static W and dW, and a static 0-d midpoint time that a step fills
-    before its replays): a step copies its W in and replays the graph
-    until the exit rule, one host read of the residual an iteration.  The
-    rest it returns are the graph's static buffers.  A Strang half-step
-    is a graph of its own over a static state; it returns a fresh
-    tensor."""
+    """The steps of a run on a CUDA device, one launch each: a
+    parallel.capture.Loop over static W, dW and csum (and, where a hook
+    reads time, static 0-d times), the counterpart of quflow_tpu's jitted
+    scan over the steps with a ``lax.while_loop`` inside.  Its head is the
+    Strang half-step ``strang``, ``reinitialize``'s reset of dW and the
+    midpoint time; the fixed point ``iteration(W, dW, time)`` runs in the
+    composite's WHILE node; its tail is ``update(W, rest, csum) -> (W,
+    csum)`` from the last iteration's rest, the second Strang half-step
+    and the advance of time (``times`` = (dt/2, dt) in the working
+    precision, or None where no hook reads time).  The host reads the
+    call's iteration sums once, after its launches."""
 
-    def __init__(self, iteration, W, strang=None):
+    def __init__(self, iteration, update, W, strang=None,
+                 reinitialize=False, times=None):
         from ..parallel import capture
 
-        self.W, dW = capture.static_copy(W), torch.zeros_like(W)
-        self.time = torch.zeros((), dtype=W.real.dtype, device=W.device)
+        self.W = capture.static_copy(W)
+        self.csum = torch.zeros_like(W)
+        dW = torch.zeros_like(W)
         self.graphs = capture.Graphs(W.device)
-        self.it = capture.Iteration(
-            self.graphs, lambda Wh, d: iteration(Wh, d, self.time),
-            _residual_norm, self.W, dW)
-        if strang is not None:
-            self.S = capture.static_copy(W)
-            (self._strang,) = self.graphs.capture(
-                lambda: self.S.copy_(strang(self.S)))
+        self.t = self.thalf = None
+        if times is not None:
+            half, dt = times
+            self.t, self.thalf = (torch.zeros((), dtype=W.real.dtype,
+                                              device=W.device)
+                                  for _ in range(2))
 
-    def __call__(self, W, tol, maxit, minit, time=None):
+        def head():
+            if strang is not None:
+                self.W.copy_(strang(self.W))
+            if reinitialize:
+                dW.zero_()
+            if times is not None:
+                self.thalf.copy_(self.t + half)
+
+        def tail(rest):
+            Wn, cn = update(self.W, rest, self.csum)
+            if strang is not None:
+                Wn = strang(Wn)
+            self.W.copy_(Wn)
+            if cn is not self.csum:
+                self.csum.copy_(cn)
+            if times is not None:
+                self.t.copy_(self.t + dt)
+
+        has_head = strang is not None or reinitialize or times is not None
+        self.loop = capture.Loop(
+            self.graphs, lambda Wh, d: iteration(Wh, d, self.thalf),
+            _residual_norm, self.W, dW, tail, head if has_head else None)
+
+    def run(self, W, steps, tol, maxit, minit, t=0.0, callback=None):
+        """``steps`` steps from ``W`` (dW and csum from zero, time from
+        ``t``): one launch a step, or with ``callback`` one launch and then
+        ``callback(W_prev, W, rest)`` a step.  Returns (W, iterations, steps
+        at the cap) over the run, the sums read once."""
         self.W.copy_(W)
-        if time is not None:
-            self.time.fill_(time)
-        return (self.it.rest,
-                *_converge(lambda: _read(self.it()), tol, maxit, minit))
+        self.loop.dW.zero_()
+        self.csum.zero_()
+        if self.t is not None:
+            self.t.fill_(float(t))
+        self.loop.start(tol, maxit, minit)
+        if callback is None:
+            self.loop.launch(steps)
+        else:
+            for _ in range(steps):
+                W_prev = self.W.clone()
+                self.loop.launch(1)
+                callback(W_prev, self.W.clone(), self.loop.rest)
+        iterations, capped = self.loop.finish(lambda x: _read(x))
+        return self.W.clone(), iterations, capped
 
-    def strang(self, S):
-        self.S.copy_(S)
-        self._strang.replay()
-        return self.S.clone()
-
-    def reset(self):
-        self.it.dW.zero_()
+    def close(self):
+        self.loop.close()
 
 
 #: the captured loops of isomp and magmp between their calls, by the
 #: configuration their graph holds; each keeps a graph pool and its static
-#: state on the card, so only the last few are kept
+#: state on the card, so only the last few are kept, and an evicted one's
+#: composite is destroyed with it
 _LOOPS = OrderedDict()
 _LOOPS_KEPT = 4
 
 
 @contextlib.contextmanager
-def _fixed_point_loop(iteration, W, key, strang=None):
-    """The fixed-point loop of a run from a zero warm start, with its
-    Strang half-step ``strang`` (or None): eager (:class:`_Loop`) when
-    ``key`` is None, else the :class:`_CapturedLoop` of ``key``, captured
-    at the first run of that configuration (``key`` names all that its
-    graphs hold: the state's shape, dtype and device, the scalars, the
-    hooks and the column solve) and kept for the next."""
-    if key is None:
-        yield _Loop(iteration, W, strang)
-        return
+def _fixed_point_loop(key, make):
+    """The :class:`_CapturedLoop` of ``key``, ``make()`` at the first run
+    of that configuration (``key`` names all that its graphs hold: the
+    state's shape, dtype and device, the scalars, the hooks and the column
+    solve), kept for the next."""
     loop = _LOOPS.pop(key, None)  # a nested run of one key gets its own
     if loop is None:
-        loop = _CapturedLoop(iteration, W, strang)
-    loop.reset()
+        loop = make()
     try:
         yield loop
     finally:
+        other = _LOOPS.pop(key, None)
+        if other is not None and other is not loop:
+            other.close()
         _LOOPS[key] = loop
         while len(_LOOPS) > _LOOPS_KEPT:
-            _LOOPS.popitem(last=False)
+            _LOOPS.popitem(last=False)[1].close()
 
 
 def _capture_key(name, W, *config_):
@@ -369,19 +409,19 @@ def isomp_fixedpoint(
     The callback gets numpy for a numpy state, tensors for a tensor (never
     a buffer that a later step overwrites).
 
-    On a CUDA device (outside ``config.eager()``), each step's
-    fixed-point iteration is one CUDA graph (parallel/capture.py), its
-    ``hamiltonian`` and ``forcing`` in it, captured at the first call of a
-    configuration and replayed until the exit rule, which reads the
-    residual on the host once an iteration as the eager loop does; a
-    callable ``strang_splitting`` is a graph of its own, replayed before
-    and after, with the concrete h = dt/2 as quflow_tpu passes it.  The
-    hooks must then be capturable, as quflow_tpu requires them
-    "jax-traceable" (tensors in, a tensor on the state's device out, no
-    host read or copy; ``time`` a 0-d tensor on the card); their Python
-    runs only when a configuration is first captured.  The graphs are
-    kept for the next call with the same hooks (the last few).
-    Iteration counts and results are the eager loop's.
+    On a CUDA device (outside ``config.eager()``), each step is one
+    launch of a CUDA graph (parallel/capture.Loop), its ``hamiltonian``,
+    ``forcing`` and callable ``strang_splitting`` (with the concrete h =
+    dt/2 as quflow_tpu passes it) in it, captured at the first call of a
+    configuration; the fixed point exits on the card, and the call reads
+    its iteration sums once, after its launches (with a ``callback``, the
+    callback's own copies come after each launch).  The hooks must then
+    be capturable, as quflow_tpu requires them "jax-traceable" (tensors
+    in, a tensor on the state's device out, no host read or copy; ``time``
+    a 0-d tensor on the card); their Python runs only when a configuration
+    is first captured.  The graphs are kept for the next call with the
+    same hooks (the last few).  Iteration counts and results are the
+    eager loop's.
     """
     from ..parallel import capture
 
@@ -441,10 +481,42 @@ def isomp_fixedpoint(
     def host(A):
         return config.like_input(A, W)
 
+    def update(W, rest, csum):
+        """W after the step's update from the last iteration's rest: the
+        Kahan-compensated (or plain) W += 2 PWc, then the forcing."""
+        PWc, FW = rest
+        upd = 2.0 * PWc
+        if compsum:
+            # Kahan compensated summation W += upd
+            y = upd - csum
+            tS = W + y
+            csum = (tS - W) - y
+            W = tS
+        else:
+            W = W + upd
+        if forcing is not None:
+            W = W + 2.0 * FW
+        return W, csum
+
+    timed_hooks = ham_timed or force_timed
     key = _capture_key("isomp", Wt, skewh, vareps, float(dt_half), *hooks,
                        ham_timed, force_timed,
-                       None if strang is None else float(dt))
-    with _fixed_point_loop(iteration, Wt, key, strang) as loop:
+                       None if strang is None else float(dt), compsum,
+                       bool(reinitialize))
+    if key is not None:
+        def on_step(W_prev, W_new, rest):
+            callback(host(W_prev), host(2.0 * rest[0]))
+
+        def make():
+            return _CapturedLoop(iteration, update, Wt, strang, reinitialize,
+                                 (dt_half, dt_r) if timed_hooks else None)
+
+        with _fixed_point_loop(key, make) as loop:
+            Wt, total_iters, total_maxit = loop.run(
+                Wt, steps, tol_r, maxit, minit, t,
+                None if callback is None else on_step)
+    else:
+        loop = _Loop(iteration, Wt, strang)
         csum = torch.zeros_like(Wt) if compsum else None
         total_iters = total_maxit = 0
         for _ in range(steps):
@@ -454,25 +526,15 @@ def isomp_fixedpoint(
             if reinitialize:
                 loop.reset()
             (PWc, FW), i, hit = loop(Wt, tol_r, maxit, minit,
-                                     float(t + dt_half) if ham_timed
-                                     or force_timed else None)
-            upd = 2.0 * PWc
-            if compsum:
-                # Kahan compensated summation W += upd
-                y = upd - csum
-                tS = Wt + y
-                csum = (tS - Wt) - y
-                Wt = tS
-            else:
-                Wt = Wt + upd
-            if forcing is not None:
-                Wt = Wt + 2.0 * FW
+                                     float(t + dt_half) if timed_hooks
+                                     else None)
+            Wt, csum = update(Wt, (PWc, FW), csum)
             if timed:
                 t = t + dt_r
             if strang is not None:
                 Wt = loop.strang(Wt)
             if callback is not None:
-                callback(host(W_prev), host(upd))
+                callback(host(W_prev), host(2.0 * PWc))
             total_iters += i
             total_maxit += int(hit)
 

@@ -6,8 +6,9 @@ quflow/integrators/mhd.py: ``solve_mhd`` :10-18, ``magmp_fixedpoint``
 state[1] = Theta (magnetic flux function), evolving W' = [P, W] +
 [B, Theta], Theta' = [P, Theta] with P = Delta^-1 W and B = Delta Theta.
 Run like integrators/isospectral.py, with the same loop contract:
-quflow_tpu's exit rule, one host sync an iteration, the iteration and its
-hooks one CUDA graph on a card, the devices and hooks of isomp.  Each
+quflow_tpu's exit rule, on a card one graph launch a step with the exit on
+the card and one host read a call (an iteration in the host loop of the
+CPU and ``config.eager()``), the devices and hooks of isomp.  Each
 iteration solves W once (one column-kernel launch); the Laplacian of
 Theta is elementwise.
 """
@@ -20,6 +21,8 @@ from .. import config
 from ..ops.geometry import hbar
 from ..ops.laplacian import laplace, solve_poisson
 from .isospectral import (
+    _CapturedLoop,
+    _Loop,
     _auto_tol,
     _check_iterations,
     _capture_key,
@@ -86,9 +89,9 @@ def magmp_fixedpoint(
     the cap) a step, and 'tol' when it is 'auto'; ``callback(W_prev,
     W_new - W_prev)`` runs each step, with numpy for a numpy state.
 
-    On a CUDA device (outside ``config.eager()``), each step's fixed-point
-    iteration is one CUDA graph, ``hamiltonian`` and ``forcing`` in it,
-    replayed until the exit rule and kept for the next call with the same
+    On a CUDA device (outside ``config.eager()``), each step is one
+    launch of a CUDA graph, ``hamiltonian`` and ``forcing`` in it, the
+    fixed point exiting on the card, kept for the next call with the same
     hooks, as in ``isomp_fixedpoint``, whose rule for capturable hooks
     holds here."""
     from ..parallel import capture
@@ -135,25 +138,48 @@ def magmp_fixedpoint(
 
         return _iteration(Wh, dW, ham, force, vareps, float(dt_half))
 
+    def update(W, rest, csum):
+        """W after the step's update from the last iteration's rest."""
+        PWc, BTc, FW = rest
+        W_new = W + 2.0 * PWc
+        W_new[0] += 2.0 * BTc
+        if forcing is not None:
+            W_new = W_new + 2.0 * FW
+        return W_new, csum
+
+    def host(A):
+        return config.like_input(A, W)
+
+    timed_hooks = ham_timed or force_timed
     key = _capture_key("magmp", Wt, vareps, float(dt_half), hamiltonian,
-                       forcing, ham_timed, force_timed)
-    with _fixed_point_loop(iteration, Wt, key) as loop:
+                       forcing, ham_timed, force_timed, bool(reinitialize))
+    if key is not None:
+        def on_step(W_prev, W_new, rest):
+            callback(host(W_prev), host(W_new - W_prev))
+
+        def make():
+            return _CapturedLoop(iteration, update, Wt,
+                                 reinitialize=reinitialize,
+                                 times=(dt_half, dt_r) if timed_hooks
+                                 else None)
+
+        with _fixed_point_loop(key, make) as loop:
+            Wt, total_iters, total_maxit = loop.run(
+                Wt, steps, tol_r, maxit, minit, t,
+                None if callback is None else on_step)
+    else:
+        loop = _Loop(iteration, Wt)
         total_iters = total_maxit = 0
         for _ in range(steps):
             if reinitialize:
                 loop.reset()
-            (PWc, BTc, FW), i, hit = loop(Wt, tol_r, maxit, minit,
-                                          float(t + dt_half) if ham_timed
-                                          or force_timed else None)
-            W_new = Wt + 2.0 * PWc
-            W_new[0] += 2.0 * BTc
-            if forcing is not None:
-                W_new = W_new + 2.0 * FW
+            rest, i, hit = loop(Wt, tol_r, maxit, minit,
+                                float(t + dt_half) if timed_hooks else None)
+            W_new, _ = update(Wt, rest, None)
             if timed:
                 t = t + dt_r
             if callback is not None:
-                callback(config.like_input(Wt, W),
-                         config.like_input(W_new - Wt, W))
+                callback(host(Wt), host(W_new - Wt))
             Wt = W_new
             total_iters += i
             total_maxit += int(hit)

@@ -29,10 +29,24 @@ place where graphs are captured, replayed and counted.
   replay launches without Python.
   A graph records the counters' advance while it is captured,
   :meth:`Graph.replay` adds it once a replay, and the warm-up's and the
-  capture's own advances are taken back.
+  capture's own advances are taken back.  A :class:`Loop` adds its
+  pieces' advances once a step and its iteration's (and ``loop_decide``'s
+  one) once an iteration, from the counts it reads once a call.
+* :class:`Loop` is one adaptive step as one launch, the counterpart of
+  quflow_tpu's device ``lax.while_loop``: its pieces (the head, the warm
+  prefix, one fixed-point iteration, the tail) are captured as graphs that
+  PyTorch keeps (``CUDAGraph(keep_graph=True)``), and
+  ops/cuda_graph_loop.Composite joins their raw graphs into one, the
+  iteration inside a conditional WHILE node that the kernel
+  ``loop_decide`` ends by quflow_tpu's exit rule.  The host reads the
+  loop's counts once a call, after the launches.  Inside
+  :func:`emulation` a Loop on the CPU runs the same pieces eagerly and the
+  plain rule decides: the composite's emulation, which the tests hold to
+  the host loop.
 * :class:`Iteration` is one fixed-point iteration as a graph, replayed from
-  a host loop that keeps quflow_tpu's exit rule and reads the residual once
-  an iteration.
+  a host loop that keeps the exit rule and reads the residual once an
+  iteration: the loop of a dp mesh, whose residual is a max over its ranks
+  (one ``all_reduce`` an iteration).
 * A callable hook (Hamiltonian, forcing, Strang step) is captured with the
   piece that calls it, as quflow_tpu traces a "jax-traceable" hook into its
   program.  So it must be capturable: it takes tensors and returns a tensor
@@ -52,9 +66,12 @@ raises: nothing falls back to eager.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .. import config
+from ..ops import cuda_graph_loop
 from ..ops.cuda_block_solve import shear_block
 from ..ops.cuda_row_solve import row_thomas
 from ..ops.cuda_scan_solve import shear_scan
@@ -63,7 +80,7 @@ from ..ops.shear_solve import device_cache
 
 __all__ = ["available", "static_copy", "capturing", "call", "like", "hook",
            "device_time", "HookError", "Graph", "Graphs", "Iteration",
-           "KERNELS", "COUNTERS"]
+           "Loop", "emulation", "KERNELS", "COUNTERS"]
 
 #: the kernel wrappers whose ``launches`` a replay advances
 KERNELS = (shear_thomas, shear_scan, shear_block, row_thomas)
@@ -192,11 +209,13 @@ class Graphs:
         self.stream = None
         self.held = {}
 
-    def capture(self, *pieces):
+    def capture(self, *pieces, keep=False):
         """Run each of ``pieces`` (callables of no argument) once eagerly,
         then capture each into a :class:`Graph`; returns them in order.
-        A piece that fails inside its capture raises its own error, not
-        the capture's end that follows it."""
+        With ``keep`` each graph keeps its ``cudaGraph_t``
+        (``raw_cuda_graph()``) and is not instantiated: a :class:`Loop`
+        joins them into one.  A piece that fails inside its capture raises
+        its own error, not the capture's end that follows it."""
         global _depth
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
@@ -213,7 +232,8 @@ class Graphs:
                     for piece in pieces:
                         piece()
                 for piece in pieces:
-                    graph = torch.cuda.CUDAGraph()
+                    graph = (torch.cuda.CUDAGraph(keep_graph=True) if keep
+                             else torch.cuda.CUDAGraph())
                     start = _counts()
                     self._capture(graph, piece, current)
                     moved = [(k, a, n - s) for (k, a), s, n in
@@ -258,6 +278,30 @@ class Graphs:
                    if tuple(s["segment_pool_id"]) == tuple(self.pool))
 
 
+def _iteration_piece(owner, iterate, norm):
+    """The piece of one fixed-point iteration ``iterate(W, dW) -> (dW_new,
+    *rest)`` over ``owner``'s static ``W`` and ``dW``: it writes
+    ``norm(dW_new, dW)`` into ``owner.rn``, then dW_new into ``dW`` and the
+    rest into ``owner.rest`` (a None stays None), both allocated at the
+    warm-up, outside the capture."""
+    owner.rest = owner.rn = None
+
+    def piece():
+        dW_new, *rest = iterate(owner.W, owner.dW)
+        rn = norm(dW_new, owner.dW)
+        if owner.rn is None:  # at the warm-up, outside the capture
+            owner.rn = torch.empty_like(rn)
+            owner.rest = [None if r is None else static_copy(r)
+                          for r in rest]
+        owner.rn.copy_(rn)
+        owner.dW.copy_(dW_new)
+        for buf, r in zip(owner.rest, rest):
+            if buf is not None:
+                buf.copy_(r)
+
+    return piece
+
+
 class Iteration:
     """One fixed-point iteration ``iterate(W, dW) -> (dW_new, *rest)``
     captured over the static tensors ``W`` (read) and ``dW`` (read, then
@@ -268,23 +312,134 @@ class Iteration:
 
     def __init__(self, graphs, iterate, norm, W, dW):
         self.W, self.dW = W, dW
-        self.rest = self.rn = None
-
-        def piece():
-            dW_new, *rest = iterate(self.W, self.dW)
-            rn = norm(dW_new, self.dW)
-            if self.rn is None:  # at the warm-up, outside the capture
-                self.rn = torch.empty_like(rn)
-                self.rest = [None if r is None else static_copy(r)
-                             for r in rest]
-            self.rn.copy_(rn)
-            self.dW.copy_(dW_new)
-            for buf, r in zip(self.rest, rest):
-                if buf is not None:
-                    buf.copy_(r)
-
-        (self.graph,) = graphs.capture(piece)
+        (self.graph,) = graphs.capture(_iteration_piece(self, iterate, norm))
 
     def __call__(self):
         self.graph.replay()
         return self.rn
+
+
+#: the :func:`emulation` blocks open
+_emulating = 0
+
+
+@contextlib.contextmanager
+def emulation():
+    """Inside this block a :class:`Loop` on a device without CUDA graphs
+    (the CPU, where a test patches :func:`available`) runs its pieces
+    eagerly and decides by the plain rule; outside it such a Loop raises,
+    as every capture there does."""
+    global _emulating
+    _emulating += 1
+    try:
+        yield
+    finally:
+        _emulating -= 1
+
+
+class Loop:
+    """One adaptive step as one launch: ``head``, ``warm`` (each a
+    callable of no argument, or None), then fixed-point iterations
+    ``iterate(W, dW) -> (dW_new, *rest)`` over the static tensors ``W``
+    and ``dW`` while quflow_tpu's exit rule says so, then ``tail``.  An
+    iteration writes :attr:`rn` and :attr:`rest` as :class:`Iteration`
+    does; ``tail(rest)`` takes the last iteration's rest.
+
+    On a CUDA device the four pieces are captured into ``graphs``' pool
+    (kept graphs, each run once eagerly first: load the static tensors
+    after construction) and joined into one
+    ops/cuda_graph_loop.Composite, whose WHILE node runs the iteration and
+    ``loop_decide``; the CUDAGraph objects stay alive with it, since they
+    own the memory it addresses.  Elsewhere, inside :func:`emulation`,
+    the pieces run eagerly, in the same order, and
+    ops.cuda_graph_loop.loop_decide_reference decides; outside it the
+    capture raises.
+
+    A call: :meth:`start` (the rule's ``tol``, ``maxit``, ``minit``),
+    :meth:`launch` once or more (one launch a step, no host read), then
+    :meth:`finish`, the call's one host read (through ``read``) of the
+    counts; it advances the launch counters by what the launches ran.
+    ``capacity`` is the number of steps whose counts are kept."""
+
+    def __init__(self, graphs, iterate, norm, W, dW, tail, head=None,
+                 warm=None, capacity=0):
+        self.W, self.dW = W, dW
+        body = _iteration_piece(self, iterate, norm)
+        named = [(k, p) for k, p in (("head", head), ("warm", warm),
+                                     ("body", body),
+                                     ("tail", lambda: tail(self.rest)))
+                 if p is not None]
+        self.state = cuda_graph_loop.new_state(W.device, capacity)
+        self.capacity = capacity
+        self.composite = None
+        self._launched = 0
+        if W.device.type == "cuda" or not _emulating:
+            self.pieces = dict(zip(
+                (k for k, _ in named),
+                graphs.capture(*(p for _, p in named), keep=True)))
+            raw = {k: g.graph.raw_cuda_graph()
+                   for k, g in self.pieces.items()}
+            self.composite = cuda_graph_loop.Composite(
+                raw.get("head"), raw.get("warm"), raw["body"], raw["tail"],
+                self.rn, self.state)
+        else:
+            with torch.no_grad():
+                for _, piece in named:  # the warm-up of a capture
+                    piece()
+            self.pieces = dict(named)
+
+    def start(self, tol, maxit, minit):
+        """Start a call: no step done, the rule's ``tol`` (a float in the
+        working precision), ``maxit`` and ``minit``."""
+        cuda_graph_loop.start_(self.state, tol, maxit, minit)
+        self._launched = 0
+
+    def launch(self, steps=1):
+        """``steps`` adaptive steps, one launch each."""
+        self._launched += steps
+        if self.composite is not None:
+            self.composite.launch(steps)
+            return
+        p = self.pieces
+        with torch.no_grad():
+            for _ in range(steps):
+                for k in ("head", "warm"):
+                    if k in p:
+                        p[k]()
+                while True:
+                    p["body"]()
+                    if not bool(cuda_graph_loop.loop_decide_reference(
+                            self.rn, self.state)):
+                        break
+                p["tail"]()
+
+    def finish(self, read, counts=False):
+        """The call's one host read, ``read(tensor)`` of the loop's words
+        (a list): returns (iterations, steps at the cap) summed over the
+        call's steps and, with ``counts``, the list of each step's
+        iterations.  The launch counters advance by the pieces' launches
+        once a step and the iteration's once an iteration."""
+        n = self._launched
+        if counts and n > self.capacity:
+            raise ValueError(f"loop: {n} steps, counts kept for "
+                             f"{self.capacity}")
+        H = cuda_graph_loop.HEADER
+        words = read(self.state[:H + n] if counts
+                     else self.state[:cuda_graph_loop.CAPPED + 1])
+        iterations = words[cuda_graph_loop.ITERATIONS]
+        capped = words[cuda_graph_loop.CAPPED]
+        if self.composite is not None:
+            for k, g in self.pieces.items():
+                times = iterations if k == "body" else n
+                for kernel, c in g.advance:
+                    kernel.launches += c * times
+                for kernel, c in g.real:
+                    kernel.real_launches += c * times
+            cuda_graph_loop.loop_decide.launches += iterations
+        return (iterations, capped) + ((words[H:H + n],) if counts else ())
+
+    def close(self):
+        """Destroy the composite now (also done when the loop is
+        collected)."""
+        if self.composite is not None:
+            self.composite.close()

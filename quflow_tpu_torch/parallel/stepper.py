@@ -19,8 +19,10 @@ dissipation solved on the shear layout), adaptive ``tol``/``minit`` with
 per-step iteration counts, and a timed runner ``fn(W, dW, csum, t0)`` when
 a hook takes ``time``.  State stays complex on the device; the runners
 take and return complex tensors unless ``planes_io`` asks for quflow_tpu's
-split planes.  Under ``tol`` the loop reads its residual on the host once
-an iteration (:func:`_read`), as ``isomp`` does.
+split planes.  Under ``tol`` a step on a card exits its fixed point on the
+card and a call reads its counts once (:func:`_read`); the host loop of
+the CPU, ``config.eager()`` and a dp mesh reads the residual once an
+iteration, as ``isomp`` does there.
 
 Compiled runners.  Where quflow_tpu jits a ``lax.scan`` over the steps,
 a runner here replays CUDA graphs (parallel/capture.py), by a rule that
@@ -28,8 +30,12 @@ reads the configuration alone (:func:`_capture_mode`, visible as
 ``run.captured`` and ``run.captured_iteration``): on a CUDA device with
 no 'tp' > 1 mesh, the whole step is one graph replayed ``steps`` times a
 call; under ``tol`` the Strang halves, the warm prefix, one iteration and
-the update are graphs, and the host replays the iteration until the
-adaptive rule exits.  Callable hooks are captured with the step, as
+the update are graphs joined into one a step (parallel/capture.Loop), the
+iteration in a WHILE node that the kernel ``loop_decide`` ends by the
+adaptive rule on the card: ``steps`` launches and one read of the counts
+a call, the counterpart of quflow_tpu's ``lax.while_loop``.  On a dp mesh,
+whose residual is a max over the ranks, the host replays the iteration
+graph until the rule exits.  Callable hooks are captured with the step, as
 quflow_tpu traces them into its jit, so they must be capturable
 (parallel/capture.py); a timed runner's time lives on the card, loaded
 once a call and advanced by the graph.  'tp' > 1, the CPU and runners
@@ -663,10 +669,11 @@ def _residual_norm(dW_new, dW):
     return (dW_new - dW).abs().sum(-1).max()
 
 
-def _read(rn):
-    """The residual ``rn`` (a 0-d tensor) as a Python float: the host sync
-    of an adaptive iteration."""
-    return rn.item()
+def _read(x):
+    """The tensor ``x`` on the host (``tolist``: a 0-d residual as a Python
+    float): the host sync of an adaptive run, once an iteration in a host
+    loop, once a call (the counts) in a device loop."""
+    return x.tolist()
 
 
 def _fixed_point(iterate, W, dW, maxit, tol, minit, reduce_max=None,
@@ -778,8 +785,10 @@ def _capture_mode(device, mesh, tol):
       mesh or one whose 'tp' axis is 1 (over 'dp' alone a fixed ``maxit``
       runs no collective);
     * 'iteration' - the same with ``tol``: the Strang half-steps, the warm
-      prefix, one full-precision iteration and the update are graphs, and
-      the host replays the iteration until the adaptive rule exits;
+      prefix, one full-precision iteration and the update are graphs,
+      joined into one launch a step whose fixed point exits on the card
+      (:class:`_AdaptiveLoop`), or on a dp mesh replayed by the host until
+      the adaptive rule exits (:class:`_AdaptiveGraphs`);
     * None - eager, every kernel issued from Python: the CPU, a 'tp' > 1
       mesh (its row gathers go through gloo's host copies), and any runner
       built or first called inside ``config.eager()``.
@@ -880,75 +889,124 @@ class _StepGraph:
         return (*(buf.clone() for buf in self.state), t, None)
 
 
-class _AdaptiveGraphs:
-    """A step under ``tol`` as graphs (mode 'iteration'): the first Strang
-    half-step, the warm prefix, one full-precision iteration
-    (parallel.capture.Iteration, its residual into a 0-d tensor) and the
-    update with the second half-step.  The host replays the iteration until
-    the adaptive rule exits, one host read of the residual an iteration
-    (and under a mesh its max over the ranks), as the eager loop does.  A
-    timed runner's time and midpoint time are static 0-d tensors: the head
-    forms the midpoint time, the tail advances time."""
+class _AdaptivePieces:
+    """The pieces of a step under ``tol`` (mode 'iteration') over static
+    W, dW and csum: :meth:`head` the first Strang half-step and, for a
+    timed runner, the midpoint time; :meth:`warm` the warm prefix;
+    :meth:`iterate` one full-precision iteration; :meth:`tail` the update
+    from the last iteration's rest with the second half-step and, timed,
+    the advance of time.  A timed runner's time and midpoint time are
+    static 0-d tensors; an untimed runner's midpoint time is a host scalar
+    that no hook reads."""
 
-    def __init__(self, step, graphs, W, dW, csum, t):
+    def __init__(self, step, W, dW, csum, t):
         self.step = step
         self.t = _static_time(t)
-        thalf = t + step.half_dt
+        self.thalf = t + step.half_dt
         if self.t is not None:
-            thalf = capture.static_copy(thalf)
-        self.W, self.csum = (capture.static_copy(x) for x in (W, csum))
+            self.thalf = capture.static_copy(self.thalf)
+        self.W, self.dW, self.csum = (capture.static_copy(x)
+                                      for x in (W, dW, csum))
         self.Wh = self.W if step.strang is None else capture.static_copy(W)
-        self.it = capture.Iteration(
-            graphs, lambda Wh, d: step.iterate(Wh, d, thalf, step.mm),
-            _residual_norm, self.Wh, capture.static_copy(dW))
+        self.has_head = step.strang is not None or self.t is not None
 
-        def head():
-            if step.strang is not None:
-                self.Wh.copy_(step.strang(self.W))
-            if self.t is not None:
-                thalf.copy_(self.t + step.half_dt)
+    def head(self):
+        if self.step.strang is not None:
+            self.Wh.copy_(self.step.strang(self.W))
+        if self.t is not None:
+            self.thalf.copy_(self.t + self.step.half_dt)
 
-        def warm():
-            self.it.dW.copy_(step.warm(self.Wh, self.it.dW, thalf))
+    def warm(self):
+        self.dW.copy_(self.step.warm(self.Wh, self.dW, self.thalf))
 
-        def tail():
-            Wn, cn = step.tail(self.Wh, self.it.rest, self.csum)
-            self.W.copy_(Wn)
-            self.csum.copy_(cn)
-            if self.t is not None:
-                self.t.copy_(self.t + step.dt)
+    def iterate(self, Wh, dW):
+        return self.step.iterate(Wh, dW, self.thalf, self.step.mm)
 
-        has_head = step.strang is not None or self.t is not None
-        pieces = [p for p, on in ((head, has_head),
-                                  (warm, step.warm_iters > 0),
-                                  (tail, True)) if on]
-        captured = graphs.capture(*pieces)
-        self.tail = captured.pop()
-        self.warm = captured.pop() if step.warm_iters else None
-        self.head = captured.pop() if has_head else None
+    def tail(self, rest):
+        Wn, cn = self.step.tail(self.Wh, rest, self.csum)
+        self.W.copy_(Wn)
+        self.csum.copy_(cn)
+        if self.t is not None:
+            self.t.copy_(self.t + self.step.dt)
 
-    def __call__(self, W, dW, csum, t, steps):
-        step = self.step
-        for buf, x in ((self.W, W), (self.it.dW, dW), (self.csum, csum)):
+    def load(self, W, dW, csum, t):
+        for buf, x in ((self.W, W), (self.dW, dW), (self.csum, csum)):
             buf.copy_(x)
         if self.t is not None:
             self.t.copy_(t)
+
+    def result(self, t, steps, counts):
+        """The call's outputs: fresh W, dW, csum, the time after ``steps``
+        steps from ``t``, and the counts."""
+        if self.t is not None:
+            t = self.t.clone()
+        else:
+            for _ in range(steps):
+                t = t + self.step.dt
+        return (self.W.clone(), self.dW.clone(), self.csum.clone(), t,
+                counts)
+
+
+class _AdaptiveGraphs(_AdaptivePieces):
+    """A step under ``tol`` on a dp mesh: the head, the warm prefix and the
+    tail as graphs, and the iteration (parallel.capture.Iteration, its
+    residual into a 0-d tensor), which the host replays until the adaptive
+    rule exits, one host read of the residual's max over the ranks an
+    iteration, as the eager loop does."""
+
+    def __init__(self, step, graphs, W, dW, csum, t):
+        super().__init__(step, W, dW, csum, t)
+        self.it = capture.Iteration(graphs, self.iterate, _residual_norm,
+                                    self.Wh, self.dW)
+        pieces = [p for p, on in (
+            (self.head, self.has_head), (self.warm, step.warm_iters > 0),
+            (lambda: self.tail(self.it.rest), True)) if on]
+        captured = graphs.capture(*pieces)
+        self.tail_graph = captured.pop()
+        self.warm_graph = captured.pop() if step.warm_iters else None
+        self.head_graph = captured.pop() if self.has_head else None
+
+    def __call__(self, W, dW, csum, t, steps):
+        step = self.step
+        self.load(W, dW, csum, t)
         counts = []
         for _ in range(steps):
-            if self.head is not None:
-                self.head.replay()
-            if self.warm is not None:
-                self.warm.replay()
+            for graph in (self.head_graph, self.warm_graph):
+                if graph is not None:
+                    graph.replay()
             counts.append(_converge(lambda: _read(self.it()), step.tol,
                                     step.maxit, step.minit,
                                     step.reduce_max)[0])
-            self.tail.replay()
-            if self.t is None:
-                t = t + step.dt
-        if self.t is not None:
-            t = self.t.clone()
-        return (self.W.clone(), self.it.dW.clone(), self.csum.clone(), t,
-                counts)
+            self.tail_graph.replay()
+        return self.result(t, steps, counts)
+
+
+class _AdaptiveLoop(_AdaptivePieces):
+    """A step under ``tol`` as one launch (mode 'iteration', no mesh): the
+    pieces joined into one parallel.capture.Loop, the full-precision
+    iteration inside its WHILE node, which ``loop_decide`` ends by the
+    adaptive rule on the card.  A call launches ``steps`` steps and reads
+    their counts once; it holds the counts of up to ``capacity`` steps
+    (the runner's ``steps``)."""
+
+    def __init__(self, step, graphs, W, dW, csum, t, capacity):
+        if W.device.type != "cuda" and not isinstance(t, torch.Tensor):
+            # the emulation runs its pieces again each step: a host time
+            # would stay frozen in them, so it lives in a tensor there too
+            t = torch.tensor(t)
+        super().__init__(step, W, dW, csum, t)
+        self.loop = capture.Loop(
+            graphs, self.iterate, _residual_norm, self.Wh, self.dW, self.tail,
+            self.head if self.has_head else None,
+            self.warm if step.warm_iters else None, capacity=capacity)
+
+    def __call__(self, W, dW, csum, t, steps):
+        step = self.step
+        self.load(W, dW, csum, t)
+        self.loop.start(step.tol, step.maxit, step.minit)
+        self.loop.launch(steps)
+        _, _, counts = self.loop.finish(lambda x: _read(x), counts=True)
+        return self.result(t, steps, counts)
 
 
 class _Runner:
@@ -1026,8 +1084,15 @@ class _Runner:
     def _program(self, W, dW, csum, t):
         key = tuple((tuple(x.shape), x.dtype, x.device) for x in (W, dW, csum))
         if key not in self._programs:
-            make = _StepGraph if self.captured else _AdaptiveGraphs
-            self._programs[key] = make(self.step, self.graphs, W, dW, csum, t)
+            if self.captured:
+                program = _StepGraph(self.step, self.graphs, W, dW, csum, t)
+            elif self.step.reduce_max is not None:  # a dp mesh
+                program = _AdaptiveGraphs(self.step, self.graphs, W, dW,
+                                          csum, t)
+            else:
+                program = _AdaptiveLoop(self.step, self.graphs, W, dW, csum,
+                                        t, self.steps)
+            self._programs[key] = program
         return self._programs[key]
 
 
@@ -1138,8 +1203,10 @@ def build_step_fn(
     Capture (the counterpart of quflow_tpu's jit): on a CUDA device and
     with no mesh with 'tp' > 1, the runner replays CUDA graphs
     (:func:`_capture_mode`): without ``tol`` one graph of the whole step
-    (``run.captured``), with ``tol`` graphs of its pieces and one host
-    read an iteration (``run.captured_iteration``).  A tp > 1 mesh, and a
+    (``run.captured``), with ``tol`` one launch a step, its pieces'
+    graphs joined around a WHILE node that exits on the card, and one host
+    read a call (``run.captured_iteration``; on a dp mesh the host replays
+    the iteration, one read an iteration).  A tp > 1 mesh, and a
     runner built or first called inside ``config.eager()``, runs
     eagerly.  Callable hooks are captured with the step, as quflow_tpu
     requires them "jax-traceable": tensors in, a tensor on the state's

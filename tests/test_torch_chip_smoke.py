@@ -626,10 +626,56 @@ def test_phase_list_names_22():
 
 def test_phase_list_names_23():
     doc = chip_smoke.__doc__
-    assert "Twenty-three phases" in doc and "\n23. the row-packed" in doc
-    assert "phases 4, 5, 7-23" in doc
+    assert "Twenty-four phases" in doc and "\n23. the row-packed" in doc
+    assert "phases 4, 5, 7-24" in doc
     for part in "abcdefg":
-        assert f"\n    {part}. " in doc.split("\n23. ")[1]
+        assert f"\n    {part}. " in doc.split("\n23. ")[1].split("\n24. ")[0]
+
+
+def test_phase_list_names_24():
+    doc = chip_smoke.__doc__
+    assert "\n24. the adaptive fixed point on the card" in doc
+    for part in "ab":
+        assert f"\n    {part}. " in doc.split("\n24. ")[1]
+    assert "csrc/graph_loop.cu" in doc
+
+
+def test_device_loop_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
+    """Phase 24 at small N: ``loop_decide`` (its plain version on the CPU)
+    through every crafted sequence, both dtypes, words equal; every run of
+    24b in both modes (both eager on the CPU) equal, with equal launches
+    and iterations, the profile's solve count held to the counters'."""
+    from quflow_tpu_torch.ops import cuda_graph_loop
+
+    ld = chip_smoke.loop_decide_vs_plain("cpu", reps=2)
+    assert len(ld["sequences"]) == 2 * len(chip_smoke.LOOP_SEQUENCES)
+    assert ld["max_abs_err"] == 0.0 and ld["bound_by"] == "bytes"
+    assert ld["bound_ms"] == pytest.approx(72 / 3.35e9, rel=1e-12)
+    assert ld["while_pass_ms"] is None  # measured on the card only
+    by = {(r["sequence"], r["dtype"]): r for r in ld["sequences"]}
+    assert by["nan", "float64"]["counts"] == [6, 6]
+    assert by["nan", "float64"]["capped"] == 2
+    assert by["maxit_cap", "float32"]["counts"] == [5, 5]
+    assert by["minit", "float64"]["counts"] == [3, 3]
+    monkeypatch.setattr(chip_smoke, "kernel_table", _counted_kernel_table)
+    cases = chip_smoke.loop_cases("cpu", n_small=12, n_large=16, n_mhd=14,
+                                  steps=4, steps_out=2, call_steps=2)
+    assert len(cases) == 6
+    rows = chip_smoke.device_loop("cpu", cases)
+    assert set(rows) == set(cases)
+    for name, row in rows.items():
+        assert row["bit_equal"] and row["iterations_equal"], name
+        assert row["launches_a_call"]["loop"] == \
+            row["launches_a_call"]["eager"], name
+        assert row["launches_a_call"]["loop"]["solve"] > 0, name
+        for mode in ("eager", "loop"):
+            assert (row[mode]["solve_launches_a_step_profiled"]
+                    == row[mode]["solve_launches_a_step_counted"])
+            assert row[mode]["device_ms_by"] == "profile"
+        # the host loop reads its residual once an iteration
+        assert row["host_reads_a_call"]["eager"] >= row["iterations_a_step"]
+    assert rows["quickstart_isomp_c128_N12"]["integrator_calls"] == 2
+    assert cuda_graph_loop.loop_decide.launches == 0
 
 
 def test_hooked_cases_capture_under_the_card_rule(monkeypatch):
