@@ -272,14 +272,21 @@ replays to eager runs.
        forced to send y through the output; on rows too long for shared
        memory (c64 N=32768, c128 N=16384); one launch a solve; the
        real-lane entries of ``shear_thomas`` and ``shear_scan`` on float
-       planes (L = N+1) and on the interleaved view (L = 2(N+1)), there
-       also against the complex entry on the same bytes: bit-equal;
+       planes (L = N+1, B = 2) and on the interleaved view (L = 2(N+1)),
+       there also against the complex entry on the same bytes, at N in
+       {7, 100, 512, 1000, 1024, 4096}, both dtypes, at N = 100 and 1000
+       on a d one value into its buffer, and each side of the first edge
+       above N = 1024 of each entry's launch plan (y resident for
+       ``shear_thomas``; mode, late or cluster for ``shear_scan``):
+       bit-equal, one launch a solve;
     b. their times by CUDA-graph replay: ``row_thomas`` at Euler N=1024
        c64 for R = 1024 and 513, at B = 4, at c128 N=512 and at N=4096,
-       each with its launch plan; the real lanes at N=1024 on planes,
-       B = 2, and on the interleaved view; each beside its bound ((16 B +
-       12) R N bytes; (8 B + 12) N L in float32) and share, the plain
-       version's ms and the launch's geometry;
+       each with its launch plan; the real lanes at N=1024 on float32
+       planes, B = 2, and on the interleaved view, on the float64
+       interleaved view at N=512 and on float32 planes at N=4096; each
+       beside its bound ((16 B + 12) R N bytes; (8 B + 12) N L in
+       float32, twice in float64) and share, the plain version's ms, the
+       launch plan and the library's geometry of it;
     c. the Euler stepper in each layout ('wrapped', 'rolls', 'pallas',
        'scatter', 'shear_pallas_il' and its scan twin, and 'shear' under
        QUFLOW_SHEAR_INTERLEAVE=1), complex64 N=1024 100 steps (enstrophy
@@ -3217,7 +3224,8 @@ def layout_kernels(device, Ns=(512, 1024, 2048, 4096), Bs=(1, 4),
                    offset_Ns=(6, 7, 257, 514, 1000),
                    long_rows=((torch.complex64, 32768),
                               (torch.complex128, 16384)),
-                   lane_Ns=(512, 1024, 4096)):
+                   lane_Ns=(7, 100, 512, 1000, 1024, 4096),
+                   lane_offset_Ns=(100, 1000), lane_edge_Ns=None):
     """Phase 23a: ``row_thomas`` against its plain version at R = N and
     N//2+1, every N of ``Ns`` and ``ragged``, B in ``Bs`` (and ``large_B``
     up to N = 1024), both dtypes; at ``offset_Ns`` on a d whose storage
@@ -3225,11 +3233,9 @@ def layout_kernels(device, Ns=(512, 1024, 2048, 4096), Bs=(1, 4),
     (B = 3), each with y resident and with the plan forced to send y
     through the output; rows too long for shared memory (``long_rows``,
     R = 3, B = 2, bounded random factors); the real-lane entries of
-    ``shear_thomas`` and ``shear_scan`` against theirs on float planes
-    (L = N+1, B = 2) and on the interleaved view (L = 2(N+1), factor
-    columns duplicated), and there against the complex entry on the same
-    bytes: every comparison bit-equal, one ``row_thomas`` launch a
-    solve."""
+    ``shear_thomas`` and ``shear_scan`` against theirs (:func:`lane_kernels`
+    with ``lane_Ns``, ``lane_offset_Ns`` and ``lane_edge_Ns``): every
+    comparison bit-equal, one ``row_thomas`` launch a solve."""
     rows = []
 
     def exact(w, binv, u, d, **row):
@@ -3271,34 +3277,114 @@ def layout_kernels(device, Ns=(512, 1024, 2048, 4096), Bs=(1, 4),
         d = torch.randn(2, 3, N, dtype=dtype, device=device, generator=g)
         exact(w, binv, u, d, dtype=str(dtype)[6:], N=N, R=3, B=2,
               resident=_row_resident(device, 2, 3, N, dtype))
-    for dtype in (torch.complex64, torch.complex128):
+    return rows + lane_kernels(device, lane_Ns, lane_offset_Ns, lane_edge_Ns)
+
+
+def lane_views(N, dtype, device, seed, offset=False):
+    """The Poisson factors and a seeded rhs of both real-lane views at N:
+    ("planes", (w, binv, u), d (2, N, N+1)) and ("interleaved", factors
+    with each column twice, d (1, N, 2(N+1))), real ``dtype``; with
+    ``offset``, each d a view that starts one value into its buffer."""
+    cplx = torch.complex64 if dtype == torch.float32 else torch.complex128
+    w, binv, u = _real_factors(N, cplx, device=device)
+    il = tuple(f.repeat_interleave(2, dim=-1) for f in (w, binv, u))
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for view, fac, shape in (("planes", (w, binv, u), (2, N, N + 1)),
+                             ("interleaved", il, (1, N, 2 * (N + 1)))):
+        size = math.prod(shape)
+        buf = torch.randn(size + int(offset), dtype=dtype, device=device,
+                          generator=g)
+        out.append((view, fac, buf[int(offset):].view(shape)))
+    return out
+
+
+def lane_plan_of(kernel, d):
+    """The launch plan the real-lane entry of ``kernel`` takes for ``d`` on
+    its card, as a dict (None on the CPU, which runs the plain version)."""
+    if not d.is_cuda:
+        return None
+    B, (N, L) = d.shape[0], d.shape[-2:]
+    sms = cuda_solve.sms(d.device.index or 0)
+    plan = (cuda_solve.lane_plan if kernel is shear_thomas
+            else cuda_scan_solve.lane_plan)
+    return plan(B, N, L, d.dtype, sms)._asdict()
+
+
+def lane_edges(kernel, view, dtype, sms, lo=1025, hi=4096):
+    """(N - 1, N) for the first N in [lo, hi] at which the launch plan of
+    ``kernel``'s real-lane entry on ``view`` changes (``shear_thomas``: y
+    resident or not; ``shear_scan``: mode, late or cluster size), or ()."""
+    def key(N):
+        B, L = (2, N + 1) if view == "planes" else (1, 2 * (N + 1))
+        if kernel is shear_thomas:
+            return cuda_solve.lane_plan(B, N, L, dtype, sms).resident
+        p = cuda_scan_solve.lane_plan(B, N, L, dtype, sms)
+        return p.mode, p.late, p.cluster
+    first = key(lo - 1)
+    return next(((N - 1, N) for N in range(lo, hi + 1) if key(N) != first),
+                ())
+
+
+def lane_kernels(device, Ns=(7, 100, 512, 1000, 1024, 4096),
+                 offset_Ns=(100, 1000), edge_Ns=None):
+    """Phase 23a's real lanes: ``shear_thomas`` and ``shear_scan`` against
+    their plain versions on float planes (L = N+1, B = 2) and on the
+    interleaved view (L = 2(N+1), factor columns duplicated), and there
+    against the complex entry on the same bytes, both dtypes, at every N
+    of ``Ns``; at ``offset_Ns`` on a d one value into its buffer; and at
+    ``edge_Ns`` ({(kernel name, view, dtype name): Ns}), by default each
+    side of the first edge above N = 1024 of each launch plan on the card
+    (:func:`lane_edges`; none on the CPU).  Every comparison bit-equal,
+    one launch a solve; each row names its launch plan on a card."""
+    rows = []
+    if edge_Ns is None:
+        edge_Ns = {}
+        if torch.device(device).type == "cuda":
+            sms = cuda_solve.sms(torch.device(device).index or 0)
+            edge_Ns = {(k.__name__, view, str(dtype)[6:]):
+                       lane_edges(k, view, dtype, sms)
+                       for k in (shear_thomas, shear_scan)
+                       for view in ("planes", "interleaved")
+                       for dtype in (torch.float32, torch.float64)}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
         for kernel, plain in ((shear_thomas, shear_thomas_reference),
                               (shear_scan, shear_scan_reference)):
-            for N in lane_Ns:
-                w, binv, u = _real_factors(N, dtype, device=device)
-                g = torch.Generator(device=device).manual_seed(N)
-                d = torch.randn(1, N, N + 1, dtype=dtype, device=device,
-                                generator=g)
-                planes = torch.view_as_real(d)[0].movedim(-1, 0).contiguous()
-                _, e1 = _exact(kernel, plain, w, binv, u, planes,
-                               f"{kernel.__name__} real planes {dtype} N={N}")
-                il = tuple(f.repeat_interleave(2, dim=-1)
-                           for f in (w, binv, u))
-                di = torch.view_as_real(d).reshape(1, N, 2 * (N + 1))
-                xi, e2 = _exact(kernel, plain, *il, di,
-                                f"{kernel.__name__} interleaved {dtype} N={N}")
-                xc = torch.view_as_real(kernel(w, binv, u, d)).reshape(
-                    1, N, -1)
-                e3 = (xi - xc).abs().max().item()
-                if e3 != 0.0:
-                    raise AssertionError(
-                        f"{kernel.__name__} {dtype} N={N}: the real lanes of "
-                        f"the interleaved view differ from the complex entry "
-                        f"by {e3:.3e}")
-                rows.append(dict(kernel=kernel.__name__ + "_real",
-                                 dtype=str(dtype)[6:], N=N,
-                                 max_abs_err=max(e1, e2),
-                                 interleaved_vs_complex=e3))
+            counter = kernel.__name__ + "_real"
+            cases = [(N, False, None) for N in Ns]
+            cases += [(N, True, None) for N in offset_Ns]
+            cases += [(N, False, view) for view in ("planes", "interleaved")
+                      for N in edge_Ns.get((kernel.__name__, view, name), ())]
+            for N, offset, only in cases:
+                for view, fac, d in lane_views(N, dtype, device, N, offset):
+                    if only is not None and view != only:
+                        continue
+                    what = f"{counter} {view} {name} N={N} offset={offset}"
+                    n = read_layout_counts()[counter]
+                    x, err = _exact(kernel, plain, *fac, d, what)
+                    if d.is_cuda and read_layout_counts()[counter] != n + 1:
+                        raise AssertionError(f"{what}: "
+                                             f"{read_layout_counts()[counter] - n}"
+                                             " launches")
+                    row = dict(kernel=counter, view=view, dtype=name, N=N,
+                               B=d.shape[0], offset=offset,
+                               edge=only is not None, max_abs_err=err,
+                               plan=lane_plan_of(kernel, d))
+                    if view == "interleaved":
+                        cplx = torch.view_as_complex(
+                            d.clone().view(1, N, N + 1, 2))
+                        xc = torch.view_as_real(kernel(
+                            *(f[:, ::2].contiguous() for f in fac),
+                            cplx)).reshape(1, N, -1)
+                        row["interleaved_vs_complex"] = (
+                            x - xc).abs().max().item()
+                        if row["interleaved_vs_complex"] != 0.0:
+                            raise AssertionError(
+                                f"{what}: the real lanes of the interleaved "
+                                "view differ from the complex entry by "
+                                f"{row['interleaved_vs_complex']:.3e}")
+                    rows.append(row)
     return rows
 
 
@@ -3311,17 +3397,27 @@ ROW_TIMES = (("wrapped", 1024, 1, torch.complex64),
              ("wrapped", 4096, 1, torch.complex64))
 
 
-def layout_kernel_times(device, N=1024, reps=20, plain_reps=1,
-                        row_times=ROW_TIMES):
+#: phase 23b's real-lane shapes: (dtype, view, N), the first the kernel
+#: line's
+LANE_TIMES = ((torch.float32, "planes", 1024),
+              (torch.float32, "interleaved", 1024),
+              (torch.float64, "interleaved", 512),
+              (torch.float32, "planes", 4096))
+
+
+def layout_kernel_times(device, reps=20, plain_reps=1, row_times=ROW_TIMES,
+                        lane_times=LANE_TIMES):
     """Phase 23b: by CUDA-graph replay, each new entry beside its bound and
     share, the plain version's ms (CUDA events) and, on a card, the launch
     plan and the library's report of it (geometry): ``row_thomas`` at
     ``row_times`` (Euler N=1024 complex64 B=1 for R = N ('wrapped',
     'pallas') and R = 513 ('rolls', 'scatter'), then B = 4, complex128
     N=512, and N=4096, where bytes bound it); the real-lane
-    ``shear_thomas`` and ``shear_scan`` at N on float32 planes (B = 2,
-    L = N+1) and on the interleaved view (B = 1, L = 2(N+1))."""
+    ``shear_thomas`` and ``shear_scan`` at ``lane_times`` on float planes
+    (B = 2, L = N+1) and on the interleaved view (B = 1, L = 2(N+1))."""
     out = []
+    on_card = torch.device(device).type == "cuda"
+    index = torch.device(device).index or 0
     for layout, n, B, dtype in row_times:
         w, binv, u = _real_factors(n, dtype, device=device, layout=layout)
         R = w.shape[0]
@@ -3334,33 +3430,29 @@ def layout_kernel_times(device, N=1024, reps=20, plain_reps=1,
                    plain_ms=cuda_ms(lambda: row_thomas_reference(
                        w, binv, u, d), plain_reps),
                    bound_ms=bound, bound_by=by, share=bound / ms)
-        if torch.device(device).type == "cuda":
-            index = torch.device(device).index or 0
+        if on_card:
             row["plan"] = cuda_row_solve.plan(
                 B, R, n, dtype, cuda_row_solve._sms(index))._asdict()
             row["geometry"] = cuda_row_solve.geometry(B, R, n, dtype, index)
         out.append(row)
-    dtype = torch.complex64
-    w, binv, u = _real_factors(N, dtype, device=device)
-    il = tuple(f.repeat_interleave(2, dim=-1) for f in (w, binv, u))
-    g = torch.Generator(device=device).manual_seed(N)
-    planes = torch.randn(2, N, N + 1, device=device, generator=g)
-    inter = torch.randn(1, N, 2 * (N + 1), device=device, generator=g)
     for kernel, plain in ((shear_thomas, shear_thomas_reference),
                           (shear_scan, shear_scan_reference)):
-        for view, fac, d in (("planes", (w, binv, u), planes),
-                             ("interleaved", il, inter)):
+        for dtype, view, N in lane_times:
+            fac, d = next((f, x) for v, f, x in lane_views(N, dtype, device, N)
+                          if v == view)
             B, L = d.shape[0], d.shape[-1]
             ms = graph_ms(lambda: kernel(*fac, d), reps)
-            bound, by = lane_bound(N, L, B, torch.float32)
-            row = dict(kernel=kernel.__name__ + "_real", view=view, N=N,
-                       L=L, B=B, ms=ms,
+            bound, by = lane_bound(N, L, B, dtype)
+            row = dict(kernel=kernel.__name__ + "_real", view=view,
+                       dtype=str(dtype)[6:], N=N, L=L, B=B, ms=ms,
                        plain_ms=cuda_ms(lambda: plain(*fac, d), plain_reps),
                        bound_ms=bound, bound_by=by, share=bound / ms)
-            if (kernel is shear_scan
-                    and torch.device(device).type == "cuda"):
-                row["geometry"] = cuda_scan_solve.geometry(
-                    B, N, torch.float32, M=L)
+            if on_card:
+                row["plan"] = lane_plan_of(kernel, d)
+                row["geometry"] = (
+                    cuda_solve.lane_geometry(B, N, L, dtype, index)
+                    if kernel is shear_thomas else
+                    cuda_scan_solve.lane_geometry(B, N, L, dtype, index))
             out.append(row)
     return out
 

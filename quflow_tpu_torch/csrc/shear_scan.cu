@@ -127,10 +127,10 @@
 // The real-lane entry (shear_scan_real_f32/_f64) solves a real d (B, N, L)
 // with real (N, L) factors, each lane its own chain: quflow_tpu's real
 // channels under QUFLOW_PALLAS_KERNEL=scan (float planes, L = N+1, and the
-// re/im-interleaved shear view, L = 2(N+1)).  It is the same kernel on a
-// value of one real (One<T> below) in place of a complex pair, with the
-// same chunk rule (L rows from N alone), so on the interleaved view it
-// rounds as the complex entry does on the same bytes.
+// re/im-interleaved shear view, L = 2(N+1)).  It runs shear_scan_lane_kernel (the
+// second half of this file, with its own note) on the same chunk rule (L
+// rows from N alone), so on the interleaved view it rounds as the complex
+// entry does on the same bytes.
 //
 // The launchers allocate nothing and launch on the caller's stream; they
 // return the launch's error so that a refused launch is reported.  Needs
@@ -140,7 +140,9 @@
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <cstddef>
+#include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -209,6 +211,30 @@ __device__ __forceinline__ One<T> bwd_step(One<T> y, T binv, T u, One<T> x) {
 template <typename T>
 __device__ __forceinline__ One<T> compose(One<T> v, T a, One<T> carry) {
   return {add(v.x, mul(a, carry.x))};
+}
+
+// and on a lane pair, each lane with its own factor (the real-lane kernel's
+// LANES mode, below)
+__device__ __forceinline__ float2 operator-(float2 a) { return {-a.x, -a.y}; }
+__device__ __forceinline__ double2 operator-(double2 a) { return {-a.x, -a.y}; }
+__device__ __forceinline__ float2 mul(float2 a, float2 b) {
+  return {mul(a.x, b.x), mul(a.y, b.y)};
+}
+__device__ __forceinline__ double2 mul(double2 a, double2 b) {
+  return {mul(a.x, b.x), mul(a.y, b.y)};
+}
+template <typename P>
+__device__ __forceinline__ P fwd_step(P d, P w, P y) {
+  return {sub(d.x, mul(w.x, y.x)), sub(d.y, mul(w.y, y.y))};
+}
+template <typename P>
+__device__ __forceinline__ P bwd_step(P y, P binv, P u, P x) {
+  return {sub(mul(y.x, binv.x), mul(u.x, x.x)),
+          sub(mul(y.y, binv.y), mul(u.y, x.y))};
+}
+template <typename P>
+__device__ __forceinline__ P compose(P v, P a, P carry) {
+  return {add(v.x, mul(a.x, carry.x)), add(v.y, mul(a.y, carry.y))};
 }
 
 // The cluster's barrier, whole and in its two halves.  Every thread of
@@ -673,6 +699,371 @@ cudaError_t geometry(int B, int N, int M, int L, int device, int* out) {
                                         &cfg);
 }
 
+// --- the real-lane kernel ---------------------------------------------------
+//
+// shear_scan_lane_kernel: the chunked solve above on B real (N, M) arrays, one
+// chain a lane, each lane with its own factor column.  It replaces K3 on a
+// real rhs (quflow_tpu/ops/pallas_scan_solve.py: scan_base_cols, :162).
+//
+// What bounds it: bytes, 8 B + 12 a lane and row at B = 1 (8 B B + 12 for
+// B), 0.0088 ms for the float32 planes (B = 2, M = N+1) and 0.0125 for the
+// interleaved view (B = 1, M = 2(N+1)) at N = 1024.  The earlier entry ran
+// shear_scan_kernel on one real a value, with the complex entry's geometry
+// rule counted in bytes of a value: 64-lane tiles in clusters of 8 at
+// N = 1024, of which the card runs 15 at once, so the planes took two
+// waves and the interleaved view three (0.033-0.035 ms against the complex
+// entry's one wave of clusters of 2, 0.0145, on the interleaved view's
+// bytes).  Measured here over every plan (benchmarks/torch_lane_solve.py,
+// phase plans), a launch's time tracks the cp.async its threads issue, a
+// copy a thread-row costing the busiest SM about the same whatever its
+// width: the panel fills in about the time the card would move twice the
+// bytes, and the compute after it leaves device memory idle.
+//
+// The design: the kernel above with these changes, and a plan in Python
+// (ops/cuda_scan_solve.lane_plan) that counts a thread's columns and copies,
+// checked here against the layout (lane_scan_plan_ok).
+//   - Two chains a thread where it can, as the complex entry runs re and
+//     im: for a batch (ENTRIES), lane j of entries 2e and 2e+1, which share
+//     the lane's factors: one panel of factors for both planes and the
+//     planes at N = 1024 in one wave of 65 clusters of 2, as the complex
+//     entry's (an odd B's last entry runs alone in its pair); for one entry
+//     of an even L (LANES), the lane pair (2c, 2c+1), each with its own
+//     factors, every value and factor copied as one 8- or 16-byte pair: half
+//     the copies and shared accesses of a lane a thread.
+//   - binv late (LATE): where a panel of d, w, binv and u would not let a
+//     wave hold the tiles (the interleaved view: 33.6 MB of panels at
+//     N = 1024 against the card's ~30 MB of shared memory), binv lands over
+//     w once the forward fix-up is done with it: one wave of 65 clusters
+//     of 2; each entry then reads w and binv again, and the backward
+//     summary waits for binv's copies.
+//   - x leaves as the backward fix-up computes it (ENTRIES: written over y
+//     first, then stored a plane at a time).
+// The plan weighs every mode, tile of 1-32 columns and cluster of 1-8
+// blocks, with and without LATE, by a reckoning of time fitted to those
+// launches, and takes the least.
+
+// The three ways a thread holds its chains: one lane (SINGLE), one lane of
+// batch entries 2e and 2e+1 (ENTRIES, V a pair, the factors one value), or
+// the lane pair (2c, 2c+1) of one entry (LANES, V and the factors pairs).
+enum LaneMode { SINGLE = 0, ENTRIES = 1, LANES = 2 };
+template <typename T, int MODE> struct LaneTypes {
+  using V = typename Pair<T>::type;
+  using F = T;
+};
+template <typename T> struct LaneTypes<T, SINGLE> {
+  using V = One<T>;
+  using F = T;
+};
+template <typename T> struct LaneTypes<T, LANES> {
+  using V = typename Pair<T>::type;
+  using F = typename Pair<T>::type;
+};
+
+// the empty product of a chunk's coefficients
+template <typename F> __device__ __forceinline__ F unit() { return F(1); }
+template <> __device__ __forceinline__ float2 unit<float2>() {
+  return {1.f, 1.f};
+}
+template <> __device__ __forceinline__ double2 unit<double2>() {
+  return {1.0, 1.0};
+}
+
+// A block's dynamic shared bytes: the panel of values V and the factor
+// panels F (two with LATE, three without), KB (L|1) TC each, and the two
+// sweeps' summary tables, K TC (V + F) each.
+template <typename V, typename F>
+size_t lane_smem_bytes(int L, int K, int KB, int TC, bool late) {
+  return static_cast<size_t>(KB) * (L | 1) * TC *
+             (sizeof(V) + (late ? 2 : 3) * sizeof(F)) +
+         2 * static_cast<size_t>(K) * TC * (sizeof(V) + sizeof(F));
+}
+
+// Block (TC, KB) and grid as shear_scan_kernel; M the columns of a thread
+// (lanes, or lane pairs with LANES).  Dynamic shared memory: the panel
+// V[KB (L|1) TC], the summary values V[K TC] of each sweep, the panels of
+// w, u and (without LATE) binv F[KB (L|1) TC] each, the summary
+// coefficients F[K TC] of each sweep.
+template <typename T, int MODE, bool LATE>
+__global__ void __launch_bounds__(MAX_THREADS, 2)
+shear_scan_lane_kernel(const T* __restrict__ w_, const T* __restrict__ binv_,
+                 const T* __restrict__ u_, const T* __restrict__ d_,
+                 T* __restrict__ out_, int B, int BG, int N, int M, int L,
+                 int K) {
+  using V = typename LaneTypes<T, MODE>::V;
+  using F = typename LaneTypes<T, MODE>::F;
+  const F* const w = reinterpret_cast<const F*>(w_);
+  const F* const binv = reinterpret_cast<const F*>(binv_);
+  const F* const u = reinterpret_cast<const F*>(u_);
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = cluster.num_blocks();
+  const int rank = cluster.block_rank();
+  const int TC = blockDim.x;
+  const int KB = blockDim.y;
+  const int c = threadIdx.x;
+  const int kb = threadIdx.y;
+  const int Lp = L | 1;
+  const int panel = KB * Lp * TC;
+  V* const pd = reinterpret_cast<V*>(smem);
+  V* const svf = pd + panel;
+  V* const svb = svf + K * TC;
+  F* const pw = reinterpret_cast<F*>(svb + K * TC);
+  F* const pu = pw + panel;
+  F* const pb = LATE ? pw : pu + panel;  // with LATE, binv over w
+  F* const saf = (LATE ? pu : pb) + panel;
+  F* const sab = saf + K * TC;
+
+  const unsigned tg = blockIdx.x / CL;
+  const int group = tg % BG;  // entries group, group + BG, ...
+  const int j = (tg / BG) * TC + c;
+  const bool col_ok = j < M;  // ragged last tile: idle threads still sync
+  const size_t plane = static_cast<size_t>(N) * M;
+  const size_t s = M;         // row pitch in device memory
+  const int E = MODE == ENTRIES ? (B + 1) / 2 : B;  // entries of a thread
+
+  // this thread's chunk: rows [k L, k L + n)
+  const int k = rank * KB + kb;
+  const int n = (col_ok && k < K) ? min(L, N - k * L) : 0;  // short or none
+  const int mine = kb * Lp * TC + c;
+  const int slot = k * TC + c;
+  const size_t g0 = static_cast<size_t>(k) * L * s + j;
+  const int Ls = (L + STAGES * R - 1) / (STAGES * R) * R;  // rows a stage
+  const V zero{};
+
+  cluster_arrive();  // this block runs: its shared memory may be written
+
+  for (int e = group; e < E; e += BG) {
+    const bool first = e == group;
+    const bool factors = first || LATE;  // w (and binv) land for this entry
+    const size_t b0 = MODE == ENTRIES ? 2 * static_cast<size_t>(e) : e;
+    const bool second = MODE == ENTRIES && b0 + 1 < static_cast<size_t>(B);
+    // fill: d (with w) in STAGES groups of Ls rows, then u (and binv
+    // without LATE) the first time
+    {
+      int i = 0;
+#pragma unroll
+      for (int st = 0; st < STAGES; ++st) {
+        for (const int end = min(n, (st + 1) * Ls); i < end; ++i) {
+          if (MODE == ENTRIES) {
+            T* const v = reinterpret_cast<T*>(pd + mine + i * TC);
+            const T* const dg = d_ + b0 * plane + g0 + i * s;
+            __pipeline_memcpy_async(v, dg, sizeof(T));
+            if (second) __pipeline_memcpy_async(v + 1, dg + plane, sizeof(T));
+          } else {
+            __pipeline_memcpy_async(
+                pd + mine + i * TC,
+                reinterpret_cast<const V*>(d_) + b0 * plane + g0 + i * s,
+                sizeof(V));
+          }
+          if (factors)
+            __pipeline_memcpy_async(pw + mine + i * TC, w + g0 + i * s,
+                                    sizeof(F));
+        }
+        __pipeline_commit();
+      }
+      if (first) {
+        for (i = 0; i < n; ++i) {
+          if (!LATE)
+            __pipeline_memcpy_async(pb + mine + i * TC, binv + g0 + i * s,
+                                    sizeof(F));
+          __pipeline_memcpy_async(pu + mine + i * TC, u + g0 + i * s,
+                                  sizeof(F));
+        }
+      }
+      __pipeline_commit();  // empty after the first entry
+    }
+
+    // forward: summary (each stage as it lands), compose top-down, fix-up
+    // (y over d)
+    F a = unit<F>();
+    V v = zero;
+#pragma unroll
+    for (int st = 0; st < STAGES; ++st) {
+      __pipeline_wait_prior(STAGES - st);
+      const int i0 = min(n, st * Ls);
+      v = fwd_rows<false>(pd + mine + i0 * TC, pw + mine + i0 * TC, TC,
+                          min(n, (st + 1) * Ls) - i0, v, a);
+    }
+    if (first) cluster_wait();  // every block of the cluster runs
+    if (n > 0) {
+      for (int r = 0; r < CL; ++r) {
+        cluster.map_shared_rank(svf, r)[slot] = v;
+        cluster.map_shared_rank(saf, r)[slot] = a;
+      }
+    }
+    cluster_sync();  // forward tables whole; backward tables of the entry
+                     // before read by all
+    if (kb == 0 && col_ok)
+      compose_chain(svf, saf, TC, c, 0, 1, min(K, (rank + 1) * KB));
+    __syncthreads();
+    if (n > 0) v = svf[slot];
+    fwd_rows<true>(pd + mine, pw + mine, TC, n, v, a);
+    if (LATE) {  // w is done with: binv over it
+      for (int i = 0; i < n; ++i)
+        __pipeline_memcpy_async(pb + mine + i * TC, binv + g0 + i * s,
+                                sizeof(F));
+      __pipeline_commit();
+    }
+
+    // backward: summary, compose bottom-up, fix-up (x over y), x out
+    __pipeline_wait_prior(0);  // binv and u
+    a = unit<F>();
+    v = bwd_rows<false>(pd + mine, pb + mine, pu + mine, TC, n, zero, a,
+                        static_cast<V*>(nullptr), 0);
+    if (n > 0) {
+      for (int r = 0; r < CL; ++r) {
+        cluster.map_shared_rank(svb, r)[slot] = v;
+        cluster.map_shared_rank(sab, r)[slot] = a;
+      }
+    }
+    cluster_sync();  // backward tables whole; forward tables read by all
+    if (kb == 0 && col_ok)
+      compose_chain(svb, sab, TC, c, K - 1, -1, max(0, K - rank * KB));
+    __syncthreads();
+    if (n > 0) v = svb[slot];
+    if (MODE == ENTRIES) {
+      bwd_rows<true>(pd + mine, pb + mine, pu + mine, TC, n, v, a, pd + mine,
+                     TC);
+      T* const og = out_ + b0 * plane + g0;
+      for (int i = 0; i < n; ++i) {
+        const T* const x = reinterpret_cast<const T*>(pd + mine + i * TC);
+        og[i * s] = x[0];
+        if (second) og[plane + i * s] = x[1];
+      }
+    } else {
+      bwd_rows<true>(pd + mine, pb + mine, pu + mine, TC, n, v, a,
+                     reinterpret_cast<V*>(out_) + b0 * plane + g0, s);
+    }
+  }
+}
+
+// A lane plan (ops/cuda_scan_solve.lane_plan) this kernel can run; M its
+// columns (lanes, or lane pairs in LANES mode).
+struct LanePlan {
+  int TC, CL, KB, BG, mode, late, smem;
+};
+
+void lane_cluster_config(const LanePlan& p, unsigned blocks,
+                         cudaStream_t stream, cudaLaunchAttribute& attr,
+                         cudaLaunchConfig_t& cfg) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.CL;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(p.TC, p.KB);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+}
+
+template <typename T>
+bool lane_scan_plan_ok(int B, int N, int M, int L, const LanePlan& p) {
+  if (B < 1 || N < 1 || M < 1 || L < 1) return false;
+  const int K = (N + L - 1) / L;
+  if (K > MAX_CHUNKS) return false;
+  if (p.TC < 1 || p.TC > 32 || (p.TC & (p.TC - 1))) return false;
+  if (p.CL != 1 && p.CL != 2 && p.CL != 4 && p.CL != MAX_CLUSTER) return false;
+  if (p.KB < 1 || p.KB > MAX_KB || p.TC * p.KB > MAX_THREADS) return false;
+  if (p.CL * p.KB < K) return false;
+  if (p.mode < SINGLE || p.mode > LANES || (p.late != 0 && p.late != 1))
+    return false;
+  const int E = p.mode == ENTRIES ? (B + 1) / 2 : B;
+  if (p.BG < 1 || p.BG > E) return false;
+  const long long blocks =
+      static_cast<long long>((M + p.TC - 1) / p.TC) * p.BG * p.CL;
+  if (blocks > 0x7fffffffLL) return false;
+  using P = typename Pair<T>::type;
+  const size_t smem =
+      p.mode == SINGLE ? lane_smem_bytes<One<T>, T>(L, K, p.KB, p.TC, p.late)
+      : p.mode == ENTRIES ? lane_smem_bytes<P, T>(L, K, p.KB, p.TC, p.late)
+                          : lane_smem_bytes<P, P>(L, K, p.KB, p.TC, p.late);
+  return smem == static_cast<size_t>(p.smem) && smem <= SMEM_LIMIT;
+}
+
+// Once per device and instance (before any graph capture that holds a
+// launch): above 48 KB a block's dynamic shared memory must be allowed.
+template <typename T, int MODE, bool LATE>
+cudaError_t lane_prepare(int device) {
+  static bool allowed[MAX_DEVICES] = {};
+  std::lock_guard<std::mutex> lock(guard);
+  if (!allowed[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        shear_scan_lane_kernel<T, MODE, LATE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(SMEM_LIMIT));
+    if (err != cudaSuccess) return err;
+    allowed[device] = true;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, int MODE, bool LATE>
+cudaError_t lane_run(const T* w, const T* binv, const T* u, const T* d,
+                     T* out, int B, int N, int M, int L, const LanePlan& p,
+                     int device, cudaStream_t stream, int* geometry) {
+  const cudaError_t err = lane_prepare<T, MODE, LATE>(device);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  if (geometry) {
+    lane_cluster_config(p, p.CL, nullptr, attr, cfg);
+    return cudaOccupancyMaxActiveClusters(
+        geometry, shear_scan_lane_kernel<T, MODE, LATE>, &cfg);
+  }
+  const unsigned blocks = static_cast<unsigned>((M + p.TC - 1) / p.TC) *
+                          p.BG * p.CL;
+  lane_cluster_config(p, blocks, stream, attr, cfg);
+  return cudaLaunchKernelEx(&cfg, shear_scan_lane_kernel<T, MODE, LATE>, w,
+                            binv, u, d, out, B, p.BG, N, M, L,
+                            (N + L - 1) / L);
+}
+
+// Launch the plan on B (N, lanes) arrays, or with `geometry` write the
+// clusters of it that the card runs at once there instead.
+template <typename T>
+cudaError_t lane_launch(const void* w, const void* binv, const void* u,
+                        const void* d, void* out, int B, int N, int lanes,
+                        int L, const LanePlan& p, int device, void* stream,
+                        int* geometry = nullptr) {
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  // LANES: a thread's column is a lane pair, copied as one value
+  if (p.mode == LANES && lanes % 2 != 0) return cudaErrorInvalidValue;
+  const int M = p.mode == LANES ? lanes / 2 : lanes;
+  if (!lane_scan_plan_ok<T>(B, N, M, L, p)) return cudaErrorInvalidValue;
+  const uintptr_t any = reinterpret_cast<uintptr_t>(w) |
+                        reinterpret_cast<uintptr_t>(binv) |
+                        reinterpret_cast<uintptr_t>(u) |
+                        reinterpret_cast<uintptr_t>(d) |
+                        reinterpret_cast<uintptr_t>(out);
+  if (any & ((p.mode == LANES ? 2 : 1) * sizeof(T) - 1))
+    return cudaErrorMisalignedAddress;
+  const T* w_ = static_cast<const T*>(w);
+  const T* b_ = static_cast<const T*>(binv);
+  const T* u_ = static_cast<const T*>(u);
+  const T* d_ = static_cast<const T*>(d);
+  T* o = static_cast<T*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto mode, auto late) {
+    return lane_run<T, decltype(mode)::value, decltype(late)::value>(
+        w_, b_, u_, d_, o, B, N, M, L, p, device, st, geometry);
+  };
+  using Late = std::true_type;
+  using Early = std::false_type;
+  using Single = std::integral_constant<int, SINGLE>;
+  using Entries = std::integral_constant<int, ENTRIES>;
+  using Lanes = std::integral_constant<int, LANES>;
+  if (p.mode == ENTRIES)
+    return p.late ? go(Entries{}, Late{}) : go(Entries{}, Early{});
+  if (p.mode == LANES)
+    return p.late ? go(Lanes{}, Late{}) : go(Lanes{}, Early{});
+  return p.late ? go(Single{}, Late{}) : go(Single{}, Early{});
+}
+
 }  // namespace
 
 // w, binv, u: (N, M) real; d, out: (B, N, M) complex as (B, N, M, 2) real,
@@ -694,21 +1085,25 @@ extern "C" cudaError_t shear_scan_f64(const void* w, const void* binv,
                                  stream);
 }
 
-// The real-lane entry: w, binv, u: (N, M) real; d, out: (B, N, M) real.
-extern "C" cudaError_t shear_scan_real_f32(const void* w, const void* binv,
-                                           const void* u, const void* d,
-                                           void* out, int B, int N, int M,
-                                           int L, int device, void* stream) {
-  return launch<float, One<float>>(w, binv, u, d, out, B, N, M, L, device,
-                                   stream);
+// The real-lane entry: w, binv, u: (N, M) real; d, out: (B, N, M) real; the
+// plan (tile columns, cluster blocks, block chunks, batch groups, mode,
+// late, shared bytes) from ops/cuda_scan_solve.lane_plan.
+extern "C" cudaError_t shear_scan_real_f32(
+    const void* w, const void* binv, const void* u, const void* d, void* out,
+    int B, int N, int M, int L, int TC, int CL, int KB, int BG, int mode,
+    int late, int smem, int device, void* stream) {
+  return lane_launch<float>(w, binv, u, d, out, B, N, M, L,
+                            LanePlan{TC, CL, KB, BG, mode, late, smem},
+                            device, stream);
 }
 
-extern "C" cudaError_t shear_scan_real_f64(const void* w, const void* binv,
-                                           const void* u, const void* d,
-                                           void* out, int B, int N, int M,
-                                           int L, int device, void* stream) {
-  return launch<double, One<double>>(w, binv, u, d, out, B, N, M, L, device,
-                                     stream);
+extern "C" cudaError_t shear_scan_real_f64(
+    const void* w, const void* binv, const void* u, const void* d, void* out,
+    int B, int N, int M, int L, int TC, int CL, int KB, int BG, int mode,
+    int late, int smem, int device, void* stream) {
+  return lane_launch<double>(w, binv, u, d, out, B, N, M, L,
+                             LanePlan{TC, CL, KB, BG, mode, late, smem},
+                             device, stream);
 }
 
 extern "C" cudaError_t shear_scan_geometry_f32(int B, int N, int M, int L,
@@ -721,16 +1116,24 @@ extern "C" cudaError_t shear_scan_geometry_f64(int B, int N, int M, int L,
   return geometry<double, double2>(B, N, M, L, device, out);
 }
 
-extern "C" cudaError_t shear_scan_real_geometry_f32(int B, int N, int M,
-                                                    int L, int device,
-                                                    int* out) {
-  return geometry<float, One<float>>(B, N, M, L, device, out);
+// The clusters of a real-lane plan that the card runs at once (out[0]), the
+// plan checked as a launch checks it.
+extern "C" cudaError_t shear_scan_real_geometry_f32(
+    int B, int N, int M, int L, int TC, int CL, int KB, int BG, int mode,
+    int late, int smem, int device, int* out) {
+  return lane_launch<float>(nullptr, nullptr, nullptr, nullptr, nullptr, B, N,
+                            M, L,
+                            LanePlan{TC, CL, KB, BG, mode, late, smem},
+                            device, nullptr, out);
 }
 
-extern "C" cudaError_t shear_scan_real_geometry_f64(int B, int N, int M,
-                                                    int L, int device,
-                                                    int* out) {
-  return geometry<double, One<double>>(B, N, M, L, device, out);
+extern "C" cudaError_t shear_scan_real_geometry_f64(
+    int B, int N, int M, int L, int TC, int CL, int KB, int BG, int mode,
+    int late, int smem, int device, int* out) {
+  return lane_launch<double>(nullptr, nullptr, nullptr, nullptr, nullptr, B,
+                             N, M, L,
+                             LanePlan{TC, CL, KB, BG, mode, late, smem},
+                             device, nullptr, out);
 }
 
 extern "C" const char* shear_scan_error(int err) {

@@ -21,8 +21,9 @@
 // (L = N+1) and the re/im-interleaved shear view (L = 2(N+1), factor
 // columns duplicated), where K1 and K2 run on a real rhs.  On the
 // interleaved view it computes the chains of the complex entry on the same
-// bytes, step for step, so the two agree bit for bit.  It is the same
-// kernel with one chain a factor column instead of two (CH below).
+// bytes, step for step, so the two agree bit for bit.  It runs a kernel of
+// its own, shear_thomas_lane_kernel (the second half of this file, with its own
+// note); shear_thomas_kernel's CH = 1 instances are no longer built.
 //
 // What bounds it.  Two things, and which one depends on N * B.
 //   Bytes: d, w, binv, u read and x written once is 28 B a complex64
@@ -68,6 +69,7 @@
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -284,8 +286,7 @@ cudaError_t launch_tiles(const T* w, const T* binv, const T* u, const T* d,
   return cudaGetLastError();
 }
 
-// CH = 2: complex d, tiles of 16 and 64 columns; CH = 1: real lanes, tiles
-// of 32 and 128 lanes (the same computing threads a block).
+// CH = 2: complex d, tiles of 16 and 64 columns.
 template <typename T, int CH>
 cudaError_t launch(const void* w, const void* binv, const void* u,
                    const void* d, void* out, int B, int N, int M, int device,
@@ -316,6 +317,539 @@ cudaError_t launch(const void* w, const void* binv, const void* u,
   return launch_tiles<T, WIDE, 4, CH>(w_, b_, u_, d_, o, B, N, M, device, st);
 }
 
+// --- the real-lane kernel ---------------------------------------------------
+//
+// shear_thomas_lane_kernel: the recurrences above on B real (N, L) arrays, one
+// chain a lane, each lane with its own factor column.  It replaces K1 and K2
+// on a real rhs (quflow_tpu/ops/pallas_solve.py: pallas_base_cols, :219).
+//
+// What bounds it.  Bytes: d, w, binv, u read and x written once is 8 B + 12
+// a lane and row for a batch of B = 1, 8 B B + 12 for B (the factors shared
+// through L2); 0.0088 ms for the float32 planes (B = 2, L = N+1) and 0.0125
+// for the interleaved view (B = 1, L = 2(N+1)) at N = 1024 on 3.35 TB/s.
+// Under them lies the chain: 2N dependent steps, each a rounded multiply
+// then a rounded subtract.  Measured on the H100 (benchmarks/
+// torch_lane_solve.py), this kernel's chain alone, with no copy and no
+// shared access, walks a float32 step in ~18 cycles (~36 in float64):
+// 0.0185 ms at N = 1024, the floor of this design and twice the 8.3 cycles
+// of row_thomas's register chain, for a reason no available tool shows.
+// The earlier real-lane kernel (the complex template with one chain a
+// column) took 0.051 ms: its copying warp's 4-byte cp.async bound it (0.054
+// ms with its chains cut out), beside y going to device memory and back and
+// a block barrier every stage.
+//
+// The design.  The launch plan (lanes of a tile, rows of a chunk, whether y
+// stays resident, shared bytes; ops/cuda_solve.lane_plan) is computed in
+// Python and handed in; lane_plan_ok checks it against LaneLayout.
+//   - A block owns `lanes` (8, 16 or 32) neighbouring lanes of one batch
+//     entry: thread t of its first warp runs the chain of lane j0 + t, its
+//     copying warps (three; seven with y through the output) move every
+//     byte.  The plan picks the widest tile
+//     whose reckoned time is within a tenth of the best: 16 lanes, 130 and
+//     129 blocks for the planes and the interleaved view at N = 1024.
+//   - Shared memory holds each lane's values as a column of their own
+//     (lane-major), so a chain reads 16 bytes of its lane's rows at a time
+//     (4 float32 or 2 float64 positions).  The copying warps transpose as
+//     they copy: a 4- or 8-byte cp.async a value, a warp instruction moving
+//     whole row segments of the tile.  A row segment starts L values after
+//     the last, 4100 bytes apart at L = 1025: no 2-D tensor map describes
+//     the arrays, and a bulk copy a row (64-80 bytes, tried) took three
+//     times as long as these copies.  What bounds the copies is how many a
+//     warp keeps in flight: one copying warp took 0.052 ms, two 0.028,
+//     three 0.022, four and eight no less (the fourth shares the chain's
+//     scheduler); at N = 4096, with y through the output, the copies bound
+//     the launch and more warps help.  Column pitches are odd multiples of
+//     16 bytes, so the 16-byte loads of 8 chains fall on distinct banks.
+//   - The rows stream in chunks of `chunk` rows through a ring of STAGES
+//     slots on full/empty mbarriers: a chain waits on its chunk's `full`
+//     barrier (each copying thread hands it its cp.async completions) and
+//     never on a block barrier; it arrives on the slot's `empty` barrier
+//     when done, and the copying warps refill the slot up to STAGES chunks
+//     ahead.  binv and u of the backward sweep stream in while the forward
+//     sweep's last chunks run.  A copying thread copies and stores the same
+//     places, so no thread waits on another's.
+//   - y stays resident where a tile's columns fit (RESIDENT): d lands in
+//     them, the forward sweep writes y over d and the backward sweep x over
+//     y, so device memory sees only the bound's bytes.  Past that (float32
+//     beyond ~3400 rows at 16 lanes, ~1700 at 32; float64 about half) the
+//     data goes through the ring too and y through `out`, as in row_thomas.
+//   - x leaves from shared memory: the copying warps store a chunk's rows
+//     once the chains have released it, a warp instruction whole row
+//     segments of the tile.  With y through `out`, where bytes and not the
+//     chain bound the launch, the chains store y and x as they compute
+//     them, and the copying warps only load.
+//   - A chain walks a chunk in groups of G positions (64 bytes), the next
+//     group's loads issued before this group's dependent steps, from two
+//     register sets in turn.
+//
+// Rounding: as shear_thomas_kernel; the first step of each sweep takes w_0
+// (going) and u_{N-1} (coming back) as 0 from a zero carry, which is exact.
+
+constexpr int LANE_STAGES = 4;           // slots of the ring
+// the copying threads of a block, after its chain warp: three warps with y
+// resident (a fourth would share the chain warp's scheduler), seven with y
+// through the output, where the copies bound the launch
+template <bool RESIDENT> __host__ __device__ constexpr int lane_copiers() {
+  return 32 * (RESIDENT ? 3 : 7);
+}
+constexpr int LANE_SMEM_LIMIT = 232448;  // dynamic shared bytes a block may use
+constexpr int LANE_BAR_BYTES = 2 * LANE_STAGES * 8;  // full and empty barriers
+
+__host__ __device__ constexpr long long odd16(long long bytes) {
+  return (bytes / 16) % 2 ? bytes : bytes + 16;
+}
+
+// The shared-memory layout of a block, in bytes (ops/cuda_solve.py computes
+// the same): the barriers; with `resident`, `lanes` columns of ypitch (the
+// lane's N values, then padding); then STAGES slots, each of 2 or 3 panels
+// of `lanes` columns of cpitch (the chunk's rows of one array): the data
+// (without `resident`), then two factors (w going down; binv and u coming
+// up).  Pitches are odd multiples of 16 bytes.
+struct LaneLayout {
+  int lanes, chunk, resident, N, real;
+  __host__ __device__ long long ypitch() const {
+    return resident ? odd16((static_cast<long long>(real) * N + 15) / 16 * 16)
+                    : 0;
+  }
+  __host__ __device__ int cpitch() const {
+    return static_cast<int>(odd16(static_cast<long long>(real) * chunk));
+  }
+  __host__ __device__ int panel() const { return lanes * cpitch(); }
+  __host__ __device__ int slot() const { return (resident ? 2 : 3) * panel(); }
+  __host__ __device__ long long total() const {
+    return LANE_BAR_BYTES + lanes * ypitch() +
+           static_cast<long long>(LANE_STAGES) * slot();
+  }
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+// an arrival when every cp.async this thread has issued so far has landed
+__device__ __forceinline__ void bar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+template <int BYTES>
+__device__ __forceinline__ void small_load(void* s, const void* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr(s)),
+               "l"(g), "n"(BYTES)
+               : "memory");
+}
+
+// G positions of a lane's column, 16 bytes a shared load or store
+template <typename T> struct LaneGroup {
+  static constexpr int G = 64 / sizeof(T);
+};
+template <typename T, int G>
+__device__ __forceinline__ void vload(T (&v)[G], const T* p) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < G; k += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + k);
+      v[k] = q.x, v[k + 1] = q.y, v[k + 2] = q.z, v[k + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < G; k += 2) {
+      const double2 q = *reinterpret_cast<const double2*>(p + k);
+      v[k] = q.x, v[k + 1] = q.y;
+    }
+  }
+}
+template <typename T, int G>
+__device__ __forceinline__ void vstore(T* p, const T (&v)[G]) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < G; k += 4)
+      *reinterpret_cast<float4*>(p + k) =
+          make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < G; k += 2)
+      *reinterpret_cast<double2*>(p + k) = make_double2(v[k], v[k + 1]);
+  }
+}
+
+// A group's results: over its operands in shared memory, or (OUT, y through
+// the output) straight to device memory, o[k L] for position k.
+template <typename T, int G, bool OUT>
+__device__ __forceinline__ void put(T* p, T* o, size_t L, const T (&v)[G]) {
+  if constexpr (OUT) {
+#pragma unroll
+    for (int k = 0; k < G; ++k) o[k * L] = v[k];
+  } else {
+    vstore<T, G>(p, v);
+  }
+}
+
+template <typename T, int G, bool OUT>
+__device__ __forceinline__ void fwd_group(T* yp, T* o, size_t L,
+                                          const T (&dv)[G], const T (&wv)[G],
+                                          T& y) {
+  T yv[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    y = fwd_step(dv[k], wv[k], y);
+    yv[k] = y;
+  }
+  put<T, G, OUT>(yp, o, L, yv);
+}
+
+template <typename T, int G, bool OUT>
+__device__ __forceinline__ void bwd_group(T* xp, T* o, size_t L,
+                                          const T (&yv)[G], const T (&bv)[G],
+                                          const T (&uv)[G], T& x) {
+  T xv[G];
+#pragma unroll
+  for (int k = G - 1; k >= 0; --k) {
+    x = bwd_step(yv[k], bv[k], uv[k], x);
+    xv[k] = x;
+  }
+  put<T, G, OUT>(xp, o, L, xv);
+}
+
+// The forward recurrence down the n positions of a chunk of a lane's
+// column: d at dp[i] (16-byte aligned), w at wp[i], y over d (or with OUT
+// to o[i L]), carry y.  With zero_first, w of position 0 is taken as 0.
+// Groups of G, the next group loaded while this one runs; a ragged rest
+// (the last chunk) one position at a time.
+template <typename T, bool OUT>
+__device__ __forceinline__ void lane_fwd(T* dp, const T* wp, T* o, size_t L,
+                                         int n, T& y, bool zero_first) {
+  constexpr int G = LaneGroup<T>::G;
+  int i = 0;
+  if (n >= G) {
+    T ad[G], aw[G], bd[G], bw[G];
+    vload<T, G>(ad, dp);
+    vload<T, G>(aw, wp);
+    if (zero_first) aw[0] = T(0);
+    for (;;) {
+      if (i + 2 * G <= n) {
+        vload<T, G>(bd, dp + i + G);
+        vload<T, G>(bw, wp + i + G);
+      }
+      fwd_group<T, G, OUT>(dp + i, o + i * L, L, ad, aw, y);
+      i += G;
+      if (i + G > n) break;
+      if (i + 2 * G <= n) {
+        vload<T, G>(ad, dp + i + G);
+        vload<T, G>(aw, wp + i + G);
+      }
+      fwd_group<T, G, OUT>(dp + i, o + i * L, L, bd, bw, y);
+      i += G;
+      if (i + G > n) break;
+    }
+  }
+  for (; i < n; ++i) {
+    const T wi = (zero_first && i == 0) ? T(0) : wp[i];
+    y = fwd_step(dp[i], wi, y);
+    if (OUT) o[i * L] = y;
+    else dp[i] = y;
+  }
+}
+
+// The backward recurrence up the same positions, last first: y at yp[i],
+// binv at bp[i], u at up[i], x over y (or with OUT to o[i L]), carry x.
+// With zero_first, u of the chunk's last position is taken as 0.  A ragged
+// top (the last chunk) one position at a time first, then groups of G,
+// aligned from position 0.
+template <typename T, bool OUT>
+__device__ __forceinline__ void lane_bwd(T* yp, const T* bp, const T* up,
+                                         T* o, size_t L, int n, T& x,
+                                         bool zero_first) {
+  constexpr int G = LaneGroup<T>::G;
+  int hi = n - n % G;
+  for (int q = n - 1; q >= hi; --q) {
+    const T uq = (zero_first && q == n - 1) ? T(0) : up[q];
+    x = bwd_step(yp[q], bp[q], uq, x);
+    if (OUT) o[q * L] = x;
+    else yp[q] = x;
+  }
+  if (hi < G) return;
+  T ay[G], ab[G], au[G], by[G], bb[G], bu[G];
+  vload<T, G>(ay, yp + hi - G);
+  vload<T, G>(ab, bp + hi - G);
+  vload<T, G>(au, up + hi - G);
+  if (zero_first && hi == n) au[G - 1] = T(0);
+  for (;;) {
+    if (hi >= 2 * G) {
+      vload<T, G>(by, yp + hi - 2 * G);
+      vload<T, G>(bb, bp + hi - 2 * G);
+      vload<T, G>(bu, up + hi - 2 * G);
+    }
+    bwd_group<T, G, OUT>(yp + hi - G, o + (hi - G) * L, L, ay, ab, au, x);
+    hi -= G;
+    if (hi < G) break;
+    if (hi >= 2 * G) {
+      vload<T, G>(ay, yp + hi - 2 * G);
+      vload<T, G>(ab, bp + hi - 2 * G);
+      vload<T, G>(au, up + hi - 2 * G);
+    }
+    bwd_group<T, G, OUT>(yp + hi - G, o + (hi - G) * L, L, by, bb, bu, x);
+    hi -= G;
+    if (hi < G) break;
+  }
+}
+
+// Chunk q of the 2C of a launch: the forward sweep's chunks 0 .. C-1 going
+// down, then the backward sweep's C-1 .. 0; chunk c is rows
+// [c K, min(N, (c+1) K)).
+struct Chunk {
+  bool fwd;
+  int p0, n;
+  __device__ Chunk(int q, int C, int K, int N) {
+    fwd = q < C;
+    p0 = (fwd ? q : 2 * C - 1 - q) * K;
+    n = min(N, p0 + K) - p0;
+  }
+};
+
+// One block: lanes blockIdx.y * lanes_ + [0, lanes_) of batch entry
+// blockIdx.x (the batch fastest, so a tile's factor rows come from L2 after
+// one fetch).
+template <typename T, bool RESIDENT>
+__global__ void __launch_bounds__(32 + lane_copiers<RESIDENT>())
+shear_thomas_lane_kernel(const T* __restrict__ w, const T* __restrict__ binv,
+                   const T* __restrict__ u, const T* __restrict__ d,
+                   T* __restrict__ out, int N, int L, int lanes_, int K) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const LaneLayout lay{lanes_, K, RESIDENT, N, static_cast<int>(sizeof(T))};
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* const empty = full + LANE_STAGES;
+  unsigned char* const ycols = smem + LANE_BAR_BYTES;
+  unsigned char* const ring = ycols + lay.lanes * lay.ypitch();
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.y * lanes_;
+  const int C = (N + K - 1) / K;
+  const int Q = 2 * C;
+  const size_t plane = static_cast<size_t>(N) * L;
+  const T* const gd = d + blockIdx.x * plane;
+  T* const go = out + blockIdx.x * plane;
+  if (tid == 0) {
+    for (int s = 0; s < LANE_STAGES; ++s) {
+      bar_init(full + s, lane_copiers<RESIDENT>());  // each copying thread
+      bar_init(empty + s, lanes_);       // each chain thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // lane t's rows of chunk q in shared memory: its data, its factor k
+  auto data_at = [&](int q, const Chunk& ch, int t) -> T* {
+    if (RESIDENT)
+      return reinterpret_cast<T*>(ycols + t * lay.ypitch()) + ch.p0;
+    return reinterpret_cast<T*>(ring + (q % LANE_STAGES) * lay.slot() +
+                                t * lay.cpitch());
+  };
+  auto factor_at = [&](int q, int k, int t) -> T* {
+    return reinterpret_cast<T*>(ring + (q % LANE_STAGES) * lay.slot() +
+                                ((RESIDENT ? 0 : 1) + k) * lay.panel() +
+                                t * lay.cpitch());
+  };
+
+  if (tid >= 32) {
+    // the copying warps: thread c moves lane c % lanes of rows c / lanes,
+    // + H, + 2H, ... of a chunk, so a warp instruction moves whole row
+    // segments of the tile; it copies and stores the same places, so no
+    // thread waits on another's
+    const int c = tid - 32;
+    const int t = c % lanes_;
+    const int h = c / lanes_;
+    const int H = lane_copiers<RESIDENT>() / lanes_;
+    const int j = j0 + t;
+    const bool lane_ok = j < L;
+    const size_t step = static_cast<size_t>(H) * L;
+    auto in = [&](T* s, const T* g, const Chunk& ch) {
+      if (!lane_ok) return;
+      const T* src = g + static_cast<size_t>(ch.p0 + h) * L + j;
+      for (int r = h; r < ch.n; r += H, src += step)
+        small_load<sizeof(T)>(s + r, src);
+    };
+    auto load = [&](int q) {
+      const Chunk ch(q, C, K, N);
+      if (ch.fwd) {
+        in(data_at(q, ch, t), gd, ch);
+        in(factor_at(q, 0, t), w, ch);
+      } else {
+        in(factor_at(q, 0, t), binv, ch);
+        in(factor_at(q, 1, t), u, ch);
+        if (!RESIDENT) in(data_at(q, ch, t), go, ch);  // y, back from out
+      }
+      bar_arrive_copies(full + q % LANE_STAGES);
+    };
+    // chunk q is done: store what goes to out, then free its slot
+    auto release = [&](int q) {
+      const Chunk ch(q, C, K, N);
+      bar_wait(empty + q % LANE_STAGES, (q / LANE_STAGES) & 1);
+      if (RESIDENT && !ch.fwd && lane_ok) {
+        const T* s = data_at(q, ch, t);
+        T* dst = go + static_cast<size_t>(ch.p0 + h) * L + j;
+        for (int r = h; r < ch.n; r += H, dst += step) *dst = s[r];
+      }
+    };
+    int done = 0;  // chunks released
+    for (int q = 0; q < Q; ++q) {
+      if (!RESIDENT && q == C) {
+        // y comes back from out: every y chunk stored first
+        while (done < C) release(done++);
+        __threadfence();
+      }
+      if (q - done >= LANE_STAGES) release(done++);
+      load(q);
+    }
+    while (done < Q) release(done++);
+    return;
+  }
+  if (tid >= lanes_) return;
+
+  // the chain of lane j0 + tid (past L on a ragged tile: computed on what
+  // the columns hold, never stored).  With y through the output, the chain
+  // stores y and x itself as it computes them, a warp instruction a row
+  // segment; resident, the copying warps store x from the columns.
+  const bool out_here = !RESIDENT && j0 + tid < L;
+  T carry = T(0);
+  for (int q = 0; q < Q; ++q) {
+    const Chunk ch(q, C, K, N);
+    bar_wait(full + q % LANE_STAGES, (q / LANE_STAGES) & 1);
+    T* const data = data_at(q, ch, tid);
+    T* const o = go + static_cast<size_t>(ch.p0) * L + j0 + tid;
+    const size_t Lz = L;
+    if (ch.fwd) {
+      const T* const wp = factor_at(q, 0, tid);
+      if (out_here) lane_fwd<T, true>(data, wp, o, Lz, ch.n, carry, ch.p0 == 0);
+      else lane_fwd<T, false>(data, wp, o, Lz, ch.n, carry, ch.p0 == 0);
+    } else {
+      if (q == C) carry = T(0);
+      const T* const bp = factor_at(q, 0, tid);
+      const T* const up = factor_at(q, 1, tid);
+      const bool last = ch.p0 + ch.n == N;
+      if (out_here) lane_bwd<T, true>(data, bp, up, o, Lz, ch.n, carry, last);
+      else lane_bwd<T, false>(data, bp, up, o, Lz, ch.n, carry, last);
+    }
+    bar_arrive(empty + q % LANE_STAGES);
+  }
+}
+
+cudaError_t lane_prepare(int device, int& sms) {
+  static int count[MAX_DEVICES] = {};
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (!count[device]) {
+    err = cudaDeviceGetAttribute(&count[device],
+                                 cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+  }
+  sms = count[device];
+  return cudaSuccess;
+}
+
+// the plan is one this kernel can run: 8, 16 or 32 lanes, a chunk of whole
+// groups (a multiple of 16 rows), a grid the card takes, a layout that fits
+// and matches its bytes
+template <typename T>
+bool lane_plan_ok(int B, int N, int L, int lanes, int chunk, int resident,
+                  long long smem) {
+  if (B < 1 || N < 1 || L < 1) return false;
+  if (lanes != 8 && lanes != 16 && lanes != 32) return false;
+  if (chunk < 16 || chunk % 16 != 0) return false;
+  if (resident != 0 && resident != 1) return false;
+  if ((L + lanes - 1) / lanes > 65535) return false;
+  const LaneLayout lay{lanes, chunk, resident, N, static_cast<int>(sizeof(T))};
+  return lay.total() == smem && smem <= LANE_SMEM_LIMIT;
+}
+
+template <typename T, bool RESIDENT>
+cudaError_t lane_launch_plan(const T* w, const T* binv, const T* u,
+                             const T* d, T* out, int B, int N, int L,
+                             int lanes, int chunk, int smem, int device,
+                             cudaStream_t stream) {
+  static bool smem_allowed[MAX_DEVICES] = {};
+  // above 48 KB a block's dynamic shared memory must be allowed, once per
+  // device and instance (before any graph capture that holds a launch)
+  if (!smem_allowed[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        shear_thomas_lane_kernel<T, RESIDENT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, LANE_SMEM_LIMIT);
+    if (err != cudaSuccess) return err;
+    smem_allowed[device] = true;
+  }
+  const dim3 grid(B, (L + lanes - 1) / lanes);
+  shear_thomas_lane_kernel<T, RESIDENT>
+      <<<grid, 32 + lane_copiers<RESIDENT>(), smem, stream>>>(
+      w, binv, u, d, out, N, L, lanes, chunk);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t lane_launch(const void* w, const void* binv, const void* u,
+                        const void* d, void* out, int B, int N, int L,
+                        int lanes, int chunk, int resident, int smem,
+                        int device, void* stream) {
+  int sms = 0;
+  cudaError_t err = lane_prepare(device, sms);
+  if (err != cudaSuccess) return err;
+  if (!lane_plan_ok<T>(B, N, L, lanes, chunk, resident, smem))
+    return cudaErrorInvalidValue;
+  const uintptr_t any = reinterpret_cast<uintptr_t>(w) |
+                        reinterpret_cast<uintptr_t>(binv) |
+                        reinterpret_cast<uintptr_t>(u) |
+                        reinterpret_cast<uintptr_t>(d) |
+                        reinterpret_cast<uintptr_t>(out);
+  if (any & (sizeof(T) - 1)) return cudaErrorMisalignedAddress;
+  const T* w_ = static_cast<const T*>(w);
+  const T* b_ = static_cast<const T*>(binv);
+  const T* u_ = static_cast<const T*>(u);
+  const T* d_ = static_cast<const T*>(d);
+  T* o = static_cast<T*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (resident)
+    return lane_launch_plan<T, true>(w_, b_, u_, d_, o, B, N, L, lanes, chunk,
+                                     smem, device, st);
+  return lane_launch_plan<T, false>(w_, b_, u_, d_, o, B, N, L, lanes, chunk,
+                                    smem, device, st);
+}
+
+template <typename T>
+cudaError_t lane_geometry(int B, int N, int L, int lanes, int chunk,
+                          int resident, int device, int* out) {
+  int sms = 0;
+  const cudaError_t err = lane_prepare(device, sms);
+  if (err != cudaSuccess) return err;
+  const LaneLayout lay{lanes, chunk, resident, N, static_cast<int>(sizeof(T))};
+  if (!lane_plan_ok<T>(B, N, L, lanes, chunk, resident, lay.total()))
+    return cudaErrorInvalidValue;
+  out[0] = lanes;
+  out[1] = chunk;
+  out[2] = resident;
+  out[3] = static_cast<int>(lay.total());
+  out[4] = (L + lanes - 1) / lanes * B;
+  out[5] = sms;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // w, binv, u: (N, M) real; d, out: (B, N, M) complex as (B, N, M, 2) real,
@@ -334,19 +868,44 @@ extern "C" cudaError_t shear_thomas_f64(const void* w, const void* binv,
   return launch<double, 2>(w, binv, u, d, out, B, N, M, device, stream);
 }
 
-// The real-lane entry: w, binv, u: (N, L) real; d, out: (B, N, L) real.
+// The real-lane entry: w, binv, u: (N, L) real; d, out: (B, N, L) real, all
+// contiguous on `device`; the plan (lanes, chunk, resident, smem) from
+// ops/cuda_solve.lane_plan.
 extern "C" cudaError_t shear_thomas_real_f32(const void* w, const void* binv,
                                              const void* u, const void* d,
                                              void* out, int B, int N, int L,
-                                             int device, void* stream) {
-  return launch<float, 1>(w, binv, u, d, out, B, N, L, device, stream);
+                                             int lanes, int chunk, int resident,
+                                             int smem, int device,
+                                             void* stream) {
+  return lane_launch<float>(w, binv, u, d, out, B, N, L, lanes, chunk,
+                            resident, smem, device, stream);
 }
 
 extern "C" cudaError_t shear_thomas_real_f64(const void* w, const void* binv,
                                              const void* u, const void* d,
                                              void* out, int B, int N, int L,
-                                             int device, void* stream) {
-  return launch<double, 1>(w, binv, u, d, out, B, N, L, device, stream);
+                                             int lanes, int chunk, int resident,
+                                             int smem, int device,
+                                             void* stream) {
+  return lane_launch<double>(w, binv, u, d, out, B, N, L, lanes, chunk,
+                             resident, smem, device, stream);
+}
+
+// What a launch of this plan uses, from this file's own layout: out[0..5]
+// = lanes of a tile, rows of a chunk, y resident, bytes of dynamic shared
+// memory a block, blocks, SMs.
+extern "C" cudaError_t shear_thomas_real_geometry_f32(int B, int N, int L,
+                                                      int lanes, int chunk,
+                                                      int resident, int device,
+                                                      int* out) {
+  return lane_geometry<float>(B, N, L, lanes, chunk, resident, device, out);
+}
+
+extern "C" cudaError_t shear_thomas_real_geometry_f64(int B, int N, int L,
+                                                      int lanes, int chunk,
+                                                      int resident, int device,
+                                                      int* out) {
+  return lane_geometry<double>(B, N, L, lanes, chunk, resident, device, out);
 }
 
 extern "C" const char* shear_thomas_error(int err) {

@@ -773,38 +773,56 @@ def test_layout_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
         "cpu", Ns=(8,), Bs=(1, 2), ragged=(1, 6, 7), large_B=3,
         offset_Ns=(6, 7), long_rows=((torch.complex64, 40),
                                      (torch.complex128, 24)),
-        lane_Ns=(8, 9))
+        lane_Ns=(8, 9), lane_offset_Ns=(9,),
+        lane_edge_Ns={("shear_thomas", "planes", "float32"): (10, 11)})
     assert {r["kernel"] for r in lk} == {"row_thomas", "shear_thomas_real",
                                          "shear_scan_real"}
-    # per dtype: 4 N x 2 layouts x 3 B, at 2 N x 2 layouts the offset and
-    # aligned d in both modes, 2 lane kernels x 2 N; and 2 long rows
-    assert len(lk) == 2 * (4 * 2 * 3 + 2 * 2 * 4 + 2 * 2) + 2
+    # row_thomas, per dtype: 4 N x 2 layouts x 3 B, at 2 N x 2 layouts the
+    # offset and aligned d in both modes; 2 long rows; the real lanes, per
+    # dtype and kernel: 2 N and 1 offset N x 2 views, and 2 edge N
+    assert len(lk) == 2 * (4 * 2 * 3 + 2 * 2 * 4) + 2 + 2 * 2 * 3 * 2 + 2
     assert all(r["max_abs_err"] == 0.0 for r in lk)
+    lanes = [r for r in lk if r["kernel"] != "row_thomas"]
+    assert all(r.get("interleaved_vs_complex", 0.0) == 0.0 for r in lanes)
+    assert sum(r["view"] == "interleaved" for r in lanes) == 12
+    assert [(r["N"], r["view"]) for r in lanes if r["edge"]] == [
+        (10, "planes"), (11, "planes")]
+    assert {r["N"] for r in lanes if r["offset"]} == {9}
+    assert all(r["plan"] is None for r in lanes)  # a plan only on a card
     modes = {(r["N"], r["offset"], r["mode"]) for r in lk if "mode" in r}
     assert modes == {(n, o, m) for n in (6, 7) for o in (0, 1)
                      for m in ("resident", "through_out")}
     assert [(r["N"], r["R"], r["B"], r["resident"]) for r in lk
             if "resident" in r] == [(40, 3, 2, None), (24, 3, 2, None)]
     lt = chip_smoke.layout_kernel_times(
-        "cpu", N=16, row_times=(("wrapped", 16, 1, torch.complex64),
-                                ("rolls", 16, 1, torch.complex64),
-                                ("wrapped", 16, 4, torch.complex64),
-                                ("wrapped", 8, 1, torch.complex128),
-                                ("wrapped", 32, 1, torch.complex64)))
+        "cpu", row_times=(("wrapped", 16, 1, torch.complex64),
+                          ("rolls", 16, 1, torch.complex64),
+                          ("wrapped", 16, 4, torch.complex64),
+                          ("wrapped", 8, 1, torch.complex128),
+                          ("wrapped", 32, 1, torch.complex64)),
+        lane_times=((torch.float32, "planes", 16),
+                    (torch.float32, "interleaved", 16),
+                    (torch.float64, "interleaved", 8),
+                    (torch.float32, "planes", 24)))
+    lane_rows = [(kernel, B, view) for kernel in ("shear_thomas_real",
+                                                  "shear_scan_real")
+                 for B, view in ((2, "planes"), (1, "interleaved"),
+                                 (1, "interleaved"), (2, "planes"))]
     assert [(r["kernel"], r.get("R"), r.get("B"), r.get("view"))
             for r in lt] == [
         ("row_thomas", 16, 1, None), ("row_thomas", 9, 1, None),
         ("row_thomas", 16, 4, None), ("row_thomas", 8, 1, None),
         ("row_thomas", 32, 1, None),
-        ("shear_thomas_real", None, 2, "planes"),
-        ("shear_thomas_real", None, 1, "interleaved"),
-        ("shear_scan_real", None, 2, "planes"),
-        ("shear_scan_real", None, 1, "interleaved")]
+        *((kernel, None, B, view) for kernel, B, view in lane_rows)]
+    assert [r.get("dtype") for r in lt[5:9]] == [
+        "float32", "float32", "float64", "float32"]
     assert lt[0]["bound_ms"] == pytest.approx(28 * 16 * 16 / 3.35e9)
     assert lt[2]["bound_ms"] == pytest.approx(76 * 16 * 16 / 3.35e9)
     assert lt[3]["bound_ms"] == pytest.approx(56 * 8 * 8 / 3.35e9)
     assert lt[5]["bound_ms"] == pytest.approx((8 * 2 + 12) * 16 * 17 / 3.35e9)
     assert lt[6]["bound_ms"] == pytest.approx(20 * 16 * 34 / 3.35e9)
+    assert lt[7]["bound_ms"] == pytest.approx(40 * 8 * 18 / 3.35e9)
+    assert lt[8]["bound_ms"] == pytest.approx(28 * 24 * 25 / 3.35e9)
     assert all(r["share"] == r["bound_ms"] for r in lt)
     assert all("plan" not in r for r in lt)  # a plan only on a card
     ls = chip_smoke.layout_steppers(
