@@ -12,7 +12,8 @@ wherever their builders' rule captures (parallel/capture.py): phases
 steps (14a-c, 14e); the adaptive runs (``isomp``, ``magmp`` and the
 builders under ``tol`` off a mesh: phases 10, 11, 13, 14c-d, 17e, 21, 22d-f
 and 24) run one launch a step, the fixed point a WHILE node on the card
-that ``loop_decide`` ends, and read their counts once a call; each
+whose passes ``loop_pass`` ends (the residual, dW written back and the
+exit rule in one kernel), and read their counts once a call; each
 comparison with a column solve's plain version (phases 4, 7, 10, 14a-b,
 14e, 15d, 22a-c) runs eagerly, inside ``config.eager()``, since a captured
 plain solve is thousands of graph nodes; phases 21, 22 and 24 hold the
@@ -309,12 +310,20 @@ replays to eager runs.
        pack and an unpack.
 
 24. the adaptive fixed point on the card (the device loop):
-    a. ``loop_decide`` against its plain version on crafted residual
-       sequences (the exit by tol and at rn == tol, the stall and rn ==
-       rn_old, NaN, minit, the cap, a float32 edge), float32 and float64,
-       two steps each: the state's words equal after every decision; its
-       ms a launch (CUDA-graph replay), the plain version's, its bound
-       (72 bytes), and the WHILE node's ms a pass with an empty body;
+    a. ``loop_pass`` against its plain version at N in {1, 7, 256, 1000,
+       1024, 4096} (complex64, complex128, float32 planes, MHD's two
+       complex128 components) and at B=16 (N=1024, both dtypes, MHD
+       complex64): dW and the state's words bit-equal, rn within 2 N u rn;
+       ``loop_pass`` and ``loop_decide`` on crafted residual sequences
+       (the exit by tol and at rn == tol, the stall and rn == rn_old, NaN
+       to maxit, minit, the cap, a float32 edge), float32 and float64, two
+       steps each: the words equal after every decision; ``loop_pass``'s
+       ms (CUDA-graph replay) at 24b's shapes, N in {256, 512, 1024} in
+       both dtypes and B=16, beside its bound (dW_new and dW read, dW
+       written), the sequence it replaced (the residual in torch, the
+       copies of rn, dW and the rest, ``loop_decide``) in turns, the
+       library's residual and copy, and the plain version's; the WHILE
+       node's ms a pass with an empty iteration;
     b. each run through the device loop against its ``config.eager()``
        twin (the host loop), in turns (eager, loop, loop, eager): the
        README quickstart ``solve(W0, stepsize=0.25, ...)`` with the default
@@ -327,17 +336,21 @@ replays to eager runs.
        not show every pass of a WHILE body; beside it the idle share from
        the profile's kernel time, exact where it showed every pass),
        iterations a step, host reads a call (<= 2), launches of the solve
-       and of ``loop_decide`` by counter and by profile.
+       and of ``loop_pass`` by counter (equal in both loops) and by
+       profile; kernel ms a step split into the iteration and the pass,
+       the device loop's against the host loop's; the WHILE body's nodes
+       (the iteration's graph and ``loop_pass``, no copy).
 
 Every path (phases 4, 5, 7-24) runs with every launch count set to 0 just
 before it and read just after; a replay adds the launches its graph
 recorded at capture (the warm-up's and the capture's own are taken
 back), a device loop the launches of its pieces once a step and of its
-iteration, and ``loop_decide``'s, once an iteration, from the counts it
+iteration, and ``loop_pass``'s, once an iteration, from the counts it
 reads once a call.  Then a JSON line of the kernels
 (name, source, the TPU kernel it replaces, launches on each path, error,
-times and bound at the main path's shape; ``library_ms`` null, since no
-PyTorch call solves banded or tridiagonal systems) and, last, the result
+times and bound at the main path's shape; ``library_ms`` null for the
+solves, since no PyTorch call solves banded or tridiagonal systems, and
+for ``loop_pass`` the matrix inf-norm and a copy) and, last, the result
 line ``{"ok": true, "device": {...}}``.
 
 The bound of a column solve is the larger of its bytes (d, w, binv, u read
@@ -402,6 +415,8 @@ from quflow_tpu_torch.ops.tridiag import refine_m0, shear_operator
 from quflow_tpu_torch.ops.cuda_graph_loop import (
     loop_decide,
     loop_decide_reference,
+    loop_pass,
+    loop_pass_reference,
 )
 from quflow_tpu_torch.ops.cuda_row_solve import row_thomas, row_thomas_reference
 from quflow_tpu_torch.ops.cuda_scan_solve import (
@@ -437,7 +452,7 @@ PEAK_OPS_PER_S = {torch.complex64: 67e12, torch.complex128: 34e12}
 
 
 def reset_counts():
-    for k in (*KERNELS, shear_block, row_thomas, loop_decide):
+    for k in (*KERNELS, shear_block, row_thomas, loop_decide, loop_pass):
         k.launches = 0
     for k in KERNELS:
         k.real_launches = 0
@@ -3891,71 +3906,287 @@ LOOP_SEQUENCES = {
     "maxit_cap": ([1.0 / (k + 1) for k in range(8)], 0.0, 5, 1),
     "float_edge": ([1e-3, 1e-6, 1.0000001e-8, 9.9e-9], 1e-8, 10, 1),
 }
-#: bytes a decision moves that continues: rn (8), five words read (i,
-#: rn_old, tol, maxit, minit) and three written (i, rn_old, the decision)
-LOOP_DECIDE_BYTES = 8 + 8 * 8
+#: phase 24a's shapes held to the plain version: (name, dtype, shape) over
+#: the states, ensembles, MHD's components and the float planes
+LOOP_PASS_CHECKS = tuple(
+    (f"{name}_N{N}", dtype, shape(N))
+    for N in (1, 7, 256, 1000, 1024, 4096)
+    for name, dtype, shape in (
+        ("c64", torch.complex64, lambda n: (n, n)),
+        ("c128", torch.complex128, lambda n: (n, n)),
+        ("planes_f32", torch.float32, lambda n: (2, n, n)),
+        ("mhd_c128", torch.complex128, lambda n: (2, n, n)))) + (
+    ("c64_N1024_B16", torch.complex64, (16, 1024, 1024)),
+    ("c128_N1024_B16", torch.complex128, (16, 1024, 1024)),
+    ("mhd_c64_N1024_B16", torch.complex64, (16, 2, 1024, 1024)))
+#: phase 24a's timed shapes: name -> (dtype, dW's shape, the rest's shapes
+#: a pass copied before loop_pass): the shapes of 24b's runs (PWc beside
+#: dW; MHD's PWc of both components and BTc) and more, both dtypes, B=16
+LOOP_PASS_TIMES = {
+    **{f"{c}_N{N}": (dtype, (N, N), [(N, N)])
+       for c, dtype in (("c64", torch.complex64),
+                        ("c128", torch.complex128))
+       for N in (256, 512, 1024)},
+    "mhd_c128_N512": (torch.complex128, (2, 512, 512),
+                      [(2, 512, 512), (512, 512)]),
+    "mhd_c64_N1024": (torch.complex64, (2, 1024, 1024),
+                      [(2, 1024, 1024), (1024, 1024)]),
+    "c128_N1024_B16": (torch.complex128, (16, 1024, 1024),
+                       [(16, 1024, 1024)]),
+}
+#: real operations a value of |dW_new - dW| summed: a subtract, an
+#: absolute value and an add (real); two subtracts, two multiplies, an
+#: add, a square root and an add (complex, hypot's least)
+LOOP_PASS_OPS = {False: 3, True: 7}
+PEAK_REAL_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
 
-def loop_decide_vs_plain(device, reps=200, passes=64):
-    """Phase 24a: ``loop_decide`` against its plain version on the card,
-    each of :data:`LOOP_SEQUENCES` in float32 and float64 over two steps:
-    the state's words after every decision, equal (max abs difference of
-    the words 0).  Its time a launch by CUDA-graph replay, the plain
-    version's by CUDA events (a host read a decision), the bound (its
-    bytes over 3.35 TB/s), and the WHILE node's cost a pass: a composite
-    whose body is an empty graph, run to ``passes`` passes and to one
-    (a NaN residual never settles), by CUDA events."""
+def loop_pass_bound(dtype, shape):
+    """The least time (ms) of a pass over dW of ``shape``: dW_new and dW
+    read once and dW written once over 3.35 TB/s, or its operations over
+    the card's peak for the real type (67 / 34 TFLOP/s), the larger;
+    and which bounds it."""
+    n = math.prod(shape)
+    size = torch.empty((), dtype=dtype).element_size()
+    real = (torch.float32 if dtype in (torch.float32, torch.complex64)
+            else torch.float64)
+    by_bytes = 3 * n * size / HBM_BYTES_PER_S * 1e3
+    by_ops = n * LOOP_PASS_OPS[dtype.is_complex] / PEAK_REAL_OPS_PER_S[
+        real] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def _pass_inputs(dtype, shape, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, dtype=dtype, device=device, generator=g)
+            for _ in range(2)]
+
+
+def _pass_vs_plain(dW_new, dW, state):
+    """loop_pass against its plain version on copies of one input: dW and
+    the state's words bit-equal (else AssertionError), but for the one
+    that keeps rn as rn_old, and rn's relative difference, within 2 N u
+    (else AssertionError: a row's N terms summed in two orders, each
+    within N u of the exact sum)."""
+    dWp, sp = dW.clone(), state.clone()
+    rn = torch.empty((), dtype=dW.real.dtype, device=dW.device)
+    rn_p = torch.empty_like(rn)
+    loop_pass(dW_new, dW, rn, state)
+    loop_pass_reference(dW_new, dWp, rn_p, sp)
+    words = [k for k in range(state.numel()) if k != cuda_graph_loop.LAST]
+    if not (torch.equal(dW, dWp) and torch.equal(state[words], sp[words])):
+        raise AssertionError(f"loop_pass {tuple(dW.shape)} {dW.dtype}: dW "
+                             f"or the words {state.tolist()[:9]} against "
+                             f"the plain {sp.tolist()[:9]}")
+    a, b = float(rn), float(rn_p)
+    if math.isnan(a) and math.isnan(b):
+        return 0.0
+    err = abs(a - b) / b if b else abs(a - b)
+    u = torch.finfo(rn.dtype).eps / 2
+    if not err <= 2 * dW.shape[-1] * u:
+        raise AssertionError(f"loop_pass {tuple(dW.shape)} {dW.dtype}: rn "
+                             f"{a!r} against the plain {b!r}")
+    return err
+
+
+def _rule_sequences(device):
+    """The rule of loop_decide and of loop_pass (its residual made |x| by
+    one value x in a zero difference) on each of :data:`LOOP_SEQUENCES`
+    in both working precisions, over two steps, against the plain rule:
+    the words equal after every decision.  Rows of each run's counts."""
     rows, worst = [], 0
-    for dtype in (torch.float32, torch.float64):
-        rnp = np.float32 if dtype == torch.float32 else np.float64
+    for dtype in (torch.complex64, torch.complex128):
+        real = torch.float32 if dtype == torch.complex64 else torch.float64
+        rnp = np.float32 if real == torch.float32 else np.float64
         for name, (seq, tol, maxit, minit) in LOOP_SEQUENCES.items():
             tol_r = float(rnp(tol))
-            sk = cuda_graph_loop.start_(cuda_graph_loop.new_state(device, 2),
-                                        tol_r, maxit, minit)
-            sr = cuda_graph_loop.start_(cuda_graph_loop.new_state("cpu", 2),
-                                        tol_r, maxit, minit)
+            states = {k: cuda_graph_loop.start_(cuda_graph_loop.new_state(
+                d, 2), tol_r, maxit, minit) for k, d in (
+                ("decide", device), ("pass", device), ("plain", "cpu"))}
+            rn = torch.empty((), dtype=real, device=device)
             decisions = 0
             for _ in range(2):
                 for x in seq:
-                    go = loop_decide(torch.tensor(x, dtype=dtype,
-                                                  device=device), sk)
-                    loop_decide_reference(torch.tensor(x, dtype=dtype), sr)
+                    go = loop_decide(torch.tensor(x, dtype=real,
+                                                  device=device),
+                                     states["decide"])
+                    dW_new = torch.zeros(3, 4, 4, dtype=dtype, device=device)
+                    dW_new[1, 2, 3] = x
+                    loop_pass(dW_new, torch.zeros_like(dW_new), rn,
+                              states["pass"])
+                    loop_decide_reference(torch.tensor(x, dtype=real),
+                                          states["plain"])
                     decisions += 1
-                    diff = (sk.cpu() - sr).abs().max().item()
-                    worst = max(worst, diff)
-                    if diff:
-                        raise AssertionError(
-                            f"loop_decide {name} {dtype}: words "
-                            f"{sk.cpu().tolist()} against the plain "
-                            f"{sr.tolist()}")
+                    for k in ("decide", "pass"):
+                        diff = (states[k].cpu() - states["plain"]).abs().max()
+                        worst = max(worst, diff.item())
+                        if diff:
+                            raise AssertionError(
+                                f"{k} {name} {real}: words "
+                                f"{states[k].cpu().tolist()} against the "
+                                f"plain {states['plain'].tolist()}")
                     if not bool(go):
                         break
-            words = sr.tolist()
-            rows.append(dict(sequence=name, dtype=str(dtype).split(".")[1],
+            words = states["plain"].tolist()
+            rows.append(dict(sequence=name, dtype=str(real).split(".")[1],
                              decisions=decisions,
                              counts=words[cuda_graph_loop.HEADER:],
                              capped=words[cuda_graph_loop.CAPPED]))
-    rn = torch.tensor(float("nan"), dtype=torch.float64, device=device)
-    state = cuda_graph_loop.start_(cuda_graph_loop.new_state(device), 0.0,
-                                   1 << 30, 1)
-    ms = graph_ms(lambda: loop_decide(rn, state), reps)
-    plain_state = cuda_graph_loop.start_(cuda_graph_loop.new_state(device),
-                                         0.0, 1 << 30, 1)
-    plain_ms = cuda_ms(lambda: loop_decide_reference(rn, plain_state), 20)
-    return dict(sequences=rows, max_abs_err=float(worst), ms=ms,
-                plain_ms=plain_ms,
-                bound_ms=LOOP_DECIDE_BYTES / HBM_BYTES_PER_S * 1e3,
-                bound_by="bytes", library_ms=None,
+    return rows, worst
+
+
+def replaced_sequence(dW_new, dW, rn, state, rests, bufs):
+    """What a pass of the device loop ran after the iteration before
+    loop_pass took its place: the residual in torch, its copy into rn,
+    dW_new's into dW, each rest's into its static buffer, then the rule
+    (``loop_decide``)."""
+    rn.copy_((dW_new - dW).abs().sum(-1).max())
+    dW.copy_(dW_new)
+    for buf, r in zip(bufs, rests):
+        buf.copy_(r)
+    loop_decide(rn, state)
+
+
+def library_pass(dW_new, dW):
+    """One PyTorch call of the same residual, the matrix inf-norm
+    (``torch.linalg.matrix_norm(ord=inf)``, its max over leading indices),
+    and dW_new's copy into dW: the yardstick, used nowhere in the port."""
+    torch.linalg.matrix_norm(dW_new - dW, ord=float("inf")).max()
+    dW.copy_(dW_new)
+
+
+def _rotated(dtype, shape, rest_shapes, device, seed, budget=128 << 20):
+    """Sets of (dW_new, dW, rests, the rests' buffers), as many as make a
+    run through them move ``budget`` bytes, more than the card's 50 MB L2
+    (at most 64): a launch on one set finds it out of the cache, as a
+    pass finds dW."""
+    size = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    per = size * 2 + sum(2 * math.prod(r) * size // math.prod(shape)
+                         for r in rest_shapes)
+    sets = []
+    for k in range(min(64, max(1, -(-budget // per)))):
+        dW_new, dW = _pass_inputs(dtype, shape, device, seed + k)
+        rests = [torch.randn(r, dtype=dtype, device=device)
+                 for r in rest_shapes]
+        sets.append((dW_new, dW, rests, [torch.empty_like(r) for r in rests]))
+    return sets
+
+
+def _cycled(sets, fn):
+    """``fn(*set)`` over the sets in turn, one a call."""
+    turn = iter(range(1 << 62))
+    return lambda: fn(*sets[next(turn) % len(sets)])
+
+
+def loop_pass_times(device, reps=48, checks=LOOP_PASS_TIMES):
+    """loop_pass at each of ``checks`` by CUDA-graph replay (a launch with
+    the rule on, as in the WHILE body), the sequence it replaced (residual,
+    copies of rn, dW and the rest, ``loop_decide``) and the library's
+    residual and copy, all captured, in turns (replaced, pass, pass,
+    replaced), each launch on the next of a rotation of inputs larger than
+    the L2 (:func:`_rotated`); its bound and share; the plain version's
+    ms; and, before the times, loop_pass against its plain version on the
+    first set (:func:`_pass_vs_plain`: rn's relative difference in
+    ``max_rel_err_rn``), so that every shape the main path gives it is
+    held to the plain version."""
+    rows = []
+    for name, (dtype, shape, rest_shapes) in checks.items():
+        sets = _rotated(dtype, shape, rest_shapes, device, seed=len(rows))
+        n = -(-reps // len(sets)) * len(sets)
+        err = _pass_vs_plain(sets[0][0], sets[0][1].clone(), start_state(
+            device))
+        rn = torch.empty((), dtype=sets[0][1].real.dtype, device=device)
+        states = [cuda_graph_loop.start_(cuda_graph_loop.new_state(device),
+                                         0.0, 1 << 30, 1) for _ in "ab"]
+        scratch = cuda_graph_loop.new_scratch(device)
+        turns = {"replaced": [], "loop_pass": []}
+        for who in ("replaced", "loop_pass", "loop_pass", "replaced"):
+            if who == "replaced":
+                fn = _cycled(sets, lambda a, b, r, bufs: replaced_sequence(
+                    a, b, rn, states[0], r, bufs))
+            else:
+                fn = _cycled(sets, lambda a, b, r, bufs: loop_pass(
+                    a, b, rn, states[1], scratch))
+            turns[who].append(graph_ms(fn, n))
+        library_ms = graph_ms(_cycled(sets, lambda a, b, r, bufs:
+                                      library_pass(a, b)), n)
+        dW_new, dW = sets[0][:2]
+        plain_ms = cuda_ms(lambda: loop_pass_reference(dW_new, dW, rn,
+                                                       states[1]), 3)
+        bound, by = loop_pass_bound(dtype, shape)
+        ms = float(np.median(turns["loop_pass"]))
+        replaced = float(np.median(turns["replaced"]))
+        N = shape[-1]
+        rows.append(dict(
+            name=name, dtype=str(dtype).split(".")[1], shape=list(shape),
+            rests=[list(r) for r in rest_shapes], rotation=len(sets),
+            plan=list(cuda_graph_loop.plan(math.prod(shape) // N, N, dtype,
+                                           sm_count(device))),
+            ms=ms, ms_turns=turns["loop_pass"], replaced_ms=replaced,
+            replaced_ms_turns=turns["replaced"],
+            saved_ms=replaced - ms, bound_ms=bound, bound_by=by,
+            share=bound / ms if ms else None, plain_ms=plain_ms,
+            library_ms=library_ms, max_rel_err_rn=err))
+        del sets
+    return rows
+
+
+def sm_count(device):
+    """The SM count loop_pass's plan reads: the card's, 132 on the CPU."""
+    if torch.device(device).type != "cuda":
+        return 132
+    return cuda_solve.sms(torch.device(device).index or 0)
+
+
+def start_state(device):
+    """A state started for a pass held to the plain version: tol 1e-8,
+    maxit 5, minit 1."""
+    return cuda_graph_loop.start_(cuda_graph_loop.new_state(device), 1e-8,
+                                  5, 1)
+
+
+def loop_pass_vs_plain(device, reps=50, passes=64, checks=LOOP_PASS_CHECKS,
+                       times=LOOP_PASS_TIMES):
+    """Phase 24a: ``loop_pass`` against its plain version on the card at
+    each of ``checks`` and of ``times`` (dW and the state's words
+    bit-equal, rn within 2 N u: the largest relative difference in
+    ``max_rel_err_rn``); the
+    rule of loop_pass and of ``loop_decide`` on the crafted sequences
+    against the plain rule (a NaN runs to maxit); its times at ``times``
+    beside its bound, the replaced sequence's, the library's and the plain
+    version's (:func:`loop_pass_times`); and the WHILE node's cost a pass
+    with an empty iteration."""
+    worst_rn = 0.0
+    for k, (name, dtype, shape) in enumerate(checks):
+        dW_new, dW = _pass_inputs(dtype, shape, device, seed=k)
+        worst_rn = max(worst_rn, _pass_vs_plain(dW_new, dW,
+                                                start_state(device)))
+        del dW_new, dW
+    sequences, worst = _rule_sequences(device)
+    timed = loop_pass_times(device, reps, times)
+    worst_rn = max([worst_rn] + [r["max_rel_err_rn"] for r in timed])
+    main = next(r for r in timed if r["name"] == "c128_N1024")
+    return dict(checked=[name for name, _, _ in checks] + list(times),
+                max_rel_err_rn=worst_rn, sequences=sequences,
+                max_abs_err=float(worst), times=timed,
+                **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "share", "library_ms",
+                                        "replaced_ms")},
                 **while_pass_ms(device, passes))
 
 
 def while_pass_ms(device, passes, reps=20):
     """The card's ms a pass of a WHILE node whose body is an empty graph
-    and ``loop_decide`` (``passes`` passes against one, a NaN residual),
-    and the ms of a launch of one pass, by CUDA events."""
+    and ``loop_pass`` over one float64 NaN (``passes`` passes against one:
+    a NaN never settles), and the ms of a launch of one pass, by CUDA
+    events."""
     if not on_card(device):
         return dict(while_pass_ms=None, one_pass_launch_ms=None)
-    rn = torch.tensor(float("nan"), dtype=torch.float64, device=device)
+    dW_new = torch.full((1, 1), float("nan"), dtype=torch.float64,
+                        device=device)
+    dW = torch.zeros_like(dW_new)
+    rn = torch.empty((), dtype=torch.float64, device=device)
     sink = torch.zeros(1, device=device)
     pool = torch.cuda.graph_pool_handle()
     graphs = []
@@ -3965,9 +4196,9 @@ def while_pass_ms(device, passes, reps=20):
             piece()
         graphs.append(graph)
     state = cuda_graph_loop.new_state(device)
-    loop = cuda_graph_loop.Composite(None, None,
-                                     *(g.raw_cuda_graph() for g in graphs),
-                                     rn, state)
+    loop = cuda_graph_loop.Composite(
+        None, None, *(g.raw_cuda_graph() for g in graphs), dW_new, dW, rn,
+        state, cuda_graph_loop.new_scratch(device))
     times = {}
     for n in (1, passes):
         cuda_graph_loop.start_(state, 0.0, n, 1)
@@ -4082,7 +4313,29 @@ def loop_cases(device, n_small=256, n_large=1024, n_mhd=512, steps=100,
     }
 
 
-def device_loop(device, cases=None):
+#: 24a's timed shape of each 24b run (dW's and the rest's)
+LOOP_RUN_TIMES = {
+    "quickstart_isomp_c128_N256": "c128_N256",
+    "quickstart_isomp_c128_N1024": "c128_N1024",
+    "magmp_c128_N512": "mhd_c128_N512",
+    "euler_c128_N1024_tol": "c128_N1024",
+    "mhd_c64_N1024_tol": "mhd_c64_N1024",
+    "custom_qg_c128_N512_tol": "c128_N512",
+}
+
+
+def _pass_split(table, passes):
+    """From a profile's table: (the kernels' ms a step, loop_pass's ms a
+    step as shown, loop_pass's launches a step as shown, its mean ms a
+    launch)."""
+    kernel_ms = sum(ms for _, ms in table.values())
+    shown = [(c, ms) for k, (c, ms) in table.items() if "loop_pass" in k]
+    count = sum(c for c, _ in shown)
+    ms = sum(m for _, m in shown)
+    return kernel_ms, ms, count, (ms / count if count else None)
+
+
+def device_loop(device, cases=None, pass_times=None):
     """Phase 24b: each run of :func:`loop_cases` through the device loop
     (one launch a step, the exit on the card) against its
     ``config.eager()`` twin (the host loop, a read an iteration), in turns
@@ -4094,9 +4347,16 @@ def device_loop(device, cases=None):
     for the loop also from the profile (:func:`loop_idle`); host reads
     (``Tensor.item``/``tolist``) an integrator call, at most 2 in the loop
     (its counts or stats, and the 'auto' tolerance); launches of the
-    column solve and of ``loop_decide`` by counter and by profile (eager:
-    equal; the loop: between every piece and one WHILE pass a launch, and
-    the counters)."""
+    column solve and of ``loop_pass`` by counter (equal in both modes: the
+    host loop's residual is loop_pass with the rule off) and by profile
+    (eager: every launch; the loop: between every piece and one WHILE pass
+    a launch, and the counters).  Kernel ms a step split into the
+    iteration and the pass: the host loop's from its profile; the loop's
+    pass as loop_pass's mean ms a launch in its profile times the passes
+    counted (and, with ``pass_times``, 24a's ms at the run's shape times
+    them), its iteration from its profile where that showed every pass,
+    else the host loop's (the same kernels, the same counts); the WHILE
+    body's nodes (the iteration's graph and loop_pass)."""
     cases = loop_cases(device) if cases is None else cases
     rows = {}
     for name, (make, steps, kernel, calls) in cases.items():
@@ -4117,6 +4377,7 @@ def device_loop(device, cases=None):
             turns.setdefault(mode, []).append(steps / sec)
             spans.setdefault(mode, []).append(span)
             n = dict(solve=all_counts()[kernel.__name__],
+                     loop_pass=loop_pass.launches,
                      loop_decide=loop_decide.launches)
             if launches.setdefault(mode, n) != n:
                 raise AssertionError(f"{name} {mode}: launches {n} and "
@@ -4139,7 +4400,7 @@ def device_loop(device, cases=None):
                                  f"{per_step}")
         if not finite(state["loop"]):
             raise AssertionError(f"{name}: non-finite state")
-        if launches["loop"]["solve"] != launches["eager"]["solve"]:
+        if launches["loop"] != launches["eager"]:
             raise AssertionError(f"{name}: launches {launches}")
         total = round(per_step["loop"] * steps)
         row = dict(kernel=kernel.__name__, steps=steps, integrator_calls=calls,
@@ -4153,13 +4414,22 @@ def device_loop(device, cases=None):
             if loop is None:
                 raise AssertionError(f"{name}: the loop run went through no "
                                      "device loop")
-            if launches["loop"]["loop_decide"] != total:
-                raise AssertionError(f"{name}: loop_decide launched "
-                                     f"{launches['loop']['loop_decide']} "
-                                     f"times for {total} iterations")
+            if launches["loop"]["loop_pass"] != total or \
+                    launches["loop"]["loop_decide"]:
+                raise AssertionError(f"{name}: loop_pass launched "
+                                     f"{launches['loop']} for {total} "
+                                     "iterations")
             if reads["loop"] > 2:
                 raise AssertionError(f"{name}: {reads['loop']} host reads a "
                                      "call in the device loop")
+            types, count = loop.composite.body_nodes()
+            if count != 2 or sorted(types) != [0, 4]:
+                raise AssertionError(f"{name}: the WHILE body holds {count} "
+                                     f"nodes of types {types}, not the "
+                                     "iteration's graph and loop_pass")
+            row["while_body_nodes"] = count
+            row["iteration_nodes"] = cuda_graph_loop.graph_nodes(
+                loop.pieces["body"].graph.raw_cuda_graph())[1]
         profile_name = getattr(kernel, "profile_name", kernel.__name__)
         for mode, (runner, call) in runs.items():
             counted = launches[mode]["solve"] / steps
@@ -4171,10 +4441,9 @@ def device_loop(device, cases=None):
                              if profile_name in k)
                 if solves >= fewest:
                     break
-            decides = sum(c for k, (c, _) in table.items()
-                          if "loop_decide" in k)
+            kernel_ms, pass_ms, passes, pass_launch_ms = _pass_split(
+                table, per_step[mode])
             host_ms = 1e3 / float(np.median(turns[mode]))
-            kernel_ms = sum(ms for _, ms in table.values())
             if held is not None:  # the turns' span: the profile misses passes
                 device_ms, by = 1e3 * float(np.median(spans[mode])) / steps, \
                     "events"
@@ -4185,7 +4454,9 @@ def device_loop(device, cases=None):
                 device_ms_by=by, idle_share=1.0 - device_ms / host_ms,
                 solve_launches_a_step_counted=counted,
                 solve_launches_a_step_profiled=solves,
-                loop_decide_a_step_profiled=decides)
+                loop_pass_a_step_profiled=passes,
+                kernel_ms_a_step_profiled=kernel_ms,
+                loop_pass_ms_a_launch=pass_launch_ms)
             if held is not None:
                 row[mode].update(solve_launches_a_step_fewest_shown=fewest,
                                  **loop_idle(kernel_ms, host_ms, solves,
@@ -4196,16 +4467,45 @@ def device_loop(device, cases=None):
                     f"{kernel.__name__} a step, the counters {counted}"
                     + ("" if held is None else f", one WHILE pass a launch "
                        f"{fewest}"))
-            if held is not None and not (
-                    1 <= round(decides, 6) <= round(per_step["loop"], 6)):
+            if held is None and on_card(device) and round(passes, 6) != \
+                    round(per_step[mode], 6):
                 raise AssertionError(
-                    f"{name}: the profile shows {decides} loop_decide a "
+                    f"{name} eager: the profile shows {passes} loop_pass a "
+                    f"step, {per_step[mode]} iterations")
+            if held is not None and not (
+                    1 <= round(passes, 6) <= round(per_step["loop"], 6)):
+                raise AssertionError(
+                    f"{name}: the profile shows {passes} loop_pass a "
                     f"step, between 1 and {per_step['loop']} expected")
+            # the split of kernel ms a step into the iteration and the pass
+            if held is None:
+                row[mode].update(pass_ms_a_step=pass_ms,
+                                 iteration_ms_a_step=kernel_ms - pass_ms)
+            elif pass_launch_ms is not None:
+                every = row[mode]["profile_saw_every_pass"]
+                it_ms = (kernel_ms - pass_ms if every
+                         else row["eager"]["iteration_ms_a_step"])
+                row[mode].update(
+                    pass_ms_a_step=pass_launch_ms * per_step[mode],
+                    iteration_ms_a_step=it_ms,
+                    iteration_ms_by="own profile" if every
+                    else "host loop's profile")
+                row[mode]["kernel_ms_a_step_reckoned"] = (
+                    it_ms + row[mode]["pass_ms_a_step"])
+        if "kernel_ms_a_step_reckoned" in row["loop"]:
+            host = row["eager"]["kernel_ms_a_step_profiled"]
+            row["kernel_ms_vs_host_loop"] = (
+                row["loop"]["kernel_ms_a_step_reckoned"] / host)
+            row["span_ms_vs_host_loop"] = (
+                row["loop"]["device_ms_a_step"] / host)
+            key = LOOP_RUN_TIMES.get(name)
+            if pass_times and key in pass_times:
+                row["loop"]["pass_ms_a_step_by_24a"] = (
+                    pass_times[key] * per_step["loop"])
         row["speedup"] = (float(np.median(turns["loop"]))
                           / float(np.median(turns["eager"])))
         rows[name] = row
     return rows
-
 
 
 def layout_paths(key, ls, lm, pl, lr, ltp):
@@ -4447,9 +4747,10 @@ def main():
     print("phase 23g 'shard' and 'scatter' at tp = 2: " + json.dumps(ltp),
           flush=True)
 
-    ld = loop_decide_vs_plain(device)
-    print("phase 24a loop_decide vs plain: " + json.dumps(ld), flush=True)
-    dl = device_loop(device)
+    ld = loop_pass_vs_plain(device)
+    print("phase 24a loop_pass vs plain: " + json.dumps(ld), flush=True)
+    dl = device_loop(device, pass_times={r["name"]: r["ms"]
+                                         for r in ld["times"]})
     print("phase 24b device loop vs host loop: " + json.dumps(dl),
           flush=True)
 
@@ -4586,19 +4887,27 @@ def main():
         **layout_timing(lt, "shear_scan_real"),
         "library_ms": None,
     }, {
-        "name": "loop_decide",
+        "name": "loop_pass",
         "route": "cuda",
         "source": "quflow_tpu_torch/csrc/graph_loop.cu",
-        "replaces": "quflow_tpu/integrators/isospectral.py:187 (the cond of "
-                    "XLA's lax.while_loop, not Pallas; also mhd.py:87, "
-                    "parallel/stepper.py:806, 1435, 1922, 2232)",
+        "replaces": "quflow_tpu/integrators/isospectral.py:168-175 (the "
+                    "residual and the cond of XLA's lax.while_loop, not "
+                    "Pallas; also mhd.py:87, parallel/stepper.py:782-796, "
+                    "806, 1435, 1922, 2232)",
         "launches": dl["quickstart_isomp_c128_N256"]["launches_a_call"][
-            "loop"]["loop_decide"],
+            "loop"]["loop_pass"],
         "launches_by_path": {
-            f"device_loop_{name}": row["launches_a_call"]["loop"][
-                "loop_decide"] for name, row in dl.items()},
-        **{k: ld[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms", "while_pass_ms")},
+            f"{prefix}_{name}": row["launches_a_call"][mode]["loop_pass"]
+            for prefix, mode in (("device_loop", "loop"),
+                                 ("host_loop", "eager"))
+            for name, row in dl.items()},
+        **{k: ld[k] for k in ("max_abs_err", "max_rel_err_rn", "ms",
+                              "plain_ms", "bound_ms", "bound_by", "share",
+                              "library_ms", "replaced_ms",
+                              "while_pass_ms")},
+        "by_shape": [{k: r[k] for k in ("name", "ms", "bound_ms", "share",
+                                        "replaced_ms", "library_ms")}
+                     for r in ld["times"]],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

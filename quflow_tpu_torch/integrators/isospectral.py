@@ -12,14 +12,16 @@ with rn the inf-norm of the change of dW.  On a CUDA device each step is
 one launch of a CUDA graph (parallel/capture.Loop), the counterpart of
 quflow_tpu's jitted scan with a device ``lax.while_loop`` inside: the
 Strang half-step, ``reinitialize``'s reset and the midpoint time, then a
-WHILE node running the iteration (its hooks with it) until the kernel
-``loop_decide`` (ops/cuda_graph_loop.py) exits by the rule on the card,
-then the update, forcing, time and the second half-step.  A call launches
+WHILE node running the iteration (its hooks with it), each pass ended by
+the kernel ``loop_pass`` (ops/cuda_graph_loop.py: the residual, dW
+written back and the rule on the card), then the update, forcing, time
+and the second half-step.  A call launches
 its steps and reads its iteration sums once; the graphs are kept between
 calls of the same configuration (the last few), as quflow_tpu keeps one
 jitted program for each set of hooks.  Inside ``config.eager()`` and on
 the CPU the loop runs on the host, every kernel issued from Python and
-the residual read once an iteration (one ``.item()``).  Either way the
+the residual (``loop_pass``'s, its rule off: ops/cuda_graph_loop.residual_)
+read once an iteration (one ``.item()``).  Either way the
 counts and results are the same.  The update is the last iteration's
 2 (PW - (PW)^H), Kahan-compensated with ``compsum``.
 parallel.stepper.IsompTorch is the other integrator: a fixed iteration
@@ -49,6 +51,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..ops.cuda_graph_loop import residual_
 from ..ops.geometry import hbar, norm_Linf
 from ..ops.laplacian import solve_poisson
 
@@ -131,11 +134,6 @@ def estimate_stepsize(W, P=None, safety_factor=0.1, *, device=None):
     return safety_factor * np.pi / lambda_max
 
 
-def _norm_inf(A):
-    """Matrix inf-norm (max abs row sum), reduced over any batch dims."""
-    return A.abs().sum(-1).max()
-
-
 def _like(x, W, kind="hook", fn=None):
     """A hook's result as a tensor of W's dtype on W's device, held to the
     capture's rule while a loop warms up or is captured
@@ -201,11 +199,6 @@ def _iteration(W, dW, ham, force, skewh, vareps, dt_half):
     return dW_new, PWc, FW
 
 
-def _residual_norm(dW_new, dW):
-    """||dW - dW_new||_inf, a 0-d tensor on their device."""
-    return _norm_inf(dW - dW_new)
-
-
 def _read(x):
     """The tensor ``x`` on the host (``tolist``: a 0-d residual as a Python
     float): the host sync of a run, once an iteration in the host loop,
@@ -241,8 +234,8 @@ class _Loop:
     is the run's Strang half-step ``strang(S) -> S``."""
 
     def __init__(self, iteration, W, strang=None):
-        self.iteration, self.dW = iteration, torch.zeros_like(W)
-        self.strang = strang
+        self.iteration, self.strang = iteration, strang
+        self.dW = torch.zeros_like(W, memory_format=torch.contiguous_format)
 
     def __call__(self, W, tol, maxit, minit, time=None):
         from ..parallel import capture
@@ -253,14 +246,15 @@ class _Loop:
 
         def once():
             dW_new, *rest[:] = self.iteration(W, self.dW, time)
-            rn = _read(_residual_norm(dW_new, self.dW))
+            rn = _read(residual_(dW_new, self.dW))
             self.dW = dW_new
             return rn
 
         return (rest, *_converge(once, tol, maxit, minit))
 
     def reset(self):
-        self.dW = torch.zeros_like(self.dW)
+        self.dW = torch.zeros_like(self.dW,
+                                   memory_format=torch.contiguous_format)
 
 
 class _CapturedLoop:
@@ -282,7 +276,7 @@ class _CapturedLoop:
 
         self.W = capture.static_copy(W)
         self.csum = torch.zeros_like(W)
-        dW = torch.zeros_like(W)
+        dW = torch.zeros_like(self.W)  # contiguous, as loop_pass reads it
         self.graphs = capture.Graphs(W.device)
         self.t = self.thalf = None
         if times is not None:
@@ -311,8 +305,8 @@ class _CapturedLoop:
 
         has_head = strang is not None or reinitialize or times is not None
         self.loop = capture.Loop(
-            self.graphs, lambda Wh, d: iteration(Wh, d, self.thalf),
-            _residual_norm, self.W, dW, tail, head if has_head else None)
+            self.graphs, lambda Wh, d: iteration(Wh, d, self.thalf), self.W,
+            dW, tail, head if has_head else None)
 
     def run(self, W, steps, tol, maxit, minit, t=0.0, callback=None):
         """``steps`` steps from ``W`` (dW and csum from zero, time from

@@ -1,14 +1,20 @@
-"""The exit rule of the adaptive fixed point on the card: CUDA kernel,
+"""The end of each pass of the adaptive fixed point on the card: the
+residual, the write-back of dW and the exit rule in one CUDA kernel, its
 plain version, and the composite graph of one adaptive step.
 
-Counterpart of the cond of quflow_tpu's ``lax.while_loop``
-(quflow_tpu/integrators/isospectral.py:187, integrators/mhd.py:87,
-parallel/stepper.py:806, 1435, 1922, 2232): quflow_tpu compiles its
-fixed point into the program; here one adaptive step is one launch of a
-CUDA graph whose conditional WHILE node runs the captured iteration and
-then ``loop_decide``, the kernel of csrc/graph_loop.cu that applies the
-rule and sets the node's condition (:class:`Composite`).  The host reads
-nothing inside a step.
+Counterpart of the cond of quflow_tpu's ``lax.while_loop`` and of the
+residual its body computes (quflow_tpu/integrators/isospectral.py:168-175,
+integrators/mhd.py:87, parallel/stepper.py:782-796, 806, 1435, 1922,
+2232): quflow_tpu compiles its fixed point into the program; here one
+adaptive step is one launch of a CUDA graph whose conditional WHILE node
+runs the captured iteration and then ``loop_pass``, the kernel of
+csrc/graph_loop.cu that takes the residual ``rn = max over rows of
+sum_j |dW_new - dW|`` in one pass over the data, writes dW_new into dW,
+applies the rule and sets the node's condition (:class:`Composite`).  The
+host reads nothing inside a step.  The same kernel with the rule off,
+:func:`residual_`, is the residual of every adaptive loop on the card
+that the host runs (``config.eager()``, the dp mesh), so that both loops
+read the same bits of rn.
 
 The rule, quflow_tpu's (integrators/isospectral._converge on the host):
 continue while ``i < maxit and not (i >= minit and (rn <= tol or rn >=
@@ -17,31 +23,40 @@ state is one int64 tensor on the device (:func:`new_state`): the words
 below, then the count of each step.  ``tol`` (rounded to the working
 precision by the caller), ``maxit`` and ``minit`` are words of it, set by
 :func:`start_` before a call's launches, so a new tolerance needs no new
-graph.
+graph.  ``loop_decide`` applies the rule alone to a residual already in
+memory: the probe of the rule.
 
-On a CUDA tensor ``loop_decide`` launches the kernel once, outside any
-graph (the tests' and the smoke's way to hold it against its plain
-version); on a CPU tensor it runs :func:`loop_decide_reference`, the plain
-PyTorch version, which the CPU emulation of the composite
-(parallel/capture.Loop) uses.  The library is built at first use with nvcc
-into ``quflow_tpu_torch/_build`` and bound with ctypes; nothing falls
-back: a failed build, graph construction or launch raises, naming the
-CUDA error.
+On CUDA tensors ``loop_pass``, ``residual_`` and ``loop_decide`` launch
+the kernel once, outside any graph, with the launch plan of :func:`plan`
+(plain Python, checked in C); on CPU tensors they run the plain PyTorch
+versions :func:`loop_pass_reference` and :func:`loop_decide_reference`,
+which the CPU emulation of the composite (parallel/capture.Loop) uses.
+The library is built at first use with nvcc into
+``quflow_tpu_torch/_build`` and bound with ctypes; nothing falls back: a
+failed build, graph construction or launch raises, naming the CUDA
+error.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import struct
 import weakref
+from typing import NamedTuple
 
 import torch
 
 from .cuda_build import CudaLibrary, bind_error_string
+from .cuda_solve import sms
 
-__all__ = ["loop_decide", "loop_decide_reference", "new_state", "start_",
-           "Composite", "LIBRARY", "HEADER", "I", "STEP", "ITERATIONS",
-           "CAPPED", "CONTINUE", "LAST", "TOL", "MAXIT", "MINIT"]
+__all__ = ["loop_pass", "loop_pass_reference", "residual_", "plan",
+           "PassPlan", "new_scratch", "loop_decide", "loop_decide_reference",
+           "new_state", "start_", "Composite", "graph_nodes",
+           "LIBRARY",
+           "KINDS", "ARGTYPES", "HEADER",
+           "I", "STEP", "ITERATIONS", "CAPPED", "CONTINUE", "LAST", "TOL",
+           "MAXIT", "MINIT"]
 
 #: the words of the state (csrc/graph_loop.cu): iterations done in the
 #: current step, steps finished, iterations summed over them, steps at the
@@ -50,6 +65,61 @@ __all__ = ["loop_decide", "loop_decide_reference", "new_state", "start_",
 I, STEP, ITERATIONS, CAPPED, CONTINUE, LAST, TOL, MAXIT, MINIT = range(9)
 HEADER = 9
 _INF_BITS = 0x7FF0000000000000
+
+#: the value types of dW that loop_pass takes, by the kernel's kind
+#: (csrc/graph_loop.cu), and the real type of each (rn's)
+KINDS = {torch.float32: 0, torch.float64: 1, torch.complex64: 2,
+         torch.complex128: 3}
+_REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
+         torch.complex64: torch.float32, torch.complex128: torch.float64}
+#: loop_pass's blocks: threads (8 warps; csrc/graph_loop.cu's
+#: kMaxThreads), and blocks an SM in one wave
+PASS_THREADS = 256
+PASS_BLOCKS_PER_SM = 4
+#: warps a row at most (one block's)
+_MAX_WARPS_A_ROW = PASS_THREADS // 32
+
+
+class PassPlan(NamedTuple):
+    """A launch of loop_pass: blocks of ``PASS_THREADS`` threads, and warps
+    a row (the kernel takes its shared bytes from the dtype)."""
+    blocks: int
+    warps_per_row: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(rows, N, dtype, sms):
+    """The launch of loop_pass over ``rows`` rows of N ``dtype`` values on
+    a card of ``sms`` SMs.  A row is read in chunks of 16 bytes (2 complex64
+    or 1 complex128 value, 4 float32 or 2 float64), a warp's lanes taking
+    every 32nd chunk.  The warps a row double, up to a block's 8, while the
+    rows' warps fall short of one wave (``PASS_BLOCKS_PER_SM`` blocks of
+    ``PASS_THREADS`` threads an SM) and each warp keeps at least 32 chunks;
+    the blocks are the row groups, at most one wave of them, striding over
+    the rest.  csrc/graph_loop.cu's plan_ok checks the plan at launch."""
+    if rows < 1 or N < 1:
+        raise ValueError(f"loop_pass: no rows to reduce ({rows} of {N})")
+    scalar = torch.empty((), dtype=dtype).element_size()
+    chunks = -(-N * scalar // 16)
+    warps = PASS_THREADS // 32
+    wave = sms * PASS_BLOCKS_PER_SM
+    wpr = 1
+    while (wpr < _MAX_WARPS_A_ROW and rows * wpr < wave * warps
+           and chunks >= 64 * wpr):
+        wpr *= 2
+    groups = -(-rows // (warps // wpr))
+    return PassPlan(min(groups, wave), wpr)
+
+
+def new_scratch(device):
+    """The two words of loop_pass's scratch (the running max and the
+    ticket), zero as every pass leaves them: one a loop or a graph, so that
+    no two passes in flight share them."""
+    return torch.zeros(2, dtype=torch.int64, device=device)
+
+
+#: the scratch of launches outside a loop, by device
+_SCRATCH = {}
 
 
 def _bits(x):
@@ -124,10 +194,11 @@ def loop_decide(rn, state):
     0-d ``rn`` (float32 or float64), ``state`` (:func:`new_state`) updated
     in place; returns ``state[CONTINUE]``.
 
-    CPU tensors go to :func:`loop_decide_reference`.  CUDA tensors launch
-    the kernel once, outside any graph; ``loop_decide.launches`` counts its
-    launches, here and in the composites (parallel/capture.Loop adds
-    those)."""
+    The rule alone, on a residual already in memory: the probe of the
+    rule that :func:`loop_pass` applies after its residual.  CPU tensors
+    go to :func:`loop_decide_reference`.  CUDA tensors launch the kernel
+    once, outside any graph; ``loop_decide.launches`` counts its
+    launches."""
     _check(rn, state)
     if state.device.type == "cpu":
         return loop_decide_reference(rn, state)
@@ -148,27 +219,155 @@ def loop_decide(rn, state):
 loop_decide.launches = 0
 
 
+def _check_pass(dW_new, dW, rn):
+    if dW.dtype not in KINDS or dW_new.dtype != dW.dtype:
+        raise ValueError(f"loop_pass: dW_new and dW must be one of "
+                         f"{sorted(str(k) for k in KINDS)}, got "
+                         f"{dW_new.dtype} and {dW.dtype}")
+    if dW_new.shape != dW.shape or dW.dim() < 1 or dW.numel() == 0:
+        raise ValueError(f"loop_pass: dW_new and dW must be (..., N) "
+                         f"tensors of one shape, got "
+                         f"{tuple(dW_new.shape)} and {tuple(dW.shape)}")
+    if rn.dim() != 0 or rn.dtype != _REAL[dW.dtype]:
+        raise ValueError(f"loop_pass: rn must be a 0-d {_REAL[dW.dtype]} "
+                         f"tensor, got {tuple(rn.shape)} {rn.dtype}")
+    if not dW_new.device == dW.device == rn.device:
+        raise ValueError(f"loop_pass: dW_new on {dW_new.device}, dW on "
+                         f"{dW.device}, rn on {rn.device}")
+
+
+def _check_contiguous(dW_new, dW):
+    """The kernel reads rows of N values in place: both contiguous."""
+    if not (dW_new.is_contiguous() and dW.is_contiguous()):
+        raise ValueError("loop_pass: the kernel takes contiguous dW_new and "
+                         "dW (residual_ takes any layout)")
+
+
+def loop_pass_reference(dW_new, dW, rn, state=None, write=True):
+    """Plain PyTorch version of the kernel: ``rn`` (0-d, of dW's real
+    type) <- max over every leading index and row of sum_j |dW_new - dW|
+    (torch's sums, in the working precision; a NaN as +NaN, the bits the
+    kernel writes and the rule keeps in the state); with ``write``, dW <-
+    dW_new; with ``state``, one decision of the rule
+    (:func:`loop_decide_reference`), whose ``state[CONTINUE]`` it returns,
+    else ``rn``."""
+    _check_pass(dW_new, dW, rn)
+    r = (dW_new - dW).abs().sum(-1).max()
+    rn.copy_(torch.where(r.isnan(), float("nan"), r))
+    if write:
+        dW.copy_(dW_new)
+    return rn if state is None else loop_decide_reference(rn, state)
+
+
+def _pass_operands(dW_new, dW):
+    """(kind, rows, N, the plan) of a pass over dW."""
+    N = dW.shape[-1]
+    rows = dW.numel() // N
+    p = plan(rows, N, dW.dtype, sms(dW.device.index or 0))
+    return KINDS[dW.dtype], rows, N, p
+
+
+def _launch_pass(dW_new, dW, rn, state, scratch, write):
+    if dW.device.type != "cuda":
+        raise ValueError(f"loop_pass: no kernel for device {dW.device}")
+    _check_contiguous(dW_new, dW)
+    if scratch is None:
+        scratch = _SCRATCH.get(dW.device)
+        if scratch is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("loop_pass: under a capture, pass the "
+                                   "graph's own scratch (new_scratch)")
+            scratch = _SCRATCH[dW.device] = new_scratch(dW.device)
+    lib = LIBRARY.load()
+    kind, rows, N, p = _pass_operands(dW_new, dW)
+    stream = torch.cuda.current_stream(dW.device).cuda_stream
+    err = lib.loop_pass_launch(
+        dW_new.data_ptr(), dW.data_ptr(), rn.data_ptr(), scratch.data_ptr(),
+        None if state is None else state.data_ptr(),
+        0 if state is None else state.numel() - HEADER, kind, rows, N, *p,
+        int(write), stream)
+    if err != 0:
+        raise RuntimeError(f"loop_pass launch failed: "
+                           f"{lib.graph_loop_message().decode()} "
+                           f"[cudaError_t {err}: "
+                           f"{lib.graph_loop_error(err).decode()}]")
+    loop_pass.launches += 1
+
+
+def loop_pass(dW_new, dW, rn, state, scratch=None):
+    """The end of one pass of the loop: ``rn`` <- max over rows of
+    sum_j |dW_new - dW|, dW <- dW_new, and one decision of the rule on
+    ``state`` (:func:`new_state`); returns ``state[CONTINUE]``.  dW_new
+    and dW are (..., N) tensors of one shape and dtype (complex64,
+    complex128, float32 or float64), contiguous on the card, rn a 0-d
+    tensor of their real type.
+
+    CPU tensors go to :func:`loop_pass_reference`.  CUDA tensors launch
+    the kernel once, outside any graph, on ``scratch`` (:func:`new_scratch`;
+    by default the device's own); ``loop_pass.launches`` counts its
+    launches, here, in :func:`residual_` and in the composites
+    (parallel/capture.Loop adds those)."""
+    _check(rn, state)
+    _check_pass(dW_new, dW, rn)
+    if dW.device.type == "cpu":
+        return loop_pass_reference(dW_new, dW, rn, state)
+    _launch_pass(dW_new, dW, rn, state, scratch, True)
+    return state[CONTINUE]
+
+
+loop_pass.launches = 0
+
+
+def residual_(dW_new, dW, rn=None, write=False, scratch=None):
+    """The residual of an iteration: ``rn`` (a 0-d tensor of dW's real
+    type, allocated when None) <- max over rows of sum_j |dW_new - dW|,
+    and with ``write`` dW <- dW_new; returns ``rn``.  The rule is not
+    applied.  The kernel of :func:`loop_pass` on CUDA tensors (one launch,
+    counted in ``loop_pass.launches``; an operand of another layout is
+    read through a contiguous copy, and dW written back through it), its
+    plain version on CPU tensors: the one residual of every adaptive loop,
+    |a - b| being symmetric."""
+    if rn is None:
+        rn = torch.empty((), dtype=_REAL.get(dW.dtype, dW.dtype),
+                         device=dW.device)
+    _check_pass(dW_new, dW, rn)
+    if dW.device.type == "cpu":
+        return loop_pass_reference(dW_new, dW, rn, write=write)
+    src, dst = dW_new.contiguous(), dW.contiguous()
+    _launch_pass(src, dst, rn, None, scratch, write)
+    if write and dst is not dW:
+        dW.copy_(dst)
+    return rn
+
+
 class Composite:
     """One adaptive step as one CUDA graph: child nodes of the raw graphs
     ``head`` and ``warm`` (either None), a WHILE node whose body is a child
-    node of ``iteration`` then ``loop_decide`` on the 0-d residual ``rn``
-    it writes and on ``state``, and a child node of ``tail``; instantiated
-    and uploaded on the current stream of ``state``'s device.  The raw
-    graphs (``torch.cuda.CUDAGraph.raw_cuda_graph()``) are copied; the
-    caller keeps their CUDAGraph objects, which own the memory the
-    composite addresses, alive while it lives.  Destroyed by
+    node of ``iteration`` then a kernel node of ``loop_pass`` over the
+    iteration's output ``dW_new`` and the static ``dW`` (writing ``rn``,
+    dW, the ``state`` and setting the node's condition, on ``scratch``),
+    and a child node of ``tail``; instantiated and uploaded on the current
+    stream of ``state``'s device.  The raw graphs
+    (``torch.cuda.CUDAGraph.raw_cuda_graph()``) are copied; the caller
+    keeps their CUDAGraph objects, which own the memory the composite
+    addresses, and ``dW_new``, alive while it lives.  Destroyed by
     :meth:`close` or with the object."""
 
-    def __init__(self, head, warm, iteration, tail, rn, state):
+    def __init__(self, head, warm, iteration, tail, dW_new, dW, rn, state,
+                 scratch):
         _check(rn, state)
+        _check_pass(dW_new, dW, rn)
+        _check_contiguous(dW_new, dW)
         lib = LIBRARY.load()
         device = state.device
+        kind, rows, N, p = _pass_operands(dW_new, dW)
         out = ctypes.c_void_p()
         err = lib.graph_loop_build(
-            head or None, warm or None, iteration, tail, rn.data_ptr(),
-            state.data_ptr(), state.numel() - HEADER,
-            int(rn.dtype == torch.float64), device.index or 0,
-            torch.cuda.current_stream(device).cuda_stream, ctypes.byref(out))
+            head or None, warm or None, iteration, tail, dW_new.data_ptr(),
+            dW.data_ptr(), rn.data_ptr(), scratch.data_ptr(),
+            state.data_ptr(), state.numel() - HEADER, kind, rows, N, *p,
+            device.index or 0, torch.cuda.current_stream(device).cuda_stream,
+            ctypes.byref(out))
         if err != 0:
             raise RuntimeError(f"graph_loop: the composite step was not "
                                f"built: {lib.graph_loop_message().decode()} "
@@ -190,23 +389,50 @@ class Composite:
             raise RuntimeError(f"graph_loop launch failed: "
                                f"{self._lib.graph_loop_message().decode()}")
 
+    def body_nodes(self):
+        """The node types of the WHILE body, in the order the graph lists
+        them (cudaGraphNodeType: 0 kernel, 4 child graph), and their
+        number."""
+        if not self._finalizer.alive:
+            raise RuntimeError("graph_loop: the composite was closed")
+        return graph_nodes(self._handle, body=True)
+
     def close(self):
         """Destroy the graph and its instance now."""
         self._finalizer()
 
 
+def graph_nodes(graph, body=False):
+    """The node types of the raw CUDA graph ``graph`` (a
+    ``raw_cuda_graph()``; with ``body``, the handle of a composite, whose
+    WHILE body is read), at most 64 of them, and their number."""
+    lib = LIBRARY.load()
+    types, count = (ctypes.c_int * 64)(), ctypes.c_int()
+    err = lib.graph_loop_nodes(graph, int(body), types, 64,
+                               ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"graph_loop: {lib.graph_loop_message().decode()}")
+    return list(types[:min(count.value, 64)]), count.value
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the C entries' argument lists (csrc/graph_loop.cu)
+ARGTYPES = {
+    "loop_decide_f32": [_P, _P, _I, _P],
+    "loop_decide_f64": [_P, _P, _I, _P],
+    "loop_pass_launch": [_P] * 5 + [_I, _I, _LL] + [_I] * 4 + [_P],
+    "graph_loop_build": [_P] * 9 + [_I, _I, _LL] + [_I] * 4
+                        + [_P, ctypes.POINTER(_P)],
+    "graph_loop_launch": [_P, _I, _P],
+    "graph_loop_nodes": [_P, _I, _P, _I, _P],
+}
+
+
 def _bind(lib):
-    for fn in (lib.loop_decide_f32, lib.loop_decide_f64):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
+    for name, argtypes in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.graph_loop_build.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)])
-    lib.graph_loop_build.restype = ctypes.c_int
-    lib.graph_loop_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_void_p]
-    lib.graph_loop_launch.restype = ctypes.c_int
     lib.graph_loop_destroy.argtypes = [ctypes.c_void_p]
     lib.graph_loop_destroy.restype = None
     lib.graph_loop_message.argtypes = []

@@ -30,23 +30,25 @@ place where graphs are captured, replayed and counted.
   A graph records the counters' advance while it is captured,
   :meth:`Graph.replay` adds it once a replay, and the warm-up's and the
   capture's own advances are taken back.  A :class:`Loop` adds its
-  pieces' advances once a step and its iteration's (and ``loop_decide``'s
+  pieces' advances once a step and its iteration's (and ``loop_pass``'s
   one) once an iteration, from the counts it reads once a call.
 * :class:`Loop` is one adaptive step as one launch, the counterpart of
   quflow_tpu's device ``lax.while_loop``: its pieces (the head, the warm
   prefix, one fixed-point iteration, the tail) are captured as graphs that
   PyTorch keeps (``CUDAGraph(keep_graph=True)``), and
   ops/cuda_graph_loop.Composite joins their raw graphs into one, the
-  iteration inside a conditional WHILE node that the kernel
-  ``loop_decide`` ends by quflow_tpu's exit rule.  The host reads the
-  loop's counts once a call, after the launches.  Inside
-  :func:`emulation` a Loop on the CPU runs the same pieces eagerly and the
-  plain rule decides: the composite's emulation, which the tests hold to
-  the host loop.
-* :class:`Iteration` is one fixed-point iteration as a graph, replayed from
-  a host loop that keeps the exit rule and reads the residual once an
-  iteration: the loop of a dp mesh, whose residual is a max over its ranks
-  (one ``all_reduce`` an iteration).
+  iteration inside a conditional WHILE node that the kernel ``loop_pass``
+  ends: the residual, dW_new written into dW and quflow_tpu's exit rule in
+  one pass.  The iteration's rest is not copied: the tail reads it where
+  the last pass wrote it.  The host reads the loop's counts once a call,
+  after the launches.  Inside :func:`emulation` a Loop on the CPU runs the
+  same pieces eagerly and the plain version of ``loop_pass`` decides: the
+  composite's emulation, which the tests hold to the host loop.
+* :class:`Iteration` is one fixed-point iteration and its residual
+  (``loop_pass`` with the rule off) as a graph, replayed from a host loop
+  that keeps the exit rule and reads the residual once an iteration: the
+  loop of a dp mesh, whose residual is a max over its ranks (one
+  ``all_reduce`` an iteration).
 * A callable hook (Hamiltonian, forcing, Strang step) is captured with the
   piece that calls it, as quflow_tpu traces a "jax-traceable" hook into its
   program.  So it must be capturable: it takes tensors and returns a tensor
@@ -83,7 +85,8 @@ __all__ = ["available", "static_copy", "capturing", "call", "like", "hook",
            "Loop", "emulation", "KERNELS", "COUNTERS"]
 
 #: the kernel wrappers whose ``launches`` a replay advances
-KERNELS = (shear_thomas, shear_scan, shear_block, row_thomas)
+KERNELS = (shear_thomas, shear_scan, shear_block, row_thomas,
+           cuda_graph_loop.loop_pass)
 #: every launch counter a replay advances, (wrapper, attribute): the
 #: kernels' ``launches`` and the column solves' real-lane entries'
 COUNTERS = tuple((k, "launches") for k in KERNELS) + (
@@ -278,41 +281,50 @@ class Graphs:
                    if tuple(s["segment_pool_id"]) == tuple(self.pool))
 
 
-def _iteration_piece(owner, iterate, norm):
+def _iteration_piece(owner, iterate):
     """The piece of one fixed-point iteration ``iterate(W, dW) -> (dW_new,
-    *rest)`` over ``owner``'s static ``W`` and ``dW``: it writes
-    ``norm(dW_new, dW)`` into ``owner.rn``, then dW_new into ``dW`` and the
-    rest into ``owner.rest`` (a None stays None), both allocated at the
-    warm-up, outside the capture."""
-    owner.rest = owner.rn = None
-
+    *rest)`` over ``owner``'s static ``W`` and ``dW``: it keeps dW_new and
+    the rest (a None stays None) alive as ``owner.dW_new`` and
+    ``owner.rest``.  Captured, they stay where the iteration wrote them, in
+    the graph pool, whose blocks a later capture cannot take while they
+    live; a piece captured after it (the tail) reads them in place."""
     def piece():
-        dW_new, *rest = iterate(owner.W, owner.dW)
-        rn = norm(dW_new, owner.dW)
-        if owner.rn is None:  # at the warm-up, outside the capture
-            owner.rn = torch.empty_like(rn)
-            owner.rest = [None if r is None else static_copy(r)
-                          for r in rest]
-        owner.rn.copy_(rn)
-        owner.dW.copy_(dW_new)
-        for buf, r in zip(owner.rest, rest):
-            if buf is not None:
-                buf.copy_(r)
+        dW_new, *owner.rest = iterate(owner.W, owner.dW)
+        owner.dW_new = dW_new.contiguous()
 
     return piece
+
+
+def _residual_state(owner, W, dW):
+    """The static tensors of an iteration's residual on ``owner``: W, dW,
+    the 0-d residual ``rn`` of dW's real type and loop_pass's scratch, all
+    outside every graph pool."""
+    owner.W, owner.dW = W, dW
+    owner.rn = torch.empty((), dtype=dW.real.dtype, device=dW.device)
+    owner.scratch = cuda_graph_loop.new_scratch(dW.device)
+    owner.dW_new = owner.rest = None
 
 
 class Iteration:
     """One fixed-point iteration ``iterate(W, dW) -> (dW_new, *rest)``
     captured over the static tensors ``W`` (read) and ``dW`` (read, then
-    written).  A replay (a call) writes ``norm(dW_new, dW)`` into the 0-d
-    tensor :attr:`rn`, which it returns, then dW_new into ``dW`` and the
-    rest into :attr:`rest` (a None stays None).  The capture's warm-up
-    steps ``dW``: load it before the first call."""
+    written), with its residual: a replay (a call) writes the residual of
+    dW_new against dW (ops/cuda_graph_loop.residual_, the rule off) into
+    the 0-d tensor :attr:`rn`, which it returns, and dW_new into ``dW``;
+    the rest stays in place as :attr:`rest` (a None stays None), read by
+    graphs captured after it.  The capture's warm-up steps ``dW``: load it
+    before the first call."""
 
-    def __init__(self, graphs, iterate, norm, W, dW):
-        self.W, self.dW = W, dW
-        (self.graph,) = graphs.capture(_iteration_piece(self, iterate, norm))
+    def __init__(self, graphs, iterate, W, dW):
+        _residual_state(self, W, dW)
+        step = _iteration_piece(self, iterate)
+
+        def piece():
+            step()
+            cuda_graph_loop.residual_(self.dW_new, self.dW, self.rn,
+                                      write=True, scratch=self.scratch)
+
+        (self.graph,) = graphs.capture(piece)
 
     def __call__(self):
         self.graph.replay()
@@ -341,19 +353,21 @@ class Loop:
     """One adaptive step as one launch: ``head``, ``warm`` (each a
     callable of no argument, or None), then fixed-point iterations
     ``iterate(W, dW) -> (dW_new, *rest)`` over the static tensors ``W``
-    and ``dW`` while quflow_tpu's exit rule says so, then ``tail``.  An
-    iteration writes :attr:`rn` and :attr:`rest` as :class:`Iteration`
-    does; ``tail(rest)`` takes the last iteration's rest.
+    and ``dW`` while quflow_tpu's exit rule says so, then ``tail``.  Each
+    iteration ends on ops/cuda_graph_loop.loop_pass: its residual into the
+    0-d :attr:`rn`, dW_new into dW, one decision of the rule; its rest
+    stays where it was written (:attr:`rest`), and ``tail(rest)`` reads the
+    last iteration's there.
 
     On a CUDA device the four pieces are captured into ``graphs``' pool
     (kept graphs, each run once eagerly first: load the static tensors
     after construction) and joined into one
     ops/cuda_graph_loop.Composite, whose WHILE node runs the iteration and
-    ``loop_decide``; the CUDAGraph objects stay alive with it, since they
-    own the memory it addresses.  Elsewhere, inside :func:`emulation`,
-    the pieces run eagerly, in the same order, and
-    ops.cuda_graph_loop.loop_decide_reference decides; outside it the
-    capture raises.
+    the kernel ``loop_pass``; the CUDAGraph objects and the iteration's
+    outputs stay alive with it, since they own the memory it addresses.
+    Elsewhere, inside :func:`emulation`, the pieces run eagerly, in the
+    same order, and ops.cuda_graph_loop.loop_pass_reference ends each
+    iteration; outside it the capture raises.
 
     A call: :meth:`start` (the rule's ``tol``, ``maxit``, ``minit``),
     :meth:`launch` once or more (one launch a step, no host read), then
@@ -361,10 +375,10 @@ class Loop:
     counts; it advances the launch counters by what the launches ran.
     ``capacity`` is the number of steps whose counts are kept."""
 
-    def __init__(self, graphs, iterate, norm, W, dW, tail, head=None,
-                 warm=None, capacity=0):
-        self.W, self.dW = W, dW
-        body = _iteration_piece(self, iterate, norm)
+    def __init__(self, graphs, iterate, W, dW, tail, head=None, warm=None,
+                 capacity=0):
+        _residual_state(self, W, dW)
+        body = _iteration_piece(self, iterate)
         named = [(k, p) for k, p in (("head", head), ("warm", warm),
                                      ("body", body),
                                      ("tail", lambda: tail(self.rest)))
@@ -381,7 +395,7 @@ class Loop:
                    for k, g in self.pieces.items()}
             self.composite = cuda_graph_loop.Composite(
                 raw.get("head"), raw.get("warm"), raw["body"], raw["tail"],
-                self.rn, self.state)
+                self.dW_new, self.dW, self.rn, self.state, self.scratch)
         else:
             with torch.no_grad():
                 for _, piece in named:  # the warm-up of a capture
@@ -408,8 +422,8 @@ class Loop:
                         p[k]()
                 while True:
                     p["body"]()
-                    if not bool(cuda_graph_loop.loop_decide_reference(
-                            self.rn, self.state)):
+                    if not bool(cuda_graph_loop.loop_pass_reference(
+                            self.dW_new, self.dW, self.rn, self.state)):
                         break
                 p["tail"]()
 
@@ -418,7 +432,8 @@ class Loop:
         (a list): returns (iterations, steps at the cap) summed over the
         call's steps and, with ``counts``, the list of each step's
         iterations.  The launch counters advance by the pieces' launches
-        once a step and the iteration's once an iteration."""
+        once a step and the iteration's and ``loop_pass``'s once an
+        iteration."""
         n = self._launched
         if counts and n > self.capacity:
             raise ValueError(f"loop: {n} steps, counts kept for "
@@ -435,7 +450,7 @@ class Loop:
                     kernel.launches += c * times
                 for kernel, c in g.real:
                     kernel.real_launches += c * times
-            cuda_graph_loop.loop_decide.launches += iterations
+            cuda_graph_loop.loop_pass.launches += iterations
         return (iterations, capped) + ((words[H:H + n],) if counts else ())
 
     def close(self):

@@ -31,9 +31,10 @@ reads the configuration alone (:func:`_capture_mode`, visible as
 no 'tp' > 1 mesh, the whole step is one graph replayed ``steps`` times a
 call; under ``tol`` the Strang halves, the warm prefix, one iteration and
 the update are graphs joined into one a step (parallel/capture.Loop), the
-iteration in a WHILE node that the kernel ``loop_decide`` ends by the
-adaptive rule on the card: ``steps`` launches and one read of the counts
-a call, the counterpart of quflow_tpu's ``lax.while_loop``.  On a dp mesh,
+iteration in a WHILE node whose passes the kernel ``loop_pass`` ends (the
+residual, dW written back, the adaptive rule, all on the card):
+``steps`` launches and one read of the counts a call, the counterpart of
+quflow_tpu's ``lax.while_loop``.  On a dp mesh,
 whose residual is a max over the ranks, the host replays the iteration
 graph until the rule exits.  Callable hooks are captured with the step, as
 quflow_tpu traces them into its jit, so they must be capturable
@@ -113,6 +114,7 @@ import torch
 from .. import config
 from ..integrators.isospectral import _converge
 from . import capture
+from ..ops.cuda_graph_loop import residual_
 from ..ops.cuda_row_solve import row_thomas
 from ..ops.diagpack import (
     diagh2mat,
@@ -662,13 +664,6 @@ def _step_setup(N, dt, maxit, dtype, refine, tol, minit, layout="shear"):
 _like = capture.like
 
 
-def _residual_norm(dW_new, dW):
-    """The batch-max matrix inf-norm of dW_new - dW (max over rows of the
-    sum of |.| along the last axis, in the working precision), a 0-d
-    tensor on their device."""
-    return (dW_new - dW).abs().sum(-1).max()
-
-
 def _read(x):
     """The tensor ``x`` on the host (``tolist``: a 0-d residual as a Python
     float): the host sync of an adaptive run, once an iteration in a host
@@ -684,7 +679,8 @@ def _fixed_point(iterate, W, dW, maxit, tol, minit, reduce_max=None,
     run ``mm_warm``, as a fixed prefix in either mode.  Without ``tol``:
     ``maxit`` iterations in all, no host sync.  With ``tol``: after the
     prefix, quflow_tpu's adaptive exit (integrators/isospectral._converge)
-    over the :func:`_residual_norm` of each iteration, read on the host,
+    over the residual of each iteration (ops/cuda_graph_loop.residual_:
+    the batch-max matrix inf-norm of dW_new - dW), read on the host,
     at most ``maxit`` iterations, which is the count returned (the prefix
     is not counted).  Returns (dW, rest, iterations)."""
     warm_iters, mm_warm = warm
@@ -699,7 +695,7 @@ def _fixed_point(iterate, W, dW, maxit, tol, minit, reduce_max=None,
 
     def iteration():
         dW_new, *state[1] = iterate(W, state[0])
-        rn = _read(_residual_norm(dW_new, state[0]))
+        rn = _read(residual_(dW_new, state[0]))
         state[0] = dW_new
         return rn
 
@@ -956,8 +952,7 @@ class _AdaptiveGraphs(_AdaptivePieces):
 
     def __init__(self, step, graphs, W, dW, csum, t):
         super().__init__(step, W, dW, csum, t)
-        self.it = capture.Iteration(graphs, self.iterate, _residual_norm,
-                                    self.Wh, self.dW)
+        self.it = capture.Iteration(graphs, self.iterate, self.Wh, self.dW)
         pieces = [p for p, on in (
             (self.head, self.has_head), (self.warm, step.warm_iters > 0),
             (lambda: self.tail(self.it.rest), True)) if on]
@@ -984,8 +979,8 @@ class _AdaptiveGraphs(_AdaptivePieces):
 class _AdaptiveLoop(_AdaptivePieces):
     """A step under ``tol`` as one launch (mode 'iteration', no mesh): the
     pieces joined into one parallel.capture.Loop, the full-precision
-    iteration inside its WHILE node, which ``loop_decide`` ends by the
-    adaptive rule on the card.  A call launches ``steps`` steps and reads
+    iteration inside its WHILE node, each pass ended by ``loop_pass`` (the
+    residual, dW written back and the adaptive rule on the card).  A call launches ``steps`` steps and reads
     their counts once; it holds the counts of up to ``capacity`` steps
     (the runner's ``steps``)."""
 
@@ -996,7 +991,7 @@ class _AdaptiveLoop(_AdaptivePieces):
             t = torch.tensor(t)
         super().__init__(step, W, dW, csum, t)
         self.loop = capture.Loop(
-            graphs, self.iterate, _residual_norm, self.Wh, self.dW, self.tail,
+            graphs, self.iterate, self.Wh, self.dW, self.tail,
             self.head if self.has_head else None,
             self.warm if step.warm_iters else None, capacity=capacity)
 

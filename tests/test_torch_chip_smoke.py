@@ -641,26 +641,60 @@ def test_phase_list_names_24():
 
 
 def test_device_loop_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
-    """Phase 24 at small N: ``loop_decide`` (its plain version on the CPU)
-    through every crafted sequence, both dtypes, words equal; every run of
-    24b in both modes (both eager on the CPU) equal, with equal launches
-    and iterations, the profile's solve count held to the counters'."""
+    """Phase 24 at small N: ``loop_pass`` (its plain version on the CPU)
+    against the plain version at small shapes and at the timed ones,
+    ``loop_pass`` and
+    ``loop_decide`` through every crafted sequence, both dtypes, words
+    equal; its times, the replaced sequence's and the library's at small
+    shapes, with the bound of its bytes; every run of 24b in both modes
+    (both eager on the CPU) equal, with equal launches and iterations, the
+    profile's solve count held to the counters'."""
     from quflow_tpu_torch.ops import cuda_graph_loop
 
-    ld = chip_smoke.loop_decide_vs_plain("cpu", reps=2)
+    checks = tuple((f"{name}_N{n}", dtype, shape(n))
+                   for n in (1, 7, 12)
+                   for name, dtype, shape in (
+                       ("c64", torch.complex64, lambda n: (n, n)),
+                       ("c128", torch.complex128, lambda n: (n, n)),
+                       ("planes_f32", torch.float32, lambda n: (2, n, n)),
+                       ("mhd_c128", torch.complex128, lambda n: (3, 2, n, n))))
+    times = {"c128_N1024": (torch.complex128, (12, 12), [(12, 12)]),
+             "mhd_c64_N1024": (torch.complex64, (2, 12, 12),
+                               [(2, 12, 12), (12, 12)])}
+    ld = chip_smoke.loop_pass_vs_plain("cpu", reps=2, checks=checks,
+                                       times=times)
     assert len(ld["sequences"]) == 2 * len(chip_smoke.LOOP_SEQUENCES)
-    assert ld["max_abs_err"] == 0.0 and ld["bound_by"] == "bytes"
-    assert ld["bound_ms"] == pytest.approx(72 / 3.35e9, rel=1e-12)
+    assert ld["max_abs_err"] == 0.0 and ld["max_rel_err_rn"] == 0.0
+    # every timed shape is held to the plain version too
+    assert ld["checked"] == [c[0] for c in checks] + list(times)
+    assert all(r["max_rel_err_rn"] == 0.0 for r in ld["times"])
+    assert ld["bound_by"] == "bytes"
+    assert ld["bound_ms"] == pytest.approx(3 * 16 * 144 / 3.35e9, rel=1e-12)
     assert ld["while_pass_ms"] is None  # measured on the card only
     by = {(r["sequence"], r["dtype"]): r for r in ld["sequences"]}
     assert by["nan", "float64"]["counts"] == [6, 6]
     assert by["nan", "float64"]["capped"] == 2
     assert by["maxit_cap", "float32"]["counts"] == [5, 5]
     assert by["minit", "float64"]["counts"] == [3, 3]
+    rows = {r["name"]: r for r in ld["times"]}
+    assert rows["mhd_c64_N1024"]["bound_ms"] == pytest.approx(
+        3 * 8 * 288 / 3.35e9, rel=1e-12)
+    assert rows["mhd_c64_N1024"]["plan"] == list(
+        cuda_graph_loop.plan(24, 12, torch.complex64, 132))
+    assert rows["c128_N1024"]["replaced_ms"] == 1.0  # graph_ms stood in
+    # the main path's shapes: the bound of 3 reads and writes of a value
+    assert chip_smoke.loop_pass_bound(torch.complex128, (1024, 1024)) == (
+        pytest.approx(3 * 16 * 1024 ** 2 / 3.35e9, rel=1e-12), "bytes")
+    assert set(chip_smoke.LOOP_RUN_TIMES.values()) <= set(
+        chip_smoke.LOOP_PASS_TIMES)
     monkeypatch.setattr(chip_smoke, "kernel_table", _counted_kernel_table)
     cases = chip_smoke.loop_cases("cpu", n_small=12, n_large=16, n_mhd=14,
                                   steps=4, steps_out=2, call_steps=2)
     assert len(cases) == 6
+    # 24b's runs at full size, each with its timed shape in 24a
+    small = {name.replace("N12", "N256").replace("N16", "N1024")
+             .replace("N14", "N512") for name in cases}
+    assert set(chip_smoke.LOOP_RUN_TIMES) == small
     rows = chip_smoke.device_loop("cpu", cases)
     assert set(rows) == set(cases)
     for name, row in rows.items():
@@ -674,8 +708,11 @@ def test_device_loop_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
             assert row[mode]["device_ms_by"] == "profile"
         # the host loop reads its residual once an iteration
         assert row["host_reads_a_call"]["eager"] >= row["iterations_a_step"]
+        assert row["eager"]["iteration_ms_a_step"] == pytest.approx(
+            row["eager"]["kernel_ms_a_step_profiled"])
     assert rows["quickstart_isomp_c128_N12"]["integrator_calls"] == 2
     assert cuda_graph_loop.loop_decide.launches == 0
+    assert cuda_graph_loop.loop_pass.launches == 0
 
 
 def test_hooked_cases_capture_under_the_card_rule(monkeypatch):

@@ -4,14 +4,17 @@ parallel/capture.Loop): the port's counterpart of quflow_tpu's device
 
 On the CPU: the plain exit rule ``loop_decide_reference``, iterated to its
 exit, gives the host loop's count and cap flag (``_converge``) at every
-edge of the rule; the composite's emulation (its pieces run eagerly, the
-plain rule deciding, inside ``capture.emulation()`` with the capture rule
-read as on a card) is bit-equal to the host loop of ``isomp``, ``magmp``
-and the Euler, MHD and double-word builders under ``tol``, with
-quflow_tpu's iteration counts; the ctypes binding and the wrapper's
-checks.  On a card (``cuda``): the kernel against its plain version, each
-composite run against its ``config.eager()`` twin, one host read a call,
-and the counters."""
+edge of the rule; ``loop_pass_reference`` is the sequence it replaced (the
+residual, the copy of dW, the plain rule) bit for bit and JAX's residual
+within its rounding; the composite's emulation (its pieces run eagerly,
+``loop_pass_reference`` ending each iteration, inside
+``capture.emulation()`` with the capture rule read as on a card) is
+bit-equal to the host loop of ``isomp``, ``magmp`` and the Euler, MHD and
+double-word builders under ``tol``, with quflow_tpu's iteration counts;
+the ctypes binding and the wrapper's checks.  On a card (``cuda``): the
+rule's kernel against its plain version, each composite run against its
+``config.eager()`` twin, one host read a call, and the counters.
+tests/test_torch_loop_pass.py holds the kernel ``loop_pass`` itself."""
 
 import ctypes
 from pathlib import Path
@@ -162,8 +165,8 @@ def test_start_and_checks():
 
 def test_binding_declares_pointers_and_ints():
     """Pointers and the stream as c_void_p (a plain int would be cut to 32
-    bits), counts and flags as c_int, the composite's handle out through a
-    pointer, errors as int."""
+    bits), the rows as c_longlong, counts, kinds, plans and flags as c_int,
+    the composite's handle out through a pointer, errors as int."""
     class Fn:
         pass
 
@@ -175,16 +178,91 @@ def test_binding_declares_pointers_and_ints():
 
     lib = Lib()
     gl._bind(lib)
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.loop_decide_f32, lib.loop_decide_f64):
         assert fn.argtypes == [P, P, I, P] and fn.restype is I
-    assert lib.graph_loop_build.argtypes == [P] * 6 + [I] * 3 + [
-        P, ctypes.POINTER(P)]
+    # dW_new, dW, rn, scratch, state; capacity, kind, rows; N, blocks,
+    # warps a row, write; the stream
+    assert lib.loop_pass_launch.argtypes == [P] * 5 + [I, I, LL] + [I] * 4 \
+        + [P]
+    # head, warm, iteration, tail and the pass's five pointers; capacity,
+    # kind, rows; N and the plan's two; the device, the stream, the out
+    assert lib.graph_loop_build.argtypes == [P] * 9 + [I, I, LL] + [I] * 4 \
+        + [P, ctypes.POINTER(P)]
     assert lib.graph_loop_launch.argtypes == [P, I, P]
+    assert lib.graph_loop_nodes.argtypes == [P, I, P, I, P]
+    for name in gl.ARGTYPES:
+        assert getattr(lib, name).restype is I, name
     assert lib.graph_loop_destroy.argtypes == [P]
     assert lib.graph_loop_destroy.restype is None
     assert lib.graph_loop_message.restype is ctypes.c_char_p
     assert lib.graph_loop_error.argtypes == [I]
+
+
+#: loop_pass's shapes on the CPU: name -> (dtype, shape at N): one state,
+#: an ensemble of 4, MHD's two components, the float planes of
+#: build_planes_step_fn and their ensemble
+PASS_SHAPES = {
+    "c64": (np.complex64, lambda n: (n, n)),
+    "c64_B4": (np.complex64, lambda n: (4, n, n)),
+    "c128": (np.complex128, lambda n: (n, n)),
+    "c128_B4": (np.complex128, lambda n: (4, n, n)),
+    "mhd_c64": (np.complex64, lambda n: (2, n, n)),
+    "mhd_c128": (np.complex128, lambda n: (2, n, n)),
+    "planes_f32": (np.float32, lambda n: (2, n, n)),
+    "planes_f32_B4": (np.float32, lambda n: (2, 4, n, n)),
+}
+
+
+def _pass_inputs(dtype, shape, seed):
+    """dW_new and dW, standard normal parts from numpy's generator."""
+    rng = np.random.default_rng(seed)
+
+    def draw():
+        x = rng.standard_normal(shape)
+        if np.dtype(dtype).kind == "c":
+            x = x + 1j * rng.standard_normal(shape)
+        return x.astype(dtype)
+
+    return draw(), draw()
+
+
+@pytest.mark.parametrize("n", [1, 7, 33])
+@pytest.mark.parametrize("name", sorted(PASS_SHAPES))
+def test_loop_pass_reference_is_the_replaced_sequence(name, n):
+    """The plain version of loop_pass is, bit for bit, what a pass ran
+    before it: the residual (the stepper's dW_new - dW and isospectral's
+    dW - dW_new alike), rn's copy, dW's copy and the plain rule; and JAX's
+    rn_new = max(sum(|dW_new - dW|, -1)) on the same numpy inputs within
+    1e-6 rn in complex64 and float32 and, in complex128, 2 N u rn: XLA
+    sums a row in another order and takes |z| by another formula than
+    torch (one ulp apart at these N)."""
+    dtype, shape = PASS_SHAPES[name]
+    a, b = _pass_inputs(dtype, shape(n), seed=n)
+    dW_new = torch.from_numpy(a)
+    dW_old, dW = torch.from_numpy(b.copy()), torch.from_numpy(b.copy())
+    states = [gl.start_(gl.new_state("cpu", 1), 1e-8, 5, 1) for _ in "ab"]
+    rn_old = (dW_new - dW_old).abs().sum(-1).max()
+    assert torch.equal(rn_old, (dW_old - dW_new).abs().sum(-1).max())
+    kept = torch.empty_like(rn_old)
+    kept.copy_(rn_old)
+    dW_old.copy_(dW_new)
+    gl.loop_decide_reference(kept, states[0])
+    rn = torch.empty((), dtype=dW.real.dtype)
+    go = gl.loop_pass_reference(dW_new, dW, rn, states[1])
+    assert torch.equal(rn, kept) and torch.equal(dW, dW_old)
+    assert torch.equal(states[1], states[0]) and int(go) == 1
+    rn_jax = float(jnp.max(jnp.sum(jnp.abs(jnp.asarray(a) - jnp.asarray(b)),
+                                   -1)))
+    u = np.finfo(rn.numpy().dtype).eps / 2
+    tol = 2 * n * u if dtype == np.complex128 else 1e-6
+    assert abs(float(rn) - rn_jax) <= tol * float(rn)
+    # residual_, the rule off: the same rn, dW left unless asked
+    dW = torch.from_numpy(b.copy())
+    assert torch.equal(gl.residual_(dW_new, dW), kept)
+    assert torch.equal(dW, torch.from_numpy(b))
+    assert torch.equal(gl.residual_(dW_new, dW, write=True), kept)
+    assert torch.equal(dW, dW_new)
 
 
 def test_loop_keeps_counts_for_its_capacity(emulated):
@@ -193,9 +271,8 @@ def test_loop_keeps_counts_for_its_capacity(emulated):
     def iterate(W, dW):
         return (0.5 * dW + 1.0,)
 
-    loop = capture.Loop(capture.Graphs("cpu"), iterate,
-                        isospectral._residual_norm, W, torch.zeros_like(W),
-                        lambda rest: None, capacity=2)
+    loop = capture.Loop(capture.Graphs("cpu"), iterate, W,
+                        torch.zeros_like(W), lambda rest: None, capacity=2)
     loop.start(1e-3, 30, 1)
     loop.launch(3)
     with pytest.raises(ValueError, match="3 steps, counts kept for 2"):
@@ -421,10 +498,10 @@ def test_builder_loop_bit_equal_to_eager_on_card(cuda, monkeypatch, name):
     t0 = [(0.0,), (0.7,)] if run.timed else [(), ()]
     a, b = run(S, z, z, *t0[0]), eager(S, z, z, *t0[0])
     reads = Reads(monkeypatch)
-    before = (shear_thomas.launches, gl.loop_decide.launches)
+    before = (shear_thomas.launches, gl.loop_pass.launches)
     a2 = run(*a[:3], *t0[1])
     launched = (shear_thomas.launches - before[0],
-                gl.loop_decide.launches - before[1])
+                gl.loop_pass.launches - before[1])
     assert reads.calls == 1  # the counts, once a call
     b2 = eager(*b[:3], *t0[1])
     for x, y in zip(a + a2, b + b2):
@@ -454,10 +531,10 @@ def test_reference_loops_bit_equal_to_eager_on_card(cuda, monkeypatch,
     fn(S, dt, steps=2, **kw)  # captured here
     reads = Reads(monkeypatch)
     st_a, st_b = {}, {}
-    before = (shear_thomas.launches, gl.loop_decide.launches)
+    before = (shear_thomas.launches, gl.loop_pass.launches)
     a = fn(S, dt, steps=6, stats=st_a, **kw)
     launched = (shear_thomas.launches - before[0],
-                gl.loop_decide.launches - before[1])
+                gl.loop_pass.launches - before[1])
     assert reads.calls == 1  # the stats, once a call
     with config.eager():
         b = fn(S, dt, steps=6, stats=st_b, **kw)
@@ -505,10 +582,10 @@ def test_a_closed_composite_refuses_to_launch_on_card(cuda):
 
 @pytest.mark.cuda
 def test_profile_of_a_device_loop_lies_within_its_counts_on_card(cuda):
-    """torch.profiler sees every launch of the eager twin, and of the
-    device loop at least one pass of the WHILE body a launch and at most
-    the counters' (CUPTI does not report every pass of a conditional
-    body)."""
+    """torch.profiler sees every launch of the eager twin (its residual is
+    loop_pass with the rule off, once an iteration), and of the device
+    loop at least one pass of the WHILE body a launch and at most the
+    counters' (CUPTI does not report every pass of a conditional body)."""
     from torch.profiler import ProfilerActivity, profile
 
     n, steps = 64, 4
@@ -523,19 +600,20 @@ def test_profile_of_a_device_loop_lies_within_its_counts_on_card(cuda):
     for name, fn in (("loop", run), ("eager", eager)):
         fn(S, z, z)
         torch.cuda.synchronize()
-        before = (shear_thomas.launches, gl.loop_decide.launches)
+        before = (shear_thomas.launches, gl.loop_pass.launches)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             out = fn(S, z, z)
             torch.cuda.synchronize()
         counted = (shear_thomas.launches - before[0],
-                   gl.loop_decide.launches - before[1])
+                   gl.loop_pass.launches - before[1])
         shown = [sum(e.count for e in prof.key_averages()
                      if e.device_type.name == "CUDA" and key in e.key)
-                 for key in ("shear_thomas", "loop_decide")]
+                 for key in ("shear_thomas", "loop_pass")]
         seen[name] = (counted, shown, int(out[3].sum()))
     (counted, shown, iterations) = seen["eager"]
-    assert counted == (iterations, 0) and shown == [iterations, 0]
+    assert counted == (iterations, iterations)
+    assert shown == [iterations, iterations]
     (counted, shown, iterations) = seen["loop"]
     assert counted == (iterations, iterations)
     assert steps <= shown[0] <= iterations
