@@ -4,20 +4,20 @@
     python3 chip_smoke.py
 
 Run from the repository root; it needs one CUDA device, nvcc, g++, and
-nothing of JAX.  Twenty-four phases, one line each (phases 14-19 and
-22-24 one for each of their parts); any failure ends the run with a
+nothing of JAX.  Twenty-five phases, one line each (phases 14-19 and
+22-25 one for each of their parts); any failure ends the run with a
 nonzero exit code and no result line.  The step runners replay CUDA graphs
 wherever their builders' rule captures (parallel/capture.py): phases
-4, 5, 7-10, 13-17, 20, 22 and 23c-f run captured, callable hooks with their
-steps (14a-c, 14e); the adaptive runs (``isomp``, ``magmp`` and the
-builders under ``tol`` off a mesh: phases 10, 11, 13, 14c-d, 17e, 21, 22d-f
-and 24) run one launch a step, the fixed point a WHILE node on the card
-whose passes ``loop_pass`` ends (the residual, dW written back and the
-exit rule in one kernel), and read their counts once a call; each
+4, 5, 7-10, 13-17, 20, 22, 23c-f and 25 run captured, callable hooks with
+their steps (14a-c, 14e, 25d); the adaptive runs (``isomp``, ``magmp``
+and the builders under ``tol`` off a mesh: phases 10, 11, 13, 14c-d, 17e,
+21, 22d-f and 24) run one launch a step, the fixed point a WHILE node on
+the card whose passes ``loop_pass`` ends (the residual, dW written back
+and the exit rule in one kernel), and read their counts once a call; each
 comparison with a column solve's plain version (phases 4, 7, 10, 14a-b,
-14e, 15d, 22a-c) runs eagerly, inside ``config.eager()``, since a captured
-plain solve is thousands of graph nodes; phases 21, 22 and 24 hold the
-replays to eager runs.
+14e, 15d, 22a-c, 25c) runs eagerly, inside ``config.eager()``, since a
+captured plain solve is thousands of graph nodes; phases 21, 22, 24 and
+25 hold the replays to eager runs.
 
 1. device  - the card's name and power limit, as nvidia-smi reports them;
 2. build   - nvcc builds csrc/shear_thomas.cu, csrc/shear_scan.cu,
@@ -341,7 +341,36 @@ replays to eager runs.
        the device loop's against the host loop's; the WHILE body's nodes
        (the iteration's graph and ``loop_pass``, no copy).
 
-Every path (phases 4, 5, 7-24) runs with every launch count set to 0 just
+25. the Runge-Kutta integrators on the card (``euler``, ``heun``, ``rk4``
+    of integrators/erk.py: one step a CUDA graph, captured once for each
+    configuration and replayed ``steps`` times a call, 1, 2 and 4 column
+    solves a step):
+    a. each method at complex64 N=1024 and complex128 N=512 from the main
+       path's state, 50 steps, replayed against ``config.eager()`` as
+       phase 21 reads them: bit-equal, launches exactly steps x (1, 2, 4)
+       by counter and by profile, steps/s in turns, kernel ms a step and
+       the idle share, the top kernels, the GEMM kernels a step told
+       apart as 17a tells them (2 full-precision a solve, no TF32); each
+       run again from no kept graph at 50 and 20 steps: one capture for
+       both calls, the second bit-equal to eager; the drift of tr(W^2)
+       and of the energy beside ``isomp``'s over the same steps
+       (reported, not gated: these methods do not conserve them);
+    b. ``rk4`` complex64 N=1024 under QUFLOW_PALLAS_KERNEL=scan, as 25a:
+       ``shear_scan`` 4 a step, ``shear_thomas`` none, bit-equal;
+    c. ``rk4`` complex64 N=1024, 10 steps replayed through ``shear_thomas``
+       and ``shear_scan``, each against the same steps inside
+       ``config.eager()`` through its plain version: <= 1e-5 relative;
+    d. ``rk4`` complex64 N=1024 with a constant band-limited forcing
+       (phase 14a's F0) captured with its step, as 25a: bit-equal; a
+       forcing that returns numpy raises TypeError and one that reads the
+       host raises HookError, each naming itself and ``config.eager()``,
+       inside which both run;
+    e. ``solve(W0, dt, steps=100, steps_out=20, integrator=rk4)`` on a
+       numpy complex128 state at N=512: one capture across its five
+       chunks, 400 ``shear_thomas`` launches, the state equal to the same
+       solve inside ``config.eager()``; steps/s of both.
+
+Every path (phases 4, 5, 7-25) runs with every launch count set to 0 just
 before it and read just after; a replay adds the launches its graph
 recorded at capture (the warm-up's and the capture's own are taken
 back), a device loop the launches of its pieces once a step and of its
@@ -385,7 +414,7 @@ from quflow_tpu_torch import (
     shr2mat,
     solve,
 )
-from quflow_tpu_torch.integrators import isospectral
+from quflow_tpu_torch.integrators import erk, isospectral
 from quflow_tpu_torch.laplacian import tridiagonal
 from quflow_tpu_torch.models import EulerFlow, GlobalQGFlow, MHDFlow
 from quflow_tpu_torch.ops import (
@@ -424,7 +453,7 @@ from quflow_tpu_torch.ops.cuda_scan_solve import (
     shear_scan_reference,
 )
 from quflow_tpu_torch.ops.cuda_solve import shear_thomas, shear_thomas_reference
-from quflow_tpu_torch.parallel import stepper
+from quflow_tpu_torch.parallel import capture, stepper
 from quflow_tpu_torch.parallel.mesh import Mesh
 from quflow_tpu_torch.parallel.shard_shear import (
     ShardedShearOperator,
@@ -2691,8 +2720,9 @@ def capture_cases(device, n_large=1024, n_small=512, B=16, steps=None):
 
 
 def graph_pool_bytes(runner):
-    """The graph pool of a phase-21 replay: the runner's, or for isomp and
-    magmp that of the captured loop last used."""
+    """The graph pool of a phase-21 replay: the runner's, or for isomp,
+    magmp and the Runge-Kutta integrators that of the captured loop or
+    step graph last used."""
     if runner is not None:
         graphs = runner.graphs
     elif isospectral._LOOPS:
@@ -2709,8 +2739,9 @@ def loop_of(runner):
     if runner is not None:
         return next((p.loop for p in runner._programs.values()
                      if hasattr(p, "loop")), None)
-    if isospectral._LOOPS:
-        return next(reversed(isospectral._LOOPS.values())).loop
+    if isospectral._LOOPS:  # a step graph of integrators/erk has none
+        return getattr(next(reversed(isospectral._LOOPS.values())), "loop",
+                       None)
     return None
 
 
@@ -2784,7 +2815,7 @@ def padded_table(call, steps, device, pad=32):
     return {k: v for k, v in table.items() if "spin_kernel" not in k}, wall_ms
 
 
-def replay_vs_eager(device, cases=None, strict=False, top=0):
+def replay_vs_eager(device, cases=None, strict=False, top=0, describe=None):
     """Phase 21: each run of :func:`capture_cases` replayed (CUDA graphs)
     against the same run eager (built or called inside ``config.eager()``),
     in turns in one process (eager, replay, replay, eager) after a first
@@ -2798,7 +2829,9 @@ def replay_vs_eager(device, cases=None, strict=False, top=0):
     the graph pool's bytes; a replay's outputs not overwritten by the next
     call.  With ``strict`` a replay that is not bit-equal fails the run;
     without, the kernels that differ are named.  With ``top`` each mode
-    lists its ``top`` kernels by time a step."""
+    lists its ``top`` kernels by time a step; ``describe(name, table)``,
+    when given, adds its dict to each mode's row from that mode's
+    profile."""
     cases = capture_cases(device) if cases is None else cases
     rows = {}
     for name, (make, steps, kernel) in cases.items():
@@ -2877,6 +2910,8 @@ def replay_vs_eager(device, cases=None, strict=False, top=0):
                                              expected))
             if top:
                 row[mode]["top_kernels"] = top_kernels(table, top)
+            if describe is not None:
+                row[mode].update(describe(name, table))
             if not profile_holds(solves, expected,
                                  None if loop is None else (loop, kernel)):
                 raise AssertionError(
@@ -4508,6 +4543,288 @@ def device_loop(device, cases=None, pass_times=None):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the Runge-Kutta integrators on the card
+# ---------------------------------------------------------------------------
+
+#: phase 25's methods: name -> Poisson solves (column-solve launches) a step
+ERK_SOLVES = {"euler": 1, "heun": 2, "rk4": 4}
+
+
+def erk_shape(name):
+    """(N, torch dtype) of a phase-25 run from its name,
+    ``{method}_{c64|c128}_N{N}[_{what}]``."""
+    _, tag, n = name.split("_")[:3]
+    return int(n[1:]), {"c64": torch.complex64, "c128": torch.complex128}[tag]
+
+
+def erk_run(method, S0, steps_, variable=None, **kw):
+    """A phase-25 run as :func:`capture_cases` gives one: ``make(eager,
+    steps)`` -> (None, call), ``call()`` the integrator ``method`` over
+    ``steps`` steps of 0.25 hbar from ``S0`` (inside ``config.eager()``
+    when ``eager``; under QUFLOW_PALLAS_KERNEL=``variable`` when given),
+    its final state first; ``make.S0`` is the initial state."""
+    fn = getattr(erk, method)
+    dt = 0.25 * hbar(S0.shape[-1])
+
+    def make(eager, steps=steps_):
+        def call():
+            with config.eager() if eager else contextlib.nullcontext(), \
+                    kernel_variable(variable) if variable \
+                    else contextlib.nullcontext():
+                return (fn(S0, dt, steps=steps, **kw),)
+        return None, call
+    make.S0 = S0
+    return make
+
+
+def erk_cases(device, n_large=1024, n_small=512, steps=50):
+    """Phase 25's runs replayed against eager: each method at complex64
+    N=``n_large`` and complex128 N=``n_small`` from the main path's state
+    (25a), ``rk4`` complex64 under QUFLOW_PALLAS_KERNEL=scan (25b) and
+    with a constant band-limited forcing, made once (25d)."""
+    cases = {}
+    for N, dtype, tag in ((n_large, np.complex64, "c64"),
+                          (n_small, np.complex128, "c128")):
+        W0 = EulerFlow(N, dtype).random_initial(lmax=10, seed=42)
+        W = torch.from_numpy(W0).to(device)
+        for method in ERK_SOLVES:
+            cases[f"{method}_{tag}_N{N}"] = (erk_run(method, W, steps),
+                                            steps, shear_thomas)
+        if tag == "c64":
+            W64, F0 = W, band_forcing(N, dtype, device, W0)
+
+    def band(P, W):
+        return F0
+
+    cases[f"rk4_c64_N{n_large}_scan"] = (
+        erk_run("rk4", W64, steps, "scan"), steps, shear_scan)
+    cases[f"rk4_c64_N{n_large}_forced"] = (
+        erk_run("rk4", W64, steps, forcing=band), steps, shear_thomas)
+    return cases
+
+
+def close_kept_runners():
+    """Close every captured runner that integrators/isospectral keeps
+    between calls (its graphs and pool released)."""
+    while isospectral._LOOPS:
+        isospectral._LOOPS.popitem()[1].close()
+
+
+@contextlib.contextmanager
+def erk_captures():
+    """The step graphs that integrators/erk captures inside the block, a
+    list."""
+    made, make = [], erk._StepGraph
+
+    def counted(step, W):
+        made.append(make(step, W))
+        return made[-1]
+
+    erk._StepGraph = counted
+    try:
+        yield made
+    finally:
+        erk._StepGraph = make
+
+
+def erk_gemms(table, probes):
+    """The GEMM kernels of a profile of a phase-25 run, told apart as
+    phase 17a tells them (``probes`` of gemm_kernels)."""
+    n_full, n_tf32, ms = gemm_counts(table, *probes)
+    on_full, on_tf32 = gemm_split(table, *probes)
+    return dict(gemms_a_step_full=n_full, gemms_a_step_tf32=n_tf32,
+                gemm_ms_a_step=ms, full_gemm_kernels=on_full,
+                tf32_gemm_kernels=on_tf32)
+
+
+def erk_replays(device, cases=None, second_steps=20):
+    """Phase 25a, b and d: each run of :func:`erk_cases` through
+    :func:`replay_vs_eager` (strict: the replay bit-equal to eager; the
+    column solve's launches by counter and by profile; steps/s in turns;
+    kernel ms a step and the idle share; the top kernels), with the GEMM
+    kernels of each mode's profile (2 a Poisson solve, none on TF32); then
+    each run again from no kept graph, twice, at its steps and at
+    ``second_steps``: one capture for both calls (none where the capture
+    rule keeps runs eager: off a card), the
+    second bit-equal to eager, exactly steps x (1, 2, 4) launches of its
+    solve and none of the other; and the drift of tr(W^2) and of the
+    energy over the run beside ``isomp``'s over the same steps (reported:
+    the Runge-Kutta methods do not conserve them)."""
+    cases = erk_cases(device) if cases is None else cases
+    probes = {shape: gemm_kernels(device, (shape[0],) * 2, shape[1])
+              for shape in {erk_shape(name) for name in cases}}
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("cuBLAS's TF32 flag is on before phase 25")
+    rows = replay_vs_eager(
+        device, cases, strict=True, top=6,
+        describe=lambda name, table: erk_gemms(table,
+                                               probes[erk_shape(name)]))
+    isomp_drift = {}
+    for name, (make, steps, kernel) in cases.items():
+        row = rows[name]
+        method = name.split("_")[0]
+        solves = ERK_SOLVES[method]
+        for mode in ("eager", "replay"):
+            got = (round(row[mode]["gemms_a_step_full"], 6),
+                   round(row[mode]["gemms_a_step_tf32"], 6))
+            if got != (2 * solves, 0):
+                raise AssertionError(
+                    f"{name} {mode}: GEMMs a step {got} (full, TF32), "
+                    f"expected ({2 * solves}, 0); kernels "
+                    f"{row[mode]['top_kernels']}")
+        if row["launches_a_call"]["replay"] != steps * solves:
+            raise AssertionError(f"{name}: launches {row['launches_a_call']}"
+                                 f", expected {steps * solves}")
+        close_kept_runners()
+        with erk_captures() as made:
+            reset_counts()
+            W = make(False)[1]()[0]
+            counts = read_counts()
+            reset_counts()
+            W2 = make(False, steps=second_steps)[1]()[0]
+            counts2 = read_counts()
+        other = "shear_scan" if kernel is shear_thomas else "shear_thomas"
+        for n, c in ((steps, counts), (second_steps, counts2)):
+            if c != {kernel.__name__: n * solves, other: 0}:
+                raise AssertionError(f"{name}: {n} steps launched {c}, "
+                                     f"expected {n * solves} of "
+                                     f"{kernel.__name__} only")
+        if len(made) != int(capture.available(device)):
+            raise AssertionError(f"{name}: {len(made)} captures in two "
+                                 "calls")
+        W2_eager = make(True, steps=second_steps)[1]()[0]
+        if not torch.equal(W2, W2_eager):
+            raise AssertionError(f"{name}: {second_steps} steps replayed "
+                                 "differ from eager")
+        N, dtype = erk_shape(name)
+        S0 = make.S0
+        if (N, dtype) not in isomp_drift:
+            isomp_drift[N, dtype] = erk_drift(
+                S0, isomp(S0, 0.25 * hbar(N), steps))
+        row.update(captures_in_two_calls=len(made),
+                   second_call=dict(steps=second_steps, bit_equal=True,
+                                    launches=counts2[kernel.__name__]),
+                   drift=erk_drift(S0, W), isomp_drift=isomp_drift[N, dtype])
+    return rows
+
+
+def erk_drift(W0, W):
+    """Relative drift of tr(W^2) and of the energy from W0 to W."""
+    c0, c = casimirs(W0)[0], casimirs(W)[0]
+    e0, e = float(energy_euler(W0)), float(energy_euler(W))
+    return dict(tr_W2=float(abs(c - c0) / abs(c0)),
+                energy=abs(e - e0) / abs(e0))
+
+
+def erk_vs_plain(device, N=1024, steps=10):
+    """Phase 25c: ``rk4`` complex64 at N=``N``, ``steps`` steps replayed
+    through ``shear_thomas`` and, under QUFLOW_PALLAS_KERNEL=scan,
+    ``shear_scan``, each against the same steps inside ``config.eager()``
+    through the kernel's plain version (a captured plain solve is
+    thousands of graph nodes); relative to the largest entry, <= 1e-5."""
+    W = torch.from_numpy(EulerFlow(N, np.complex64).random_initial(
+        lmax=10, seed=42)).to(device)
+    dt = 0.25 * hbar(N)
+    rows = {}
+    for kernel, plain, variable in (
+            (shear_thomas, shear_thomas_reference, "thomas"),
+            (shear_scan, shear_scan_reference, "scan")):
+        with kernel_variable(variable):
+            Wk = erk.rk4(W, dt, steps)
+        with config.eager():
+            Wp = erk.rk4(W, dt, steps, hamiltonian=functools.partial(
+                solve_poisson, skewh=True, solver=plain))
+        rel = ratio(Wk, Wp)
+        if not rel <= 1e-5:
+            raise AssertionError(f"rk4 {kernel.__name__}: {steps} steps "
+                                 f"kernel vs plain {rel:.3e} > 1e-5")
+        rows[kernel.__name__] = dict(N=N, steps=steps, kernel_vs_plain=rel)
+    return rows
+
+
+def host_norm_forcing(P, W):
+    """A forcing that a capture cannot hold: it reads W's norm on the
+    host."""
+    return 1e-3 * float(W.abs().max()) * W
+
+
+def erk_hook_raises(device, N=512, steps=2):
+    """Phase 25d's second check: on a card ``rk4`` with a forcing that
+    returns numpy raises TypeError, and with one that reads the host
+    raises parallel.capture.HookError, each at its first call naming
+    itself and ``config.eager()``, inside which both run.  Off a card
+    nothing is captured and both run."""
+    W = torch.from_numpy(EulerFlow(N, np.complex128).random_initial(
+        lmax=10, seed=42)).to(device)
+    dt = 0.25 * hbar(N)
+    rows = {}
+    for forcing, error in ((numpy_forcing, TypeError),
+                           (host_norm_forcing, capture.HookError)):
+        message = None
+        if on_card(device):
+            try:
+                erk.rk4(W, dt, steps, forcing=forcing)
+            except error as e:
+                message = str(e)
+            if (message is None or "config.eager()" not in message
+                    or forcing.__name__ not in message):
+                raise AssertionError(
+                    f"{forcing.__name__}: rk4's first call raised "
+                    f"{message!r}, not {error.__name__} naming the hook and "
+                    "config.eager()")
+        with config.eager():
+            out = erk.rk4(W, dt, steps, forcing=forcing)
+        if not finite(out):
+            raise AssertionError(f"{forcing.__name__}: non-finite eager run")
+        rows[forcing.__name__] = dict(
+            error=error.__name__ if on_card(device) else None,
+            message=None if message is None else message[:160],
+            eager_ran=True)
+    return rows
+
+
+def erk_solve(device, N=512, steps=100, steps_out=20):
+    """Phase 25e: ``solve(W0, dt, steps, steps_out, integrator=rk4)`` on a
+    numpy complex128 state at N=``N`` (the card by default), from no kept
+    graph: one capture across its steps / steps_out chunks, 4 launches a
+    step, the state equal to the same solve inside ``config.eager()``;
+    steps/s of both."""
+    W0 = EulerFlow(N, np.complex128).random_initial(lmax=10, seed=42)
+    dt = 0.25 * hbar(N)
+    out, sec = {}, {}
+    close_kept_runners()
+    for mode in ("replay", "eager"):
+        with erk_captures() as made, \
+                config.eager() if mode == "eager" else \
+                contextlib.nullcontext():
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[mode] = solve(W0.copy(), dt, steps=steps, steps_out=steps_out,
+                              integrator=erk.rk4, progress_bar=False)
+            torch.cuda.synchronize()
+            sec[mode] = time.perf_counter() - t0
+            counts = read_counts()
+        if counts != {"shear_thomas": 4 * steps, "shear_scan": 0}:
+            raise AssertionError(f"solve rk4 {mode}: launches {counts}")
+        if len(made) != int(mode == "replay" and capture.available(device)):
+            raise AssertionError(f"solve rk4 {mode}: {len(made)} captures "
+                                 f"in {steps // steps_out} chunks")
+        if mode == "replay":
+            captures, launches = len(made), counts
+    if not np.array_equal(out["replay"], out["eager"]):
+        raise AssertionError("solve rk4: the replayed chunks differ from "
+                             "eager by "
+                             f"{np.abs(out['replay'] - out['eager']).max()}")
+    if out["replay"].shape != (N, N) or not np.isfinite(out["replay"]).all():
+        raise AssertionError("solve rk4: bad state")
+    return dict(N=N, steps=steps, steps_out=steps_out,
+                chunks=steps // steps_out, captures=captures,
+                launches=launches, bit_equal=True,
+                steps_per_s={m: steps / s for m, s in sec.items()})
+
+
 def layout_paths(key, ls, lm, pl, lr, ltp):
     """Phase 23's launches of the counter ``key`` on each path that made
     some: the layouts of 23c and 23d, the planes stepper (23e), the replays
@@ -4754,12 +5071,26 @@ def main():
     print("phase 24b device loop vs host loop: " + json.dumps(dl),
           flush=True)
 
+    er = erk_replays(device)
+    print("phase 25a, b, d Runge-Kutta replay vs eager: " + json.dumps(er),
+          flush=True)
+    ep = erk_vs_plain(device)
+    print("phase 25c Runge-Kutta kernels vs plain: " + json.dumps(ep),
+          flush=True)
+    eraises = erk_hook_raises(device)
+    print("phase 25d Runge-Kutta hooks a capture cannot hold: "
+          + json.dumps(eraises), flush=True)
+    es = erk_solve(device)
+    print("phase 25e solve with rk4 c128 N=512: " + json.dumps(es),
+          flush=True)
+
     def replayed(kernel):
-        """Phase 21's, 22's and 24's replayed paths of ``kernel``: launches
-        of a call."""
+        """Phase 21's, 22's, 24's and 25's replayed paths of ``kernel``:
+        launches of a call."""
         paths = {f"{prefix}_{name}": row["launches_a_call"]["replay"]
                  for prefix, rows in (("replay", replays),
-                                      ("hooked_replay", hooked))
+                                      ("hooked_replay", hooked),
+                                      ("erk", er))
                  for name, row in rows.items() if row["kernel"] == kernel}
         paths.update({f"device_loop_{name}": row["launches_a_call"]["loop"][
             "solve"] for name, row in dl.items() if row["kernel"] == kernel})
@@ -4804,6 +5135,7 @@ def main():
             "adaptive_warm_euler_c64_N1024": aw["warm"]["launches"],
             "native_vs_solve_poisson_c128_N512":
                 nat["launches"]["shear_thomas"],
+            "erk_solve_rk4_c128_N512": es["launches"]["shear_thomas"],
             **replayed("shear_thomas")},
         "max_abs_err": max(r["max_abs_err"] for r in rows + ens_rows),
         **timing(rows),

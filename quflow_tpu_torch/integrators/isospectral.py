@@ -333,18 +333,20 @@ class _CapturedLoop:
         self.loop.close()
 
 
-#: the captured loops of isomp and magmp between their calls, by the
-#: configuration their graph holds; each keeps a graph pool and its static
-#: state on the card, so only the last few are kept, and an evicted one's
-#: composite is destroyed with it
+#: the captured loops of isomp and magmp (and the step graphs of the
+#: Runge-Kutta integrators, integrators/erk.py) between their calls, by
+#: the configuration their graph holds; each keeps a graph pool and its
+#: static state on the card, so only the last few are kept, and an evicted
+#: one is closed: its graphs are destroyed with it
 _LOOPS = OrderedDict()
 _LOOPS_KEPT = 4
 
 
 @contextlib.contextmanager
 def _fixed_point_loop(key, make):
-    """The :class:`_CapturedLoop` of ``key``, ``make()`` at the first run
-    of that configuration (``key`` names all that its graphs hold: the
+    """The captured runner of ``key`` (a :class:`_CapturedLoop`, or
+    integrators/erk's step graph), ``make()`` at the first run of that
+    configuration (``key`` names all that its graphs hold: the
     state's shape, dtype and device, the scalars, the hooks and the column
     solve), kept for the next."""
     loop = _LOOPS.pop(key, None)  # a nested run of one key gets its own

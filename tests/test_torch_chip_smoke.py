@@ -626,8 +626,8 @@ def test_phase_list_names_22():
 
 def test_phase_list_names_23():
     doc = chip_smoke.__doc__
-    assert "Twenty-four phases" in doc and "\n23. the row-packed" in doc
-    assert "phases 4, 5, 7-24" in doc
+    assert "Twenty-five phases" in doc and "\n23. the row-packed" in doc
+    assert "phases 4, 5, 7-25" in doc
     for part in "abcdefg":
         assert f"\n    {part}. " in doc.split("\n23. ")[1].split("\n24. ")[0]
 
@@ -636,8 +636,119 @@ def test_phase_list_names_24():
     doc = chip_smoke.__doc__
     assert "\n24. the adaptive fixed point on the card" in doc
     for part in "ab":
-        assert f"\n    {part}. " in doc.split("\n24. ")[1]
+        assert f"\n    {part}. " in doc.split("\n24. ")[1].split("\n25. ")[0]
     assert "csrc/graph_loop.cu" in doc
+
+
+def test_phase_list_names_25():
+    doc = chip_smoke.__doc__
+    assert "\n25. the Runge-Kutta integrators on the card" in doc
+    for part in "abcde":
+        assert f"\n    {part}. " in doc.split("\n25. ")[1]
+    assert "Every path (phases 4, 5, 7-25)" in doc
+
+
+class _ProductSpy(_GemmSpy):
+    """_GemmSpy that also sees ``A @ B`` (``Tensor.matmul``), as
+    ops.geometry.bracket writes its products."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.matmul:
+            self.flags.append(torch.backends.cuda.matmul.allow_tf32)
+        return super().__torch_function__(func, types, args, kwargs)
+
+
+def _erk_kernel_table(fn, steps):
+    """kernel_table on the CPU for phase 25's runs: the column solves that
+    one call of ``fn`` counted, by the names a profile gives them, and its
+    products as one full-precision and one TF32 'kernel' (by the TF32 flag
+    at each)."""
+    before = {k: k.launches for k in chip_smoke.KERNELS}
+    spy = _ProductSpy()
+    with spy:
+        fn()
+    n_tf32 = sum(spy.flags)
+    table = {f"{k.__name__}_kernel": ((k.launches - before[k]) / steps, 0.01)
+             for k in chip_smoke.KERNELS}
+    table["gemm_full"] = ((len(spy.flags) - n_tf32) / steps, 0.1)
+    table["gemm_tf32"] = (n_tf32 / steps, 0.05)
+    return table, 1.0
+
+
+def test_erk_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
+    """Phase 25 at small N: every run in both modes (both eager on the CPU,
+    reported so) bit-equal, with steps x (1, 2, 4) launches of its solve
+    and 2 full-precision products a solve; the second calls, no capture
+    off a card; the drifts beside isomp's; 25c's kernels against their
+    plain solves; 25d's hooks run; 25e's solve in five chunks."""
+    monkeypatch.setattr(chip_smoke, "kernel_table", _erk_kernel_table)
+    monkeypatch.setattr(chip_smoke, "gemm_kernels",
+                        lambda device, shape, dtype: ({"gemm_full"},
+                                                      {"gemm_tf32"}))
+    cases = chip_smoke.erk_cases("cpu", n_large=16, n_small=12, steps=3)
+    assert set(cases) == {f"{m}_{tag}" for m in ("euler", "heun", "rk4")
+                          for tag in ("c64_N16", "c128_N12")} | {
+        "rk4_c64_N16_scan", "rk4_c64_N16_forced"}
+    rows = chip_smoke.erk_replays("cpu", cases, second_steps=2)
+    assert set(rows) == set(cases)
+    json.dumps(rows)  # the phase's line
+    for name, row in rows.items():
+        solves = chip_smoke.ERK_SOLVES[name.split("_")[0]]
+        assert row["bit_equal"] and row["max_abs_diff"] == 0.0, name
+        assert row["launches_a_call"] == {"eager": 3 * solves,
+                                          "replay": 3 * solves}, name
+        for mode in ("eager", "replay"):
+            assert row[mode]["captured"] is False
+            assert row[mode]["gemms_a_step_full"] == 2 * solves
+            assert row[mode]["gemms_a_step_tf32"] == 0
+        assert row["captures_in_two_calls"] == 0
+        assert row["second_call"]["launches"] == 2 * solves
+        assert 0.0 <= row["drift"]["tr_W2"] and 0.0 <= row["drift"]["energy"]
+        assert row["isomp_drift"]["tr_W2"] <= 1e-10 or "c64" in name
+    assert rows["rk4_c64_N16_scan"]["kernel"] == "shear_scan"
+    plain = chip_smoke.erk_vs_plain("cpu", N=16, steps=2)
+    assert set(plain) == {"shear_thomas", "shear_scan"}
+    assert all(r["kernel_vs_plain"] == 0.0 for r in plain.values())
+    raises = chip_smoke.erk_hook_raises("cpu", N=12)
+    assert set(raises) == {"numpy_forcing", "host_norm_forcing"}
+    assert all(r["eager_ran"] and r["error"] is None
+               for r in raises.values())
+    es = chip_smoke.erk_solve("cpu", N=12, steps=10, steps_out=2)
+    json.dumps([plain, raises, es])
+    assert es["chunks"] == 5 and es["captures"] == 0 and es["bit_equal"]
+    assert es["launches"] == {"shear_thomas": 40, "shear_scan": 0}
+    assert "QUFLOW_PALLAS_KERNEL" not in chip_smoke.os.environ
+
+
+def test_erk_solve_captures_once_under_the_card_rule(cpu_rehearsal,
+                                                    monkeypatch):
+    """Phase 25e with the rule read as on a card and a step graph that
+    steps eagerly: one capture across the five chunks of ``solve``, none
+    inside ``config.eager()``, the states equal."""
+    from collections import OrderedDict
+
+    from quflow_tpu_torch.integrators import erk, isospectral
+    from quflow_tpu_torch.parallel import capture
+
+    class Eager:
+        def __init__(self, step, W):
+            self.step = step
+
+        def run(self, W, steps):
+            for _ in range(steps):
+                W = self.step(W)
+            return W
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(capture, "available",
+                        lambda device: not config.is_eager())
+    monkeypatch.setattr(isospectral, "_LOOPS", OrderedDict())
+    monkeypatch.setattr(erk, "_StepGraph", Eager)
+    es = chip_smoke.erk_solve("cpu", N=12, steps=10, steps_out=2)
+    assert es["captures"] == 1 and es["bit_equal"]
+    assert len(isospectral._LOOPS) == 1
 
 
 def test_device_loop_phase_rehearses_on_cpu(cpu_rehearsal, monkeypatch):
