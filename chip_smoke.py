@@ -151,9 +151,28 @@ captured plain solve is thousands of graph nodes; phases 21, 22, 24 and
        and 20 steps: bit-equal;
     b. a one-rank NCCL process group through ``initialize`` and
        ``global_mesh``: phase 15a's B=16 run on the mesh, bit-equal with
-       the same launches; an adaptive run on the mesh (one all_reduce of
-       the residual an iteration, counted) equal to the same run without
-       it;
+       the same launches; then the mesh's adaptive runs, Euler B=16 (phase
+       15a's ensemble) and MHD B=4 under QUFLOW_PALLAS_KERNEL=scan,
+       complex64, N=1024, tol 1e-6, maxit 10, 5 steps: one launch of the
+       composite a step, its WHILE body split around the captured
+       all_reduce of the residual's key (``loop_pass``'s key mode, the
+       reduce's child, ``loop_decide``; the node types of the body and of
+       the reduce's graph printed), one host read a call, one all_reduce,
+       one key-mode pass and one ``loop_decide`` an iteration (counted
+       over the run), bit-equal to the same run off the mesh with the same
+       counts; steps/s against the host loop of the same mesh (the parent
+       path, ``_AdaptiveGraphs``) in turns (loop, host, host, loop), both
+       bit-equal, reported only.  A one-rank group proves the mechanics,
+       not the max across ranks; NCCL refuses a second rank on one card.
+       Both new entries at these runs' shapes against their plain
+       versions: the key mode's dW bit-equal and its key's residual within
+       2 N u, ``loop_decide`` on keys through the rule's edges, the words
+       and rn bit-equal; their ms (CUDA-graph replay), bounds, plain ms,
+       and the library's residual and copy beside the key mode.  16b runs
+       last, after phase 25: run before phase 21 in the full sequence,
+       the profiles of the device loops that follow showed none of their
+       WHILE bodies' kernels (phase 21 failed on it; alone, 16b and a
+       device-loop profile after it pass);
 17. the warm (mixed-precision) schedule, complex64, N=1024 - since
     ``warm_precision='auto'`` resolves to 'high' for complex64 at
     'highest', phases 4, 7, 14f and 16a already run it through
@@ -374,7 +393,8 @@ Every path (phases 4, 5, 7-25) runs with every launch count set to 0 just
 before it and read just after; a replay adds the launches its graph
 recorded at capture (the warm-up's and the capture's own are taken
 back), a device loop the launches of its pieces once a step and of its
-iteration, and ``loop_pass``'s, once an iteration, from the counts it
+iteration, and ``loop_pass``'s (split over a mesh: its key mode's, the
+all_reduce's and ``loop_decide``'s), once an iteration, from the counts it
 reads once a call.  Then a JSON line of the kernels
 (name, source, the TPU kernel it replaces, launches on each path, error,
 times and bound at the main path's shape; ``library_ms`` null for the
@@ -442,10 +462,15 @@ from quflow_tpu_torch.ops.laplacian import (
 )
 from quflow_tpu_torch.ops.tridiag import refine_m0, shear_operator
 from quflow_tpu_torch.ops.cuda_graph_loop import (
+    key_of,
+    key_value,
     loop_decide,
     loop_decide_reference,
     loop_pass,
     loop_pass_reference,
+    new_key,
+    new_scratch,
+    residual_,
 )
 from quflow_tpu_torch.ops.cuda_row_solve import row_thomas, row_thomas_reference
 from quflow_tpu_torch.ops.cuda_scan_solve import (
@@ -454,7 +479,7 @@ from quflow_tpu_torch.ops.cuda_scan_solve import (
 )
 from quflow_tpu_torch.ops.cuda_solve import shear_thomas, shear_thomas_reference
 from quflow_tpu_torch.parallel import capture, stepper
-from quflow_tpu_torch.parallel.mesh import Mesh
+from quflow_tpu_torch.parallel.mesh import Mesh, all_reduce_max_
 from quflow_tpu_torch.parallel.shard_shear import (
     ShardedShearOperator,
     solve_shear_blocks,
@@ -485,6 +510,8 @@ def reset_counts():
         k.launches = 0
     for k in KERNELS:
         k.real_launches = 0
+    loop_pass.key_launches = 0
+    all_reduce_max_.calls = 0
 
 
 def read_counts():
@@ -1705,13 +1732,254 @@ def free_port():
         return s.getsockname()[1]
 
 
+#: cudaGraphNodeType by number (CUDA 12's runtime API)
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+              4: "child graph", 5: "empty", 6: "event wait",
+              7: "event record", 8: "semaphore signal", 9: "semaphore wait",
+              10: "memory allocation", 11: "memory free", 12: "batch memop",
+              13: "conditional"}
+
+
+def node_names(types):
+    return [NODE_TYPES.get(t, str(t)) for t in types]
+
+
+class GraphLaunches:
+    """Counts the adaptive steps the device loops' composites launch, one
+    graph launch a step, while installed."""
+
+    def __enter__(self):
+        self.steps = 0
+        self._launch = cuda_graph_loop.Composite.launch
+
+        def counted(composite, steps=1):
+            self.steps += steps
+            return self._launch(composite, steps)
+
+        cuda_graph_loop.Composite.launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        cuda_graph_loop.Composite.launch = self._launch
+
+
+@contextlib.contextmanager
+def host_loop_mode():
+    """Runners first called inside the block take a mesh's host loop
+    (``_AdaptiveGraphs``, the path before the device loop held the
+    mesh's all_reduce): the parent path, timed beside the device loop."""
+    saved = stepper._loop_mode
+    stepper._loop_mode = lambda mesh: "host"
+    try:
+        yield
+    finally:
+        stepper._loop_mode = saved
+
+
+def close_programs(*runners):
+    """Destroy the runners' composites now (before their process group)."""
+    for run in runners:
+        for program in run._programs.values():
+            if hasattr(program, "loop"):
+                program.loop.close()
+        run._programs.clear()
+
+
+def dp_adaptive(device, mesh, build, S0, steps=5, tol=1e-6, maxit=10,
+                **kw):
+    """One of phase 16b's adaptive runs on the mesh (complex64, batched):
+    against the same run off the mesh (bit-equal, the same counts); on a
+    card, one composite launch a step, one host read a call, the key-mode
+    pass, the all_reduce and loop_decide once an iteration and the rule
+    mode of loop_pass never, the WHILE body's nodes and the reduce's; the
+    host loop of the same mesh (the parent path) bit-equal, and steps/s of
+    both in turns.  On the CPU (eager) one all_reduce an iteration."""
+    N = S0.shape[-1]
+    z = torch.zeros_like(S0)
+    args = dict(steps=steps, maxit=maxit, tol=tol, dtype=np.complex64,
+                batched=True, device=device, **kw)
+    dt = 0.25 * hbar(N)
+    on = build(N, dt, mesh=mesh, **args)
+    off = build(N, dt, **args)
+    reset_counts()
+    with SyncTimer(stepper) as sync, GraphLaunches() as launched:
+        got = on(S0, z, z)
+    counts = dict(read_counts(), loop_pass=loop_pass.launches,
+                  loop_pass_key=loop_pass.key_launches,
+                  loop_decide=loop_decide.launches,
+                  all_reduces=all_reduce_max_.calls)
+    want = off(S0, z, z)
+    iterations = int(got[3].sum())
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])):
+        raise AssertionError("the adaptive run on the mesh differs from the "
+                             "run without it")
+    out = dict(N=N, B=S0.shape[0], steps=steps, tol=tol, maxit=maxit,
+               iterations=got[3].tolist(), counts=counts,
+               host_reads=sync.calls, bit_equal_off_mesh=True)
+    if not on_card(device):
+        if counts["all_reduces"] != iterations:
+            raise AssertionError(f"{counts['all_reduces']} all_reduces for "
+                                 f"{iterations} iterations")
+        return out
+    (program,) = on._programs.values()
+    loop = getattr(program, "loop", None)
+    if loop is None or loop.reduce is None:
+        raise AssertionError(f"the mesh's runner took {type(program)}, not "
+                             f"the device loop with the mesh's reduce")
+    per_iteration = (counts["loop_pass_key"], counts["loop_decide"],
+                     counts["all_reduces"])
+    if (launched.steps != steps or sync.calls != 1 or counts["loop_pass"]
+            or per_iteration != (iterations,) * 3):
+        raise AssertionError(f"{launched.steps} launches for {steps} steps, "
+                             f"{sync.calls} host reads, counts {counts} for "
+                             f"{iterations} iterations")
+    body, n_body = loop.composite.body_nodes()
+    reduce_types, n_reduce = cuda_graph_loop.graph_nodes(
+        loop.pieces["reduce"].graph.raw_cuda_graph())
+    if n_body != 4 or sorted(body) != [0, 0, 4, 4]:
+        raise AssertionError(f"the WHILE body's nodes {node_names(body)}")
+    print(f"phase 16b: WHILE body {node_names(body)}, the reduce's graph "
+          f"{n_reduce} nodes {node_names(reduce_types)}", flush=True)
+    with host_loop_mode():
+        host = build(N, dt, mesh=mesh, **args)
+        parent = host(S0, z, z)
+    (parent_program,) = host._programs.values()
+    if type(parent_program).__name__ != "_AdaptiveGraphs":
+        raise AssertionError("the parent path did not take the host loop")
+    if not (torch.equal(parent[0], got[0]) and torch.equal(parent[3],
+                                                           got[3])):
+        raise AssertionError("the host loop on the mesh differs from the "
+                             "device loop")
+    sec = {"loop": [], "host": []}
+    for who in ("loop", "host", "host", "loop"):
+        run = on if who == "loop" else host
+        sec[who].append(timed_turn(lambda: run(S0, z, z), device)[1])
+    close_programs(on, off, host)
+    rate = {k: steps / float(np.median(v)) for k, v in sec.items()}
+    out.update(body_nodes=node_names(body),
+               reduce_nodes=node_names(reduce_types),
+               reduce_node_count=n_reduce,
+               composite_launches=launched.steps,
+               steps_per_s=rate["loop"],
+               host_loop_steps_per_s=rate["host"],
+               loop_over_host=rate["loop"] / rate["host"],
+               turns={k: [steps / t for t in v] for k, v in sec.items()},
+               host_loop_bit_equal=True)
+    return out
+
+
+#: phase 16b's shapes of the split pass: (name, dtype, dW's shape)
+SPLIT_TIMES = (("euler_c64_N1024_B16", torch.complex64, (16, 1024, 1024)),
+               ("mhd_c64_N1024_B4", torch.complex64, (4, 2, 1024, 1024)))
+#: residuals through the rule's edges, for loop_decide on keys
+KEY_SEQUENCES = ([1e-3, 1e-6, 1e-9, 1e-12], [1e-3, 1e-4, 2e-4, 1e-5],
+                 [float("nan")] * 6, [1e-3, float("nan"), 1e-20],
+                 [1.0 / (k + 1) for k in range(8)])
+
+
+def rule_bound(real):
+    """The least time (ms) of one loop_decide: the key read, rn written,
+    the state's header read and written and one count written, over 3.35
+    TB/s (its dozen operations take far less)."""
+    size = torch.empty((), dtype=real).element_size()
+    n = 8 + size + 2 * cuda_graph_loop.HEADER * 8 + 8
+    return n / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def rule_on_keys(device, real):
+    """loop_decide on the keys of KEY_SEQUENCES, tol 1e-8 in ``real``,
+    maxit 5, two steps each, against the plain rule: the words and rn
+    bit-equal after every decision (else AssertionError); the decisions."""
+    tol = float(torch.tensor(1e-8, dtype=real))
+    decisions = 0
+    for seq in KEY_SEQUENCES:
+        a = cuda_graph_loop.start_(cuda_graph_loop.new_state(device, 2),
+                                   tol, 5, 1)
+        b = cuda_graph_loop.start_(cuda_graph_loop.new_state("cpu", 2), tol,
+                                   5, 1)
+        rn = torch.empty((), dtype=real, device=device)
+        rn_p = torch.empty((), dtype=real)
+        for _ in range(2):
+            for x in seq:
+                key = key_of(torch.tensor(x, dtype=real)).reshape(1)
+                go = loop_decide(key.to(device), a, rn)
+                loop_decide_reference(key, b, rn_p)
+                decisions += 1
+                same_rn = torch.equal(rn.cpu().reshape(1).view(torch.uint8),
+                                      rn_p.reshape(1).view(torch.uint8))
+                if not (torch.equal(a.cpu(), b) and same_rn):
+                    raise AssertionError(f"loop_decide on {x!r}: words "
+                                         f"{a.cpu().tolist()} against the "
+                                         f"plain {b.tolist()}")
+                if not bool(go):
+                    break
+    return decisions
+
+
+def split_pass_times(device, reps=20, shapes=SPLIT_TIMES):
+    """Phase 16b's entries at its runs' shapes: loop_pass's key mode
+    (dW_new and dW read, dW written, the key) against its plain version
+    (dW bit-equal, the key's residual within 2 N u of the plain one's),
+    its ms by CUDA-graph replay, the plain version's and the library's
+    residual and copy, and its bound; ``loop_decide`` on keys through the
+    rule's edges (bit-equal to the plain rule) and its ms a decision by
+    replay beside its bound and the plain rule's ms."""
+    rows = []
+    for seed, (name, dtype, shape) in enumerate(shapes):
+        dW_new, dW = _pass_inputs(dtype, shape, device, 100 + seed)
+        dWp, key, key_p = dW.clone(), new_key(device), new_key(device)
+        scratch = new_scratch(device)
+        residual_(dW_new, dW, write=True, key=key, scratch=scratch)
+        loop_pass_reference(dW_new, dWp, None, write=True, key=key_p)
+        a, b = key_value(int(key)), key_value(int(key_p))
+        err = abs(a - b) / b
+        u = torch.finfo(dW.real.dtype).eps / 2
+        if not (torch.equal(dW, dWp) and err <= 2 * shape[-1] * u):
+            raise AssertionError(f"the key mode {name}: dW or the key "
+                                 f"{a!r} against the plain {b!r}")
+        dW_new, dW = _pass_inputs(dtype, shape, device, 200 + seed)
+        ms = graph_ms(lambda: residual_(dW_new, dW, write=True, key=key,
+                                        scratch=scratch), reps)
+        plain_ms = cuda_ms(lambda: loop_pass_reference(
+            dW_new, dW, None, write=True, key=key_p), 3)
+        library_ms = graph_ms(lambda: library_pass(dW_new, dW), reps)
+        bound, by = loop_pass_bound(dtype, shape)
+        rows.append(dict(entry="loop_pass_key", name=name, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         share=bound / ms, library_ms=library_ms,
+                         max_rel_err_rn=err, max_abs_err=0.0))
+        del dW_new, dW, dWp
+    real = torch.float32
+    decisions = rule_on_keys(device, real)
+    state = cuda_graph_loop.start_(cuda_graph_loop.new_state(device), 0.0,
+                                   1 << 40, 1)
+    state_p = state.clone()
+    key = key_of(torch.tensor(1e-3, dtype=real, device=device)).reshape(1)
+    rn = torch.empty((), dtype=real, device=device)
+    rn_p = torch.empty_like(rn)
+    ms = graph_ms(lambda: loop_decide(key, state, rn), reps)
+    plain_ms = cuda_ms(lambda: loop_decide_reference(key, state_p, rn_p),
+                       reps)
+    bound, by = rule_bound(real)
+    rows.append(dict(entry="loop_decide", name="float32 (complex64 runs)",
+                     decisions_checked=decisions + rule_on_keys(
+                         device, torch.float64),
+                     ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                     share=bound / ms, library_ms=None, max_abs_err=0.0))
+    return rows
+
+
 def nccl_dp(device, ensemble, backend=None, tol_steps=5, tol=1e-6,
-            maxit=10):
+            maxit=10, mhd_B=4):
     """Phase 16b: a one-rank process group (NCCL on the card) through
     ``initialize`` and ``global_mesh``: the dp ensemble of phase 15's
-    largest run, bit-equal to it with the same launches; then an adaptive
-    run on the mesh, whose exit reads an all_reduce of the residual an
-    iteration, against the same run without the mesh."""
+    largest run, bit-equal to it with the same launches; then the mesh's
+    adaptive runs (:func:`dp_adaptive`), Euler on that ensemble and MHD
+    on ``mhd_B`` members under the scan: on a card one launch a step, the
+    all_reduce of the residual's key inside the WHILE node, once an
+    iteration."""
+    import gc
+
     import torch.distributed as dist
 
     from quflow_tpu_torch.parallel.distributed import global_mesh, initialize
@@ -1741,30 +2009,30 @@ def nccl_dp(device, ensemble, backend=None, tol_steps=5, tol=1e-6,
                                  f"{ensemble['launches']}")
         if not torch.equal(st[0], ensemble["W"]):
             raise AssertionError("the dp run is not bit-equal to phase 15's")
-        reductions = []
-        reduce_max = mesh.max
-
-        def counted(value, dev):
-            reductions.append(value)
-            return reduce_max(value, dev)
-
-        mesh.max = counted
-        kw = dict(steps=tol_steps, maxit=maxit, tol=tol, dtype=np.complex64,
-                  batched=True, device=device)
-        on = build_step_fn(N, dt, mesh=mesh, **kw)(W0, z, z)
-        off = build_step_fn(N, dt, **kw)(W0, z, z)
-        if not (torch.equal(on[0], off[0]) and torch.equal(on[3], off[3])):
-            raise AssertionError("the adaptive run on the mesh differs from "
-                                 "the run without it")
-        if len(reductions) != int(on[3].sum()):
-            raise AssertionError(f"{len(reductions)} all_reduces for "
-                                 f"{int(on[3].sum())} iterations")
+        euler = dp_adaptive(device, mesh, build_step_fn, W0, tol_steps,
+                            tol, maxit)
+        S0 = torch.from_numpy(np.stack([
+            MHDFlow(N, np.complex64).random_initial(lmax=10, seed=42 + b)
+            for b in range(mhd_B)])).to(device)
+        with kernel_variable("scan"):
+            mhd = dp_adaptive(device, mesh, build_mhd_step_fn, S0, tol_steps,
+                              tol, maxit)
+        if on_card(device) and not mhd["counts"]["shear_scan"]:
+            raise AssertionError(f"the MHD run under the scan launched "
+                                 f"{mhd['counts']}")
+        gc.collect()
+        if on_card(device):
+            torch.cuda.synchronize()
     finally:
         dist.destroy_process_group()
     return dict(backend=name, mesh=mesh.shape, B=W0.shape[0],
                 launches=counts, bit_equal_to_phase_15=True,
-                adaptive_iterations=on[3].tolist(),
-                all_reduces=len(reductions))
+                adaptive_iterations=euler["iterations"],
+                all_reduces=euler["counts"]["all_reduces"],
+                adaptive={f"euler_c64_N{N}_B{W0.shape[0]}": euler,
+                          f"mhd_c64_N{N}_B{mhd_B}_scan": mhd},
+                note="one rank: the mechanics of the all_reduce inside the "
+                     "WHILE node, not the max across ranks")
 
 
 def gemm_kernels(device, shape, dtype=torch.complex64, reps=3):
@@ -4862,6 +5130,46 @@ def layout_timing(lt, key):
                          for r in rows]}
 
 
+def split_kernels(dp, split):
+    """The kernels line's rows of the split pass's two entries: launches
+    on phase 16b's adaptive runs on the mesh (the first, Euler B=16, as
+    ``launches``), times at its first shape (Euler B=16) for the key mode,
+    and the rule's."""
+    runs = dp["adaptive"]
+    key_rows = [r for r in split if r["entry"] == "loop_pass_key"]
+    rule = next(r for r in split if r["entry"] == "loop_decide")
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "share",
+              "library_ms")
+    return [{
+        "name": "loop_pass_key",
+        "route": "cuda",
+        "source": "quflow_tpu_torch/csrc/graph_loop.cu",
+        "replaces": "quflow_tpu/parallel/stepper.py:794 (the residual of "
+                    "lax.while_loop's body, its jnp.max over the sharded "
+                    "batch under a dp mesh; not Pallas)",
+        "launches": next(iter(runs.values()))["counts"]["loop_pass_key"],
+        "launches_by_path": {f"nccl_dp_{k}": r["counts"]["loop_pass_key"]
+                             for k, r in runs.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in key_rows),
+        "max_rel_err_rn": max(r["max_rel_err_rn"] for r in key_rows),
+        **{k: key_rows[0][k] for k in fields},
+        "by_shape": [{k: r[k] for k in ("name",) + fields}
+                     for r in key_rows],
+    }, {
+        "name": "loop_decide",
+        "route": "cuda",
+        "source": "quflow_tpu_torch/csrc/graph_loop.cu",
+        "replaces": "quflow_tpu/parallel/stepper.py:782-785 (the cond of "
+                    "lax.while_loop on the residual's max over the mesh; "
+                    "not Pallas)",
+        "launches": next(iter(runs.values()))["counts"]["loop_decide"],
+        "launches_by_path": {f"nccl_dp_{k}": r["counts"]["loop_decide"]
+                             for k, r in runs.items()},
+        "max_abs_err": rule["max_abs_err"],
+        **{k: rule[k] for k in fields},
+    }]
+
+
 def main():
     if sys.argv[1:2] == ["--tp-rank"]:  # a rank of phase 19b
         rank, backend, tmp, N, steps, maxit, device, dtype = sys.argv[2:10]
@@ -4985,9 +5293,6 @@ def main():
     ckpt = checkpoint_restart(device)
     print("phase 16a checkpoint restart c64 N=1024: " + json.dumps(ckpt),
           flush=True)
-    dp = nccl_dp(device, ensemble)
-    print("phase 16b one-rank NCCL dp ensemble: " + json.dumps(dp),
-          flush=True)
 
     we = warm_euler(device)
     print("phase 17a warm schedule Euler c64 N=1024: " + json.dumps(we),
@@ -5083,6 +5388,14 @@ def main():
     es = erk_solve(device)
     print("phase 25e solve with rk4 c128 N=512: " + json.dumps(es),
           flush=True)
+
+    # phase 16b last: see the phase list
+    dp = nccl_dp(device, ensemble)
+    print("phase 16b one-rank NCCL dp ensemble and adaptive runs: "
+          + json.dumps(dp), flush=True)
+    split = split_pass_times(device)
+    print("phase 16b the split pass's entries vs plain: "
+          + json.dumps(split), flush=True)
 
     def replayed(kernel):
         """Phase 21's, 22's, 24's and 25's replayed paths of ``kernel``:
@@ -5240,7 +5553,7 @@ def main():
         "by_shape": [{k: r[k] for k in ("name", "ms", "bound_ms", "share",
                                         "replaced_ms", "library_ms")}
                      for r in ld["times"]],
-    }]}), flush=True)
+    }, *split_kernels(dp, split)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,21 @@
 // holds a float exactly: the comparisons are those of the host's Python
 // floats on the same values, tol rounded to the working precision by the
 // caller as the host rounds it.  The rule is one __device__ function,
-// decide(), which loop_pass and the standalone loop_decide both run.
+// decide(), which loop_pass and the rule's own entry loop_decide both run.
+//
+// Under a dp mesh the residual is the max over the mesh's ranks, as
+// quflow_tpu's jnp.max over the sharded batch is (a global all-reduce an
+// iteration), and the pass splits in three:
+//
+//     WHILE { iteration -> loop_pass (key) -> reduce -> loop_decide }
+//
+// loop_pass in its key mode writes dW and the residual's key, the bits of
+// the non-negative double with a NaN made +NaN (the largest key), into a
+// word of its own, with no rule; reduce is the captured in-place
+// all_reduce (MAX) of that int64 word over the mesh, exact in any order on
+// any backend, a NaN on any rank winning as jnp.max propagates it; and
+// loop_decide reads the reduced key back as a double (the key is its
+// bits), writes rn, applies the rule and sets the handle.
 //
 // The state is one int64 array on the card (words below): the header,
 // then one count a step.  tol, maxit and minit live in it, so a new
@@ -66,11 +80,12 @@
 // for the next pass: one thread, no second launch.
 //
 // The host functions build the composite from the raw graphs of the
-// pieces (cudaGraphAddChildGraphNode copies each) and one kernel node of
-// loop_pass, instantiate and upload it, launch it on the caller's stream,
-// and destroy it.  loop_pass_launch runs the kernel once outside any
-// graph: with the rule (the tests' and the smoke's probe), or without it,
-// the residual alone (the host loops on the card).  Every failure returns
+// pieces (cudaGraphAddChildGraphNode copies each) and the kernel nodes of
+// loop_pass (and, split, of loop_decide), instantiate and upload it,
+// launch it on the caller's stream, and destroy it.  loop_pass_launch runs
+// the kernel once outside any graph: with the rule (the tests' and the
+// smoke's probe), without it, the residual alone (the host loops on the
+// card), or in its key mode.  Every failure returns
 // its cudaError_t and leaves a message naming the step that failed
 // (graph_loop_message).
 
@@ -100,7 +115,8 @@ enum : int {
 enum : int {
   PASS_RULE = 1,   // apply the rule to the state
   PASS_SET = 2,    // and set the WHILE node's handle (inside the graph)
-  PASS_WRITE = 4   // write dW_new into dW
+  PASS_WRITE = 4,  // write dW_new into dW
+  PASS_KEY = 8     // write the residual's key, not rn, and no rule
 };
 
 // the value types of dW (ops/cuda_graph_loop.KINDS)
@@ -138,12 +154,23 @@ __device__ bool decide(double rn, long long* s, int capacity) {
   return go;
 }
 
-// The rule alone on a residual already in memory: the probe of the rule
-// without the residual's pass.
+// The rule alone on a residual already in memory: a T, or with `key` the
+// bits of a double (the key of loop_pass's key mode, reduced over a mesh:
+// a key is the bits of its residual, so a +NaN key reads as a NaN).  rn,
+// when not null, receives the residual as a T (exact: a key holds a T's
+// value); with `set`, the WHILE node's handle the decision.  The rule's
+// entry of the split pass, and the probe of the rule.
 template <typename T>
-__global__ void loop_decide(const T* __restrict__ rn_ptr,
-                            long long* __restrict__ s, int capacity) {
-  decide(static_cast<double>(*rn_ptr), s, capacity);
+__global__ void loop_decide(const void* __restrict__ in, int key,
+                            T* __restrict__ rn, long long* __restrict__ s,
+                            int capacity, int set,
+                            cudaGraphConditionalHandle handle) {
+  const double r =
+      key ? __longlong_as_double(*static_cast<const long long*>(in))
+          : static_cast<double>(*static_cast<const T*>(in));
+  if (rn) *rn = static_cast<T>(r);
+  const bool go = decide(r, s, capacity);
+  if (set) cudaGraphSetConditional(handle, go ? 1u : 0u);
 }
 
 // 16 bytes of T
@@ -203,11 +230,13 @@ __device__ __forceinline__ unsigned long long key_of(T sum) {
 // scalars a row).  wpr warps a row, blockDim.x / 32 / wpr rows a block,
 // the blocks striding over row groups.  Shared memory: one key and one
 // partial sum a warp.  scratch[0] is the running max key, scratch[1] the
-// ticket; both are 0 between passes.
+// ticket; both are 0 between passes.  With PASS_KEY the last block writes
+// the max key into *key and neither rn nor the state.
 template <typename T, bool CPLX>
 __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSM)
     loop_pass(const T* __restrict__ src, T* __restrict__ dst,
-              T* __restrict__ rn, unsigned long long* __restrict__ scratch,
+              T* __restrict__ rn, unsigned long long* __restrict__ key,
+              unsigned long long* __restrict__ scratch,
               long long* __restrict__ s, int capacity, long long rows, int N,
               int wpr, int flags, cudaGraphConditionalHandle handle) {
   constexpr int VS = Chunk<T>::n;
@@ -295,12 +324,16 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSM)
   if (atomicAdd(&scratch[1], 1ULL) != gridDim.x - 1) return;
   // the last block: every other block's max is in scratch[0]
   __threadfence();
-  const double r = __longlong_as_double(
-      static_cast<long long>(atomicAdd(&scratch[0], 0ULL)));
-  *rn = static_cast<T>(r);  // exact: r is a T's value
-  if (flags & PASS_RULE) {
-    const bool go = decide(r, s, capacity);
-    if (flags & PASS_SET) cudaGraphSetConditional(handle, go ? 1u : 0u);
+  const unsigned long long best_key = atomicAdd(&scratch[0], 0ULL);
+  if (flags & PASS_KEY) {
+    *key = best_key;
+  } else {
+    const double r = __longlong_as_double(static_cast<long long>(best_key));
+    *rn = static_cast<T>(r);  // exact: r is a T's value
+    if (flags & PASS_RULE) {
+      const bool go = decide(r, s, capacity);
+      if (flags & PASS_SET) cudaGraphSetConditional(handle, go ? 1u : 0u);
+    }
   }
   scratch[0] = 0;
   scratch[1] = 0;
@@ -320,6 +353,7 @@ struct Pass {
   const void* src;  // dW_new
   void* dst;        // dW
   void* rn;
+  void* key;        // the key mode's word (null in the other modes)
   void* scratch;
   void* state;
   int capacity;
@@ -328,11 +362,12 @@ struct Pass {
   int blocks, wpr;
 };
 
+// whether the working precision of a kind is double (rn's type)
+bool double_kind(int kind) { return kind == KIND_F64 || kind == KIND_C128; }
+
 // a block's dynamic shared bytes: a 64-bit key and a partial sum of the
 // working precision a warp
-int shared_bytes(int kind) {
-  return kWarps * (8 + (kind == KIND_F64 || kind == KIND_C128 ? 8 : 4));
-}
+int shared_bytes(int kind) { return kWarps * (8 + (double_kind(kind) ? 8 : 4)); }
 
 // Whether the plan of a launch is one ops/cuda_graph_loop.plan can give:
 // wpr a power of two dividing a block's warps, no block without a row
@@ -369,6 +404,7 @@ struct PassArgs {
   const void* src;
   void* dst;
   void* rn;
+  void* key;
   void* scratch;
   void* state;
   int capacity;
@@ -377,14 +413,36 @@ struct PassArgs {
   int wpr;
   int flags;
   cudaGraphConditionalHandle handle;
-  void* args[11];
+  void* args[12];
 
   PassArgs(const Pass& p, int f, cudaGraphConditionalHandle h)
-      : src(p.src), dst(p.dst), rn(p.rn), scratch(p.scratch),
+      : src(p.src), dst(p.dst), rn(p.rn), key(p.key), scratch(p.scratch),
         state(p.state), capacity(p.capacity), rows(p.rows), N(p.N),
         wpr(p.wpr), flags(f), handle(h),
-        args{&src, &dst, &rn, &scratch, &state, &capacity, &rows, &N, &wpr,
-             &flags, &handle} {}
+        args{&src, &dst, &rn, &key, &scratch, &state, &capacity, &rows, &N,
+             &wpr, &flags, &handle} {}
+};
+
+void* decide_kernel(int kind) {
+  return double_kind(kind) ? reinterpret_cast<void*>(loop_decide<double>)
+                           : reinterpret_cast<void*>(loop_decide<float>);
+}
+
+// loop_decide's arguments, as PassArgs holds the pass's
+struct DecideArgs {
+  const void* in;
+  int key;
+  void* rn;
+  void* state;
+  int capacity;
+  int set;
+  cudaGraphConditionalHandle handle;
+  void* args[7];
+
+  DecideArgs(const void* i, int k, void* r, void* s, int c, int st,
+             cudaGraphConditionalHandle h)
+      : in(i), key(k), rn(r), state(s), capacity(c), set(st), handle(h),
+        args{&in, &key, &rn, &state, &capacity, &set, &handle} {}
 };
 
 struct Composite {
@@ -428,10 +486,12 @@ cudaError_t add_while(cudaGraph_t graph, cudaGraphNode_t* node,
   return cudaSuccess;
 }
 
-// loop_pass in the WHILE body after `dep`, the rule on and the handle set
-cudaError_t add_pass(cudaGraph_t body, cudaGraphNode_t dep, const Pass& p,
+// loop_pass in the WHILE body after `dep` with `flags` (the rule on and
+// the handle set, or the key mode), its node into *node
+cudaError_t add_pass(cudaGraph_t body, cudaGraphNode_t* node,
+                     cudaGraphNode_t dep, const Pass& p, int flags,
                      cudaGraphConditionalHandle handle) {
-  PassArgs a(p, PASS_RULE | PASS_SET | PASS_WRITE, handle);
+  PassArgs a(p, flags, handle);
   cudaKernelNodeParams k;
   std::memset(&k, 0, sizeof k);
   k.func = pass_kernel(p.kind);
@@ -439,10 +499,27 @@ cudaError_t add_pass(cudaGraph_t body, cudaGraphNode_t dep, const Pass& p,
   k.blockDim = dim3(kMaxThreads);
   k.sharedMemBytes = shared_bytes(p.kind);
   k.kernelParams = a.args;
+  const cudaError_t err = cudaGraphAddKernelNode(node, body, &dep, 1, &k);
+  return err == cudaSuccess ? err
+                            : failed("cudaGraphAddKernelNode(loop_pass)",
+                                     err);
+}
+
+// loop_decide in the WHILE body after `dep`: the reduced key in, rn
+// written, the rule applied and the handle set
+cudaError_t add_rule(cudaGraph_t body, cudaGraphNode_t dep, const Pass& p,
+                     cudaGraphConditionalHandle handle) {
+  DecideArgs a(p.key, 1, p.rn, p.state, p.capacity, 1, handle);
+  cudaKernelNodeParams k;
+  std::memset(&k, 0, sizeof k);
+  k.func = decide_kernel(p.kind);
+  k.gridDim = dim3(1);
+  k.blockDim = dim3(1);
+  k.kernelParams = a.args;
   cudaGraphNode_t node;
   const cudaError_t err = cudaGraphAddKernelNode(&node, body, &dep, 1, &k);
   return err == cudaSuccess ? err
-                            : failed("cudaGraphAddKernelNode(loop_pass)",
+                            : failed("cudaGraphAddKernelNode(loop_decide)",
                                      err);
 }
 
@@ -467,8 +544,8 @@ const char* node_type_name(cudaGraphNode_t node) {
 }
 
 cudaError_t build(cudaGraph_t head, cudaGraph_t warm, cudaGraph_t iteration,
-                  cudaGraph_t tail, const Pass& p, int device,
-                  cudaStream_t stream, Composite* c) {
+                  cudaGraph_t reduce, cudaGraph_t tail, const Pass& p,
+                  int device, cudaStream_t stream, Composite* c) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return failed("cudaSetDevice", err);
   err = cudaGraphCreate(&c->graph, 0);
@@ -490,11 +567,23 @@ cudaError_t build(cudaGraph_t head, cudaGraph_t warm, cudaGraph_t iteration,
     return failed("cudaGraphConditionalHandleCreate", err);
   if ((err = add_while(g, &node, last, handle, &c->body))) return err;
   last = node;
-  cudaGraphNode_t it;
+  cudaGraphNode_t it, pass;
   if ((err = add_child(c->body, &it, nullptr, iteration,
                        "child node (iteration) in the WHILE body")))
     return err;
-  if ((err = add_pass(c->body, it, p, handle))) return err;
+  if (reduce) {  // the split pass: the key, its reduce, then the rule
+    cudaGraphNode_t red;
+    if ((err = add_pass(c->body, &pass, it, p, PASS_KEY | PASS_WRITE,
+                        handle)))
+      return err;
+    if ((err = add_child(c->body, &red, pass, reduce,
+                         "child node (reduce) in the WHILE body")))
+      return err;
+    if ((err = add_rule(c->body, red, p, handle))) return err;
+  } else if ((err = add_pass(c->body, &pass, it, p,
+                             PASS_RULE | PASS_SET | PASS_WRITE, handle))) {
+    return err;
+  }
   if ((err = add_child(g, &node, last, tail, "child node (tail)"))) return err;
 
   cudaGraphInstantiateParams params;
@@ -516,67 +605,77 @@ cudaError_t build(cudaGraph_t head, cudaGraph_t warm, cudaGraph_t iteration,
 
 }  // namespace
 
-// The rule once, outside any graph: state updated, the decision in
-// state[W_CONTINUE].  The plain version's twin, for tests.
-extern "C" cudaError_t loop_decide_f32(const void* rn, void* state,
-                                       int capacity, void* stream) {
+// The rule once, outside any graph, on `in` (a float or double residual,
+// or with `key` an int64 key) in the working precision of the entry: rn
+// written when not null, the state updated, the decision in
+// state[W_CONTINUE].  The plain version's twin.
+extern "C" cudaError_t loop_decide_f32(const void* in, int key, void* rn,
+                                       void* state, int capacity,
+                                       void* stream) {
   loop_decide<float><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rn), static_cast<long long*>(state),
-      capacity);
+      in, key, static_cast<float*>(rn), static_cast<long long*>(state),
+      capacity, 0, 0);
   return cudaGetLastError();
 }
 
-extern "C" cudaError_t loop_decide_f64(const void* rn, void* state,
-                                       int capacity, void* stream) {
+extern "C" cudaError_t loop_decide_f64(const void* in, int key, void* rn,
+                                       void* state, int capacity,
+                                       void* stream) {
   loop_decide<double><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(rn), static_cast<long long*>(state),
-      capacity);
+      in, key, static_cast<double*>(rn), static_cast<long long*>(state),
+      capacity, 0, 0);
   return cudaGetLastError();
 }
 
 // loop_pass once, outside any graph, on `stream`: rn from dW_new (src) and
 // dW (dst) of `rows` rows of N values of `kind`; with write, dW_new into
-// dW; with the rule (state not null), one decision on the state.  The
-// scratch words must be 0 (they are again after the launch).
+// dW; with the rule (state not null), one decision on the state; with
+// `key` not null, the key mode: the residual's key into *key, rn and the
+// state untouched.  The scratch words must be 0 (they are again after the
+// launch).
 extern "C" cudaError_t loop_pass_launch(const void* src, void* dst, void* rn,
-                                        void* scratch, void* state,
-                                        int capacity, int kind,
+                                        void* key, void* scratch,
+                                        void* state, int capacity, int kind,
                                         long long rows, int N, int blocks,
                                         int wpr, int write, void* stream) {
   g_message[0] = '\0';
-  const Pass p{kind, src, dst, rn, scratch, state, capacity,
+  const Pass p{kind, src, dst, rn, key, scratch, state, capacity,
                rows, N, blocks, wpr};
-  if (!src || !dst || !rn || !scratch)
-    return refused(p, "loop_pass_launch: dW_new, dW, rn and the scratch "
-                      "are required");
+  if (!src || !dst || !(key ? !state : !!rn) || !scratch)
+    return refused(p, "loop_pass_launch: dW_new, dW, the scratch and rn "
+                      "(or a key and no state) are required");
   if (!plan_ok(kind, rows, N, blocks, wpr))
     return refused(p, "loop_pass_launch");
-  PassArgs a(p, (state ? PASS_RULE : 0) | (write ? PASS_WRITE : 0), 0);
+  PassArgs a(p, key ? PASS_KEY | (write ? PASS_WRITE : 0)
+                    : (state ? PASS_RULE : 0) | (write ? PASS_WRITE : 0),
+             0);
   const cudaError_t err = cudaLaunchKernel(
       pass_kernel(kind), dim3(blocks), dim3(kMaxThreads), a.args,
       shared_bytes(kind), static_cast<cudaStream_t>(stream));
   return err == cudaSuccess ? err : failed("cudaLaunchKernel(loop_pass)", err);
 }
 
-// The composite of one adaptive step.  head and warm may be null; the
-// graphs are copied, so the caller keeps owning them (and the memory they
-// address, dW_new among it).  The WHILE body ends on loop_pass over
-// dW_new and dW with the plan given.  *out receives an opaque handle for
-// the launches.
+// The composite of one adaptive step.  head, warm and reduce may be null;
+// the graphs are copied, so the caller keeps owning them (and the memory
+// they address, dW_new among it).  The WHILE body ends on loop_pass over
+// dW_new and dW with the plan given; with `reduce`, on loop_pass's key
+// mode into `key`, the reduce graph (which acts on that word in place) and
+// loop_decide.  *out receives an opaque handle for the launches.
 extern "C" cudaError_t graph_loop_build(
-    void* head, void* warm, void* iteration, void* tail, const void* src,
-    void* dst, void* rn, void* scratch, void* state, int capacity, int kind,
-    long long rows, int N, int blocks, int wpr, int device, void* stream,
-    void** out) {
+    void* head, void* warm, void* iteration, void* reduce, void* tail,
+    const void* src, void* dst, void* rn, void* key, void* scratch,
+    void* state, int capacity, int kind, long long rows, int N, int blocks,
+    int wpr, int device, void* stream, void** out) {
   *out = nullptr;
   g_message[0] = '\0';
-  const Pass p{kind, src, dst, rn, scratch, state, capacity,
+  const Pass p{kind, src, dst, rn, key, scratch, state, capacity,
                rows, N, blocks, wpr};
   if (!iteration || !tail || !src || !dst || !rn || !scratch || !state ||
-      capacity < 0) {
+      capacity < 0 || (reduce && !key)) {
     std::snprintf(g_message, sizeof g_message,
                   "graph_loop_build: an iteration, a tail, dW_new, dW, rn, "
-                  "the scratch and the state are required");
+                  "the scratch, the state and, with a reduce, the key are "
+                  "required");
     return cudaErrorInvalidValue;
   }
   if (!plan_ok(kind, rows, N, blocks, wpr))
@@ -585,6 +684,7 @@ extern "C" cudaError_t graph_loop_build(
   const cudaError_t err =
       build(static_cast<cudaGraph_t>(head), static_cast<cudaGraph_t>(warm),
             static_cast<cudaGraph_t>(iteration),
+            static_cast<cudaGraph_t>(reduce),
             static_cast<cudaGraph_t>(tail), p, device,
             static_cast<cudaStream_t>(stream), c);
   if (err != cudaSuccess) {

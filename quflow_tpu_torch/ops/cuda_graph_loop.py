@@ -13,8 +13,19 @@ sum_j |dW_new - dW|`` in one pass over the data, writes dW_new into dW,
 applies the rule and sets the node's condition (:class:`Composite`).  The
 host reads nothing inside a step.  The same kernel with the rule off,
 :func:`residual_`, is the residual of every adaptive loop on the card
-that the host runs (``config.eager()``, the dp mesh), so that both loops
+that the host runs (``config.eager()``, a gloo mesh), so that both loops
 read the same bits of rn.
+
+Under a dp mesh the residual is the max over its ranks, as quflow_tpu's
+``jnp.max`` over the sharded batch is, and a pass splits in three
+(:class:`Composite` with ``reduce``): ``loop_pass`` in its key mode
+(:func:`residual_` with ``key``) writes dW and the residual's key into a
+word of its own, the key being the int64 bits of the non-negative double
+with a NaN made +NaN, the largest key (:func:`key_of`); the captured
+in-place all_reduce (MAX) of that word over the mesh, exact in any order,
+a NaN on any rank winning as ``jnp.max`` propagates it; and
+``loop_decide``, the rule's entry, which reads the reduced key back as a
+double (its bits), writes rn, decides and sets the WHILE node's condition.
 
 The rule, quflow_tpu's (integrators/isospectral._converge on the host):
 continue while ``i < maxit and not (i >= minit and (rn <= tol or rn >=
@@ -23,8 +34,8 @@ state is one int64 tensor on the device (:func:`new_state`): the words
 below, then the count of each step.  ``tol`` (rounded to the working
 precision by the caller), ``maxit`` and ``minit`` are words of it, set by
 :func:`start_` before a call's launches, so a new tolerance needs no new
-graph.  ``loop_decide`` applies the rule alone to a residual already in
-memory: the probe of the rule.
+graph.  ``loop_decide`` applies the rule alone to a residual (or a key)
+already in memory: the rule's entry of the split pass, and its probe.
 
 On CUDA tensors ``loop_pass``, ``residual_`` and ``loop_decide`` launch
 the kernel once, outside any graph, with the launch plan of :func:`plan`
@@ -53,6 +64,7 @@ from .cuda_solve import sms
 __all__ = ["loop_pass", "loop_pass_reference", "residual_", "plan",
            "PassPlan", "new_scratch", "loop_decide", "loop_decide_reference",
            "new_state", "start_", "Composite", "graph_nodes",
+           "new_key", "key_of", "host_key", "key_value", "PLUS_NAN",
            "LIBRARY",
            "KINDS", "ARGTYPES", "HEADER",
            "I", "STEP", "ITERATIONS", "CAPPED", "CONTINUE", "LAST", "TOL",
@@ -65,6 +77,8 @@ __all__ = ["loop_pass", "loop_pass_reference", "residual_", "plan",
 I, STEP, ITERATIONS, CAPPED, CONTINUE, LAST, TOL, MAXIT, MINIT = range(9)
 HEADER = 9
 _INF_BITS = 0x7FF0000000000000
+#: the key of a NaN residual: the bits of +NaN, above every other key
+PLUS_NAN = 0x7FF8000000000000
 
 #: the value types of dW that loop_pass takes, by the kernel's kind
 #: (csrc/graph_loop.cu), and the real type of each (rn's)
@@ -127,6 +141,38 @@ def _bits(x):
     return struct.unpack("<q", struct.pack("<d", float(x)))[0]
 
 
+def new_key(device):
+    """A one-word int64 tensor for loop_pass's key mode: the word a mesh's
+    all_reduce acts on in place."""
+    return torch.zeros(1, dtype=torch.int64, device=device)
+
+
+def key_of(r):
+    """The key of the 0-d residual ``r`` (float32 or float64), as
+    loop_pass's key mode writes it: the int64 bits of ``r`` as a double, 0
+    where r <= 0, +NaN's bits (:data:`PLUS_NAN`) for any NaN.  Keys order
+    as their residuals, a NaN above all: the max of keys is the key of the
+    max, exact in any order, and a key read back as a double
+    (``key.view(torch.float64)``) is its residual.  Plain PyTorch, a 0-d
+    int64 tensor on r's device."""
+    d = r.to(torch.float64)
+    return torch.where(d.isnan(), PLUS_NAN,
+                       torch.where(d > 0, d.view(torch.int64), 0))
+
+
+def host_key(x):
+    """:func:`key_of` of the Python float ``x``, as a Python int."""
+    x = float(x)
+    if x != x:
+        return PLUS_NAN
+    return _bits(x) if x > 0 else 0
+
+
+def key_value(k):
+    """The residual whose key is the Python int ``k``, a Python float."""
+    return struct.unpack("<d", struct.pack("<q", int(k)))[0]
+
+
 def new_state(device, capacity=0):
     """A state for a loop on ``device`` with room for ``capacity`` counts
     a step, started with tol 0, maxit 1, minit 1."""
@@ -148,28 +194,51 @@ def start_(state, tol, maxit, minit):
     return state
 
 
-def _check(rn, state):
+def _is_key(x):
+    return x.dtype == torch.int64 and x.numel() == 1
+
+
+def _check_rn(rn, what="rn"):
     if rn.dim() != 0 or rn.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"loop_decide: rn must be a 0-d float32 or float64 "
-                         f"tensor, got {tuple(rn.shape)} {rn.dtype}")
+        raise ValueError(f"loop_decide: {what} must be a 0-d float32 or "
+                         f"float64 tensor, got {tuple(rn.shape)} {rn.dtype}")
+
+
+def _check(x, state, rn=None):
+    """The operands of loop_decide: the residual ``x`` (a 0-d float32 or
+    float64 tensor, or a one-word int64 key), the state, and rn."""
+    if not _is_key(x):
+        _check_rn(x, "the residual")
+        if rn is not None and rn.dtype != x.dtype:
+            raise ValueError(f"loop_decide: rn of {rn.dtype} for a residual "
+                             f"of {x.dtype}")
+    if rn is not None:
+        _check_rn(rn)
     if (state.dtype != torch.int64 or state.dim() != 1
             or state.numel() < HEADER or not state.is_contiguous()):
         raise ValueError(f"loop_decide: the state must be a contiguous 1-d "
                          f"int64 tensor of at least {HEADER} words, got "
                          f"{tuple(state.shape)} {state.dtype}")
-    if rn.device != state.device:
-        raise ValueError(f"loop_decide: rn on {rn.device}, the state on "
-                         f"{state.device}")
+    for t, name in ((x, "the residual"), (rn, "rn")):
+        if t is not None and t.device != state.device:
+            raise ValueError(f"loop_decide: {name} on {t.device}, the state "
+                             f"on {state.device}")
 
 
-def loop_decide_reference(rn, state):
+def loop_decide_reference(x, state, rn=None):
     """Plain PyTorch version of the kernel: one decision after an
-    iteration whose residual is the 0-d ``rn``, ``state`` updated in place
-    as the kernel updates it (compared in float64, which holds a float32
-    exactly).  Returns ``state[CONTINUE]`` (a 0-d view)."""
-    _check(rn, state)
+    iteration whose residual is ``x`` (a 0-d float32 or float64 tensor, or
+    a one-word int64 key of :func:`key_of`, read back as the double whose
+    bits it is), ``state`` updated in place as the kernel updates it
+    (compared in float64, which holds a float32 exactly); ``rn``, when
+    given, receives the residual in its own dtype.  Returns
+    ``state[CONTINUE]`` (a 0-d view)."""
+    _check(x, state, rn)
     as_double = state[LAST:TOL + 1].view(torch.float64)  # LAST, TOL
-    r = rn.to(torch.float64)
+    r = (x.reshape(()).view(torch.float64) if _is_key(x)
+         else x.to(torch.float64))
+    if rn is not None:
+        rn.copy_(r)
     i = state[I] + 1
     settled = (r <= as_double[1]) | (r >= as_double[0])
     go = (i < state[MAXIT]) & ~((i >= state[MINIT]) & settled)
@@ -189,26 +258,37 @@ def loop_decide_reference(rn, state):
     return state[CONTINUE]
 
 
-def loop_decide(rn, state):
-    """One decision of the rule after an iteration whose residual is the
-    0-d ``rn`` (float32 or float64), ``state`` (:func:`new_state`) updated
-    in place; returns ``state[CONTINUE]``.
+def loop_decide(x, state, rn=None):
+    """One decision of the rule after an iteration whose residual is
+    ``x``, ``state`` (:func:`new_state`) updated in place; returns
+    ``state[CONTINUE]``.  ``x`` is a 0-d float32 or float64 residual, or a
+    one-word int64 key (:func:`key_of`; reduced over a mesh's ranks), read
+    as the double whose bits it is; ``rn``, a 0-d float32 or float64
+    tensor (of x's dtype for a residual), receives the residual.
 
-    The rule alone, on a residual already in memory: the probe of the
-    rule that :func:`loop_pass` applies after its residual.  CPU tensors
-    go to :func:`loop_decide_reference`.  CUDA tensors launch the kernel
-    once, outside any graph; ``loop_decide.launches`` counts its
-    launches."""
-    _check(rn, state)
+    The rule's entry of the split pass (the node after a mesh's
+    all_reduce in :class:`Composite`), and the probe of the rule that
+    :func:`loop_pass` applies after its residual.  CPU tensors go to
+    :func:`loop_decide_reference`.  CUDA tensors launch the kernel once,
+    outside any graph; ``loop_decide.launches`` counts its launches, here
+    and in the composites (parallel/capture.Loop adds those)."""
+    _check(x, state, rn)
     if state.device.type == "cpu":
-        return loop_decide_reference(rn, state)
+        return loop_decide_reference(x, state, rn)
     if state.device.type != "cuda":
         raise ValueError(f"loop_decide: no kernel for device {state.device}")
+    if not (x.is_contiguous() and (rn is None or rn.is_contiguous())):
+        raise ValueError("loop_decide: the kernel reads x and writes rn in "
+                         "place: both contiguous")
     lib = LIBRARY.load()
-    fn = lib.loop_decide_f64 if rn.dtype == torch.float64 else \
+    real = rn.dtype if rn is not None else (
+        torch.float64 if _is_key(x) else x.dtype)
+    fn = lib.loop_decide_f64 if real == torch.float64 else \
         lib.loop_decide_f32
     stream = torch.cuda.current_stream(state.device).cuda_stream
-    err = fn(rn.data_ptr(), state.data_ptr(), state.numel() - HEADER, stream)
+    err = fn(x.data_ptr(), int(_is_key(x)),
+             None if rn is None else rn.data_ptr(), state.data_ptr(),
+             state.numel() - HEADER, stream)
     if err != 0:
         raise RuntimeError(f"loop_decide launch failed: cudaError_t {err} "
                            f"({lib.graph_loop_error(err).decode()})")
@@ -219,7 +299,7 @@ def loop_decide(rn, state):
 loop_decide.launches = 0
 
 
-def _check_pass(dW_new, dW, rn):
+def _check_pass(dW_new, dW, rn, key=None):
     if dW.dtype not in KINDS or dW_new.dtype != dW.dtype:
         raise ValueError(f"loop_pass: dW_new and dW must be one of "
                          f"{sorted(str(k) for k in KINDS)}, got "
@@ -228,12 +308,16 @@ def _check_pass(dW_new, dW, rn):
         raise ValueError(f"loop_pass: dW_new and dW must be (..., N) "
                          f"tensors of one shape, got "
                          f"{tuple(dW_new.shape)} and {tuple(dW.shape)}")
-    if rn.dim() != 0 or rn.dtype != _REAL[dW.dtype]:
+    if key is not None and not (_is_key(key) and key.is_contiguous()):
+        raise ValueError(f"loop_pass: the key must be a one-word int64 "
+                         f"tensor, got {tuple(key.shape)} {key.dtype}")
+    if rn is not None and (rn.dim() != 0 or rn.dtype != _REAL[dW.dtype]):
         raise ValueError(f"loop_pass: rn must be a 0-d {_REAL[dW.dtype]} "
                          f"tensor, got {tuple(rn.shape)} {rn.dtype}")
-    if not dW_new.device == dW.device == rn.device:
-        raise ValueError(f"loop_pass: dW_new on {dW_new.device}, dW on "
-                         f"{dW.device}, rn on {rn.device}")
+    devices = [t.device for t in (dW_new, dW, rn, key) if t is not None]
+    if len(set(devices)) > 1:
+        raise ValueError(f"loop_pass: dW_new, dW, rn and the key on "
+                         f"{[str(d) for d in devices]}")
 
 
 def _check_contiguous(dW_new, dW):
@@ -243,19 +327,28 @@ def _check_contiguous(dW_new, dW):
                          "dW (residual_ takes any layout)")
 
 
-def loop_pass_reference(dW_new, dW, rn, state=None, write=True):
+def loop_pass_reference(dW_new, dW, rn, state=None, write=True, key=None):
     """Plain PyTorch version of the kernel: ``rn`` (0-d, of dW's real
     type) <- max over every leading index and row of sum_j |dW_new - dW|
     (torch's sums, in the working precision; a NaN as +NaN, the bits the
     kernel writes and the rule keeps in the state); with ``write``, dW <-
     dW_new; with ``state``, one decision of the rule
     (:func:`loop_decide_reference`), whose ``state[CONTINUE]`` it returns,
-    else ``rn``."""
-    _check_pass(dW_new, dW, rn)
+    else ``rn``.  The key mode, ``key`` (a one-word int64 tensor) given:
+    the residual's :func:`key_of` into ``key``, rn (may be None) and the
+    state untouched; returns ``key``."""
+    _check_pass(dW_new, dW, rn, key)
     r = (dW_new - dW).abs().sum(-1).max()
-    rn.copy_(torch.where(r.isnan(), float("nan"), r))
+    if key is not None:
+        if state is not None:
+            raise ValueError("loop_pass: the key mode applies no rule")
+        key.copy_(key_of(r).reshape(key.shape))
+    else:
+        rn.copy_(torch.where(r.isnan(), float("nan"), r))
     if write:
         dW.copy_(dW_new)
+    if key is not None:
+        return key
     return rn if state is None else loop_decide_reference(rn, state)
 
 
@@ -267,7 +360,7 @@ def _pass_operands(dW_new, dW):
     return KINDS[dW.dtype], rows, N, p
 
 
-def _launch_pass(dW_new, dW, rn, state, scratch, write):
+def _launch_pass(dW_new, dW, rn, state, scratch, write, key=None):
     if dW.device.type != "cuda":
         raise ValueError(f"loop_pass: no kernel for device {dW.device}")
     _check_contiguous(dW_new, dW)
@@ -282,7 +375,9 @@ def _launch_pass(dW_new, dW, rn, state, scratch, write):
     kind, rows, N, p = _pass_operands(dW_new, dW)
     stream = torch.cuda.current_stream(dW.device).cuda_stream
     err = lib.loop_pass_launch(
-        dW_new.data_ptr(), dW.data_ptr(), rn.data_ptr(), scratch.data_ptr(),
+        dW_new.data_ptr(), dW.data_ptr(),
+        None if rn is None else rn.data_ptr(),
+        None if key is None else key.data_ptr(), scratch.data_ptr(),
         None if state is None else state.data_ptr(),
         0 if state is None else state.numel() - HEADER, kind, rows, N, *p,
         int(write), stream)
@@ -291,7 +386,10 @@ def _launch_pass(dW_new, dW, rn, state, scratch, write):
                            f"{lib.graph_loop_message().decode()} "
                            f"[cudaError_t {err}: "
                            f"{lib.graph_loop_error(err).decode()}]")
-    loop_pass.launches += 1
+    if key is None:
+        loop_pass.launches += 1
+    else:
+        loop_pass.key_launches += 1
 
 
 def loop_pass(dW_new, dW, rn, state, scratch=None):
@@ -306,7 +404,8 @@ def loop_pass(dW_new, dW, rn, state, scratch=None):
     the kernel once, outside any graph, on ``scratch`` (:func:`new_scratch`;
     by default the device's own); ``loop_pass.launches`` counts its
     launches, here, in :func:`residual_` and in the composites
-    (parallel/capture.Loop adds those)."""
+    (parallel/capture.Loop adds those); ``loop_pass.key_launches`` those
+    of its key mode."""
     _check(rn, state)
     _check_pass(dW_new, dW, rn)
     if dW.device.type == "cpu":
@@ -316,9 +415,10 @@ def loop_pass(dW_new, dW, rn, state, scratch=None):
 
 
 loop_pass.launches = 0
+loop_pass.key_launches = 0
 
 
-def residual_(dW_new, dW, rn=None, write=False, scratch=None):
+def residual_(dW_new, dW, rn=None, write=False, scratch=None, key=None):
     """The residual of an iteration: ``rn`` (a 0-d tensor of dW's real
     type, allocated when None) <- max over rows of sum_j |dW_new - dW|,
     and with ``write`` dW <- dW_new; returns ``rn``.  The rule is not
@@ -326,18 +426,24 @@ def residual_(dW_new, dW, rn=None, write=False, scratch=None):
     counted in ``loop_pass.launches``; an operand of another layout is
     read through a contiguous copy, and dW written back through it), its
     plain version on CPU tensors: the one residual of every adaptive loop,
-    |a - b| being symmetric."""
-    if rn is None:
+    |a - b| being symmetric.
+
+    With ``key`` (a one-word int64 tensor, :func:`new_key`), the kernel's
+    key mode: the residual's :func:`key_of` into ``key``, which it
+    returns, and rn not written (one launch, counted in
+    ``loop_pass.key_launches``): the first entry of a pass split around a
+    mesh's all_reduce."""
+    if rn is None and key is None:
         rn = torch.empty((), dtype=_REAL.get(dW.dtype, dW.dtype),
                          device=dW.device)
-    _check_pass(dW_new, dW, rn)
+    _check_pass(dW_new, dW, rn, key)
     if dW.device.type == "cpu":
-        return loop_pass_reference(dW_new, dW, rn, write=write)
+        return loop_pass_reference(dW_new, dW, rn, write=write, key=key)
     src, dst = dW_new.contiguous(), dW.contiguous()
-    _launch_pass(src, dst, rn, None, scratch, write)
+    _launch_pass(src, dst, rn, None, scratch, write, key)
     if write and dst is not dW:
         dW.copy_(dst)
-    return rn
+    return rn if key is None else key
 
 
 class Composite:
@@ -347,24 +453,31 @@ class Composite:
     iteration's output ``dW_new`` and the static ``dW`` (writing ``rn``,
     dW, the ``state`` and setting the node's condition, on ``scratch``),
     and a child node of ``tail``; instantiated and uploaded on the current
-    stream of ``state``'s device.  The raw graphs
+    stream of ``state``'s device.  With ``reduce``, the raw graph of a
+    mesh's in-place all_reduce (MAX) of the one-word int64 ``key``, the
+    body's pass is split: ``loop_pass`` in its key mode (dW and the key),
+    a child node of ``reduce``, and a kernel node of ``loop_decide`` (the
+    reduced key in; rn, the state and the condition out).  The raw graphs
     (``torch.cuda.CUDAGraph.raw_cuda_graph()``) are copied; the caller
     keeps their CUDAGraph objects, which own the memory the composite
     addresses, and ``dW_new``, alive while it lives.  Destroyed by
     :meth:`close` or with the object."""
 
     def __init__(self, head, warm, iteration, tail, dW_new, dW, rn, state,
-                 scratch):
+                 scratch, reduce=None, key=None):
         _check(rn, state)
-        _check_pass(dW_new, dW, rn)
+        _check_pass(dW_new, dW, rn, key)
         _check_contiguous(dW_new, dW)
+        if reduce and key is None:
+            raise ValueError("graph_loop: a reduce acts on a key: pass one")
         lib = LIBRARY.load()
         device = state.device
         kind, rows, N, p = _pass_operands(dW_new, dW)
         out = ctypes.c_void_p()
         err = lib.graph_loop_build(
-            head or None, warm or None, iteration, tail, dW_new.data_ptr(),
-            dW.data_ptr(), rn.data_ptr(), scratch.data_ptr(),
+            head or None, warm or None, iteration, reduce or None, tail,
+            dW_new.data_ptr(), dW.data_ptr(), rn.data_ptr(),
+            None if key is None else key.data_ptr(), scratch.data_ptr(),
             state.data_ptr(), state.numel() - HEADER, kind, rows, N, *p,
             device.index or 0, torch.cuda.current_stream(device).cuda_stream,
             ctypes.byref(out))
@@ -392,7 +505,9 @@ class Composite:
     def body_nodes(self):
         """The node types of the WHILE body, in the order the graph lists
         them (cudaGraphNodeType: 0 kernel, 4 child graph), and their
-        number."""
+        number: the iteration's child and loop_pass, or, split, the
+        iteration's child, loop_pass, the reduce's child and
+        loop_decide."""
         if not self._finalizer.alive:
             raise RuntimeError("graph_loop: the composite was closed")
         return graph_nodes(self._handle, body=True)
@@ -418,10 +533,10 @@ def graph_nodes(graph, body=False):
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: the C entries' argument lists (csrc/graph_loop.cu)
 ARGTYPES = {
-    "loop_decide_f32": [_P, _P, _I, _P],
-    "loop_decide_f64": [_P, _P, _I, _P],
-    "loop_pass_launch": [_P] * 5 + [_I, _I, _LL] + [_I] * 4 + [_P],
-    "graph_loop_build": [_P] * 9 + [_I, _I, _LL] + [_I] * 4
+    "loop_decide_f32": [_P, _I, _P, _P, _I, _P],
+    "loop_decide_f64": [_P, _I, _P, _P, _I, _P],
+    "loop_pass_launch": [_P] * 6 + [_I, _I, _LL] + [_I] * 4 + [_P],
+    "graph_loop_build": [_P] * 11 + [_I, _I, _LL] + [_I] * 4
                         + [_P, ctypes.POINTER(_P)],
     "graph_loop_launch": [_P, _I, _P],
     "graph_loop_nodes": [_P, _I, _P, _I, _P],

@@ -31,7 +31,9 @@ place where graphs are captured, replayed and counted.
   :meth:`Graph.replay` adds it once a replay, and the warm-up's and the
   capture's own advances are taken back.  A :class:`Loop` adds its
   pieces' advances once a step and its iteration's (and ``loop_pass``'s
-  one) once an iteration, from the counts it reads once a call.
+  one) once an iteration, from the counts it reads once a call.  The
+  mesh's all_reduce of the residual (parallel.mesh.all_reduce_max_) is
+  counted the same way.
 * :class:`Loop` is one adaptive step as one launch, the counterpart of
   quflow_tpu's device ``lax.while_loop``: its pieces (the head, the warm
   prefix, one fixed-point iteration, the tail) are captured as graphs that
@@ -40,15 +42,19 @@ place where graphs are captured, replayed and counted.
   iteration inside a conditional WHILE node that the kernel ``loop_pass``
   ends: the residual, dW_new written into dW and quflow_tpu's exit rule in
   one pass.  The iteration's rest is not copied: the tail reads it where
-  the last pass wrote it.  The host reads the loop's counts once a call,
-  after the launches.  Inside :func:`emulation` a Loop on the CPU runs the
-  same pieces eagerly and the plain version of ``loop_pass`` decides: the
-  composite's emulation, which the tests hold to the host loop.
+  the last pass wrote it.  Under a dp mesh whose group is NCCL's, the
+  residual's max over the ranks is a fourth piece, the in-place
+  all_reduce of its key, captured into the WHILE body between
+  ``loop_pass``'s key mode and the rule's kernel ``loop_decide``.  The
+  host reads the loop's counts once a call, after the launches.  Inside
+  :func:`emulation` a Loop on the CPU runs the same pieces eagerly, in the
+  same order, and the plain versions decide: the composite's emulation,
+  which the tests hold to the host loop, over a gloo mesh too.
 * :class:`Iteration` is one fixed-point iteration and its residual
   (``loop_pass`` with the rule off) as a graph, replayed from a host loop
   that keeps the exit rule and reads the residual once an iteration: the
-  loop of a dp mesh, whose residual is a max over its ranks (one
-  ``all_reduce`` an iteration).
+  loop of a gloo mesh, whose collectives stage through the host and no
+  graph holds (one ``all_reduce`` of the residual's max an iteration).
 * A callable hook (Hamiltonian, forcing, Strang step) is captured with the
   piece that calls it, as quflow_tpu traces a "jax-traceable" hook into its
   program.  So it must be capturable: it takes tensors and returns a tensor
@@ -79,22 +85,30 @@ from ..ops.cuda_row_solve import row_thomas
 from ..ops.cuda_scan_solve import shear_scan
 from ..ops.cuda_solve import shear_thomas
 from ..ops.shear_solve import device_cache
+from .mesh import all_reduce_max_
 
 __all__ = ["available", "static_copy", "capturing", "call", "like", "hook",
            "device_time", "HookError", "Graph", "Graphs", "Iteration",
-           "Loop", "emulation", "KERNELS", "COUNTERS"]
+           "Loop", "emulation", "emulating", "KERNELS", "COUNTERS"]
 
 #: the kernel wrappers whose ``launches`` a replay advances
 KERNELS = (shear_thomas, shear_scan, shear_block, row_thomas,
-           cuda_graph_loop.loop_pass)
-#: every launch counter a replay advances, (wrapper, attribute): the
-#: kernels' ``launches`` and the column solves' real-lane entries'
+           cuda_graph_loop.loop_pass, cuda_graph_loop.loop_decide)
+#: every counter a replay advances, (wrapper, attribute): the kernels'
+#: ``launches``, the column solves' real-lane entries', loop_pass's key
+#: mode's, and the mesh's all_reduces of the residual's key
 COUNTERS = tuple((k, "launches") for k in KERNELS) + (
-    (shear_thomas, "real_launches"), (shear_scan, "real_launches"))
+    (shear_thomas, "real_launches"), (shear_scan, "real_launches"),
+    (cuda_graph_loop.loop_pass, "key_launches"), (all_reduce_max_, "calls"))
 
 
 def _counts():
     return [getattr(k, a) for k, a in COUNTERS]
+
+
+def _set_counts(values):
+    for (k, a), n in zip(COUNTERS, values):
+        setattr(k, a, n)
 
 
 def available(device):
@@ -186,19 +200,24 @@ def static_copy(x):
 
 class Graph:
     """One captured piece.  ``advance`` pairs each kernel wrapper with the
-    launches the piece makes."""
+    launches the piece makes; ``counted`` holds (wrapper, attribute, n) of
+    the other :data:`COUNTERS` it moves."""
 
-    def __init__(self, graph, advance, real=()):
+    def __init__(self, graph, advance, counted=()):
         self.graph = graph
         self.advance = advance  # (wrapper, its launches) pairs
-        self.real = real  # (wrapper, its real-lane launches) pairs
+        self.counted = counted
+
+    def add(self, times=1):
+        """Advance the counters by ``times`` runs of the piece."""
+        for kernel, n in self.advance:
+            kernel.launches += n * times
+        for k, a, n in self.counted:
+            setattr(k, a, getattr(k, a) + n * times)
 
     def replay(self):
         self.graph.replay()
-        for kernel, n in self.advance:
-            kernel.launches += n
-        for kernel, n in self.real:
-            kernel.real_launches += n
+        self.add()
 
 
 class Graphs:
@@ -212,13 +231,17 @@ class Graphs:
         self.stream = None
         self.held = {}
 
-    def capture(self, *pieces, keep=False):
+    def capture(self, *pieces, keep=False, error_mode="global"):
         """Run each of ``pieces`` (callables of no argument) once eagerly,
         then capture each into a :class:`Graph`; returns them in order.
         With ``keep`` each graph keeps its ``cudaGraph_t``
         (``raw_cuda_graph()``) and is not instantiated: a :class:`Loop`
-        joins them into one.  A piece that fails inside its capture raises
-        its own error, not the capture's end that follows it."""
+        joins them into one.  ``error_mode`` is the capture's
+        (``torch.cuda.graph``'s ``capture_error_mode``): 'thread_local'
+        lets other threads (NCCL's watchdog, which queries its events)
+        work on while this one captures.  A piece that fails inside its
+        capture raises its own error, not the capture's end that follows
+        it."""
         global _depth
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
@@ -238,24 +261,24 @@ class Graphs:
                     graph = (torch.cuda.CUDAGraph(keep_graph=True) if keep
                              else torch.cuda.CUDAGraph())
                     start = _counts()
-                    self._capture(graph, piece, current)
+                    self._capture(graph, piece, current, error_mode)
                     moved = [(k, a, n - s) for (k, a), s, n in
                              zip(COUNTERS, start, _counts()) if n != s]
                     graphs.append(Graph(
                         graph, [(k, n) for k, a, n in moved
                                 if a == "launches"],
-                        [(k, n) for k, a, n in moved if a != "launches"]))
+                        [m for m in moved if m[1] != "launches"]))
         finally:
             _depth -= 1
-            for (k, a), n in zip(COUNTERS, saved):
-                setattr(k, a, n)
+            _set_counts(saved)
         current.wait_stream(self.stream)
         return graphs
 
-    def _capture(self, graph, piece, current):
+    def _capture(self, graph, piece, current, error_mode):
         failed = []
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode=error_mode):
                 try:
                     piece()
                 except Exception as e:
@@ -340,13 +363,19 @@ def emulation():
     """Inside this block a :class:`Loop` on a device without CUDA graphs
     (the CPU, where a test patches :func:`available`) runs its pieces
     eagerly and decides by the plain rule; outside it such a Loop raises,
-    as every capture there does."""
+    as every capture there does.  A mesh's reduce runs there eagerly too,
+    over any backend (parallel/stepper._loop_mode)."""
     global _emulating
     _emulating += 1
     try:
         yield
     finally:
         _emulating -= 1
+
+
+def emulating():
+    """Whether an :func:`emulation` block is open."""
+    return _emulating > 0
 
 
 class Loop:
@@ -369,6 +398,13 @@ class Loop:
     same order, and ops.cuda_graph_loop.loop_pass_reference ends each
     iteration; outside it the capture raises.
 
+    ``reduce(key)``, for a dp mesh (parallel.mesh.Mesh.max_), takes the
+    max over the ranks of the one-word int64 :attr:`key` in place: each
+    iteration then ends on ``loop_pass``'s key mode (the residual's key,
+    dW_new into dW), ``reduce`` (captured with the error mode
+    'thread_local' into a piece of its own, a child of the WHILE body) and
+    ``loop_decide`` (the reduced key back as rn, one decision).
+
     A call: :meth:`start` (the rule's ``tol``, ``maxit``, ``minit``),
     :meth:`launch` once or more (one launch a step, no host read), then
     :meth:`finish`, the call's one host read (through ``read``) of the
@@ -376,7 +412,7 @@ class Loop:
     ``capacity`` is the number of steps whose counts are kept."""
 
     def __init__(self, graphs, iterate, W, dW, tail, head=None, warm=None,
-                 capacity=0):
+                 capacity=0, reduce=None):
         _residual_state(self, W, dW)
         body = _iteration_piece(self, iterate)
         named = [(k, p) for k, p in (("head", head), ("warm", warm),
@@ -385,21 +421,37 @@ class Loop:
                  if p is not None]
         self.state = cuda_graph_loop.new_state(W.device, capacity)
         self.capacity = capacity
+        self.reduce = reduce
+        self.key = None
+        if reduce is not None:
+            self.key = cuda_graph_loop.new_key(W.device)
+
+            def reduce_piece():
+                reduce(self.key)
+
         self.composite = None
         self._launched = 0
         if W.device.type == "cuda" or not _emulating:
             self.pieces = dict(zip(
                 (k for k, _ in named),
                 graphs.capture(*(p for _, p in named), keep=True)))
+            if reduce is not None:
+                (self.pieces["reduce"],) = graphs.capture(
+                    reduce_piece, keep=True, error_mode="thread_local")
             raw = {k: g.graph.raw_cuda_graph()
                    for k, g in self.pieces.items()}
             self.composite = cuda_graph_loop.Composite(
                 raw.get("head"), raw.get("warm"), raw["body"], raw["tail"],
-                self.dW_new, self.dW, self.rn, self.state, self.scratch)
+                self.dW_new, self.dW, self.rn, self.state, self.scratch,
+                raw.get("reduce"), self.key)
         else:
+            if reduce is not None:
+                named.append(("reduce", reduce_piece))
+            saved = _counts()
             with torch.no_grad():
                 for _, piece in named:  # the warm-up of a capture
                     piece()
+            _set_counts(saved)  # taken back, as a capture takes them
             self.pieces = dict(named)
 
     def start(self, tol, maxit, minit):
@@ -422,10 +474,19 @@ class Loop:
                         p[k]()
                 while True:
                     p["body"]()
-                    if not bool(cuda_graph_loop.loop_pass_reference(
-                            self.dW_new, self.dW, self.rn, self.state)):
+                    if not bool(self._decide()):
                         break
                 p["tail"]()
+
+    def _decide(self):
+        """The end of an emulated pass, as the composite's body ends it."""
+        gl = cuda_graph_loop
+        if self.reduce is None:
+            return gl.loop_pass_reference(self.dW_new, self.dW, self.rn,
+                                          self.state)
+        gl.residual_(self.dW_new, self.dW, write=True, key=self.key)
+        self.pieces["reduce"]()
+        return gl.loop_decide_reference(self.key, self.state, self.rn)
 
     def finish(self, read, counts=False):
         """The call's one host read, ``read(tensor)`` of the loop's words
@@ -433,7 +494,8 @@ class Loop:
         call's steps and, with ``counts``, the list of each step's
         iterations.  The launch counters advance by the pieces' launches
         once a step and the iteration's and ``loop_pass``'s once an
-        iteration."""
+        iteration (split: the key mode's, the reduce's all_reduce and
+        ``loop_decide``'s)."""
         n = self._launched
         if counts and n > self.capacity:
             raise ValueError(f"loop: {n} steps, counts kept for "
@@ -445,12 +507,13 @@ class Loop:
         capped = words[cuda_graph_loop.CAPPED]
         if self.composite is not None:
             for k, g in self.pieces.items():
-                times = iterations if k == "body" else n
-                for kernel, c in g.advance:
-                    kernel.launches += c * times
-                for kernel, c in g.real:
-                    kernel.real_launches += c * times
-            cuda_graph_loop.loop_pass.launches += iterations
+                g.add(iterations if k in ("body", "reduce") else n)
+            gl = cuda_graph_loop
+            if self.reduce is None:
+                gl.loop_pass.launches += iterations
+            else:
+                gl.loop_pass.key_launches += iterations
+                gl.loop_decide.launches += iterations
         return (iterations, capped) + ((words[H:H + n],) if counts else ())
 
     def close(self):

@@ -19,6 +19,16 @@ quflow_tpu's ``state_sharding`` and ``rows_spec``).  Complex tensors cross
 the process group as real views, which every backend moves.  A gloo group
 moves host memory, so there a tensor on a card crosses through a host copy
 (two ranks on one card, where NCCL refuses a second rank, run this way).
+
+The max of an adaptive step's residual over the ranks (:meth:`Mesh.max` on
+the host, :meth:`Mesh.max_` in place on the card) reduces the residual's
+int64 key (ops/cuda_graph_loop.key_of: the bits of the non-negative
+double, a NaN made +NaN, the largest key): an integer MAX is exact in any
+order on every backend, and a NaN on any rank wins, as the max of
+quflow_tpu's residual over the whole sharded batch propagates it.  A
+float MAX does neither: gloo's keeps a NaN only where it is rank 0's
+operand, and ranks that then decide differently deadlock at their next
+collective.
 """
 
 from __future__ import annotations
@@ -26,7 +36,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "row_blocks", "shard_state", "gather_state"]
+from ..ops.cuda_graph_loop import host_key, key_value
+
+__all__ = ["Mesh", "make_mesh", "row_blocks", "shard_state", "gather_state",
+           "all_reduce_max_"]
+
+
+def all_reduce_max_(key, group):
+    """The all_reduce (MAX) of the int64 tensor ``key`` over ``group``, in
+    place; returns ``key``.  ``all_reduce_max_.calls`` counts its calls,
+    here and in the graphs that capture it (parallel/capture.py advances
+    it once a replay, as it advances a kernel's launches)."""
+    import torch.distributed as dist
+
+    dist.all_reduce(key, op=dist.ReduceOp.MAX, group=group)
+    all_reduce_max_.calls += 1
+    return key
+
+
+all_reduce_max_.calls = 0
 
 
 def row_blocks(N, tp):
@@ -105,16 +133,40 @@ class Mesh:
         complex where ``like`` is."""
         return _unreal(r.to(like.device), like)
 
+    @property
+    def backend(self):
+        """The name of the group's backend ('nccl', 'gloo', ...), or None
+        for a mesh with no group."""
+        if self.group is None:
+            return None
+        return str(self._dist().get_backend(self.group))
+
     def max(self, value, device):
-        """The max of a Python float over every rank of the mesh (one
-        all_reduce), as a Python float."""
+        """The max over every rank of the mesh of a residual (a
+        non-negative Python float, or NaN), as a Python float: one
+        all_reduce (MAX) of its int64 key in a tensor on ``device`` (see
+        the module's note), read on the host.  A NaN on any rank gives NaN
+        on every rank."""
         if self.size == 1 and self.group is None:
             return float(value)
-        dist = self._dist()
-        t = self._wire(torch.tensor([value], dtype=torch.float64,
-                                    device=device))
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
-        return float(t.item())
+        if value < 0:
+            raise ValueError(f"Mesh.max reduces a residual, >= 0 or NaN; "
+                             f"got {value!r}")
+        t = torch.tensor([host_key(value)], dtype=torch.int64, device=device)
+        return key_value(self.max_(t).item())
+
+    def max_(self, key):
+        """The max over every rank of the mesh of the int64 ``key``
+        (ops/cuda_graph_loop.key_of of a residual), in place: one
+        all_reduce (MAX) with no host read on an NCCL group, which a CUDA
+        graph captures with the step (the device loop of a dp mesh); a gloo
+        group reduces a card tensor through a host copy.  Returns ``key``."""
+        self._dist()  # raises on a mesh with no group
+        r = self._wire(key)
+        all_reduce_max_(r, self.group)
+        if r is not key:
+            key.copy_(r)
+        return key
 
     def tp_sum(self, x):
         """``x`` summed over this replica's row blocks (one all_reduce)."""

@@ -20,9 +20,9 @@ per-step iteration counts, and a timed runner ``fn(W, dW, csum, t0)`` when
 a hook takes ``time``.  State stays complex on the device; the runners
 take and return complex tensors unless ``planes_io`` asks for quflow_tpu's
 split planes.  Under ``tol`` a step on a card exits its fixed point on the
-card and a call reads its counts once (:func:`_read`); the host loop of
-the CPU, ``config.eager()`` and a dp mesh reads the residual once an
-iteration, as ``isomp`` does there.
+card and a call reads its counts once (:func:`_read`), on an NCCL dp mesh
+too; the host loop of the CPU, ``config.eager()`` and a gloo mesh reads
+the residual once an iteration, as ``isomp`` does there.
 
 Compiled runners.  Where quflow_tpu jits a ``lax.scan`` over the steps,
 a runner here replays CUDA graphs (parallel/capture.py), by a rule that
@@ -34,9 +34,11 @@ the update are graphs joined into one a step (parallel/capture.Loop), the
 iteration in a WHILE node whose passes the kernel ``loop_pass`` ends (the
 residual, dW written back, the adaptive rule, all on the card):
 ``steps`` launches and one read of the counts a call, the counterpart of
-quflow_tpu's ``lax.while_loop``.  On a dp mesh,
-whose residual is a max over the ranks, the host replays the iteration
-graph until the rule exits.  Callable hooks are captured with the step, as
+quflow_tpu's ``lax.while_loop``.  On a dp mesh the residual is a max over
+the ranks: on an NCCL group an in-place all_reduce of its key, captured
+inside the WHILE node (:func:`_loop_mode`); a gloo group's collectives
+stage through the host, so there the host replays the iteration graph
+until the rule exits.  Callable hooks are captured with the step, as
 quflow_tpu traces them into its jit, so they must be capturable
 (parallel/capture.py); a timed runner's time lives on the card, loaded
 once a call and advanced by the graph.  'tp' > 1, the CPU and runners
@@ -72,8 +74,10 @@ under ``tol`` the exit reads the batch-max residual.  ``mesh`` (a
 parallel.mesh.Mesh over torch.distributed ranks) runs the step on each
 rank's piece of the state (parallel.mesh.shard_state): over 'dp' each
 replica steps its own members with no communication, and the ``tol`` exit
-takes the max over every rank (one all_reduce an iteration) so that every
-rank runs the same iterations, as JAX's while-loop does.  Over 'tp' > 1
+takes the max over every rank (one all_reduce an iteration, of the
+residual's int64 key: parallel/mesh.py) so that every rank runs the same
+iterations, as JAX's while-loop does, a NaN on any rank running every rank
+on to maxit as JAX's max over the whole batch does.  Over 'tp' > 1
 the rows are split: every solve is the block sweep of
 parallel/shard_shear.py (the ``shear_block`` kernel on the card, three
 launches a solve), and each GEMM all_gathers the operand it needs whole:
@@ -314,11 +318,39 @@ def _checked_state(W, batched, core_ndim):
     return W
 
 
+def _alone(mesh):
+    """Whether a run has no other rank to take a max over: no mesh, or a
+    mesh of one rank with no group."""
+    return mesh is None or (mesh.size == 1 and mesh.group is None)
+
+
 def _reduce_max(mesh, device):
-    """The host-side max over the mesh's ranks, or None off a mesh."""
-    if mesh is None:
+    """The host-side max over the mesh's ranks, or None where there is
+    nothing to reduce (:func:`_alone`)."""
+    if _alone(mesh):
         return None
     return lambda value: mesh.max(value, device)
+
+
+def _loop_mode(mesh):
+    """Which loop an adaptive step of a runner in mode 'iteration' runs
+    (:func:`_capture_mode`), by the configuration alone:
+
+    * 'loop' - one launch a step, the fixed point a WHILE node on the card
+      (:class:`_AdaptiveLoop`): no mesh, or a mesh of one rank with no
+      group, whose max is its own;
+    * 'reduce' - the same, the residual's max over the ranks an in-place
+      all_reduce of its key captured inside the WHILE node
+      (``Mesh.max_``): a mesh whose group's backend is NCCL, and, inside
+      ``capture.emulation()``, which captures nothing, any backend;
+    * 'host' - the host replays the iteration and reads the max once an
+      iteration (:class:`_AdaptiveGraphs`): a gloo group, whose collectives
+      stage card tensors through the host, which no CUDA graph holds."""
+    if _alone(mesh):
+        return "loop"
+    if mesh.backend == "nccl" or capture.emulating():
+        return "reduce"
+    return "host"
 
 
 #: precision name -> whether its complex64 GEMMs run on TF32 tensor cores
@@ -783,8 +815,10 @@ def _capture_mode(device, mesh, tol):
     * 'iteration' - the same with ``tol``: the Strang half-steps, the warm
       prefix, one full-precision iteration and the update are graphs,
       joined into one launch a step whose fixed point exits on the card
-      (:class:`_AdaptiveLoop`), or on a dp mesh replayed by the host until
-      the adaptive rule exits (:class:`_AdaptiveGraphs`);
+      (:class:`_AdaptiveLoop`; on an NCCL dp mesh its WHILE node holds
+      the all_reduce of the residual), or on a gloo dp mesh replayed by
+      the host until the adaptive rule exits (:class:`_AdaptiveGraphs`;
+      :func:`_loop_mode`);
     * None - eager, every kernel issued from Python: the CPU, a 'tp' > 1
       mesh (its row gathers go through gloo's host copies), and any runner
       built or first called inside ``config.eager()``.
@@ -806,13 +840,15 @@ class _Step:
     ``t`` with the GEMM ``mm``, and ``update(W, rest, csum) -> (W, csum)``
     the compensated update from the last iteration's ``rest``.  A call is
     the eager step ``(W, dW, csum, t) -> (W, dW, csum, t + dt,
-    iterations)``."""
+    iterations)``.  ``mesh`` is the runner's (or None): its max of the
+    residual is ``reduce_max`` on the host, ``mesh.max_`` on the card."""
 
     def __init__(self, strang, iterate, update, *, maxit, tol, minit,
-                 reduce_max, schedule, half_dt, dt):
+                 reduce_max, schedule, half_dt, dt, mesh=None):
         self.strang, self.iterate, self.update = strang, iterate, update
         self.maxit, self.tol, self.minit = maxit, tol, minit
         self.reduce_max = reduce_max
+        self.mesh = mesh
         self.mm, self.warm_iters, self.mm_warm = schedule
         self.half_dt, self.dt = half_dt, dt
 
@@ -944,11 +980,11 @@ class _AdaptivePieces:
 
 
 class _AdaptiveGraphs(_AdaptivePieces):
-    """A step under ``tol`` on a dp mesh: the head, the warm prefix and the
-    tail as graphs, and the iteration (parallel.capture.Iteration, its
-    residual into a 0-d tensor), which the host replays until the adaptive
-    rule exits, one host read of the residual's max over the ranks an
-    iteration, as the eager loop does."""
+    """A step under ``tol`` on a gloo dp mesh (:func:`_loop_mode`): the
+    head, the warm prefix and the tail as graphs, and the iteration
+    (parallel.capture.Iteration, its residual into a 0-d tensor), which the
+    host replays until the adaptive rule exits, one host read of the
+    residual's max over the ranks an iteration, as the eager loop does."""
 
     def __init__(self, step, graphs, W, dW, csum, t):
         super().__init__(step, W, dW, csum, t)
@@ -977,14 +1013,16 @@ class _AdaptiveGraphs(_AdaptivePieces):
 
 
 class _AdaptiveLoop(_AdaptivePieces):
-    """A step under ``tol`` as one launch (mode 'iteration', no mesh): the
-    pieces joined into one parallel.capture.Loop, the full-precision
-    iteration inside its WHILE node, each pass ended by ``loop_pass`` (the
-    residual, dW written back and the adaptive rule on the card).  A call launches ``steps`` steps and reads
-    their counts once; it holds the counts of up to ``capacity`` steps
-    (the runner's ``steps``)."""
+    """A step under ``tol`` as one launch (mode 'iteration'; loop mode
+    'loop' or 'reduce'): the pieces joined into one parallel.capture.Loop,
+    the full-precision iteration inside its WHILE node, each pass ended by
+    ``loop_pass`` (the residual, dW written back and the adaptive rule on
+    the card), or with ``reduce`` (a mesh's ``max_``) by ``loop_pass``'s
+    key mode, the all_reduce of the key and ``loop_decide``.  A call
+    launches ``steps`` steps and reads their counts once; it holds the
+    counts of up to ``capacity`` steps (the runner's ``steps``)."""
 
-    def __init__(self, step, graphs, W, dW, csum, t, capacity):
+    def __init__(self, step, graphs, W, dW, csum, t, capacity, reduce=None):
         if W.device.type != "cuda" and not isinstance(t, torch.Tensor):
             # the emulation runs its pieces again each step: a host time
             # would stay frozen in them, so it lives in a tensor there too
@@ -993,7 +1031,8 @@ class _AdaptiveLoop(_AdaptivePieces):
         self.loop = capture.Loop(
             graphs, self.iterate, self.Wh, self.dW, self.tail,
             self.head if self.has_head else None,
-            self.warm if step.warm_iters else None, capacity=capacity)
+            self.warm if step.warm_iters else None, capacity=capacity,
+            reduce=reduce)
 
     def __call__(self, W, dW, csum, t, steps):
         step = self.step
@@ -1079,14 +1118,16 @@ class _Runner:
     def _program(self, W, dW, csum, t):
         key = tuple((tuple(x.shape), x.dtype, x.device) for x in (W, dW, csum))
         if key not in self._programs:
+            mode = _loop_mode(self.step.mesh)
             if self.captured:
                 program = _StepGraph(self.step, self.graphs, W, dW, csum, t)
-            elif self.step.reduce_max is not None:  # a dp mesh
+            elif mode == "host":  # a gloo dp mesh
                 program = _AdaptiveGraphs(self.step, self.graphs, W, dW,
                                           csum, t)
             else:
-                program = _AdaptiveLoop(self.step, self.graphs, W, dW, csum,
-                                        t, self.steps)
+                program = _AdaptiveLoop(
+                    self.step, self.graphs, W, dW, csum, t, self.steps,
+                    self.step.mesh.max_ if mode == "reduce" else None)
             self._programs[key] = program
         return self._programs[key]
 
@@ -1200,8 +1241,9 @@ def build_step_fn(
     (:func:`_capture_mode`): without ``tol`` one graph of the whole step
     (``run.captured``), with ``tol`` one launch a step, its pieces'
     graphs joined around a WHILE node that exits on the card, and one host
-    read a call (``run.captured_iteration``; on a dp mesh the host replays
-    the iteration, one read an iteration).  A tp > 1 mesh, and a
+    read a call (``run.captured_iteration``; on an NCCL dp mesh the
+    residual's all_reduce inside the WHILE node, on a gloo one the host
+    replays the iteration, one read an iteration).  A tp > 1 mesh, and a
     runner built or first called inside ``config.eager()``, runs
     eagerly.  Callable hooks are captured with the step, as quflow_tpu
     requires them "jax-traceable": tensors in, a tensor on the state's
@@ -1284,7 +1326,7 @@ def build_step_fn(
         return W, csum
 
     step = _Step(strang_half, iterate, update, maxit=maxit, tol=tol_r,
-                 minit=minit, reduce_max=reduce_max,
+                 minit=minit, reduce_max=reduce_max, mesh=mesh,
                  schedule=(mm, warm_iters, mm_warm), half_dt=half_dt,
                  dt=dt_r)
 
@@ -1592,7 +1634,7 @@ def build_mhd_step_fn(
         return S, csum
 
     step = _Step(strang_half, iterate, update, maxit=maxit, tol=tol_r,
-                 minit=minit, reduce_max=reduce_max,
+                 minit=minit, reduce_max=reduce_max, mesh=mesh,
                  schedule=(mm, warm_iters, mm_warm), half_dt=half_dt,
                  dt=dt_r)
     mode = _capture_mode(dev, mesh, tol)

@@ -291,6 +291,57 @@ def test_persistence_phases_rehearse_on_cpu(cpu_rehearsal):
     assert dp["all_reduces"] == sum(dp["adaptive_iterations"]) > 0
 
 
+def test_dp_adaptive_rehearses_the_device_loop_on_cpu(cpu_rehearsal,
+                                                      monkeypatch):
+    """Phase 16b's adaptive run on a one-rank gloo group with the capture
+    rule read as on a card and the composite emulated: the runner takes
+    the device loop with the mesh's reduce, bit-equal to the run off the
+    mesh with the same counts, one host read a call and one all_reduce an
+    iteration."""
+    import torch.distributed as dist
+
+    from quflow_tpu_torch.parallel import capture
+    from quflow_tpu_torch.parallel.distributed import global_mesh, initialize
+
+    monkeypatch.setattr(capture, "available",
+                        lambda device: not config.is_eager())
+    assert initialize(init_method=f"tcp://localhost:{chip_smoke.free_port()}",
+                      world_size=1, rank=0, backend="gloo")
+    try:
+        W0 = torch.from_numpy(chip_smoke.euler_members(24, 2, np.complex64))
+        with capture.emulation():
+            out = chip_smoke.dp_adaptive("cpu", global_mesh(),
+                                         stepper.build_step_fn, W0, steps=2)
+    finally:
+        dist.destroy_process_group()
+    assert out["bit_equal_off_mesh"] and out["host_reads"] == 1
+    assert out["counts"]["all_reduces"] == sum(out["iterations"]) > 0
+
+
+def test_split_kernels_carry_the_contract_keys():
+    """The kernels line's rows of the split pass's two entries: every key
+    the contract names, launches from phase 16b's first adaptive run."""
+    runs = {"euler": {"counts": {"loop_pass_key": 17, "loop_decide": 17}},
+            "mhd": {"counts": {"loop_pass_key": 9, "loop_decide": 9}}}
+    row = dict(ms=0.1, plain_ms=1.0, bound_ms=0.05, bound_by="bytes",
+               share=0.5, max_abs_err=0.0)
+    split = [dict(row, entry="loop_pass_key", name="a", library_ms=0.2,
+                  max_rel_err_rn=1e-7),
+             dict(row, entry="loop_pass_key", name="b", library_ms=0.3,
+                  max_rel_err_rn=2e-7),
+             dict(row, entry="loop_decide", name="r", library_ms=None)]
+    rows = chip_smoke.split_kernels({"adaptive": runs}, split)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [r["name"] for r in rows] == ["loop_pass_key", "loop_decide"]
+    for r in rows:
+        assert keys <= set(r) and r["route"] == "cuda"
+        assert (ROOT / r["source"]).is_file()
+        assert r["launches"] == 17
+    assert rows[0]["max_rel_err_rn"] == 2e-7 and rows[1]["library_ms"] is None
+    json.dumps(rows)
+
+
 class _GemmSpy(torch.overrides.TorchFunctionMode):
     """Counts the products a call makes, by the state of cuBLAS's TF32
     flag at each: the CPU's stand-in for the profiler's kernel names."""

@@ -20,6 +20,14 @@ The tp runs also count what they cost: the row gathers
 (``Mesh.gather_rows``) and the block sweeps (``shear_block``, three a
 solve) an iteration.  The hooks that compute are written once for each
 package, torch here and jax.numpy in the parent.
+
+The adaptive dp runs go through both loops: the host loop (eager on the
+CPU: ``Mesh.max`` an iteration) and the device loop's emulation (the
+capture rule read as on a card, inside ``capture.emulation()``: the
+residual's key, the mesh's all_reduce of it and the rule, in the order of
+the composite's WHILE body), at dp = 2 and dp = 4, bit-equal to each other
+with the same counts; with a NaN in one member (C7), in each rank's
+members in turn, every rank runs JAX's whole-batch counts, on to maxit.
 """
 
 import math
@@ -43,6 +51,10 @@ WARM_TP = dict(warm_precision="high_karatsuba", warm_iters=2)
 GAMMA = 1.7
 VISC = dict(nu=1e-3, alpha=0.02)
 T0 = 0.7
+#: the C7 runs: the entry of one member set to NaN, and the members that
+#: hold it in turn (one on each rank: dp = 2 holds members 0-1 and 2-3)
+NAN_AT = (3, 5)
+NAN_MEMBERS = {2: (0, 3), 4: (0, 1, 2, 3)}
 
 
 def _skewh(rng, *shape):
@@ -72,7 +84,16 @@ def make_inputs():
         "S_tp4": _mhd_state(rng, N_TP4),
         **{f"W_pack{N}": _skewh(rng, N, N) for N in N_PACK},
         "W_pack_dp": _skewh(rng, 4, 32, 32),
+        "S_dp4": _skewh(rng, 4, 2, N_MHD, N_MHD),
     }
+
+
+def with_nan(S, member):
+    """A copy of the ensemble ``S`` (B, ..., N, N) with one entry of
+    ``member`` (of its first component) set to NaN."""
+    S = S.copy()
+    S[(member,) + (0,) * (S.ndim - 3) + NAN_AT] = np.nan
+    return S
 
 
 def _dt(N):
@@ -186,14 +207,59 @@ def _run_case(out, name, W, mesh, batched, dtype=np.complex128, mhd=False,
                mesh=mesh, batched=batched, device="cpu",
                **{"maxit": MAXIT, **kw})
     z = torch.zeros_like(piece)
+    from quflow_tpu_torch.parallel.mesh import all_reduce_max_
+
+    reduces = all_reduce_max_.calls
     with _Counts(mesh) as counts:
         res = fn(piece, z, z, *(() if t0 is None else (t0,)))
     out[name] = gather_state(res[0], mesh, batched).numpy()
     out[name + "_counts"] = np.array([counts.gathers, counts.sweeps])
     if kw.get("tol") is not None:
         out[name + "_iters"] = res[3].numpy()
+        out[name + "_reduces"] = np.array(all_reduce_max_.calls - reduces)
     if kw.get("with_diagnostics"):
         out[name + "_diag"] = res[-1].numpy()
+    return fn
+
+
+def _loop_case(out, name, W, mesh, **kw):
+    """An adaptive dp run (batched, tol) through the device loop's
+    emulation: the capture rule read as on a card and the composite run
+    eagerly inside capture.emulation(), the mesh's all_reduce of the
+    residual's key between loop_pass's key mode and the rule; the program
+    the runner chose and the loop's state words beside the outputs."""
+    from quflow_tpu_torch import config
+    from quflow_tpu_torch.parallel import capture
+
+    saved = capture.available
+    capture.available = lambda device: not config.is_eager()
+    try:
+        with capture.emulation():
+            fn = _run_case(out, name, W, mesh, True, tol=TOL, maxit=10, **kw)
+    finally:
+        capture.available = saved
+    (program,) = fn._programs.values()
+    out[name + "_program"] = np.array(type(program).__name__)
+    out[name + "_state"] = program.loop.state.numpy()
+
+
+def _dp_loop_cases(out, inp, mesh, tag):
+    """The adaptive dp runs of a dp mesh through both loops: Euler
+    (complex128 and complex64) and MHD, then C7's NaN in one member, each
+    rank's in turn, Euler and MHD."""
+    for name, state, kw in (("tol", "W_dp", {}),
+                            ("tol_c64", "W_dp", dict(dtype=np.complex64)),
+                            ("mhd", "S_dp4", dict(mhd=True))):
+        _run_case(out, f"{tag}host_{name}", inp[state], mesh, True, tol=TOL,
+                  maxit=10, **kw)
+        _loop_case(out, f"{tag}loop_{name}", inp[state], mesh, **kw)
+    for m in NAN_MEMBERS[mesh.dp]:
+        for model, state in (("euler", "W_dp"), ("mhd", "S_dp4")):
+            W = with_nan(inp[state], m)
+            kw = dict(mhd=model == "mhd")
+            _run_case(out, f"{tag}host_nan_{model}_m{m}", W, mesh, True,
+                      tol=TOL, maxit=10, **kw)
+            _loop_case(out, f"{tag}loop_nan_{model}_m{m}", W, mesh, **kw)
 
 
 def _pack_case(out, name, W, mesh, batched=False):
@@ -308,6 +374,7 @@ def worker(world, init, rank, inputs, outdir):
         _run_case(out, "dp_poisson", inp["W_dp"], dp, True, poisson=True)
         _run_case(out, "dp_warm_c64", inp["W_dp"], dp, True,
                   dtype=np.complex64, **WARM_DP)
+        _dp_loop_cases(out, inp, dp, "dp2")
         _checkpoint_case(out, outdir, inp, dp)
         tp = make_mesh(dp=1)  # tp = 2
         _run_case(out, "tp2", inp["W_tp2"], tp, False, with_diagnostics=True)
@@ -357,6 +424,7 @@ def worker(world, init, rank, inputs, outdir):
         both = make_mesh(dp=2)  # dp = 2, tp = 2 over N = 13: rows 7, 6
         _run_case(out, "dptp", inp["W_dptp"], both, True, tol=TOL, maxit=10)
         _pack_case(out, "pack_dp", inp["W_pack_dp"], both, batched=True)
+        _dp_loop_cases(out, inp, make_mesh(dp=4), "dp4")
     np.savez(os.path.join(outdir, f"rank_{rank}.npz"), **out)
     import torch.distributed as dist
 
@@ -477,6 +545,105 @@ def test_dp_matches_quflow_tpu(two, case):
         # the batch-max exit over both ranks: JAX's iteration counts
         for r in range(2):
             np.testing.assert_array_equal(two[r][case + "_iters"], ref[3])
+
+
+#: the adaptive dp runs of both loops: case -> (state, quflow_tpu's options
+#: beside tol and maxit, dtype)
+LOOP_CASES = {"tol": ("W_dp", dict(batched=True), np.complex128),
+              "tol_c64": ("W_dp", dict(batched=True), np.complex64),
+              "mhd": ("S_dp4", dict(mhd=True), np.complex128)}
+_JAX_ADAPTIVE = {}
+
+
+def _jax_adaptive(case, S):
+    """quflow_tpu's adaptive run (tol, maxit 10, STEPS steps) of the
+    LOOP_CASES ``case`` on the whole batch ``S``, its runner built once a
+    case."""
+    import jax.numpy as jnp
+    from quflow_tpu.parallel import stepper as jst
+
+    _, kw, dtype = LOOP_CASES[case]
+    if case not in _JAX_ADAPTIVE:
+        kw = dict(kw)
+        build = jst.build_mhd_step_fn if kw.pop("mhd", False) \
+            else jst.build_step_fn
+        N = S.shape[-1]
+        _JAX_ADAPTIVE[case] = build(N, _dt(N), steps=STEPS, dtype=dtype,
+                                    planes_io=False, layout="shear",
+                                    maxit=10, tol=TOL, **kw)
+    Sj = jnp.asarray(S.astype(dtype))
+    z = jnp.zeros_like(Sj)
+    return [np.asarray(a) for a in _JAX_ADAPTIVE[case](Sj, z, z)]
+
+
+def _bits(x):
+    """The bits of a complex array, NaNs and all, to compare bit for bit."""
+    return np.ascontiguousarray(x).view(np.uint8)
+
+
+@pytest.mark.parametrize("dp", [2, 4])
+@pytest.mark.parametrize("case", sorted(LOOP_CASES))
+def test_dp_device_loop_matches_host_loop(two, four, dp, case):
+    """The adaptive dp run through the device loop's emulation (the
+    runner's program _AdaptiveLoop, the mesh's all_reduce of the
+    residual's key inside the loop) bit-equal to the host loop on the same
+    gloo mesh with the same counts, one all_reduce an iteration in both;
+    within 1e-12 (complex128) and 5e-5 (complex64) of quflow_tpu on the
+    whole batch, with its counts in complex128 (tol 1e-10 lies below
+    complex64's rounding, where each package's rounding decides the stall);
+    the loop's state words equal on every rank."""
+    state, _, dtype = LOOP_CASES[case]
+    ref = _jax_adaptive(case, make_inputs()[state])
+    ranks = two if dp == 2 else four
+    loop, host = f"dp{dp}loop_{case}", f"dp{dp}host_{case}"
+    for r in ranks:
+        assert str(r[loop + "_program"]) == "_AdaptiveLoop"
+        np.testing.assert_array_equal(_bits(r[loop]), _bits(r[host]))
+        iters = r[loop + "_iters"]
+        np.testing.assert_array_equal(iters, r[host + "_iters"])
+        if dtype == np.complex128:  # complex64 stalls by its own rounding
+            np.testing.assert_array_equal(iters, ref[3])
+        for name in (loop, host):
+            assert int(r[name + "_reduces"]) == int(iters.sum())
+        _close(r[loop], ref[0], dtype)
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r[loop + "_state"],
+                                      ranks[0][loop + "_state"])
+
+
+NAN_CASES = [(dp, model, m) for dp, members in NAN_MEMBERS.items()
+             for model in ("euler", "mhd") for m in members]
+
+
+@pytest.mark.parametrize("dp,model,member", NAN_CASES)
+def test_nan_on_any_rank_runs_every_rank_to_maxit(two, four, dp, model,
+                                                  member):
+    """C7: a NaN in one member, on each rank in turn.  quflow_tpu's
+    residual is the max over the whole batch, which propagates the NaN, so
+    its rule runs on to maxit every step; the port's max over the ranks
+    reduces the residual's int64 key, a NaN the largest, so every rank,
+    in the host loop and in the device loop alike, runs JAX's counts.
+    (Reduced as a float, gloo's MAX kept a NaN only where it was rank
+    0's.)  The loops bit-equal, NaNs in place; the other members within
+    1e-12 of JAX's; the loop's state words equal on every rank."""
+    case = "tol" if model == "euler" else "mhd"
+    S = with_nan(make_inputs()[LOOP_CASES[case][0]], member)
+    ref = _jax_adaptive(case, S)
+    assert ref[3].tolist() == [10] * STEPS  # on to maxit in quflow_tpu
+    others = [b for b in range(S.shape[0]) if b != member]
+    ranks = two if dp == 2 else four
+    loop = f"dp{dp}loop_nan_{model}_m{member}"
+    host = f"dp{dp}host_nan_{model}_m{member}"
+    for r in ranks:
+        for name in (host, loop):
+            np.testing.assert_array_equal(r[name + "_iters"], ref[3])
+            np.testing.assert_array_equal(np.isnan(r[name]),
+                                          np.isnan(ref[0]))
+            _close(r[name][others], ref[0][others])
+        np.testing.assert_array_equal(_bits(r[loop]), _bits(r[host]))
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r[loop + "_state"],
+                                      ranks[0][loop + "_state"])
 
 
 @pytest.mark.parametrize("case", ["tp2", "tp2_tol", "tp2_c64", "tp2_poisson",

@@ -151,15 +151,21 @@ def test_start_and_checks():
     rn = torch.tensor(1e-3, dtype=torch.float64)
     with pytest.raises(ValueError, match="0-d float32 or float64"):
         gl.loop_decide(torch.ones(2, dtype=torch.float64), state)
+    # an int64 of one word is a key (key_of); of two, or an int32, neither
     with pytest.raises(ValueError, match="0-d float32 or float64"):
-        gl.loop_decide(torch.tensor(1, dtype=torch.int64), state)
+        gl.loop_decide(torch.ones(2, dtype=torch.int64), state)
+    with pytest.raises(ValueError, match="0-d float32 or float64"):
+        gl.loop_decide(torch.tensor(1, dtype=torch.int32), state)
+    with pytest.raises(ValueError, match="rn of torch.float32 for a residual"):
+        gl.loop_decide(rn, state, rn.to(torch.float32))
     with pytest.raises(ValueError, match="int64 tensor of at least"):
         gl.loop_decide(rn, torch.zeros(gl.HEADER - 1, dtype=torch.int64))
     with pytest.raises(ValueError, match="int64 tensor of at least"):
         gl.loop_decide(rn, state.to(torch.float64))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         gl.loop_decide(rn.to("meta"), state.to("meta"))
-    with pytest.raises(ValueError, match="rn on cpu, the state on meta"):
+    with pytest.raises(ValueError,
+                       match="the residual on cpu, the state on meta"):
         gl.loop_decide(rn, state.to("meta"))
 
 
@@ -179,16 +185,18 @@ def test_binding_declares_pointers_and_ints():
     lib = Lib()
     gl._bind(lib)
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # the residual or key, whether a key; rn, the state; capacity; stream
     for fn in (lib.loop_decide_f32, lib.loop_decide_f64):
-        assert fn.argtypes == [P, P, I, P] and fn.restype is I
-    # dW_new, dW, rn, scratch, state; capacity, kind, rows; N, blocks,
-    # warps a row, write; the stream
-    assert lib.loop_pass_launch.argtypes == [P] * 5 + [I, I, LL] + [I] * 4 \
+        assert fn.argtypes == [P, I, P, P, I, P] and fn.restype is I
+    # dW_new, dW, rn, key, scratch, state; capacity, kind, rows; N,
+    # blocks, warps a row, write; the stream
+    assert lib.loop_pass_launch.argtypes == [P] * 6 + [I, I, LL] + [I] * 4 \
         + [P]
-    # head, warm, iteration, tail and the pass's five pointers; capacity,
-    # kind, rows; N and the plan's two; the device, the stream, the out
-    assert lib.graph_loop_build.argtypes == [P] * 9 + [I, I, LL] + [I] * 4 \
-        + [P, ctypes.POINTER(P)]
+    # head, warm, iteration, reduce, tail and the pass's six pointers;
+    # capacity, kind, rows; N and the plan's two; the device, the stream,
+    # the out
+    assert lib.graph_loop_build.argtypes == [P] * 11 + [I, I, LL] \
+        + [I] * 4 + [P, ctypes.POINTER(P)]
     assert lib.graph_loop_launch.argtypes == [P, I, P]
     assert lib.graph_loop_nodes.argtypes == [P, I, P, I, P]
     for name in gl.ARGTYPES:
