@@ -34,13 +34,13 @@ from __future__ import annotations
 
 from functools import partial
 
-import numpy as np
 import torch
 
 from .. import config
 from ..ops.geometry import bracket
 from ..ops.laplacian import solve_poisson
-from .isospectral import _capture_key, _fixed_point_loop, update_stats
+from .isospectral import (_capture_key, _fixed_point_loop, _returned,
+                          update_stats)
 
 __all__ = ["euler", "heun", "rk4", "explicit"]
 
@@ -125,10 +125,7 @@ def _integrate(method, W, dt, steps, hamiltonian, forcing, stats, device):
             Wt = step(Wt)
     if stats is not None:
         update_stats(stats, steps=steps)
-    if isinstance(W, np.ndarray):
-        np.copyto(W, Wt.cpu().numpy())
-        return W
-    return Wt
+    return _returned(W, Wt)
 
 
 def euler(W, dt, steps=100, hamiltonian=None, forcing=None, stats=None, *,

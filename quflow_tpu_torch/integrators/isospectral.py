@@ -50,8 +50,8 @@ from functools import partial
 import numpy as np
 import torch
 
-from .. import config
-from ..ops.cuda_graph_loop import residual_
+from .. import config, tracing
+from ..ops.cuda_graph_loop import ITERATIONS, residual_
 from ..ops.geometry import hbar, norm_Linf
 from ..ops.laplacian import solve_poisson
 
@@ -174,7 +174,8 @@ def _auto_tol(W, Wt, dt, hb, sqrt_eps):
         eps = np.sqrt(eps)
     if isinstance(W, torch.Tensor):
         W0 = W[(0,) * (W.ndim - 2)]
-        norm = torch.linalg.matrix_norm(W0, ord=float("inf")).item()
+        with tracing.host_read("tol"):
+            norm = torch.linalg.matrix_norm(W0, ord=float("inf")).item()
     else:
         Wn = np.asarray(W)
         norm = np.linalg.norm(Wn[(0,) * (Wn.ndim - 2)], np.inf)
@@ -202,8 +203,15 @@ def _iteration(W, dW, ham, force, skewh, vareps, dt_half):
 def _read(x):
     """The tensor ``x`` on the host (``tolist``: a 0-d residual as a Python
     float): the host sync of a run, once an iteration in the host loop,
-    once a call (the stats) in the device loop."""
-    return x.tolist()
+    once a call (the stats) in the device loop.  One ``quflow.host_read``
+    (tracing.py): of a residual where ``x`` is 0-d, else of a device
+    loop's words, whose iteration sum the span notes."""
+    counts = x.dim() > 0
+    with tracing.host_read("counts" if counts else "residual") as span:
+        out = x.tolist()
+        if counts:
+            span.set(iterations=out[ITERATIONS])
+    return out
 
 
 def _converge(iteration, tol, maxit, minit, reduce_max=None):
@@ -313,21 +321,25 @@ class _CapturedLoop:
         ``t``): one launch a step, or with ``callback`` one launch and then
         ``callback(W_prev, W, rest)`` a step.  Returns (W, iterations, steps
         at the cap) over the run, the sums read once."""
-        self.W.copy_(W)
-        self.loop.dW.zero_()
-        self.csum.zero_()
-        if self.t is not None:
-            self.t.fill_(float(t))
-        self.loop.start(tol, maxit, minit)
-        if callback is None:
-            self.loop.launch(steps)
-        else:
-            for _ in range(steps):
-                W_prev = self.W.clone()
-                self.loop.launch(1)
-                callback(W_prev, self.W.clone(), self.loop.rest)
+        with tracing.span("quflow.runner.load"):
+            self.W.copy_(W)
+            self.loop.dW.zero_()
+            self.csum.zero_()
+            if self.t is not None:
+                self.t.fill_(float(t))
+            self.loop.start(tol, maxit, minit)
+        with tracing.span("quflow.runner.launch", launches=steps,
+                          steps=steps):
+            if callback is None:
+                self.loop.launch(steps)
+            else:
+                for _ in range(steps):
+                    W_prev = self.W.clone()
+                    self.loop.launch(1)
+                    callback(W_prev, self.W.clone(), self.loop.rest)
         iterations, capped = self.loop.finish(lambda x: _read(x))
-        return self.W.clone(), iterations, capped
+        with tracing.span("quflow.runner.result"):
+            return self.W.clone(), iterations, capped
 
     def close(self):
         self.loop.close()
@@ -421,84 +433,86 @@ def isomp_fixedpoint(
     """
     from ..parallel import capture
 
-    _check_iterations(minit, maxit)
-    Wt = config.to_tensor(W, device)
-    hooks = (hamiltonian, forcing, strang_splitting)
-    if hamiltonian is None:
-        hamiltonian = partial(solve_poisson, skewh=skewh)
+    with tracing.span("quflow.integrator.prepare"):
+        _check_iterations(minit, maxit)
+        Wt = config.to_tensor(W, device)
+        hooks = (hamiltonian, forcing, strang_splitting)
+        if hamiltonian is None:
+            hamiltonian = partial(solve_poisson, skewh=skewh)
 
-    N = Wt.shape[-1]
-    hb = hbar(N)
-    rd = config.numpy_dtype(Wt.real.dtype)
+        N = Wt.shape[-1]
+        hb = hbar(N)
+        rd = config.numpy_dtype(Wt.real.dtype)
 
-    timed = time is not None
-    autonomous = _probe_autonomous(hamiltonian, (Wt,), time)
-    autonomous_force = (forcing is None
-                        or _probe_autonomous(forcing, (Wt, Wt), time))
+        timed = time is not None
+        autonomous = _probe_autonomous(hamiltonian, (Wt,), time)
+        autonomous_force = (forcing is None
+                            or _probe_autonomous(forcing, (Wt, Wt), time))
 
-    if tol == "auto" or (np.isscalar(tol) and tol < 0):
-        tol = _auto_tol(W, Wt, dt, hb, sqrt_eps=not compsum)
-        if verbatim:
-            print(f"Tolerance set to {tol}.")
-        if stats is not None:
-            stats["tol_auto"] = tol
+        if tol == "auto" or (np.isscalar(tol) and tol < 0):
+            tol = _auto_tol(W, Wt, dt, hb, sqrt_eps=not compsum)
+            if verbatim:
+                print(f"Tolerance set to {tol}.")
+            if stats is not None:
+                stats["tol_auto"] = tol
 
-    r = rd.type
-    vareps = float(r(dt / (2.0 * hb)))
-    tol_r = float(r(tol))
-    dt_r = r(dt)
-    dt_half = dt_r / r(2)
-    t = r(0.0 if time is None else time)
+        r = rd.type
+        vareps = float(r(dt / (2.0 * hb)))
+        tol_r = float(r(tol))
+        dt_r = r(dt)
+        dt_half = dt_r / r(2)
+        t = r(0.0 if time is None else time)
 
-    ham_timed = timed and not autonomous
-    force_timed = timed and not autonomous_force
+        ham_timed = timed and not autonomous
+        force_timed = timed and not autonomous_force
 
-    def iteration(Wh, dW, time):
-        def ham(Whalf):
-            kw = {"time": time} if ham_timed else {}
-            return capture.hook("hamiltonian", hamiltonian, Whalf, Whalf,
-                                **kw)
-
-        force = None
-        if forcing is not None:
-            def force(P, Whalf):
-                kw = {"time": time} if force_timed else {}
-                return capture.hook("forcing", forcing, Whalf, P, Whalf,
+        def iteration(Wh, dW, time):
+            def ham(Whalf):
+                kw = {"time": time} if ham_timed else {}
+                return capture.hook("hamiltonian", hamiltonian, Whalf, Whalf,
                                     **kw)
 
-        return _iteration(Wh, dW, ham, force, skewh, vareps, float(dt_half))
+            force = None
+            if forcing is not None:
+                def force(P, Whalf):
+                    kw = {"time": time} if force_timed else {}
+                    return capture.hook("forcing", forcing, Whalf, P, Whalf,
+                                        **kw)
 
-    strang = None
-    if strang_splitting is not None:
-        def strang(S):
-            return capture.hook("strang_splitting", strang_splitting, S,
-                                float(dt) / 2, S)
+            return _iteration(Wh, dW, ham, force, skewh, vareps,
+                              float(dt_half))
 
-    def host(A):
-        return config.like_input(A, W)
+        strang = None
+        if strang_splitting is not None:
+            def strang(S):
+                return capture.hook("strang_splitting", strang_splitting, S,
+                                    float(dt) / 2, S)
 
-    def update(W, rest, csum):
-        """W after the step's update from the last iteration's rest: the
-        Kahan-compensated (or plain) W += 2 PWc, then the forcing."""
-        PWc, FW = rest
-        upd = 2.0 * PWc
-        if compsum:
-            # Kahan compensated summation W += upd
-            y = upd - csum
-            tS = W + y
-            csum = (tS - W) - y
-            W = tS
-        else:
-            W = W + upd
-        if forcing is not None:
-            W = W + 2.0 * FW
-        return W, csum
+        def host(A):
+            return config.like_input(A, W)
 
-    timed_hooks = ham_timed or force_timed
-    key = _capture_key("isomp", Wt, skewh, vareps, float(dt_half), *hooks,
-                       ham_timed, force_timed,
-                       None if strang is None else float(dt), compsum,
-                       bool(reinitialize))
+        def update(W, rest, csum):
+            """W after the step's update from the last iteration's rest: the
+            Kahan-compensated (or plain) W += 2 PWc, then the forcing."""
+            PWc, FW = rest
+            upd = 2.0 * PWc
+            if compsum:
+                # Kahan compensated summation W += upd
+                y = upd - csum
+                tS = W + y
+                csum = (tS - W) - y
+                W = tS
+            else:
+                W = W + upd
+            if forcing is not None:
+                W = W + 2.0 * FW
+            return W, csum
+
+        timed_hooks = ham_timed or force_timed
+        key = _capture_key("isomp", Wt, skewh, vareps, float(dt_half), *hooks,
+                           ham_timed, force_timed,
+                           None if strang is None else float(dt), compsum,
+                           bool(reinitialize))
     if key is not None:
         def on_step(W_prev, W_new, rest):
             callback(host(W_prev), host(2.0 * rest[0]))
@@ -515,34 +529,42 @@ def isomp_fixedpoint(
         loop = _Loop(iteration, Wt, strang)
         csum = torch.zeros_like(Wt) if compsum else None
         total_iters = total_maxit = 0
-        for _ in range(steps):
-            W_prev = Wt
-            if strang is not None:
-                Wt = loop.strang(Wt)
-            if reinitialize:
-                loop.reset()
-            (PWc, FW), i, hit = loop(Wt, tol_r, maxit, minit,
-                                     float(t + dt_half) if timed_hooks
-                                     else None)
-            Wt, csum = update(Wt, (PWc, FW), csum)
-            if timed:
-                t = t + dt_r
-            if strang is not None:
-                Wt = loop.strang(Wt)
-            if callback is not None:
-                callback(host(W_prev), host(2.0 * PWc))
-            total_iters += i
-            total_maxit += int(hit)
+        with tracing.span("quflow.runner.launch", launches=0, steps=steps):
+            for _ in range(steps):
+                W_prev = Wt
+                if strang is not None:
+                    Wt = loop.strang(Wt)
+                if reinitialize:
+                    loop.reset()
+                (PWc, FW), i, hit = loop(Wt, tol_r, maxit, minit,
+                                         float(t + dt_half) if timed_hooks
+                                         else None)
+                Wt, csum = update(Wt, (PWc, FW), csum)
+                if timed:
+                    t = t + dt_r
+                if strang is not None:
+                    Wt = loop.strang(Wt)
+                if callback is not None:
+                    callback(host(W_prev), host(2.0 * PWc))
+                total_iters += i
+                total_maxit += int(hit)
 
-    if verbatim:
-        print("Average number of iterations per step: {:.2f}".format(
-            total_iters / steps))
-    if stats is not None:
-        stats["iterations"] = total_iters / steps
-        stats["number_of_maxit"] = total_maxit / steps
+    with tracing.span("quflow.integrator.finish"):
+        if verbatim:
+            print("Average number of iterations per step: {:.2f}".format(
+                total_iters / steps))
+        if stats is not None:
+            stats["iterations"] = total_iters / steps
+            stats["number_of_maxit"] = total_maxit / steps
+        return _returned(W, Wt)
 
+
+def _returned(W, Wt):
+    """The result ``Wt`` as the integrator returns it for the input ``W``:
+    a tensor as it is; for a numpy state, copied to the host into W."""
     if isinstance(W, np.ndarray):
-        np.copyto(W, Wt.cpu().numpy())
+        with tracing.host_read("state"):
+            np.copyto(W, Wt.cpu().numpy())
         return W
     return Wt
 

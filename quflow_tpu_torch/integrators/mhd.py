@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .. import config
+from .. import config, tracing
 from ..ops.geometry import hbar
 from ..ops.laplacian import laplace, solve_poisson
 from .isospectral import (
@@ -29,6 +29,7 @@ from .isospectral import (
     _fixed_point_loop,
     _like,
     _probe_autonomous,
+    _returned,
 )
 
 __all__ = ["solve_mhd", "magmp_fixedpoint", "magmp"]
@@ -96,63 +97,64 @@ def magmp_fixedpoint(
     holds here."""
     from ..parallel import capture
 
-    _check_iterations(minit, maxit)
-    Wt = config.to_tensor(W, device)
-    N = Wt.shape[-1]
-    hb = hbar(N)
-    rd = config.numpy_dtype(Wt.real.dtype)
+    with tracing.span("quflow.integrator.prepare"):
+        _check_iterations(minit, maxit)
+        Wt = config.to_tensor(W, device)
+        N = Wt.shape[-1]
+        hb = hbar(N)
+        rd = config.numpy_dtype(Wt.real.dtype)
 
-    timed = time is not None
-    autonomous = _probe_autonomous(hamiltonian, (Wt,), time)
-    autonomous_force = (forcing is None
-                        or _probe_autonomous(forcing, (Wt, Wt), time))
+        timed = time is not None
+        autonomous = _probe_autonomous(hamiltonian, (Wt,), time)
+        autonomous_force = (forcing is None
+                            or _probe_autonomous(forcing, (Wt, Wt), time))
 
-    if tol == "auto" or (np.isscalar(tol) and tol < 0):
-        tol = _auto_tol(W, Wt, dt, hb, sqrt_eps=True)
-        if stats is not None:
-            stats["tol"] = tol
+        if tol == "auto" or (np.isscalar(tol) and tol < 0):
+            tol = _auto_tol(W, Wt, dt, hb, sqrt_eps=True)
+            if stats is not None:
+                stats["tol"] = tol
 
-    r = rd.type
-    vareps = float(r(dt / (2.0 * hb)))
-    tol_r = float(r(tol))
-    dt_r = r(dt)
-    dt_half = dt_r / r(2)
-    t = r(0.0 if time is None else time)
+        r = rd.type
+        vareps = float(r(dt / (2.0 * hb)))
+        tol_r = float(r(tol))
+        dt_r = r(dt)
+        dt_half = dt_r / r(2)
+        t = r(0.0 if time is None else time)
 
-    ham_timed = timed and not autonomous
-    force_timed = timed and not autonomous_force
+        ham_timed = timed and not autonomous
+        force_timed = timed and not autonomous_force
 
-    def iteration(Wh, dW, time):
-        def ham(Whalf):
-            kw = {"time": time} if ham_timed else {}
-            out = capture.call("hamiltonian", hamiltonian, Whalf, **kw)
-            return tuple(_like(a, Whalf, "hamiltonian", hamiltonian)
-                         for a in out)
+        def iteration(Wh, dW, time):
+            def ham(Whalf):
+                kw = {"time": time} if ham_timed else {}
+                out = capture.call("hamiltonian", hamiltonian, Whalf, **kw)
+                return tuple(_like(a, Whalf, "hamiltonian", hamiltonian)
+                             for a in out)
 
-        force = None
-        if forcing is not None:
-            def force(P, Whalf):
-                kw = {"time": time} if force_timed else {}
-                return capture.hook("forcing", forcing, Whalf, P, Whalf,
-                                    **kw)
+            force = None
+            if forcing is not None:
+                def force(P, Whalf):
+                    kw = {"time": time} if force_timed else {}
+                    return capture.hook("forcing", forcing, Whalf, P, Whalf,
+                                        **kw)
 
-        return _iteration(Wh, dW, ham, force, vareps, float(dt_half))
+            return _iteration(Wh, dW, ham, force, vareps, float(dt_half))
 
-    def update(W, rest, csum):
-        """W after the step's update from the last iteration's rest."""
-        PWc, BTc, FW = rest
-        W_new = W + 2.0 * PWc
-        W_new[0] += 2.0 * BTc
-        if forcing is not None:
-            W_new = W_new + 2.0 * FW
-        return W_new, csum
+        def update(W, rest, csum):
+            """W after the step's update from the last iteration's rest."""
+            PWc, BTc, FW = rest
+            W_new = W + 2.0 * PWc
+            W_new[0] += 2.0 * BTc
+            if forcing is not None:
+                W_new = W_new + 2.0 * FW
+            return W_new, csum
 
-    def host(A):
-        return config.like_input(A, W)
+        def host(A):
+            return config.like_input(A, W)
 
-    timed_hooks = ham_timed or force_timed
-    key = _capture_key("magmp", Wt, vareps, float(dt_half), hamiltonian,
-                       forcing, ham_timed, force_timed, bool(reinitialize))
+        timed_hooks = ham_timed or force_timed
+        key = _capture_key("magmp", Wt, vareps, float(dt_half), hamiltonian,
+                           forcing, ham_timed, force_timed, bool(reinitialize))
     if key is not None:
         def on_step(W_prev, W_new, rest):
             callback(host(W_prev), host(W_new - W_prev))
@@ -170,31 +172,30 @@ def magmp_fixedpoint(
     else:
         loop = _Loop(iteration, Wt)
         total_iters = total_maxit = 0
-        for _ in range(steps):
-            if reinitialize:
-                loop.reset()
-            rest, i, hit = loop(Wt, tol_r, maxit, minit,
-                                float(t + dt_half) if timed_hooks else None)
-            W_new, _ = update(Wt, rest, None)
-            if timed:
-                t = t + dt_r
-            if callback is not None:
-                callback(host(Wt), host(W_new - Wt))
-            Wt = W_new
-            total_iters += i
-            total_maxit += int(hit)
+        with tracing.span("quflow.runner.launch", launches=0, steps=steps):
+            for _ in range(steps):
+                if reinitialize:
+                    loop.reset()
+                rest, i, hit = loop(Wt, tol_r, maxit, minit,
+                                    float(t + dt_half) if timed_hooks
+                                    else None)
+                W_new, _ = update(Wt, rest, None)
+                if timed:
+                    t = t + dt_r
+                if callback is not None:
+                    callback(host(Wt), host(W_new - Wt))
+                Wt = W_new
+                total_iters += i
+                total_maxit += int(hit)
 
-    if verbatim:
-        print("Average number of iterations per step: {:.2f}".format(
-            total_iters / steps))
-    if stats is not None:
-        stats["iterations"] = total_iters / steps
-        stats["maxit"] = total_maxit / steps
-
-    if isinstance(W, np.ndarray):
-        np.copyto(W, Wt.cpu().numpy())
-        return W
-    return Wt
+    with tracing.span("quflow.integrator.finish"):
+        if verbatim:
+            print("Average number of iterations per step: {:.2f}".format(
+                total_iters / steps))
+        if stats is not None:
+            stats["iterations"] = total_iters / steps
+            stats["maxit"] = total_maxit / steps
+        return _returned(W, Wt)
 
 
 magmp = magmp_fixedpoint

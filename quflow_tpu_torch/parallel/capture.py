@@ -75,10 +75,11 @@ raises: nothing falls back to eager.
 from __future__ import annotations
 
 import contextlib
+import time
 
 import torch
 
-from .. import config
+from .. import config, tracing
 from ..ops import cuda_graph_loop
 from ..ops.cuda_block_solve import shear_block
 from ..ops.cuda_row_solve import row_thomas
@@ -241,7 +242,16 @@ class Graphs:
         lets other threads (NCCL's watchdog, which queries its events)
         work on while this one captures.  A piece that fails inside its
         capture raises its own error, not the capture's end that follows
-        it."""
+        it.  A call is one ``captures`` of tracing.counters(), its host
+        seconds ``capture_s``, and the span ``quflow.capture``."""
+        t0 = time.perf_counter()
+        try:
+            with tracing.span("quflow.capture", pieces=len(pieces)):
+                return self._capture_all(pieces, keep, error_mode)
+        finally:
+            tracing.captured(time.perf_counter() - t0)
+
+    def _capture_all(self, pieces, keep, error_mode):
         global _depth
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()

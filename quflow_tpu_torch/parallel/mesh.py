@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops.cuda_graph_loop import host_key, key_value
 
 __all__ = ["Mesh", "make_mesh", "row_blocks", "shard_state", "gather_state",
@@ -153,7 +154,9 @@ class Mesh:
             raise ValueError(f"Mesh.max reduces a residual, >= 0 or NaN; "
                              f"got {value!r}")
         t = torch.tensor([host_key(value)], dtype=torch.int64, device=device)
-        return key_value(self.max_(t).item())
+        key = self.max_(t)
+        with tracing.host_read("residual"):
+            return key_value(key.item())
 
     def max_(self, key):
         """The max over every rank of the mesh of the int64 ``key``

@@ -115,8 +115,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import config
-from ..integrators.isospectral import _converge
+from .. import config, tracing
+from ..integrators.isospectral import _converge, _read
 from . import capture
 from ..ops.cuda_graph_loop import residual_
 from ..ops.cuda_row_solve import row_thomas
@@ -696,13 +696,6 @@ def _step_setup(N, dt, maxit, dtype, refine, tol, minit, layout="shear"):
 _like = capture.like
 
 
-def _read(x):
-    """The tensor ``x`` on the host (``tolist``: a 0-d residual as a Python
-    float): the host sync of an adaptive run, once an iteration in a host
-    loop, once a call (the counts) in a device loop."""
-    return x.tolist()
-
-
 def _fixed_point(iterate, W, dW, maxit, tol, minit, reduce_max=None,
                  warm=(0, None)):
     """The fixed-point loop of one step from the warm start ``dW``.
@@ -908,17 +901,21 @@ class _StepGraph:
         (self.graph,) = graphs.capture(piece)
 
     def __call__(self, W, dW, csum, t, steps):
-        for buf, x in zip(self.state, (W, dW, csum)):
-            buf.copy_(x)
-        if self.t is not None:
-            self.t.copy_(t)
-        for _ in range(steps):
-            self.graph.replay()
-            if self.t is None:
-                t = t + self.step.dt
-        if self.t is not None:
-            t = self.t.clone()
-        return (*(buf.clone() for buf in self.state), t, None)
+        with tracing.span("quflow.runner.load"):
+            for buf, x in zip(self.state, (W, dW, csum)):
+                buf.copy_(x)
+            if self.t is not None:
+                self.t.copy_(t)
+        with tracing.span("quflow.runner.launch", launches=steps,
+                          steps=steps):
+            for _ in range(steps):
+                self.graph.replay()
+                if self.t is None:
+                    t = t + self.step.dt
+        with tracing.span("quflow.runner.result"):
+            if self.t is not None:
+                t = self.t.clone()
+            return (*(buf.clone() for buf in self.state), t, None)
 
 
 class _AdaptivePieces:
@@ -970,13 +967,14 @@ class _AdaptivePieces:
     def result(self, t, steps, counts):
         """The call's outputs: fresh W, dW, csum, the time after ``steps``
         steps from ``t``, and the counts."""
-        if self.t is not None:
-            t = self.t.clone()
-        else:
-            for _ in range(steps):
-                t = t + self.step.dt
-        return (self.W.clone(), self.dW.clone(), self.csum.clone(), t,
-                counts)
+        with tracing.span("quflow.runner.result"):
+            if self.t is not None:
+                t = self.t.clone()
+            else:
+                for _ in range(steps):
+                    t = t + self.step.dt
+            return (self.W.clone(), self.dW.clone(), self.csum.clone(), t,
+                    counts)
 
 
 class _AdaptiveGraphs(_AdaptivePieces):
@@ -999,16 +997,21 @@ class _AdaptiveGraphs(_AdaptivePieces):
 
     def __call__(self, W, dW, csum, t, steps):
         step = self.step
-        self.load(W, dW, csum, t)
+        with tracing.span("quflow.runner.load"):
+            self.load(W, dW, csum, t)
         counts = []
-        for _ in range(steps):
-            for graph in (self.head_graph, self.warm_graph):
-                if graph is not None:
-                    graph.replay()
-            counts.append(_converge(lambda: _read(self.it()), step.tol,
-                                    step.maxit, step.minit,
-                                    step.reduce_max)[0])
-            self.tail_graph.replay()
+        with tracing.span("quflow.runner.launch", steps=steps) as span:
+            for _ in range(steps):
+                for graph in (self.head_graph, self.warm_graph):
+                    if graph is not None:
+                        graph.replay()
+                counts.append(_converge(lambda: _read(self.it()), step.tol,
+                                        step.maxit, step.minit,
+                                        step.reduce_max)[0])
+                self.tail_graph.replay()
+            span.set(launches=steps * (1 + self.has_head
+                                       + bool(step.warm_iters))
+                     + sum(counts))
         return self.result(t, steps, counts)
 
 
@@ -1036,9 +1039,12 @@ class _AdaptiveLoop(_AdaptivePieces):
 
     def __call__(self, W, dW, csum, t, steps):
         step = self.step
-        self.load(W, dW, csum, t)
-        self.loop.start(step.tol, step.maxit, step.minit)
-        self.loop.launch(steps)
+        with tracing.span("quflow.runner.load"):
+            self.load(W, dW, csum, t)
+            self.loop.start(step.tol, step.maxit, step.minit)
+        with tracing.span("quflow.runner.launch", launches=steps,
+                          steps=steps):
+            self.loop.launch(steps)
         _, _, counts = self.loop.finish(lambda x: _read(x), counts=True)
         return self.result(t, steps, counts)
 
@@ -1105,9 +1111,11 @@ class _Runner:
                 W, dW, csum, t, self.steps)
         else:
             counts = []
-            for _ in range(self.steps):
-                W, dW, csum, t, iters = self.step(W, dW, csum, t)
-                counts.append(iters)
+            with tracing.span("quflow.runner.launch", launches=0,
+                              steps=self.steps):
+                for _ in range(self.steps):
+                    W, dW, csum, t, iters = self.step(W, dW, csum, t)
+                    counts.append(iters)
         out = (W, dW, csum)
         if self.step.tol is not None:
             out = out + (torch.tensor(counts, dtype=torch.int32),)
@@ -1742,48 +1750,53 @@ class _ResidentIntegrator:
         pass
 
     def __call__(self, W, dt, steps=100, stats=None, time=None, **kwargs):
-        # Per-call integrator kwargs are a hard error, as in quflow_tpu:
-        # silently dropping one would integrate other equations than asked.
-        if kwargs:
-            raise TypeError(
-                f"{type(self).__name__} does not accept per-call integrator "
-                f"kwargs {sorted(kwargs)}; configure them on the constructor")
-        if isinstance(W, torch.Tensor):
-            self._check_state(tuple(W.shape))
-            Wt = W.to(config.torch_dtype(self.dtype))
-        else:
-            W_in = np.asarray(W)
-            self._check_state(W_in.shape)
-            Wt = torch.from_numpy(np.array(W_in, dtype=self.dtype)).to(
-                self.device)
-        if (not self.warm or self._state is None
-                or self._state[0].shape != Wt.shape
-                or self._state[0].device != Wt.device):
-            z = torch.zeros_like(Wt)
-            self._state = (z, z)
-        fn = self._fn(Wt.shape[-1], dt, steps, Wt.device)
-        t0 = (0.0 if time is None else float(time),) if self._timed else ()
-        Wt, dW, csum, *rest = fn(Wt, *self._state, *t0)
-        self._state = (dW, csum)
-        if stats is not None:
-            if self.tol is None:
-                # every step runs maxit iterations: all of them hit the cap
-                stats["iterations"] = float(self.maxit)
-                stats["maxit"] = 1.0
+        with tracing.span("quflow.integrator.prepare"):
+            # Per-call integrator kwargs are a hard error, as in quflow_tpu:
+            # silently dropping one would integrate other equations than
+            # asked.
+            if kwargs:
+                raise TypeError(
+                    f"{type(self).__name__} does not accept per-call "
+                    f"integrator kwargs {sorted(kwargs)}; configure them on "
+                    "the constructor")
+            if isinstance(W, torch.Tensor):
+                self._check_state(tuple(W.shape))
+                Wt = W.to(config.torch_dtype(self.dtype))
             else:
-                counts = rest[0].numpy()
-                capped = int((counts >= self.maxit).sum())
-                stats["iterations"] = float(counts.mean())
-                stats["iterations_series"] = counts
-                stats["number_of_maxit"] = capped
-                stats["maxit"] = capped / len(counts)
-        if isinstance(W, torch.Tensor):
-            return Wt.to(W.dtype)
-        out = Wt.cpu().numpy().astype(W_in.dtype)
-        if isinstance(W, np.ndarray) and W.flags.writeable:
-            np.copyto(W, out)
-            return W
-        return out
+                W_in = np.asarray(W)
+                self._check_state(W_in.shape)
+                Wt = torch.from_numpy(np.array(W_in, dtype=self.dtype)).to(
+                    self.device)
+            if (not self.warm or self._state is None
+                    or self._state[0].shape != Wt.shape
+                    or self._state[0].device != Wt.device):
+                z = torch.zeros_like(Wt)
+                self._state = (z, z)
+            fn = self._fn(Wt.shape[-1], dt, steps, Wt.device)
+            t0 = (0.0 if time is None else float(time),) if self._timed else ()
+        Wt, dW, csum, *rest = fn(Wt, *self._state, *t0)
+        with tracing.span("quflow.integrator.finish"):
+            self._state = (dW, csum)
+            if stats is not None:
+                if self.tol is None:
+                    # every step runs maxit iterations: all of them hit the cap
+                    stats["iterations"] = float(self.maxit)
+                    stats["maxit"] = 1.0
+                else:
+                    counts = rest[0].numpy()
+                    capped = int((counts >= self.maxit).sum())
+                    stats["iterations"] = float(counts.mean())
+                    stats["iterations_series"] = counts
+                    stats["number_of_maxit"] = capped
+                    stats["maxit"] = capped / len(counts)
+            if isinstance(W, torch.Tensor):
+                return Wt.to(W.dtype)
+            with tracing.host_read("state"):
+                out = Wt.cpu().numpy().astype(W_in.dtype)
+            if isinstance(W, np.ndarray) and W.flags.writeable:
+                np.copyto(W, out)
+                return W
+            return out
 
 
 class IsompTorch(_ResidentIntegrator):
