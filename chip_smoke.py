@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root; it needs one CUDA device, nvcc, g++, and
-nothing of JAX.  Twenty-five phases, one line each (phases 14-19 and
+nothing of JAX.  Twenty-six phases, one line each (phases 14-19 and
 22-25 one for each of their parts); any failure ends the run with a
 nonzero exit code and no result line.  The step runners replay CUDA graphs
 wherever their builders' rule captures (parallel/capture.py): phases
@@ -21,9 +21,9 @@ captured plain solve is thousands of graph nodes; phases 21, 22, 24 and
 
 1. device  - the card's name and power limit, as nvidia-smi reports them;
 2. build   - nvcc builds csrc/shear_thomas.cu, csrc/shear_scan.cu,
-             csrc/shear_block.cu, csrc/row_thomas.cu and csrc/graph_loop.cu
-             for sm_90a, one compiler each, started together (seconds,
-             ptxas register counts);
+             csrc/shear_block.cu, csrc/row_thomas.cu, csrc/graph_loop.cu
+             and csrc/cgemm_tf32x3.cu for sm_90a, one compiler each,
+             started together (seconds, ptxas register counts);
 3. kernel  - ``shear_thomas`` against its plain PyTorch version on the card
              at N in {512, 1024, 2048, 4096} (the two main-path shapes and
              larger ones), batch in {1, 4, 8}, complex64 and complex128:
@@ -389,6 +389,18 @@ captured plain solve is thousands of graph nodes; phases 21, 22, 24 and
        chunks, 400 ``shear_thomas`` launches, the state equal to the same
        solve inside ``config.eager()``; steps/s of both.
 
+26. the 'highest' complex64 product (ops/cgemm.py, csrc/cgemm_tf32x3.cu:
+    three TF32 passes over a big/small split on the tensor cores): against
+    its plain version (within 2^-20 max |A||B|) and against float64, beside
+    cuBLAS's float32 CGEMM, at N in {1024, 513, 100}, batched, broadcast,
+    MHD's strided Theta and a tp row block; its ms at the benchmark cells'
+    shapes by CUDA-graph replay (the split's and the product's from a
+    profile) beside its bound (24 M N K on 495 TFLOP/s TF32), the plain
+    version's and the library's (float32 CGEMM; one-pass TF32 beside it).
+    Its launches are read from the paths' own runs: phases 4, 7, 14a-b,
+    15a, 15d and 16b hold them to 2 (Euler) or 4 (MHD) an iteration at
+    'highest' on the card and to none on the CPU.
+
 Every path (phases 4, 5, 7-25) runs with every launch count set to 0 just
 before it and read just after; a replay adds the launches its graph
 recorded at capture (the warm-up's and the capture's own are taken
@@ -438,6 +450,7 @@ from quflow_tpu_torch.integrators import erk, isospectral
 from quflow_tpu_torch.laplacian import tridiagonal
 from quflow_tpu_torch.models import EulerFlow, GlobalQGFlow, MHDFlow
 from quflow_tpu_torch.ops import (
+    cgemm,
     cuda_block_solve,
     cuda_build,
     cuda_graph_loop,
@@ -505,8 +518,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.complex64: 67e12, torch.complex128: 34e12}
 
 
+#: 'highest' complex64 products an iteration of the fixed point: Euler's
+#: P W and (P W) P; MHD's P (W, Theta), (P W, P Theta) P, B Theta and
+#: (B Theta) P
+EULER_GEMMS, MHD_GEMMS = 2, 4
+
+
 def reset_counts():
-    for k in (*KERNELS, shear_block, row_thomas, loop_decide, loop_pass):
+    for k in (*KERNELS, shear_block, row_thomas, loop_decide, loop_pass,
+              cgemm.cgemm):
         k.launches = 0
     for k in KERNELS:
         k.real_launches = 0
@@ -516,6 +536,32 @@ def reset_counts():
 
 def read_counts():
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def read_gemm():
+    """Launches of the 'highest' complex64 product (ops/cgemm.py) since
+    :func:`reset_counts`; apart from :func:`read_counts`, whose dicts the
+    paths compare whole with their column solves'."""
+    return cgemm.cgemm.launches
+
+
+def full_iterations(integrator):
+    """Fixed-point iterations a step at ``integrator``'s precision: all but
+    the warm schedule's prefix (stepper._schedule)."""
+    warm = stepper._schedule(integrator.precision, integrator.warm_precision,
+                             integrator.warm_iters, integrator.maxit,
+                             integrator.dtype)[1]
+    return integrator.maxit - warm
+
+
+def check_gemm(device, gemms, per_step, steps, what=""):
+    """Raise unless a path launched the 'highest' complex64 product
+    ``per_step`` x ``steps`` times on the card, and never on the CPU
+    (whose 'highest' is ``torch.matmul``)."""
+    want = per_step * steps if on_card(device) else 0
+    if gemms != want:
+        raise AssertionError(f"{what}cgemm: {gemms} launches, expected "
+                             f"{want}")
 
 
 def on_card(device):
@@ -676,11 +722,14 @@ def main_path_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
               integrator=integrator, callback=log, progress_bar=False)
     solve_s = time.perf_counter() - t0
     counts = read_counts()
+    gemms = read_gemm()
     launches = counts["shear_thomas"]
     expected = steps * maxit + len(log.rows)
     if launches != expected or counts["shear_scan"]:
         raise AssertionError(f"launches on the main path {counts}, expected "
                              f"{expected} of shear_thomas only")
+    check_gemm(device, gemms, EULER_GEMMS * full_iterations(integrator),
+               steps, "the main path: ")
     if W.shape != (N, N) or W.dtype != np.complex64 or not np.isfinite(W).all():
         raise AssertionError(f"bad state: {W.shape} {W.dtype}")
     Z = np.array([r[1] for r in log.rows])
@@ -714,7 +763,8 @@ def main_path_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
     torch.cuda.synchronize()
     stepper_s = time.perf_counter() - t0
     return dict(N=N, steps=steps, maxit=maxit, launches=launches,
-                expected_launches=expected, enstrophy_drift=z_drift,
+                expected_launches=expected, gemm_launches=gemms,
+                enstrophy_drift=z_drift,
                 energy_drift=float(abs(log.rows[-1][0] - log.rows[0][0])
                                    / abs(log.rows[0][0])),
                 kernel_vs_plain_10_steps=step_rel,
@@ -819,10 +869,13 @@ def mhd_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
                   integrator=integrator, callback=log, progress_bar=False)
         solve_s = time.perf_counter() - t0
         total = read_counts()
+        gemms = read_gemm()  # the logs' products are complex128
     integ = {k: total[k] - log.launches[k] for k in total}
     if integ != {"shear_thomas": 0, "shear_scan": steps * maxit}:
         raise AssertionError(f"the integrator launched {integ}, expected "
                              f"{steps * maxit} of shear_scan only")
+    check_gemm(device, gemms, MHD_GEMMS * full_iterations(integrator),
+               steps)
     if sum(log.launches.values()) != len(log.rows):
         raise AssertionError(f"the logs launched {log.launches} for "
                              f"{len(log.rows)} energies")
@@ -870,7 +923,7 @@ def mhd_c64(device, N=1024, steps=100, steps_out=20, maxit=5,
     stepper_s = time.perf_counter() - t0
     return dict(N=N, steps=steps, maxit=maxit,
                 warm_precision=integrator.warm_precision,
-                integrator_launches=integ,
+                integrator_launches=integ, integrator_gemm_launches=gemms,
                 log_launches=log.launches, energy_drift=e_drift,
                 theta_spectrum_drift=spec_drift,
                 cross_helicity_drift=float(np.abs(X - X[0]).max()
@@ -1280,11 +1333,13 @@ def hooked_qg(device, kernel=shear_thomas, plain=shear_thomas_reference,
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     counts = read_counts()
+    gemms = read_gemm()
     calls = steps // steps_out
     expected = {k.__name__: 0 for k in KERNELS}
     expected[kernel.__name__] = steps * (maxit + 2) + calls
     if counts != expected:
         raise AssertionError(f"launches {counts}, expected {expected}")
+    check_gemm(device, gemms, EULER_GEMMS * maxit, steps)
     W = st[0]
     if W.shape != (N, N) or W.dtype != torch.complex64 or not finite(W):
         raise AssertionError(f"bad state: {W.shape} {W.dtype}")
@@ -1301,6 +1356,7 @@ def hooked_qg(device, kernel=shear_thomas, plain=shear_thomas_reference,
                              f"relative difference {step_rel:.3e} > 1e-5")
     return dict(N=N, steps=steps, steps_per_call=steps_out, maxit=maxit,
                 launches=counts, expected_launches=expected,
+                gemm_launches=gemms,
                 energy=diag[0].item(), enstrophy=diag[1].item(),
                 kernel_vs_plain_steps=compare_steps,
                 kernel_vs_plain=step_rel, stepper_steps_per_s=steps / sec)
@@ -1572,22 +1628,26 @@ def ensemble_euler(device, N=1024, Bs=(1, 4, 16), steps_out=20, calls=2,
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts = read_counts()
+        gemms = read_gemm()
         if counts != {"shear_thomas": steps * maxit, "shear_scan": 0}:
             raise AssertionError(f"B={B}: launches {counts}, expected "
                                  f"{steps * maxit} of shear_thomas only")
+        check_gemm(device, gemms, EULER_GEMMS * maxit, steps, f"B={B}: ")
         if st[0].shape != (B, N, N) or not finite(st[0]):
             raise AssertionError(f"B={B}: bad state {st[0].shape}")
         prof = profiled(fn, (W0, z, z), steps=steps_out)
         wall_ms = sec * 1e3 / steps
         rows.append(dict(
             B=B, steps=steps, launches=counts["shear_thomas"],
-            steps_per_s=steps / sec, state_steps_per_s=B * steps / sec,
+            gemm_launches=gemms, steps_per_s=steps / sec,
+            state_steps_per_s=B * steps / sec,
             wall_ms_a_step=wall_ms, device_ms_a_step=prof["device_ms"],
             shear_thomas_ms_a_step=prof["shear_thomas_ms"],
             idle_share=1.0 - prof["device_ms"] / wall_ms))
         if out is not None and B == max(Bs):
             out.update(W0=W0, W=st[0], launches=counts["shear_thomas"],
-                       steps_out=steps_out, calls=calls, maxit=maxit)
+                       gemm_launches=gemms, steps_out=steps_out,
+                       calls=calls, maxit=maxit)
 
     # each member of the largest ensemble against its own run; the
     # tolerance, stated before the first run: 1e-5 of max|W| (complex64;
@@ -1669,12 +1729,14 @@ def ensemble_mhd(device, N=1024, B=4, steps=20, maxit=5, compare_steps=5):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts = read_counts()
+        gemms = read_gemm()
     expected = [2 * B] + [B] * maxit + [2 * B]
     if (counts != {"shear_thomas": 0, "shear_scan": steps * (maxit + 2)}
             or first != expected * (2 if fn.captured else steps)
             or solver.batches != ([] if fn.captured else expected * steps)):
         raise AssertionError(f"launches {counts}, ensemble sizes "
                              f"{sorted(set(first))}")
+    check_gemm(device, gemms, MHD_GEMMS * maxit, steps)
     if S.shape != (B, 2, N, N) or not finite(S):
         raise AssertionError(f"bad state {S.shape}")
     Sk = runner(compare_steps, shear_scan)(S0, z, z)[0]
@@ -1685,7 +1747,7 @@ def ensemble_mhd(device, N=1024, B=4, steps=20, maxit=5, compare_steps=5):
         raise AssertionError(f"{compare_steps} steps kernel vs plain: "
                              f"relative difference {step_rel:.3e} > 1e-5")
     return dict(N=N, B=B, steps=steps, maxit=maxit, launches=counts,
-                captured=fn.captured,
+                gemm_launches=gemms, captured=fn.captured,
                 launches_of_B=expected.count(B) * steps,
                 launches_of_2B=expected.count(2 * B) * steps,
                 kernel_vs_plain_steps=compare_steps, kernel_vs_plain=step_rel,
@@ -1804,7 +1866,8 @@ def dp_adaptive(device, mesh, build, S0, steps=5, tol=1e-6, maxit=10,
     reset_counts()
     with SyncTimer(stepper) as sync, GraphLaunches() as launched:
         got = on(S0, z, z)
-    counts = dict(read_counts(), loop_pass=loop_pass.launches,
+    counts = dict(read_counts(), cgemm=read_gemm(),
+                  loop_pass=loop_pass.launches,
                   loop_pass_key=loop_pass.key_launches,
                   loop_decide=loop_decide.launches,
                   all_reduces=all_reduce_max_.calls)
@@ -2003,10 +2066,12 @@ def nccl_dp(device, ensemble, backend=None, tol_steps=5, tol=1e-6,
         st = (W0, z, z)
         for _ in range(ensemble["calls"]):
             st = fn(*st)
-        counts = read_counts()
-        if counts["shear_thomas"] != ensemble["launches"]:
+        counts = dict(read_counts(), cgemm=read_gemm())
+        if (counts["shear_thomas"], counts["cgemm"]) != (
+                ensemble["launches"], ensemble["gemm_launches"]):
             raise AssertionError(f"launches {counts}, phase 15: "
-                                 f"{ensemble['launches']}")
+                                 f"{ensemble['launches']} and cgemm "
+                                 f"{ensemble['gemm_launches']}")
         if not torch.equal(st[0], ensemble["W"]):
             raise AssertionError("the dp run is not bit-equal to phase 15's")
         euler = dp_adaptive(device, mesh, build_step_fn, W0, tol_steps,
@@ -2068,9 +2133,17 @@ def gemm_kernels(device, shape, dtype=torch.complex64, reps=3):
 def is_tf32_gemm(name):
     """Whether cuBLAS's kernel ``name`` is a GEMM on tensor cores (TF32 for
     float32 operands: 'tensorop', 'tf32' in the name) and not one on the
-    FP32 pipes ('ffma', 'simt')."""
+    FP32 pipes ('ffma', 'simt'), nor the port's full-precision product
+    (csrc/cgemm_tf32x3.cu, three TF32 passes)."""
     name = name.lower()
-    return "gemm" in name and ("tensorop" in name or "tf32" in name)
+    return ("gemm" in name and ("tensorop" in name or "tf32" in name)
+            and "cgemm_tf32x3" not in name)
+
+
+def is_split_pass(name):
+    """Whether ``name`` is the split pass of the port's full-precision
+    product (csrc/cgemm_tf32x3.cu): a part of a GEMM, not one."""
+    return "cgemm_tf32x3_split" in name
 
 
 def gemm_split(table, full, tf32):
@@ -2081,6 +2154,8 @@ def gemm_split(table, full, tf32):
     ran it (``full``) or it is named like a GEMM."""
     split = ({}, {})
     for k, (count, _) in table.items():
+        if is_split_pass(k):
+            continue
         if k in tf32 or (k not in full and is_tf32_gemm(k)):
             split[1][k] = count
         elif k in full or "gemm" in k.lower():
@@ -2241,7 +2316,8 @@ def warm_mhd(device, warm, **phase_7):
         raise AssertionError(f"MagmpTorch() resolved 'auto' to "
                              f"{warm['warm_precision']!r}")
     full = mhd_c64(device, warm_precision=None, **phase_7)
-    keys = ("warm_precision", "integrator_launches", "energy_drift",
+    keys = ("warm_precision", "integrator_launches",
+            "integrator_gemm_launches", "energy_drift",
             "theta_spectrum_drift", "cross_helicity_drift",
             "solve_steps_per_s")
     return dict(warm={k: warm[k] for k in keys},
@@ -5170,6 +5246,103 @@ def split_kernels(dp, split):
     }]
 
 
+# --- phase 26: the 'highest' complex64 product -----------------------------
+
+#: phase 26's checks: (name, A's shape, B's shape)
+CGEMM_CHECKS = (("N1024", (1024, 1024), (1024, 1024)),
+                ("N513", (513, 513), (513, 513)),
+                ("N100", (100, 100), (100, 100)),
+                ("batched", (4, 256, 256), (4, 256, 256)),
+                ("ens16", (16, 1024, 1024), (16, 1024, 1024)),
+                ("broadcast_stride0", (1024, 1024), (2, 1024, 1024)),
+                ("broadcast_size1", (3, 1, 100, 100), (1, 2, 100, 100)),
+                ("rows_tp2", (512, 1024), (1024, 1024)),
+                ("ragged", (37, 100), (100, 513)))
+#: phase 26's timed products: those of the benchmark's cells
+CGEMM_TIMES = (("single", (1024, 1024), (1024, 1024)),
+               ("mhd_broadcast", (1024, 1024), (2, 1024, 1024)),
+               ("ens16", (16, 1024, 1024), (16, 1024, 1024)))
+TF32_OPS_PER_S = 495e12
+
+
+def seeded_c64(shape, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, dtype=torch.complex64, device=device,
+                       generator=g)
+
+
+def product_errors(C, A, B):
+    """(normwise, elementwise) error of ``C`` against the float64 product
+    of ``A`` and ``B``: ||C - C64||_F / ||C64||_F and max |C - C64| /
+    (|A| |B|) (where |A| |B| is 0, C must be exact)."""
+    A64, B64 = A.to(torch.complex128), B.to(torch.complex128)
+    ref = A64 @ B64
+    diff = (C.to(torch.complex128) - ref).abs()
+    scale = A64.abs() @ B64.abs()
+    if bool((diff[scale == 0] != 0).any()):
+        return math.inf, math.inf
+    return ((diff.norm() / ref.abs().norm()).item(),
+            (diff / scale.clamp_min(1e-300)).max().item())
+
+
+def cgemm_vs_plain(device, shapes=CGEMM_CHECKS):
+    """Phase 26: the kernel against its plain version, its error and
+    cuBLAS's against float64, at ``shapes`` and at MHD's strided Theta
+    (S[:, 1] of a (4, 2, N, N) state) and broadcast P; ``max_abs_err``
+    over max |A||B|, at most 2^-20."""
+    cases = [(name, seeded_c64(sa, device, 1), seeded_c64(sb, device, 2))
+             for name, sa, sb in shapes]
+    S = seeded_c64((4, 2, 256, 256), device, 3)
+    P = seeded_c64((4, 256, 256), device, 4)
+    cases += [("mhd_theta_strided", P, S[:, 1]),
+              ("mhd_P_broadcast", P[:, None], S)]
+    rows = []
+    for name, A, B in cases:
+        C = cgemm.cgemm(A, B)
+        scale = (A.abs() @ B.abs()).max().item()
+        err = (C - cgemm.cgemm_reference(A, B)).abs().max().item() / scale
+        if not err <= 2.0 ** -20:
+            raise AssertionError(f"cgemm {name}: {err:.3e} of max |A||B| "
+                                 "from its plain version")
+        rows.append(dict(name=name, a=list(A.shape), b=list(B.shape),
+                         max_abs_err=err, errors=product_errors(C, A, B),
+                         library_errors=product_errors(A @ B, A, B)))
+    return rows
+
+
+def cgemm_times(device, shapes=CGEMM_TIMES, reps=20):
+    """Phase 26: the product's ms at ``shapes`` by CUDA-graph replay, in
+    turns with the library's float32 CGEMM (library, kernel, kernel,
+    library), its two kernels' ms from a profile (kernel_table), its bound
+    (24 M N K on the tensor cores' TF32 peak) and share, the plain
+    version's ms and the library's one-pass TF32 product's."""
+    rows = []
+    for name, sa, sb in shapes:
+        A, B = seeded_c64(sa, device, 5), seeded_c64(sb, device, 6)
+        batch = math.prod(torch.broadcast_shapes(sa[:-2], sb[:-2]))
+        M, K, N = sa[-2], sa[-1], sb[-1]
+        bound = 24.0 * M * N * K * batch / TF32_OPS_PER_S * 1e3
+        turns = [graph_ms(fn, reps) for fn in (
+            lambda: A @ B, lambda: cgemm.cgemm(A, B),
+            lambda: cgemm.cgemm(A, B), lambda: A @ B)]
+        ms = float(np.mean(turns[1:3]))
+
+        def tf32():
+            with config.tf32_matmul():
+                return A @ B
+        table = kernel_table(lambda: [cgemm.cgemm(A, B) for _ in range(10)],
+                             10)[0]
+        rows.append(dict(
+            name=name, a=list(sa), b=list(sb), ms=ms, bound_ms=bound,
+            bound_by="operations", share=bound / ms,
+            kernels_ms={k[:90]: kms for k, (_, kms) in table.items()},
+            plain_ms=cuda_ms(lambda: cgemm.cgemm_reference(A, B), 3),
+            library_ms=float(np.mean([turns[0], turns[3]])),
+            library_tf32_ms=graph_ms(tf32, reps),
+            turns_library_kernel_kernel_library_ms=turns))
+    return rows
+
+
 def main():
     if sys.argv[1:2] == ["--tp-rank"]:  # a rank of phase 19b
         rank, backend, tmp, N, steps, maxit, device, dtype = sys.argv[2:10]
@@ -5199,7 +5372,8 @@ def main():
     libs = cuda_build.build_all([cuda_solve.LIBRARY, cuda_scan_solve.LIBRARY,
                                  cuda_block_solve.LIBRARY,
                                  cuda_row_solve.LIBRARY,
-                                 cuda_graph_loop.LIBRARY])
+                                 cuda_graph_loop.LIBRARY,
+                                 cgemm.LIBRARY])
     report = " ;; ".join(
         f"{lib.name}: {ptxas_summary(lib.with_suffix('.log').read_text())}"
         for lib in libs)
@@ -5389,6 +5563,11 @@ def main():
     print("phase 25e solve with rk4 c128 N=512: " + json.dumps(es),
           flush=True)
 
+    cg_rows = cgemm_vs_plain(device)
+    cg_times = cgemm_times(device)
+    print("phase 26 the 'highest' complex64 product: " + json.dumps(
+        dict(vs_plain=cg_rows, times=cg_times)), flush=True)
+
     # phase 16b last: see the phase list
     dp = nccl_dp(device, ensemble)
     print("phase 16b one-rank NCCL dp ensemble and adaptive runs: "
@@ -5553,7 +5732,29 @@ def main():
         "by_shape": [{k: r[k] for k in ("name", "ms", "bound_ms", "share",
                                         "replaced_ms", "library_ms")}
                      for r in ld["times"]],
-    }, *split_kernels(dp, split)]}), flush=True)
+    }, *split_kernels(dp, split), {
+        "name": "cgemm_tf32x3",
+        "route": "cuda",
+        "source": "quflow_tpu_torch/csrc/cgemm_tf32x3.cu",
+        "replaces": "none: XLA's multi-pass 'highest' dot (quflow_tpu/"
+                    "parallel/stepper.py:578-581, not Pallas)",
+        "launches": c64["gemm_launches"],
+        "launches_by_path": {
+            "euler_c64_N1024": c64["gemm_launches"],
+            "mhd_c64_N1024": m64["integrator_gemm_launches"],
+            "warm_off_mhd_c64_N1024": wm["full"]["integrator_gemm_launches"],
+            "hooked_qg_c64_N1024": hq["gemm_launches"],
+            "hooked_qg_c64_N1024_scan": hq_scan["gemm_launches"],
+            **{f"ensemble_euler_c64_N1024_B{r['B']}": r["gemm_launches"]
+               for r in ens["by_B"]},
+            "ensemble_mhd_c64_N1024_B4": ens_mhd["gemm_launches"],
+            "nccl_dp_euler_c64_N1024_B16": dp["launches"]["cgemm"],
+            **{f"nccl_dp_adaptive_{k}": r["counts"]["cgemm"]
+               for k, r in dp["adaptive"].items()}},
+        "max_abs_err": max(r["max_abs_err"] for r in cg_rows),
+        **{k: cg_times[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "share", "library_ms")},
+    }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

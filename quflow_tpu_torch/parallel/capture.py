@@ -81,6 +81,7 @@ import torch
 
 from .. import config, tracing
 from ..ops import cuda_graph_loop
+from ..ops.cgemm import cgemm
 from ..ops.cuda_block_solve import shear_block
 from ..ops.cuda_row_solve import row_thomas
 from ..ops.cuda_scan_solve import shear_scan
@@ -94,7 +95,7 @@ __all__ = ["available", "static_copy", "capturing", "call", "like", "hook",
 
 #: the kernel wrappers whose ``launches`` a replay advances
 KERNELS = (shear_thomas, shear_scan, shear_block, row_thomas,
-           cuda_graph_loop.loop_pass, cuda_graph_loop.loop_decide)
+           cuda_graph_loop.loop_pass, cuda_graph_loop.loop_decide, cgemm)
 #: every counter a replay advances, (wrapper, attribute): the kernels'
 #: ``launches``, the column solves' real-lane entries', loop_pass's key
 #: mode's, and the mesh's all_reduces of the residual's key

@@ -91,14 +91,17 @@ anyway or one of its own, and this rank keeps its rows; the theta-scheme
 Strang step takes its Laplacian with a halo row.
 
 Precision.  ``precision`` names the GEMMs as quflow_tpu does: 'highest'
-is a full-precision cuBLAS CGEMM/ZGEMM; 'high' and 'default' run the
-same complex64 GEMM on TF32 tensor cores (JAX's own name for
-``Precision.HIGH`` is tensorfloat32, and XLA's GPU backend runs DEFAULT
-float32 dots as TF32), switched on around each such call only
-(``config.tf32_matmul``); complex128 ignores TF32.  A ``_karatsuba``
-suffix forms the complex product from three real products.  The
-mixed-precision schedule ``warm_precision``/``warm_iters`` runs the first
-``warm_iters`` fixed-point iterations (default maxit - 2) at
+is f32-accurate, in complex64 on a card three TF32 tensor-core passes
+over a big/small split of each operand (ops/cgemm.py, a kernel of its
+own), as the TPU's 'highest' is six bf16 passes on its matrix unit; on
+the CPU a plain float32 product, and in complex128 cuBLAS's ZGEMM.
+'high' and 'default' run the complex64 GEMM on TF32 tensor cores in one
+pass (JAX's own name for ``Precision.HIGH`` is tensorfloat32, and XLA's
+GPU backend runs DEFAULT float32 dots as TF32), switched on around each
+such call only (``config.tf32_matmul``); complex128 ignores TF32.  A
+``_karatsuba`` suffix forms the complex product from three real products.
+The mixed-precision schedule ``warm_precision``/``warm_iters`` runs the
+first ``warm_iters`` fixed-point iterations (default maxit - 2) at
 ``warm_precision`` and the rest at ``precision``; under ``tol`` the warm
 iterations are a fixed prefix and the per-step counts report only the
 full-precision ones.
@@ -118,6 +121,7 @@ import torch
 from .. import config, tracing
 from ..integrators.isospectral import _converge, _read
 from . import capture
+from ..ops.cgemm import cgemm
 from ..ops.cuda_graph_loop import residual_
 from ..ops.cuda_row_solve import row_thomas
 from ..ops.diagpack import (
@@ -370,14 +374,29 @@ def _karatsuba(product):
     return mm
 
 
+def _highest_c64(a, b):
+    """The 'highest' complex64 product: on a card three TF32 passes of
+    ops/cgemm.py's kernel, f32-accurate as quflow_tpu's six bf16 passes
+    are on the TPU; elsewhere ``torch.matmul`` (a plain f32 product on the
+    CPU, as quflow_tpu's 'highest' is there)."""
+    if (a.is_cuda and b.is_cuda and a.dtype == torch.complex64
+            and b.dtype == torch.complex64):
+        return cgemm(a, b)
+    return torch.matmul(a, b)
+
+
 def _make_mm(spec, dtype):
     """The GEMM of precision name ``spec`` for complex ``dtype`` state:
     'highest', 'high' or 'default', each optionally with '_karatsuba'.
-    'high' and 'default' run complex64 products on TF32 tensor cores,
-    the flag set around each call and restored after it; complex128 and
-    'highest' run full-precision cuBLAS.  A callable ``(a, b) -> a @ b``
-    is taken as the GEMM itself (the double-word steppers' warm
-    product)."""
+    'highest' complex64 on a card is three TF32 tensor-core passes over a
+    big/small split (:func:`_highest_c64`, ops/cgemm.py), as the TPU's is
+    six bf16 passes; on the CPU and in complex128 it is a full-precision
+    product (cuBLAS ZGEMM on a card).  'high' and 'default' run complex64
+    products on TF32 tensor cores in one pass, the flag set around each
+    call and restored after it.  A '_karatsuba' product is three real
+    ``torch.matmul`` products, the user's choice of another algorithm.  A
+    callable ``(a, b) -> a @ b`` is taken as the GEMM itself (the
+    double-word steppers' warm product)."""
     if callable(spec):
         return spec
     name = str(spec)
@@ -386,6 +405,8 @@ def _make_mm(spec, dtype):
         raise ValueError(
             f"precision={spec!r}: use 'highest', 'high' or 'default', "
             "optionally with '_karatsuba'")
+    if name == "highest" and real_dtype(dtype) == np.float32:
+        return _highest_c64
     mm = _karatsuba(torch.matmul) if base != name else torch.matmul
     if not (_TF32[base] and real_dtype(dtype) == np.float32):
         return mm

@@ -23,6 +23,7 @@ import quflow_tpu as qf
 import quflow_tpu_torch as qt
 from quflow_tpu_torch import config
 from quflow_tpu_torch.models import EulerFlow, MHDFlow
+from quflow_tpu_torch.ops.cgemm import cgemm
 from quflow_tpu_torch.ops.cuda_scan_solve import shear_scan
 from quflow_tpu_torch.ops.cuda_solve import shear_thomas
 from quflow_tpu_torch.parallel import capture
@@ -380,7 +381,9 @@ def test_counters_advance_once_a_replay_on_card(cuda):
     st = run(W, z, z)  # warm-up and capture counted back, 4 replays in
     assert shear_thomas.launches - before == steps * maxit
     (program,) = run._programs.values()
-    assert program.graph.advance == [(shear_thomas, maxit)]
+    # each iteration's two 'highest' complex64 products are the cgemm kernel
+    assert program.graph.advance == [(shear_thomas, maxit),
+                                     (cgemm, 2 * maxit)]
     run(*st)
     assert shear_thomas.launches - before == 2 * steps * maxit
     assert len(run._programs) == 1 and run.graphs.held

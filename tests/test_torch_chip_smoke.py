@@ -282,12 +282,16 @@ def test_persistence_phases_rehearse_on_cpu(cpu_rehearsal):
                                device="cpu")
     chip_smoke.reset_counts()
     st = fn(*fn(W0, z, z))
-    ens = dict(W0=W0, W=st[0], launches=shear_thomas.launches, steps_out=3,
-               calls=2, maxit=5)
+    ens = dict(W0=W0, W=st[0], launches=shear_thomas.launches,
+               gemm_launches=chip_smoke.read_gemm(), steps_out=3, calls=2,
+               maxit=5)
     dp = chip_smoke.nccl_dp("cpu", ens, backend="gloo", tol_steps=2)
     assert not dist.is_initialized()
     assert dp["backend"] == "gloo" and dp["bit_equal_to_phase_15"]
     assert dp["launches"]["shear_thomas"] == 30
+    # the CPU's 'highest' is torch.matmul: the kernel never runs
+    assert dp["launches"]["cgemm"] == 0
+    assert all(r["counts"]["cgemm"] == 0 for r in dp["adaptive"].values())
     assert dp["all_reduces"] == sum(dp["adaptive_iterations"]) > 0
 
 
@@ -392,6 +396,84 @@ def test_gemm_split():
     assert tf32 == {"cutlass_80_tensorop_c1688gemm_64x64_16x4_nn_align1": 6.0}
     assert chip_smoke.gemm_counts(table, {"probe_full_kernel"}, set()) == (
         5.0, 6.0, 1.6)
+
+
+def test_gemm_split_counts_the_port_product_full():
+    """The port's 'highest' complex64 product (csrc/cgemm_tf32x3.cu, TF32
+    in its name) is one full-precision GEMM a launch; its split pass is a
+    part of it, no GEMM of its own."""
+    table = {
+        "void (anonymous namespace)::cgemm_tf32x3_kernel(Product)": (4.0, 0.3),
+        "(anonymous namespace)::cgemm_tf32x3_split_kernel(Operand, Operand":
+            (4.0, 0.07),
+        "cutlass_80_tensorop_c1688gemm_64x64_16x4_nn_align1": (6.0, 0.5)}
+    full, tf32 = chip_smoke.gemm_split(table, set(), set())
+    assert full == {"void (anonymous namespace)::cgemm_tf32x3_kernel(Product)":
+                    4.0}
+    assert tf32 == {"cutlass_80_tensorop_c1688gemm_64x64_16x4_nn_align1": 6.0}
+    assert chip_smoke.gemm_counts(table, set(), set()) == (4.0, 6.0, 0.8)
+
+
+def test_phase_list_names_26():
+    doc = chip_smoke.__doc__
+    assert "\n26. the 'highest' complex64 product" in doc
+    assert "csrc/cgemm_tf32x3.cu" in doc
+
+
+def test_cgemm_phase_rehearses_on_cpu():
+    """Phase 26's check at small shapes: on the CPU the wrapper hands every
+    product to the plain version, so the kernel's column reads 0, and both
+    errors against float64 are float32-sized."""
+    shapes = (("N100", (100, 100), (100, 100)),
+              ("ragged", (37, 100), (100, 51)))
+    rows = chip_smoke.cgemm_vs_plain("cpu", shapes=shapes)
+    assert [r["name"] for r in rows] == ["N100", "ragged",
+                                         "mhd_theta_strided",
+                                         "mhd_P_broadcast"]
+    for r in rows:
+        assert r["max_abs_err"] == 0.0
+        assert max(r["errors"] + r["library_errors"]) < 1e-6
+    json.dumps(rows)
+
+
+def test_gemm_counts_rehearse_on_cpu(cpu_rehearsal, monkeypatch):
+    """The paths that read the 'highest' complex64 product's launches from
+    their own runs (phases 4, 7, 14a, 15a, 15d) at small N, with the
+    product routed as on a card: each launch counted, 2 (Euler) or 4 (MHD)
+    an iteration at 'highest', none in the warm prefix; and none on the
+    CPU's own route."""
+    c64 = chip_smoke.main_path_c64("cpu", N=24, steps=4, steps_out=2,
+                                   compare_steps=1)
+    assert c64["gemm_launches"] == 0
+
+    def counted(a, b):
+        chip_smoke.cgemm.cgemm.launches += 1
+        return torch.matmul(a, b)
+
+    monkeypatch.setattr(stepper, "_highest_c64", counted)
+    monkeypatch.setattr(chip_smoke, "on_card", lambda device: True)
+    monkeypatch.setattr(chip_smoke, "profiled", lambda fn, st, steps=20: {
+        "device_ms": 0.5, "shear_thomas_ms": 0.1, "wall_ms_profiled": 1.0})
+    c64 = chip_smoke.main_path_c64("cpu", N=24, steps=4, steps_out=2,
+                                   compare_steps=1)
+    assert c64["gemm_launches"] == 2 * 2 * 4  # warm 'high': 2 of 5 full
+    m64 = chip_smoke.mhd_c64("cpu", N=24, steps=4, steps_out=2,
+                             compare_steps=1)
+    assert m64["integrator_gemm_launches"] == 4 * 2 * 4
+    full = chip_smoke.mhd_c64("cpu", N=24, steps=4, steps_out=2,
+                              compare_steps=1, warm_precision=None)
+    assert full["integrator_gemm_launches"] == 4 * 5 * 4
+    hq = chip_smoke.hooked_qg("cpu", N=24, steps=4, steps_out=2,
+                              compare_steps=1)
+    assert hq["gemm_launches"] == 2 * 5 * 4
+    ens = chip_smoke.ensemble_euler("cpu", N=24, Bs=(1, 3), steps_out=2,
+                                    calls=2, compare_steps=1)
+    assert [r["gemm_launches"] for r in ens["by_B"]] == [2 * 5 * 4] * 2
+    em = chip_smoke.ensemble_mhd("cpu", N=24, B=2, steps=3, compare_steps=1)
+    assert em["gemm_launches"] == 4 * 5 * 3
+    # a count the path does not make is caught
+    with pytest.raises(AssertionError, match="cgemm: 2 launches"):
+        chip_smoke.check_gemm("cuda", 2, 4, 1)
 
 
 def test_warm_phases_rehearse_on_cpu(gemm_rehearsal):
@@ -677,7 +759,7 @@ def test_phase_list_names_22():
 
 def test_phase_list_names_23():
     doc = chip_smoke.__doc__
-    assert "Twenty-five phases" in doc and "\n23. the row-packed" in doc
+    assert "Twenty-six phases" in doc and "\n23. the row-packed" in doc
     assert "phases 4, 5, 7-25" in doc
     for part in "abcdefg":
         assert f"\n    {part}. " in doc.split("\n23. ")[1].split("\n24. ")[0]
