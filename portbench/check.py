@@ -31,8 +31,14 @@ the limit ``iterations``, which an exit rule that runs to maxit, stops
 at minit or ignores tol exceeds (faults.py; stopping at minit misses at
 least the one extra iteration of each interval's first step, whose dW
 starts from zero).  Both counts are recorded beside each other
-(``run.iteration_counts``).  The window's last output is also read for
-non-finite values, which a state keeps once it holds one.
+(``run.iteration_counts``).  A run over several ranks (ranks.py) holds
+every rank's count of each interval (``run.rank_iterations``); the
+reference's rule takes its residual over the whole batch, which is the
+mesh's max over the ranks, and an interval misses by the most that any
+rank's count differs from the reference's, so a rank that decides from
+its own members alone misses where the max across the ranks decides.
+The window's last output is also read for non-finite values, which a
+state keeps once it holds one.
 """
 
 from __future__ import annotations
@@ -82,9 +88,13 @@ def check_run(run):
     failed = int(not np.isfinite(np.sum(rec.last)))
 
     initial = run.initial.astype(run.dtype).astype(np.complex128)
-    intervals = [("start", initial, run.setup_output, run.setup_iterations)]
+    # the program's iterations of each interval, one count a rank
+    ranks = getattr(run, "rank_iterations", None) or [rec.iterations]
+    intervals = [("start", initial, run.setup_output,
+                  getattr(run, "rank_setup_iterations", None)
+                  or [run.setup_iterations])]
     for k, start, end in sorted(rec.sample, key=lambda x: x[0]):
-        intervals.append(("window", start, end, rec.iterations[k]))
+        intervals.append(("window", start, end, [its[k] for its in ranks]))
 
     specs = cell.config.get("gaps", {"W": {"component": 0, "of": "state"}})
     labels = ("start", "window")
@@ -110,9 +120,12 @@ def check_run(run):
             bad |= not gap <= limits["gap"][n]
             gaps[n, label] = max(gaps[n, label], gap)
         if exit_rule:
-            run.iteration_counts.append([iterations, sum(counts)])
-            miss = abs(iterations - sum(counts))
-            miss = miss if math.isfinite(miss) else math.inf
+            run.iteration_counts.append([
+                iterations[0] if len(iterations) == 1 else iterations,
+                sum(counts)])
+            misses = [abs(i - sum(counts)) for i in iterations]
+            miss = (max(misses) if all(map(math.isfinite, misses))
+                    else math.inf)
             bad |= not miss <= limits["iterations"]
             missed += miss
         over += bad and label == "window"

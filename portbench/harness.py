@@ -17,6 +17,10 @@ check against the plain reference (``reference/``), which runs once the
 window has closed and the memory peak is read.  The last line of
 standard output is the result; the numbers compared, each beside its
 limit, are the last lines of standard error.
+
+A cell on more than one card runs one process a card (ranks.py): each
+rank steps its share of the members on a dp mesh, and rank 0 checks
+them all and prints the result.
 """
 
 from __future__ import annotations
@@ -212,16 +216,22 @@ class Program:
     ``device``.  A mix with an ``exit_rule`` runs ``solve``'s own
     integrator, ``isomp``, and hands it the rule (tol, maxit, minit) as
     ``solve``'s keywords; any other runs the configuration's integrator.
+    A mix with a ``mesh`` runs the configuration's integrator on ``mesh``
+    (None: one process holds every member) with the mix's ``integrator``
+    keywords and its exit rule, as users run a dp ensemble; ``W0`` is
+    then this rank's share of the members.
     ``control`` switches every complex64 product of the program to TF32,
     by the program's own paths (the control of the output check, run only
     by calibrate.py and the tests)."""
 
-    def __init__(self, cell, seed, device, control=False, wrap=None):
+    def __init__(self, cell, seed, device, control=False, wrap=None,
+                 mesh=None):
         import torch
         import quflow_tpu_torch as qf
         from .reference.initial import states
 
         self.qf, self.cell, self.seed = qf, cell, seed
+        self.mesh = mesh
         self.device = torch.device(device)
         cfg, traffic = cell.config, cell.traffic
         self.N = int(cfg["N"])
@@ -240,20 +250,30 @@ class Program:
         shape = ((self.batch,) if traffic.get("batched") else ()) + (
             (self.components,) if self.components > 1 else ()) + (
             self.N, self.N)
-        self.W0 = torch.from_numpy(init.reshape(shape).astype(
-            self.dtype)).to(self.device)
+        W0 = torch.from_numpy(init.reshape(shape).astype(self.dtype))
+        if mesh is not None:
+            from quflow_tpu_torch.parallel import shard_state
+            W0 = shard_state(W0, mesh, batched=bool(traffic.get("batched"))
+                             ).contiguous()
+        self.W0 = W0.to(self.device)
         control_cfg = (traffic.get("control") or cfg.get("control") or {}
                        ) if control else {}
         self.tf32 = bool(control_cfg.get("tf32_matmul"))
         self.exit_rule = dict(traffic.get("exit_rule", {}))
+        self.solve_kwargs = self.exit_rule
         make = getattr(cell.config_code, "integrator", None)
         if make is not None:
             self.integrator = make(qf, cfg, traffic, self.device, control)
-        elif self.exit_rule:
+        elif self.exit_rule and "mesh" not in traffic:
             self.integrator = None  # solve's own default, isomp
         else:
             spec = dict(cfg["integrator"])
             cls = getattr(qf, spec.pop("class"))
+            if "mesh" in traffic:
+                spec.update(traffic.get("integrator", {}))
+                spec.update(self.exit_rule)
+                spec["mesh"] = mesh
+                self.solve_kwargs = {}
             spec.update(control_cfg.get("integrator", {}))
             if traffic.get("batched"):
                 spec["batched"] = True
@@ -273,7 +293,7 @@ class Program:
             return self.qf.solve(
                 W, stepsize=self.stepsize, steps=self.steps_out * outputs,
                 steps_out=self.steps_out, integrator=integ,
-                callback=callback, progress_bar=False, **self.exit_rule)
+                callback=callback, progress_bar=False, **self.solve_kwargs)
 
     def default_integrator(self):
         """The integrator ``solve`` runs (its default when None)."""
@@ -302,6 +322,8 @@ class Run:
         self.profile = None
         self.device = {}
         self.checks = {}
+        self.calls = 0  # the window's calls of solve
+        self.window_counters = {}  # the program's counters' advance
         self.stages = {}  # host seconds from the start to each stage's end
         self.N = self.batch = self.dtype = None
         self.steps_out = None
@@ -369,16 +391,34 @@ def _solve_counters():
     return (shear_thomas, shear_scan)
 
 
+def _window_over(over, group):
+    """Whether the window has ended: ``over`` as this process sees it,
+    or under a harness ``group`` rank 0's, broadcast to every rank, so
+    that every rank makes the same calls."""
+    if group is None:
+        return over
+    import torch
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(over)], dtype=torch.int32)
+    dist.broadcast(flag, src=0, group=group)
+    return bool(flag.item())
+
+
 def measure(cell, seed, seconds, trace, device="cuda", control=False,
-            wrap=None, t_start=None):
+            wrap=None, t_start=None, mesh=None, group=None):
     """Set up, run the window and (``trace``) the profiled stretch.
-    Returns (run, program)."""
+    Returns (run, program).  On a ``mesh`` (a rank of a multi-card cell)
+    the run holds this rank's members; ``group`` is the harness's own
+    group of the ranks, over which they meet before the window and hear
+    rank 0's end of it (ranks.py gathers the rest)."""
     import torch
 
     t_start = time.perf_counter() if t_start is None else t_start
     run = Run(cell, seed)
     run.stages["imported"] = time.perf_counter() - t_start
-    program = Program(cell, seed, device, control=control, wrap=wrap)
+    program = Program(cell, seed, device, control=control, wrap=wrap,
+                      mesh=mesh)
     run.stages["program"] = time.perf_counter() - t_start
     run.N, run.batch, run.dtype = program.N, program.batch, program.dtype
     run.steps_out, run.stepsize = program.steps_out, program.stepsize
@@ -403,23 +443,38 @@ def measure(cell, seed, seconds, trace, device="cuda", control=False,
         keep=int(cell.traffic["check_intervals"]), seed=seed,
         before=run.setup_output)
     gc.collect()
+    if group is not None:
+        from .spans import program_counters
+
+        import torch.distributed as dist
+
+        counters = program_counters() or {}
+        dist.barrier(group=group)
+        print(f"portbench: rank {mesh.rank} window open", file=sys.stderr,
+              flush=True)
     run.window_start = time.perf_counter()
     run.setup_s = run.window_start - t_start
     while True:
         W = program.call(W, program.outputs_per_call, rec, integrator)
-        if time.perf_counter() - run.window_start >= seconds:
+        run.calls += 1
+        if _window_over(time.perf_counter() - run.window_start >= seconds,
+                        group):
             break
     if cuda:
         torch.cuda.synchronize()
     run.window_end = time.perf_counter()
+    if group is not None:
+        run.window_counters = {k: v - counters[k] for k, v in (
+            program_counters() or {}).items() if k in counters}
     if trace and cuda:
         W, run.profile = _profile(program, W)
     if cuda:
         run.device = {
             "platform": "gpu",
-            "kind": torch.cuda.get_device_name(0),
+            "kind": torch.cuda.get_device_name(program.device),
             "count": cell.chips,
-            "memory_peak_bytes": int(torch.cuda.max_memory_allocated()),
+            "memory_peak_bytes": int(torch.cuda.max_memory_allocated(
+                program.device)),
         }
         if trace:
             run.device["busy_s"] = run.profile["busy_s"]
@@ -495,6 +550,11 @@ def main(argv=None, t_start=None):
         print(f"portbench: {err}", file=sys.stderr)
         return 2
     _cache_dirs()
+    if cell.chips > 1:  # the ranks look for their cards themselves
+        from . import ranks
+
+        return ranks.launch(ranks.run_args(args), cell.chips,
+                            ranks.deadline_s(args.seconds), t_start=t_start)
     import torch
 
     if not torch.cuda.is_available() or (torch.cuda.device_count()

@@ -7,8 +7,9 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
-from conftest import REPO
+from conftest import DP_CELL, REPO, dp_copy
 from portbench import harness
 from portbench.check import check_run
 
@@ -48,10 +49,17 @@ def _run_py(cwd, *args):
         capture_output=True, text=True, timeout=300)
 
 
-def test_no_card_no_result():
-    out = _run_py(REPO, "--workload", "euler-n1024-c64.single", "--seed",
-                  "3000000000", "--seconds", "1", "--trace", "0")
+@pytest.mark.parametrize("chips", [1, 4])
+def test_no_card_no_result(tmp_path, chips):
+    """No card: no result, whether one process looks or each rank of a
+    cell over four cards."""
+    name, cwd = "euler-n1024-c64.single", REPO
+    if chips > 1:
+        name, cwd = DP_CELL, dp_copy(tmp_path, chips)
+    out = _run_py(cwd, "--workload", name, "--seed", "3000000000",
+                  "--seconds", "1", "--trace", "0")
     assert out.returncode != 0 and out.stdout == ""
+    assert f"needs {chips} CUDA device" in out.stderr
 
 
 def test_unknown_workload_no_result():
