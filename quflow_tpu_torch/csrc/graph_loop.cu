@@ -49,7 +49,14 @@
 // all_reduce (MAX) of that int64 word over the mesh, exact in any order on
 // any backend, a NaN on any rank winning as jnp.max propagates it; and
 // loop_decide reads the reduced key back as a double (the key is its
-// bits), writes rn, applies the rule and sets the handle.
+// bits), writes rn, applies the rule and sets the handle.  The split pass
+// times its reduce on the card's clock (%globaltimer, ns): loop_pass's last
+// block stamps the clock into the state when it has written the key, and
+// loop_decide, at its entry, adds the time since that stamp to a word of
+// the state and clears the stamp.  The word sums, over a call's passes,
+// the all_reduce and the wait for the slowest rank; the host reads it with
+// the counts.  No profiler sees inside a WHILE node, and no event may be
+// recorded there.
 //
 // The state is one int64 array on the card (words below): the header,
 // then one count a step.  tol, maxit and minit live in it, so a new
@@ -108,6 +115,8 @@ enum : int {
   W_TOL,        // tol (bits of a double, rounded to the working precision)
   W_MAXIT,
   W_MINIT,
+  W_STAMP,      // %globaltimer at the key mode's end, 0 when none is open
+  W_REDUCE_NS,  // ns from those stamps to loop_decide's entries, summed
   W_HEADER      // counts[step] follow
 };
 
@@ -127,6 +136,13 @@ constexpr int kInFlight = 2;  // 16-byte chunks a lane loads before it adds
 constexpr int kMaxThreads = 256;  // a block's threads
 constexpr int kWarps = kMaxThreads / 32;
 constexpr int kBlocksPerSM = 4;   // resident at once: 64 registers a thread
+
+// the card's clock, ns
+__device__ __forceinline__ long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
 
 // One decision of the rule on the residual rn of the iteration just done;
 // updates the state and returns whether the loop goes on.
@@ -159,12 +175,17 @@ __device__ bool decide(double rn, long long* s, int capacity) {
 // a key is the bits of its residual, so a +NaN key reads as a NaN).  rn,
 // when not null, receives the residual as a T (exact: a key holds a T's
 // value); with `set`, the WHILE node's handle the decision.  The rule's
-// entry of the split pass, and the probe of the rule.
+// entry of the split pass, and the probe of the rule.  With `key` and a
+// stamp open in the state, the time since the stamp goes to W_REDUCE_NS.
 template <typename T>
 __global__ void loop_decide(const void* __restrict__ in, int key,
                             T* __restrict__ rn, long long* __restrict__ s,
                             int capacity, int set,
                             cudaGraphConditionalHandle handle) {
+  if (key && s[W_STAMP]) {
+    s[W_REDUCE_NS] += globaltimer() - s[W_STAMP];
+    s[W_STAMP] = 0;
+  }
   const double r =
       key ? __longlong_as_double(*static_cast<const long long*>(in))
           : static_cast<double>(*static_cast<const T*>(in));
@@ -231,7 +252,8 @@ __device__ __forceinline__ unsigned long long key_of(T sum) {
 // the blocks striding over row groups.  Shared memory: one key and one
 // partial sum a warp.  scratch[0] is the running max key, scratch[1] the
 // ticket; both are 0 between passes.  With PASS_KEY the last block writes
-// the max key into *key and neither rn nor the state.
+// the max key into *key, not rn, and applies no rule; with a state (the
+// composite's split pass) it stamps the clock into W_STAMP.
 template <typename T, bool CPLX>
 __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSM)
     loop_pass(const T* __restrict__ src, T* __restrict__ dst,
@@ -327,6 +349,7 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSM)
   const unsigned long long best_key = atomicAdd(&scratch[0], 0ULL);
   if (flags & PASS_KEY) {
     *key = best_key;
+    if (s) s[W_STAMP] = globaltimer();
   } else {
     const double r = __longlong_as_double(static_cast<long long>(best_key));
     *rn = static_cast<T>(r);  // exact: r is a T's value

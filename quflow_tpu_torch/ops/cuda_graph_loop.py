@@ -26,6 +26,12 @@ in-place all_reduce (MAX) of that word over the mesh, exact in any order,
 a NaN on any rank winning as ``jnp.max`` propagates it; and
 ``loop_decide``, the rule's entry, which reads the reduced key back as a
 double (its bits), writes rn, decides and sets the WHILE node's condition.
+The key mode's last block stamps the card's clock into the state (word
+STAMP) and ``loop_decide`` adds the ns since it to the word REDUCE_NS: the
+all_reduce and the wait for the slowest rank, summed over a call's
+passes and read with its counts (parallel.capture.Loop.finish).  The plain
+versions stamp the host's clock (``time.perf_counter_ns``) in the same
+places, for the emulation.
 
 The rule, quflow_tpu's (integrators/isospectral._converge on the host):
 continue while ``i < maxit and not (i >= minit and (rn <= tol or rn >=
@@ -53,6 +59,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
+import time
 import weakref
 from typing import NamedTuple
 
@@ -68,14 +75,17 @@ __all__ = ["loop_pass", "loop_pass_reference", "residual_", "plan",
            "LIBRARY",
            "KINDS", "ARGTYPES", "HEADER",
            "I", "STEP", "ITERATIONS", "CAPPED", "CONTINUE", "LAST", "TOL",
-           "MAXIT", "MINIT"]
+           "MAXIT", "MINIT", "STAMP", "REDUCE_NS"]
 
 #: the words of the state (csrc/graph_loop.cu): iterations done in the
 #: current step, steps finished, iterations summed over them, steps at the
 #: cap, the last decision, the previous residual and tol (bits of doubles),
-#: maxit, minit; the counts a step follow the HEADER words
-I, STEP, ITERATIONS, CAPPED, CONTINUE, LAST, TOL, MAXIT, MINIT = range(9)
-HEADER = 9
+#: maxit, minit, the clock at the end of the split pass's key mode (0 when
+#: none is open) and the ns from those stamps to ``loop_decide`` summed
+#: over the call; the counts a step follow the HEADER words
+(I, STEP, ITERATIONS, CAPPED, CONTINUE, LAST, TOL, MAXIT, MINIT, STAMP,
+ REDUCE_NS) = range(11)
+HEADER = 11
 _INF_BITS = 0x7FF0000000000000
 #: the key of a NaN residual: the bits of +NaN, above every other key
 PLUS_NAN = 0x7FF8000000000000
@@ -181,13 +191,15 @@ def new_state(device, capacity=0):
 
 
 def start_(state, tol, maxit, minit):
-    """Start ``state`` for a call: no step done, rn_old +inf, and the
-    rule's ``tol`` (a float, already in the working precision), ``maxit``
-    and ``minit``.  Fills on the device, no host copy; returns ``state``."""
+    """Start ``state`` for a call: no step done, rn_old +inf, no reduce
+    timed, and the rule's ``tol`` (a float, already in the working
+    precision), ``maxit`` and ``minit``.  Fills on the device, no host
+    copy; returns ``state``."""
     if minit < 1 or maxit < 1:
         raise ValueError(f"loop: a step needs minit >= 1 and maxit >= 1, "
                          f"got minit={minit}, maxit={maxit}")
     state[I:CONTINUE].zero_()
+    state[STAMP:HEADER].zero_()
     for word, value in ((CONTINUE, 1), (LAST, _INF_BITS), (TOL, _bits(tol)),
                         (MAXIT, int(maxit)), (MINIT, int(minit))):
         state[word].fill_(value)
@@ -231,9 +243,14 @@ def loop_decide_reference(x, state, rn=None):
     a one-word int64 key of :func:`key_of`, read back as the double whose
     bits it is), ``state`` updated in place as the kernel updates it
     (compared in float64, which holds a float32 exactly); ``rn``, when
-    given, receives the residual in its own dtype.  Returns
+    given, receives the residual in its own dtype.  With a key and a
+    stamp open (:func:`loop_pass_reference`'s key mode), the host ns
+    since the stamp go to ``state[REDUCE_NS]``.  Returns
     ``state[CONTINUE]`` (a 0-d view)."""
     _check(x, state, rn)
+    if _is_key(x) and int(state[STAMP]):
+        state[REDUCE_NS] += time.perf_counter_ns() - int(state[STAMP])
+        state[STAMP] = 0
     as_double = state[LAST:TOL + 1].view(torch.float64)  # LAST, TOL
     r = (x.reshape(()).view(torch.float64) if _is_key(x)
          else x.to(torch.float64))
@@ -335,19 +352,21 @@ def loop_pass_reference(dW_new, dW, rn, state=None, write=True, key=None):
     dW_new; with ``state``, one decision of the rule
     (:func:`loop_decide_reference`), whose ``state[CONTINUE]`` it returns,
     else ``rn``.  The key mode, ``key`` (a one-word int64 tensor) given:
-    the residual's :func:`key_of` into ``key``, rn (may be None) and the
-    state untouched; returns ``key``."""
+    the residual's :func:`key_of` into ``key``, rn (may be None)
+    untouched and no rule; a ``state`` there receives the host's clock
+    (``time.perf_counter_ns``) in ``state[STAMP]``, as the composite's
+    split pass stamps the card's; returns ``key``."""
     _check_pass(dW_new, dW, rn, key)
     r = (dW_new - dW).abs().sum(-1).max()
     if key is not None:
-        if state is not None:
-            raise ValueError("loop_pass: the key mode applies no rule")
         key.copy_(key_of(r).reshape(key.shape))
     else:
         rn.copy_(torch.where(r.isnan(), float("nan"), r))
     if write:
         dW.copy_(dW_new)
     if key is not None:
+        if state is not None:
+            state[STAMP] = time.perf_counter_ns()
         return key
     return rn if state is None else loop_decide_reference(rn, state)
 

@@ -45,8 +45,10 @@ place where graphs are captured, replayed and counted.
   the last pass wrote it.  Under a dp mesh whose group is NCCL's, the
   residual's max over the ranks is a fourth piece, the in-place
   all_reduce of its key, captured into the WHILE body between
-  ``loop_pass``'s key mode and the rule's kernel ``loop_decide``.  The
-  host reads the loop's counts once a call, after the launches.  Inside
+  ``loop_pass``'s key mode and the rule's kernel ``loop_decide``, which
+  time it on the card's clock between them (the loop's word REDUCE_NS,
+  ``all_reduce_max_.device_ns``).  The host reads the loop's counts once
+  a call, after the launches.  Inside
   :func:`emulation` a Loop on the CPU runs the same pieces eagerly, in the
   same order, and the plain versions decide: the composite's emulation,
   which the tests hold to the host loop, over a gloo mesh too.
@@ -412,9 +414,13 @@ class Loop:
     ``reduce(key)``, for a dp mesh (parallel.mesh.Mesh.max_), takes the
     max over the ranks of the one-word int64 :attr:`key` in place: each
     iteration then ends on ``loop_pass``'s key mode (the residual's key,
-    dW_new into dW), ``reduce`` (captured with the error mode
-    'thread_local' into a piece of its own, a child of the WHILE body) and
-    ``loop_decide`` (the reduced key back as rn, one decision).
+    dW_new into dW, the clock stamped), ``reduce`` (captured with the
+    error mode 'thread_local' into a piece of its own, a child of the
+    WHILE body) and ``loop_decide`` (the ns since the stamp summed, the
+    reduced key back as rn, one decision).  Over an NCCL group of several
+    ranks the capture needs ``NCCL_GRAPH_MIXING_SUPPORT=0``
+    (parallel.distributed); the runners take no Loop with a reduce
+    without it (parallel.stepper._loop_mode).
 
     A call: :meth:`start` (the rule's ``tol``, ``maxit``, ``minit``),
     :meth:`launch` once or more (one launch a step, no host read), then
@@ -495,7 +501,8 @@ class Loop:
         if self.reduce is None:
             return gl.loop_pass_reference(self.dW_new, self.dW, self.rn,
                                           self.state)
-        gl.residual_(self.dW_new, self.dW, write=True, key=self.key)
+        gl.loop_pass_reference(self.dW_new, self.dW, None, self.state,
+                               key=self.key)
         self.pieces["reduce"]()
         return gl.loop_decide_reference(self.key, self.state, self.rn)
 
@@ -506,16 +513,20 @@ class Loop:
         iterations.  The launch counters advance by the pieces' launches
         once a step and the iteration's and ``loop_pass``'s once an
         iteration (split: the key mode's, the reduce's all_reduce and
-        ``loop_decide``'s)."""
+        ``loop_decide``'s), and with a reduce
+        ``parallel.mesh.all_reduce_max_.device_ns`` by the ns the call's
+        reduces took (the words' REDUCE_NS: the card's clock, or in the
+        emulation the host's)."""
         n = self._launched
         if counts and n > self.capacity:
             raise ValueError(f"loop: {n} steps, counts kept for "
                              f"{self.capacity}")
         H = cuda_graph_loop.HEADER
-        words = read(self.state[:H + n] if counts
-                     else self.state[:cuda_graph_loop.CAPPED + 1])
+        words = read(self.state[:H + n] if counts else self.state[:H])
         iterations = words[cuda_graph_loop.ITERATIONS]
         capped = words[cuda_graph_loop.CAPPED]
+        if self.reduce is not None:
+            all_reduce_max_.device_ns += words[cuda_graph_loop.REDUCE_NS]
         if self.composite is not None:
             for k, g in self.pieces.items():
                 g.add(iterations if k in ("body", "reduce") else n)

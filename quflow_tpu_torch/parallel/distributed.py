@@ -19,6 +19,39 @@ Counterpart of quflow_tpu/parallel/distributed.py on torch.distributed:
   a mesh, saving raises, as quflow_tpu raises without orbax.
 
 The portable archive stays the HDF5 simulation file (sim.QuSimulation).
+
+NCCL and the captured reduce.  An adaptive step on an NCCL dp mesh is one
+CUDA graph launch whose WHILE node holds the all_reduce of the residual's
+key (parallel/capture.Loop).  Under NCCL's default, a collective captured
+on a group of more than one rank carries an event record and an event
+wait node, which order it against NCCL's work outside graphs; a WHILE
+body refuses an event wait node, and the composite is not built
+(``cudaGraphInstantiateWithParams``: cudaErrorInvalidValue at an event
+wait node).  ``NCCL_GRAPH_MIXING_SUPPORT=0`` captures the collective
+without them.  So :func:`initialize`, when it brings an NCCL group up,
+sets ``NCCL_GRAPH_MIXING_SUPPORT=0`` first, unless the variable is
+already set, in which case the user's value stands.  NCCL keeps its
+results correct under that setting on two conditions, on each
+communicator:
+
+1. no parallel graph launches: no two launched graphs that hold its work
+   outstanding at once on streams that do not order them;
+2. no outstanding graph launch followed by a launch outside any graph,
+   whatever the streams' dependencies.
+
+The port meets both.  Its composites launch in order, on the caller's
+stream, from the one thread that steps the state; and a call of an
+adaptive runner reads the loop's counts once after its launches (the
+call's one host read, on that stream), which ends every launch before
+the call returns, so any collective outside a graph (``Mesh.max``,
+``gather_state``, :func:`save_checkpoint`'s barrier, a user's callback)
+comes after the graph's work has ended.  Where the setting is not in
+force on a group of several ranks (a group that other code brought up,
+or a user's ``NCCL_GRAPH_MIXING_SUPPORT=1``), :func:`holds_captured_reduce`
+says so before any build, and the adaptive runner takes the host loop
+(parallel.stepper._loop_mode: a warning, and the counter
+``loop_mode.host`` of tracing.counters()).  NCCL reads the variable once
+a process, at its first communicator: a value set later does not count.
 """
 
 from __future__ import annotations
@@ -31,7 +64,12 @@ import torch
 
 from .mesh import make_mesh
 
-__all__ = ["initialize", "global_mesh", "save_checkpoint", "load_checkpoint"]
+__all__ = ["initialize", "global_mesh", "save_checkpoint", "load_checkpoint",
+           "holds_captured_reduce", "GRAPH_MIXING"]
+
+#: NCCL's switch for graphs beside work outside graphs (see the module's
+#: note); the port needs it "0" to capture a reduce inside a WHILE node
+GRAPH_MIXING = "NCCL_GRAPH_MIXING_SUPPORT"
 
 
 def initialize(init_method=None, world_size=None, rank=None, backend=None):
@@ -40,7 +78,9 @@ def initialize(init_method=None, world_size=None, rank=None, backend=None):
     process started without torchrun) it does nothing and returns False.
     ``backend`` defaults to 'nccl' when a card is present and 'gloo'
     otherwise; under NCCL each process takes the card of its
-    ``LOCAL_RANK`` (or of its rank)."""
+    ``LOCAL_RANK`` (or of its rank), and ``NCCL_GRAPH_MIXING_SUPPORT`` is
+    set to "0" where the environment does not set it (the module's
+    note)."""
     import torch.distributed as dist
 
     if dist.is_initialized():
@@ -53,11 +93,20 @@ def initialize(init_method=None, world_size=None, rank=None, backend=None):
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if backend == "nccl":
+        env.setdefault(GRAPH_MIXING, "0")
         local = int(env.get("LOCAL_RANK", rank))
         torch.cuda.set_device(local % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank)
     return True
+
+
+def holds_captured_reduce(size):
+    """Whether a collective over an NCCL group of ``size`` ranks can be
+    captured inside a WHILE node: one rank's holds no event node, and more
+    ranks' need ``NCCL_GRAPH_MIXING_SUPPORT=0`` in this process's
+    environment (the module's note)."""
+    return size == 1 or os.environ.get(GRAPH_MIXING) == "0"
 
 
 def global_mesh(dp=None):

@@ -47,7 +47,10 @@ def all_reduce_max_(key, group):
     """The all_reduce (MAX) of the int64 tensor ``key`` over ``group``, in
     place; returns ``key``.  ``all_reduce_max_.calls`` counts its calls,
     here and in the graphs that capture it (parallel/capture.py advances
-    it once a replay, as it advances a kernel's launches)."""
+    it once a replay, as it advances a kernel's launches).
+    ``all_reduce_max_.device_ns`` sums the device ns that the captured
+    ones took inside adaptive steps' WHILE nodes, the wait for the
+    slowest rank included (parallel.capture.Loop adds each call's)."""
     import torch.distributed as dist
 
     dist.all_reduce(key, op=dist.ReduceOp.MAX, group=group)
@@ -56,6 +59,7 @@ def all_reduce_max_(key, group):
 
 
 all_reduce_max_.calls = 0
+all_reduce_max_.device_ns = 0
 
 
 def row_blocks(N, tp):

@@ -36,9 +36,11 @@ residual, dW written back, the adaptive rule, all on the card):
 ``steps`` launches and one read of the counts a call, the counterpart of
 quflow_tpu's ``lax.while_loop``.  On a dp mesh the residual is a max over
 the ranks: on an NCCL group an in-place all_reduce of its key, captured
-inside the WHILE node (:func:`_loop_mode`); a gloo group's collectives
-stage through the host, so there the host replays the iteration graph
-until the rule exits.  Callable hooks are captured with the step, as
+inside the WHILE node (:func:`_loop_mode`), where the group can hold it
+(parallel.distributed sets NCCL up for that); a gloo group's collectives
+stage through the host, so there, and on an NCCL group of several ranks
+that cannot hold the capture, the host replays the iteration graph until
+the rule exits.  Callable hooks are captured with the step, as
 quflow_tpu traces them into its jit, so they must be capturable
 (parallel/capture.py); a timed runner's time lives on the card, loaded
 once a call and advanced by the graph.  'tp' > 1, the CPU and runners
@@ -115,6 +117,8 @@ ops/dwgemm.py is a ZGEMM here.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -157,6 +161,7 @@ from ..ops.tridiag import (
     refine_m0_interleaved,
     solve_factored,
 )
+from .distributed import GRAPH_MIXING, holds_captured_reduce
 from .mesh import Mesh
 from .shard_pack import pack_wrapped_sharded, unpack_wrapped_sharded
 from .shard_shear import (
@@ -337,24 +342,47 @@ def _reduce_max(mesh, device):
 
 
 def _loop_mode(mesh):
-    """Which loop an adaptive step of a runner in mode 'iteration' runs
-    (:func:`_capture_mode`), by the configuration alone:
+    """Which loop the adaptive step of a runner in mode 'iteration'
+    (:func:`_capture_mode`) runs, from the configuration and the
+    environment, before anything is built:
 
     * 'loop' - one launch a step, the fixed point a WHILE node on the card
       (:class:`_AdaptiveLoop`): no mesh, or a mesh of one rank with no
       group, whose max is its own;
     * 'reduce' - the same, the residual's max over the ranks an in-place
       all_reduce of its key captured inside the WHILE node
-      (``Mesh.max_``): a mesh whose group's backend is NCCL, and, inside
+      (``Mesh.max_``): a mesh whose group's backend is NCCL and can hold
+      that capture (parallel.distributed.holds_captured_reduce: one rank,
+      or ``NCCL_GRAPH_MIXING_SUPPORT=0``, which
+      parallel.distributed.initialize sets), and, inside
       ``capture.emulation()``, which captures nothing, any backend;
     * 'host' - the host replays the iteration and reads the max once an
       iteration (:class:`_AdaptiveGraphs`): a gloo group, whose collectives
-      stage card tensors through the host, which no CUDA graph holds."""
+      stage card tensors through the host, which no CUDA graph holds, and
+      an NCCL group of several ranks without that setting, whose captured
+      all_reduce holds an event wait node that a WHILE body refuses (a
+      RuntimeWarning, which Python's default filter shows once).
+
+    A runner built on a mesh counts one ``loop_mode.reduce`` or
+    ``loop_mode.host`` in tracing.counters()."""
     if _alone(mesh):
         return "loop"
-    if mesh.backend == "nccl" or capture.emulating():
-        return "reduce"
-    return "host"
+    mode = "host"
+    if capture.emulating():
+        mode = "reduce"
+    elif mesh.backend == "nccl":
+        if holds_captured_reduce(mesh.size):
+            mode = "reduce"
+        else:
+            warnings.warn(
+                f"the adaptive step on {mesh!r} runs the host loop, one host "
+                f"read an iteration: its NCCL group of {mesh.size} ranks "
+                f"cannot hold the all_reduce inside the step's WHILE node "
+                f"without {GRAPH_MIXING}=0 (set it before the group comes "
+                f"up, as parallel.distributed.initialize does unless it is "
+                f"set)", RuntimeWarning, stacklevel=3)
+    tracing.loop_built(mode)
+    return mode
 
 
 #: precision name -> whether its complex64 GEMMs run on TF32 tensor cores
@@ -999,7 +1027,8 @@ class _AdaptivePieces:
 
 
 class _AdaptiveGraphs(_AdaptivePieces):
-    """A step under ``tol`` on a gloo dp mesh (:func:`_loop_mode`): the
+    """A step under ``tol`` in loop mode 'host' (:func:`_loop_mode`: a
+    gloo dp mesh, or an NCCL one that cannot hold the capture): the
     head, the warm prefix and the tail as graphs, and the iteration
     (parallel.capture.Iteration, its residual into a 0-d tensor), which the
     host replays until the adaptive rule exits, one host read of the
@@ -1147,10 +1176,10 @@ class _Runner:
     def _program(self, W, dW, csum, t):
         key = tuple((tuple(x.shape), x.dtype, x.device) for x in (W, dW, csum))
         if key not in self._programs:
-            mode = _loop_mode(self.step.mesh)
+            mode = None if self.captured else _loop_mode(self.step.mesh)
             if self.captured:
                 program = _StepGraph(self.step, self.graphs, W, dW, csum, t)
-            elif mode == "host":  # a gloo dp mesh
+            elif mode == "host":
                 program = _AdaptiveGraphs(self.step, self.graphs, W, dW,
                                           csum, t)
             else:

@@ -61,8 +61,17 @@ integrate span whose integrator names no phase of its own has no
 
 **Counters**, always on (:func:`counters`): ``captures`` and
 ``capture_s``, the calls of ``Graphs.capture`` and their host seconds;
-``host_reads``, every read at a ``quflow.host_read`` site.  They live
-here, not in ``parallel.capture.COUNTERS``, which a capture restores.
+``host_reads``, every read at a ``quflow.host_read`` site;
+``loop_mode.reduce`` and ``loop_mode.host``, the adaptive runners built
+on a mesh with the all_reduce inside the WHILE node and with the host
+loop.  They live here, not in ``parallel.capture.COUNTERS``, which a
+capture restores.  ``all_reduce_max_.device_ns`` (parallel.mesh) is the
+device's ns from the end of ``loop_pass``'s key mode to the start of
+``loop_decide`` in the WHILE bodies of a mesh's adaptive steps: the
+captured all_reduce of the residual's key and the wait for the slowest
+rank, stamped on the card's clock (``%globaltimer``), summed in the
+loop's state and carried to the host by the read of its counts that
+each call makes anyway; no profiler sees inside a WHILE node.
 """
 
 from __future__ import annotations
@@ -146,7 +155,8 @@ class _Trace:
         self.stack = []
         self.next_id = 0
         self.dropped = 0
-        self.counts = {"captures": 0, "capture_s": 0.0, "host_reads": 0}
+        self.counts = {"captures": 0, "capture_s": 0.0, "host_reads": 0,
+                       "loop_mode.reduce": 0, "loop_mode.host": 0}
 
     def boundary(self, owner, since_ns):
         """A CUDA event recorded now, owned from here by the record of id
@@ -291,6 +301,12 @@ def captured(seconds):
     _TRACE.counts["capture_s"] += seconds
 
 
+def loop_built(mode):
+    """Count one adaptive runner built on a mesh in loop ``mode``
+    ('reduce' or 'host': parallel.stepper._loop_mode)."""
+    _TRACE.counts[f"loop_mode.{mode}"] += 1
+
+
 def spans():
     """The records kept, oldest first, as dicts: ``id``, ``parent``,
     ``call``, ``name``, ``attrs``, ``start_ns``, ``end_ns``, ``device_ms``
@@ -312,11 +328,14 @@ def clear():
 
 def counters():
     """The counters: ``captures``, ``capture_s``, ``host_reads``,
-    ``spans_dropped`` and every launch counter of
-    ``parallel.capture.COUNTERS`` as '<kernel>.<attribute>'."""
+    ``loop_mode.reduce``, ``loop_mode.host``, ``spans_dropped``, every
+    launch counter of ``parallel.capture.COUNTERS`` as
+    '<kernel>.<attribute>', and ``all_reduce_max_.device_ns``."""
     from .parallel import capture
+    from .parallel.mesh import all_reduce_max_
 
     out = {f"{k.__name__}.{a}": getattr(k, a) for k, a in capture.COUNTERS}
+    out["all_reduce_max_.device_ns"] = all_reduce_max_.device_ns
     out.update(_TRACE.counts)
     out["spans_dropped"] = _TRACE.dropped
     return out

@@ -581,6 +581,16 @@ def _bits(x):
     return np.ascontiguousarray(x).view(np.uint8)
 
 
+def _untimed(words):
+    """A loop's state words with its clock's words (STAMP, REDUCE_NS)
+    zeroed."""
+    from quflow_tpu_torch.ops import cuda_graph_loop as gl
+
+    words = words.copy()
+    words[gl.STAMP:gl.HEADER] = 0
+    return words
+
+
 @pytest.mark.parametrize("dp", [2, 4])
 @pytest.mark.parametrize("case", sorted(LOOP_CASES))
 def test_dp_device_loop_matches_host_loop(two, four, dp, case):
@@ -591,7 +601,8 @@ def test_dp_device_loop_matches_host_loop(two, four, dp, case):
     within 1e-12 (complex128) and 5e-5 (complex64) of quflow_tpu on the
     whole batch, with its counts in complex128 (tol 1e-10 lies below
     complex64's rounding, where each package's rounding decides the stall);
-    the loop's state words equal on every rank."""
+    the loop's state words equal on every rank, but for the ns its
+    reduces took, each rank's own."""
     state, _, dtype = LOOP_CASES[case]
     ref = _jax_adaptive(case, make_inputs()[state])
     ranks = two if dp == 2 else four
@@ -607,8 +618,8 @@ def test_dp_device_loop_matches_host_loop(two, four, dp, case):
             assert int(r[name + "_reduces"]) == int(iters.sum())
         _close(r[loop], ref[0], dtype)
     for r in ranks[1:]:
-        np.testing.assert_array_equal(r[loop + "_state"],
-                                      ranks[0][loop + "_state"])
+        np.testing.assert_array_equal(_untimed(r[loop + "_state"]),
+                                      _untimed(ranks[0][loop + "_state"]))
 
 
 NAN_CASES = [(dp, model, m) for dp, members in NAN_MEMBERS.items()
@@ -625,7 +636,8 @@ def test_nan_on_any_rank_runs_every_rank_to_maxit(two, four, dp, model,
     in the host loop and in the device loop alike, runs JAX's counts.
     (Reduced as a float, gloo's MAX kept a NaN only where it was rank
     0's.)  The loops bit-equal, NaNs in place; the other members within
-    1e-12 of JAX's; the loop's state words equal on every rank."""
+    1e-12 of JAX's; the loop's state words equal on every rank, but for
+    the ns its reduces took, each rank's own."""
     case = "tol" if model == "euler" else "mhd"
     S = with_nan(make_inputs()[LOOP_CASES[case][0]], member)
     ref = _jax_adaptive(case, S)
@@ -642,8 +654,8 @@ def test_nan_on_any_rank_runs_every_rank_to_maxit(two, four, dp, model,
             _close(r[name][others], ref[0][others])
         np.testing.assert_array_equal(_bits(r[loop]), _bits(r[host]))
     for r in ranks[1:]:
-        np.testing.assert_array_equal(r[loop + "_state"],
-                                      ranks[0][loop + "_state"])
+        np.testing.assert_array_equal(_untimed(r[loop + "_state"]),
+                                      _untimed(ranks[0][loop + "_state"]))
 
 
 @pytest.mark.parametrize("case", ["tp2", "tp2_tol", "tp2_c64", "tp2_poisson",
@@ -880,6 +892,45 @@ def test_checkpoint_interchanges_with_quflow_tpu(tmp_path, monkeypatch,
         like = {"W": torch.zeros(1), "rest": (torch.zeros(1),) * 2}
         with pytest.raises(ValueError, match="shape"):
             tdist.load_checkpoint(str(tmp_path), like, step=7)
+
+
+@pytest.mark.parametrize("backend,user,want", [
+    ("nccl", None, "0"), ("nccl", "1", "1"), ("nccl", "0", "0"),
+    ("gloo", None, None)])
+def test_initialize_sets_graph_mixing_for_nccl(monkeypatch, backend, user,
+                                               want):
+    """initialize, bringing an NCCL group up, sets
+    NCCL_GRAPH_MIXING_SUPPORT=0 before the group comes up where the
+    environment has none, and keeps a user's value; a gloo group's
+    environment is left as it is.  Whether a group can hold the captured
+    reduce follows the setting (one rank always can)."""
+    import torch
+    import torch.distributed as dist
+
+    from quflow_tpu_torch.parallel import distributed as tdist
+
+    name = tdist.GRAPH_MIXING
+    if user is None:
+        monkeypatch.delenv(name, raising=False)
+    else:
+        monkeypatch.setenv(name, user)
+    seen = {}
+
+    def init_process_group(backend, **kwargs):
+        seen.update(backend=backend, setting=os.environ.get(name), **kwargs)
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group", init_process_group)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: seen.update(card=d))
+    assert tdist.initialize(init_method="file:///nowhere", world_size=4,
+                            rank=2, backend=backend)
+    assert seen["backend"] == backend and seen["setting"] == want
+    assert os.environ.get(name) == want
+    assert seen.get("card") == (2 if backend == "nccl" else None)
+    assert tdist.holds_captured_reduce(4) == (want == "0")
+    assert tdist.holds_captured_reduce(1)
 
 
 def test_tp_refusals():
